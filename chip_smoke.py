@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving decode once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving decode and its joint adversarial
+training on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -12,14 +13,28 @@ Phases, each of which exits non-zero on failure:
 3. kernel parity: each kernel's wrapper against its plain PyTorch version
    on the card, at the shapes of the main path (B utterances of ~7 s, beam
    8, ~694 STFT frames, ~174 encoder frames, vocab 52), in float32 with
-   TF32 off and in bfloat16, with the time of each;
+   TF32 off and in bfloat16, with the time of each; then the training
+   kernels, forward and every gradient, at the train shapes (B=32 ~2.9 s
+   utterances: 286 STFT frames, 72 encoder frames; the train CLI's model
+   for blstm_train_gx);
 4. main path: the flagship model in bfloat16 compute (random weights from
    seed 0) through ``make_beam_searcher(..., use_enhancer=True)`` on 3
    batches of 128 utterances; checks the results and that every kernel
    launched and no plain version ran; then times the same path with the
    plain versions;
 5. slice parity: one batch of 16 at full width in float32 through the
-   kernel path and the plain path; best-hypothesis scores must agree.
+   kernel path and the plain path; best-hypothesis scores must agree;
+6. train step: the flagship in bfloat16 through ``make_joint_train_step``
+   (D-step, then G-step; Adadelta) on B=32 utterances of 20-24 tokens:
+   one warm-up and 5 timed steps on the kernel path, checking finite
+   metrics, that every kernel of the path launched and no plain version
+   ran, and a profile of one warm step; then the same on the plain path;
+7. entry point: ``train.cli --mode joint --synthetic`` at the CLI's
+   default model (float32, B=16) for 3 steps into a temporary checkpoint
+   dir, then a resume for 1 more; the encoder's first layer takes
+   blstm_train_gx, the others blstm_train;
+8. train-slice parity: one float32 joint step of the flagship at B=16,
+   kernel path against plain path from the same parameters.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -29,25 +44,34 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from robust_e2e_gan_torch.config import BeamSearchConfig
+from robust_e2e_gan_torch.config import BeamSearchConfig, TrainConfig
 from robust_e2e_gan_torch.configs import flagship_config
-from robust_e2e_gan_torch.convert import from_flax, init_params
+from robust_e2e_gan_torch.convert import (
+    from_flax,
+    init_disc_params,
+    init_params,
+)
 from robust_e2e_gan_torch.data.synthetic import SyntheticConfig, make_batch
 from robust_e2e_gan_torch.decode.beam import (
     beam_search_from_encoder,
     make_beam_searcher,
 )
 from robust_e2e_gan_torch.models.encoder import subsampled_frames
-from robust_e2e_gan_torch.ops import att, blstm, ctc_prefix
+from robust_e2e_gan_torch.models.enhancement import Discriminator
+from robust_e2e_gan_torch.ops import att, blstm, blstm_train, ctc, ctc_prefix
 from robust_e2e_gan_torch.ops.fbank import num_frames
 from robust_e2e_gan_torch.pipeline import build_model
+from robust_e2e_gan_torch.train import cli as train_cli
+from robust_e2e_gan_torch.train import steps as train_steps
 from robust_e2e_gan_torch.utils.build import build
 
 VOCAB = 52
@@ -56,6 +80,11 @@ N_BATCHES = 3
 BEAM = 8
 STEPS = 48
 SYNTH = SyntheticConfig(vocab_size=VOCAB, min_tokens=48, max_tokens=58)
+# training traffic (scripts/bench_train.py): ~2.9 s utterances, 46,080
+# samples, 286 STFT frames, 72 encoder frames
+TRAIN_BATCH = 32
+TRAIN_STEPS = 5
+TRAIN_SYNTH = SyntheticConfig(vocab_size=VOCAB, min_tokens=20, max_tokens=24)
 
 KERNELS = {
     "blstm_recurrence": dict(
@@ -75,7 +104,25 @@ KERNELS = {
         wrapper=ctc_prefix.prefix_state, plain=ctc_prefix.prefix_state_plain,
         source="robust_e2e_gan_torch/csrc/ctc_prefix.cu",
         replaces="robust_e2e_gan_tpu/ops/ctc_prefix_tiled.py:237"),
+    "blstm_train": dict(
+        wrapper=blstm_train.blstm_train, plain=blstm_train.blstm_train_plain,
+        source="robust_e2e_gan_torch/csrc/blstm_train.cu",
+        replaces="robust_e2e_gan_tpu/ops/blstm_train_pallas.py:624"),
+    "blstm_train_gx": dict(
+        wrapper=blstm_train.blstm_train_gx,
+        plain=blstm_train.blstm_train_gx_plain,
+        source="robust_e2e_gan_torch/csrc/blstm_train.cu",
+        replaces="robust_e2e_gan_tpu/ops/blstm_train_pallas.py:1050"),
+    "ctc_alpha": dict(
+        wrapper=ctc.ctc_alpha, plain=ctc.ctc_alpha_fwd_plain,
+        source="robust_e2e_gan_torch/csrc/ctc_alpha.cu",
+        replaces="robust_e2e_gan_tpu/ops/ctc_pallas.py:296"),
 }
+SERVING = ("blstm_recurrence", "att_loc_step", "ctc_prefix_psi",
+           "ctc_prefix_state")
+# the kernels of the train step: the D-step's no-grad generator forward
+# takes the inference BLSTM kernel
+TRAINING = ("blstm_train", "ctc_alpha", "blstm_recurrence")
 
 
 class SmokeFailure(RuntimeError):
@@ -91,6 +138,11 @@ def reset_counts() -> None:
     for k in KERNELS.values():
         k["wrapper"].launches = 0
         k["plain"].calls = 0
+
+
+def counts(names):
+    return ({n: KERNELS[n]["wrapper"].launches for n in names},
+            {n: KERNELS[n]["plain"].calls for n in KERNELS})
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -256,6 +308,124 @@ def kernel_parity(b: int, t_enh: int, t_enc: int, jcfg, dev) -> dict:
     return res
 
 
+def train_inputs(gen, b, t, d, h, dtype, dev):
+    x = torch.randn((b, t, d), generator=gen, device=dev)
+    wx = (torch.randn((2, d, 4 * h), generator=gen, device=dev)
+          / d ** 0.5).to(dtype)
+    wh = (torch.randn((2, h, 4 * h), generator=gen, device=dev)
+          / h ** 0.5).to(dtype)
+    bias = torch.randn((2, 4 * h), generator=gen, device=dev) * 0.3
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    lengths[0] = t
+    dy = torch.randn((b, t, 2 * h), generator=gen, device=dev)
+    return x, wx, wh, bias, lengths, dy
+
+
+def with_grads(fn, leaves, dy):
+    """fn(*leaves) and its gradients for the cotangent dy."""
+    leaves = [a.detach().requires_grad_() for a in leaves]
+    y = fn(*leaves)
+    return [y] + list(torch.autograd.grad(y.float().mul(dy).sum(), leaves))
+
+
+def grad_tols(dt):
+    """(output, gradient) limits: float32 sums in another order; gradients
+    sum over B*T rows, so their limit scales with their size; bf16 one
+    rounding of the outputs."""
+    if dt == torch.float32:
+        return dict(rtol=1e-4, atol=1e-5), dict(scale_atol=1e-4)
+    return dict(scale_atol=2e-2), dict(scale_atol=2e-2)
+
+
+def train_kernel_parity(jcfg, t_enh, t_enc, dev) -> dict:
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    f32, bf16 = torch.float32, torch.bfloat16
+    b, res, ok_all = TRAIN_BATCH, {}, True
+    names = ("y", "dx", "dwx", "dwh", "dbias")
+    h_enh, h_enc = jcfg.enhancer.hidden_dim, jcfg.e2e.encoder.hidden_dim
+    d_enc = subsampled_frames(jcfg.e2e.encoder.input_dim) * \
+        jcfg.e2e.encoder.vgg_channels[-1]
+
+    # blstm_train: flagship enhancer layer 0 and encoder layer 0
+    for tag, t, d, h in (("enhancer0", t_enh, jcfg.enhancer.input_dim, h_enh),
+                         ("encoder0", t_enc, d_enc, h_enc)):
+        for dt in (f32, bf16):
+            x, wx, wh, bias, lengths, dy = train_inputs(gen, b, t, d, h, dt,
+                                                        dev)
+
+            def run(fn, x=x, wx=wx, wh=wh, bias=bias, lengths=lengths,
+                    dy=dy):
+                return with_grads(lambda *a: fn(a[0], lengths, *a[1:]),
+                                  [x, wx, wh, bias], dy)
+
+            got = run(blstm_train.blstm_train)
+            want = run(blstm_train.blstm_train_plain)
+            out_tol, g_tol = grad_tols(dt)
+            errs = []
+            for name, g, w in zip(names, got, want):
+                err, ok = compare(
+                    f"blstm_train {tag} {name} B={b} T={t} D={d} H={h} {dt}",
+                    [g], [w], **(out_tol if name == "y" else g_tol))
+                ok_all &= ok
+                errs.append(err)
+            if tag == "enhancer0" and dt == bf16:
+                res["blstm_train"] = dict(
+                    max_abs_err=max(errs),
+                    ms=cuda_ms(lambda: run(blstm_train.blstm_train), 3),
+                    plain_ms=cuda_ms(lambda: run(blstm_train.blstm_train_plain),
+                                     1))
+
+    # blstm_train_gx: the train CLI's encoder layer 0 (B=16, D=2560, H=512)
+    gb, gh = 16, 512
+    _, _, wh, _, lengths, dy = train_inputs(gen, gb, t_enc, 8, gh, f32, dev)
+    gx = torch.randn((gb, t_enc, 2, 4 * gh), generator=gen, device=dev)
+
+    def run_gx(fn):
+        return with_grads(lambda g, w: fn(g, w, lengths), [gx, wh], dy)
+
+    got, want = run_gx(blstm_train.blstm_train_gx), run_gx(
+        blstm_train.blstm_train_gx_plain)
+    out_tol, g_tol = grad_tols(f32)
+    errs = []
+    for name, g, w in zip(("y", "dgx", "dwh"), got, want):
+        err, ok = compare(f"blstm_train_gx {name} B={gb} T={t_enc} H={gh} "
+                          f"{f32}", [g], [w],
+                          **(out_tol if name == "y" else g_tol))
+        ok_all &= ok
+        errs.append(err)
+    res["blstm_train_gx"] = dict(
+        max_abs_err=max(errs),
+        ms=cuda_ms(lambda: run_gx(blstm_train.blstm_train_gx), 5),
+        plain_ms=cuda_ms(lambda: run_gx(blstm_train.blstm_train_gx_plain), 1))
+
+    # ctc_alpha: the CTC loss and its gradient at the train shapes
+    s_len = TRAIN_SYNTH.max_tokens
+    logits = 3 * torch.randn((b, t_enc, VOCAB), generator=gen, device=dev)
+    labels = torch.randint(2, VOCAB, (b, s_len), generator=gen, device=dev)
+    label_lengths = torch.randint(TRAIN_SYNTH.min_tokens, s_len + 1, (b,),
+                                  generator=gen, device=dev)
+    logit_lengths = torch.randint(t_enc - 12, t_enc + 1, (b,), generator=gen,
+                                  device=dev)
+
+    def run_ctc(impl):
+        lg = logits.clone().requires_grad_()
+        loss = ctc.ctc_loss(lg, logit_lengths, labels, label_lengths,
+                            impl=impl, reduction="none")
+        return [loss, torch.autograd.grad(loss.sum(), lg)[0]]
+
+    got, want = run_ctc("auto"), run_ctc("scan")
+    err, ok = compare(f"ctc_alpha loss+grad B={b} T={t_enc} S={s_len} "
+                      f"V={VOCAB}", got, want, atol=1e-4)
+    ok_all &= ok
+    res["ctc_alpha"] = dict(max_abs_err=err,
+                            ms=cuda_ms(lambda: run_ctc("auto"), 5),
+                            plain_ms=cuda_ms(lambda: run_ctc("scan"), 2))
+    require(ok_all, "a training kernel disagrees with its plain version")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the main path
 # ---------------------------------------------------------------------------
@@ -333,8 +503,7 @@ def main_path(b, n_batches, state, dev):
         res, ms = timed(lambda: searcher(wav, lens))
         check_result(res, b)
         first.append(ms)
-    launches = {n: k["wrapper"].launches for n, k in KERNELS.items()}
-    plain_calls = {n: k["plain"].calls for n, k in KERNELS.items()}
+    launches, plain_calls = counts(SERVING)
     print(f"  kernel path, first pass: ms per batch "
           f"{['%.1f' % x for x in first]} (the first includes warm-up)")
     print(f"  launches {launches}  plain calls {plain_calls}")
@@ -389,6 +558,154 @@ def slice_parity(state, dev):
     require(rel.item() <= 1e-3, "kernel and plain paths disagree on scores")
 
 
+# ---------------------------------------------------------------------------
+# phases 6-8: training
+# ---------------------------------------------------------------------------
+
+
+def train_cfg(lstm: str, ctc_impl: str, dtype: str, jcfg=None):
+    jcfg = jcfg or flagship_config(VOCAB)
+    e2e = jcfg.e2e
+    return dataclasses.replace(
+        jcfg, compute_dtype=dtype,
+        e2e=dataclasses.replace(
+            e2e, ctc_impl=ctc_impl,
+            encoder=dataclasses.replace(e2e.encoder, lstm_impl=lstm)),
+        enhancer=dataclasses.replace(jcfg.enhancer, lstm_impl=lstm))
+
+
+def train_state(jcfg, state_g, state_d, dev):
+    model = build_model(jcfg)
+    model.load_state_dict(state_g)
+    disc = Discriminator(jcfg.discriminator, model.dtype)
+    disc.load_state_dict(state_d)
+    return train_steps.init_train_state(model.to(dev), disc.to(dev),
+                                        TrainConfig(), seed=0)
+
+
+def train_batch(b, seed, dev):
+    data = make_batch(b, TRAIN_SYNTH, np.random.default_rng(seed))
+    return {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+
+
+def check_metrics(metrics):
+    bad = {k: float(v) for k, v in metrics.items()
+           if not bool(torch.isfinite(v))}
+    require(not bad, f"non-finite train metrics {bad}")
+
+
+def profile_step(step, state, batch):
+    """Device time by kernel over one warm step, and the device's busy
+    share of the step's wall time (the kernels' summed time; one stream)."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    print(f"  profile of one warm step: wall {wall_ms:.1f} ms (profiled), "
+          f"device kernels {busy_ms:.1f} ms, busy share "
+          f"{busy_ms / wall_ms:.3f}, {sum(e.count for e in rows)} launches")
+    for e in rows[:15]:
+        print(f"    {e.self_device_time_total / 1e3:9.2f} ms "
+              f"{e.count:6d}x  {e.key[:90]}")
+
+
+def train_path(state_g, state_d, dev):
+    """Phase 6: the flagship joint step in bfloat16, kernel then plain."""
+    batch = train_batch(TRAIN_BATCH, 0, dev)
+    print(f"  batch: B={TRAIN_BATCH} samples={batch['noisy_wav'].shape[1]} "
+          f"tokens {TRAIN_SYNTH.min_tokens}-{TRAIN_SYNTH.max_tokens}")
+    result = {}
+    for tag, lstm, ctc_impl in (("kernel", "auto", "auto"),
+                                ("plain", "scan", "scan")):
+        jcfg = train_cfg(lstm, ctc_impl, "bfloat16")
+        state = train_state(jcfg, state_g, state_d, dev)
+        step = train_steps.make_joint_train_step(jcfg)
+        reset_counts()
+        check_metrics(timed(lambda: step(state, batch))[0])  # warm-up
+        times = []
+        for _ in range(TRAIN_STEPS):
+            metrics, ms = timed(lambda: step(state, batch))
+            check_metrics(metrics)
+            times.append(ms)
+        mean_ms = mean(times)
+        print(f"  {tag} path: ms per step {['%.1f' % x for x in times]}; "
+              f"{mean_ms:.1f} ms/step, {TRAIN_BATCH * 1e3 / mean_ms:.2f} "
+              f"utt/s (warm mean over {TRAIN_STEPS})")
+        print("  metrics " + " ".join(f"{k}={float(v):.4g}"
+                                      for k, v in metrics.items()))
+        if tag == "kernel":
+            launches, plain_calls = counts(TRAINING)
+            print(f"  launches {launches}  plain calls {plain_calls}")
+            require(all(v > 0 for v in launches.values()),
+                    f"a kernel of the train path never launched: {launches}")
+            train_plain = {n: plain_calls[n] for n in
+                           TRAINING + ("blstm_train_gx",)}
+            require(not any(train_plain.values()),
+                    f"a plain version ran on the train path: {train_plain}")
+            result = launches
+            profile_step(step, state, batch)
+    return result
+
+
+def cli_path():
+    """Phase 7: the train CLI at its default model, 3 steps and a resume."""
+    with tempfile.TemporaryDirectory() as ckpt:
+        argv = ["--mode", "joint", "--synthetic", "--ckpt-dir", ckpt,
+                "--synthetic-utts", "16", "--batch-size", "16",
+                "--log-every", "1"]
+        reset_counts()
+        t0 = time.perf_counter()
+        train_cli.main(argv + ["--epochs", "3"])
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        train_cli.main(argv + ["--epochs", "4"])
+        torch.cuda.synchronize()
+        with open(os.path.join(ckpt, "checkpoints.json")) as f:
+            latest = json.load(f)["latest"]
+    launches, plain_calls = counts(("blstm_train", "blstm_train_gx",
+                                    "ctc_alpha"))
+    print(f"  3 steps + dev evals in {first_s:.1f} s; resumed to step "
+          f"{latest['step']}; launches {launches}")
+    require(latest["step"] == 4, f"resume ended at step {latest['step']}")
+    require(all(v > 0 for v in launches.values()),
+            f"a training kernel never launched from the CLI: {launches}")
+    require(not any(plain_calls[n] for n in launches),
+            f"a plain version ran from the CLI: {plain_calls}")
+    return launches
+
+
+def train_slice_parity(state_g, state_d, dev):
+    """Phase 8: one float32 joint step, kernel path against plain path."""
+    batch = train_batch(16, 100, dev)
+    out = {}
+    for tag, lstm, ctc_impl in (("kernel", "auto", "auto"),
+                                ("plain", "scan", "scan")):
+        jcfg = train_cfg(lstm, ctc_impl, "float32")
+        state = train_state(jcfg, state_g, state_d, dev)
+        out[tag] = train_steps.make_joint_train_step(jcfg)(state, batch)
+        check_metrics(out[tag])
+    k, p = out["kernel"], out["plain"]
+    ok = True
+    for key, limit in (("loss_g", 1e-4), ("loss_d", 1e-4),
+                       ("loss_ctc", 1e-4), ("loss_att", 1e-4),
+                       ("grad_norm_g", 1e-3)):
+        rel = abs(float(k[key]) - float(p[key])) / max(abs(float(p[key])),
+                                                        1e-12)
+        ok &= rel <= limit
+        print(f"  {key}: kernel {float(k[key]):.6g} plain {float(p[key]):.6g}"
+              f" rel {rel:.2e} (limit {limit:g})")
+    require(ok, "kernel and plain train steps disagree")
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -421,6 +738,9 @@ def main() -> int:
     # 3. kernel parity
     print("kernel parity (kernel vs plain version on the card):")
     timings = kernel_parity(BATCH, t_enh, t_enc, jcfg, dev)
+    t_train = num_frames(TRAIN_SYNTH.max_samples, jcfg.e2e.frontend)
+    timings.update(train_kernel_parity(jcfg, t_train,
+                                       subsampled_frames(t_train), dev))
 
     # 4. main path
     state = from_flax(init_params(jcfg, seed=0))
@@ -431,6 +751,22 @@ def main() -> int:
     print("slice parity (kernel path vs plain path):")
     slice_parity(state, dev)
 
+    # 6. train step
+    state_d = from_flax(init_disc_params(jcfg.discriminator, seed=1))
+    print("train step (flagship, bfloat16 compute, joint D/G, Adadelta):")
+    train_launches = train_path(state, state_d, dev)
+
+    # 7. entry point
+    print("train CLI (--mode joint --synthetic, default model, float32):")
+    cli_launches = cli_path()
+
+    # 8. train-slice parity
+    print("train-slice parity (float32 B=16, kernel vs plain step):")
+    train_slice_parity(state, state_d, dev)
+
+    launches.update({n: train_launches[n] for n in ("blstm_train",
+                                                     "ctc_alpha")})
+    launches["blstm_train_gx"] = cli_launches["blstm_train_gx"]
     kernels = [
         dict(name=n, route="cuda", source=k["source"],
              replaces=k["replaces"], launches=launches[n], **timings[n])

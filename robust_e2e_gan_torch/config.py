@@ -1,12 +1,12 @@
 """Configuration dataclasses of the port.
 
-Counterpart of ``robust_e2e_gan_tpu/config.py``, cut to the fields the
-serving decode reads. Names, defaults and meanings are the JAX package's,
-so ``from_dict(JointConfig, dataclasses.asdict(jax_config))`` carries a
-JAX configuration over; the fields left out (dropout, remat, scan unrolls,
-gate storage, the losses and the discriminator) do not change what the
-decode computes. Fields whose other values select code the port does not
-have yet (``FrontendConfig.fused``, ``AttentionConfig.variant``,
+Counterpart of ``robust_e2e_gan_tpu/config.py``: the serving and training
+fields. Names, defaults and meanings are the JAX package's, so
+``from_dict(JointConfig, dataclasses.asdict(jax_config))`` carries a JAX
+configuration over; the fields left out (remat, scan unrolls, gate
+storage, the fused decoder step) are XLA scheduling knobs that do not
+change what is computed. Fields whose other values select code the port
+does not have yet (``FrontendConfig.fused``, ``AttentionConfig.variant``,
 ``BeamSearchConfig.lm_weight``) are kept so that those values raise.
 The kernel-impl fields take the JAX values; ``utils/impl.py`` says what
 each selects.
@@ -53,6 +53,7 @@ class EncoderConfig:
     num_layers: int = 3  # BLSTM layers
     hidden_dim: int = 512  # per direction
     proj_dim: int = 512  # projection after each BLSTM layer
+    dropout_rate: float = 0.0  # after each projection, in training
     lstm_impl: str = "scan"  # BLSTM frame loop: scan (plain) | auto (kernel)
 
 
@@ -77,6 +78,10 @@ class DecoderConfig:
     embed_dim: int = 512
     num_layers: int = 1
     hidden_dim: int = 512
+    # read nowhere in the JAX package's decoder, so the port applies none
+    dropout_rate: float = 0.0
+    label_smoothing: float = 0.0
+    sampling_probability: float = 0.0  # scheduled sampling
 
 
 @dataclass(frozen=True)
@@ -92,6 +97,16 @@ class EnhancerConfig:
 
 
 @dataclass(frozen=True)
+class DiscriminatorConfig:
+    """Conv discriminator D over log-mel feature maps."""
+
+    input_dim: int = 80
+    channels: Tuple[int, ...] = (32, 64, 128)
+    kernel: Tuple[int, int] = (3, 3)
+    loss_type: str = "lsgan"  # lsgan | bce
+
+
+@dataclass(frozen=True)
 class E2EConfig:
     """Hybrid CTC/attention E2E model."""
 
@@ -99,17 +114,26 @@ class E2EConfig:
     encoder: EncoderConfig = field(default_factory=EncoderConfig)
     attention: AttentionConfig = field(default_factory=AttentionConfig)
     decoder: DecoderConfig = field(default_factory=DecoderConfig)
+    mtlalpha: float = 0.5  # loss = mtlalpha * ctc + (1 - mtlalpha) * att
     blank_id: int = 0
     sos_id: int = 1  # shared <sos>/<eos> per ESPnet convention
     eos_id: int = 1
+    ignore_id: int = -1  # label padding
+    ctc_impl: str = "auto"  # CTC alpha recursion: scan (plain) | auto (kernel)
 
 
 @dataclass(frozen=True)
 class JointConfig:
-    """Enhancer + E2E ASR."""
+    """Enhancer + E2E ASR, and the joint adversarial objective
+    loss_G = L_ASR + lambda_adv * L_adv + mu_enh * L_enh."""
 
     e2e: E2EConfig = field(default_factory=E2EConfig)
     enhancer: EnhancerConfig = field(default_factory=EnhancerConfig)
+    discriminator: DiscriminatorConfig = field(
+        default_factory=DiscriminatorConfig)
+    lambda_adv: float = 1.0
+    mu_enh: float = 1.0
+    enh_loss: str = "l2"  # l2 | l1 on log1p spectra
     # "float32" | "bfloat16"; parameters stay float32
     compute_dtype: str = "float32"
 
@@ -140,6 +164,27 @@ class BeamSearchConfig:
     lm_weight: float = 0.0  # RNNLM shallow fusion: not ported yet, raises
 
 
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimisation and loop settings: Adadelta or Adam, grad clip 5,
+    Adadelta eps decay on a dev plateau."""
+
+    optimizer: str = "adadelta"  # adadelta | adam
+    learning_rate: float = 1.0
+    warmup_steps: int = 0  # linear LR warmup (adam only; 0 = constant)
+    adadelta_rho: float = 0.95
+    adadelta_eps: float = 1e-8
+    eps_decay: float = 0.01  # multiply eps on dev-accuracy plateau
+    grad_clip: float = 5.0
+    batch_size: int = 16
+    num_epochs: int = 15
+    seed: int = 1
+    length_buckets: Tuple[int, ...] = (256, 512, 1024, 1600)
+    max_label_len: int = 128
+    checkpoint_dir: str = "checkpoints/default"
+    log_every: int = 10
+
+
 _NESTED = {
     "frontend": FrontendConfig,
     "encoder": EncoderConfig,
@@ -147,6 +192,7 @@ _NESTED = {
     "decoder": DecoderConfig,
     "e2e": E2EConfig,
     "enhancer": EnhancerConfig,
+    "discriminator": DiscriminatorConfig,
 }
 
 

@@ -1,6 +1,6 @@
 """Model configurations of the port.
 
-The serving fields of ``__graft_entry__.py``'s configurations, copied by
+The fields of ``__graft_entry__.py``'s configurations, copied by
 value: that file imports JAX. ``tests/test_torch_guards.py`` holds the two
 equal.
 """
@@ -10,6 +10,7 @@ from __future__ import annotations
 from robust_e2e_gan_torch.config import (
     AttentionConfig,
     DecoderConfig,
+    DiscriminatorConfig,
     E2EConfig,
     EncoderConfig,
     EnhancerConfig,
@@ -32,6 +33,7 @@ def flagship_config(vocab: int = 52) -> JointConfig:
             decoder=DecoderConfig(vocab_size=vocab, embed_dim=256, hidden_dim=256),
         ),
         enhancer=EnhancerConfig(input_dim=257, num_layers=2, hidden_dim=256),
+        discriminator=DiscriminatorConfig(input_dim=80, channels=(32, 64)),
     )
 
 
@@ -48,4 +50,5 @@ def tiny_config(vocab: int = 12) -> JointConfig:
             decoder=DecoderConfig(vocab_size=vocab, embed_dim=16, hidden_dim=32),
         ),
         enhancer=EnhancerConfig(input_dim=257, num_layers=1, hidden_dim=32),
+        discriminator=DiscriminatorConfig(input_dim=24, channels=(4, 8)),
     )

@@ -6,10 +6,12 @@ dense and LSTM weights copy as they are. Convolution kernels are the one
 exception: they are transposed once, to the layout ``F.conv2d`` and
 ``F.conv1d`` take.
 
-``init_params`` builds a tree in the flax layout with numpy alone, drawn
+``init_params`` (the generator, ``RobustE2E``) and ``init_disc_params``
+(the discriminator) build trees in the flax layout with numpy alone, drawn
 from the same distributions as the flax initialisers (``models/rnn.py``,
 flax's lecun-normal dense and conv kernels, normal embeddings), so a caller
-without JAX gets weights at the real scale.
+without JAX gets weights at the real scale. ``to_flax`` is the inverse of
+``from_flax``: gradients and updated parameters compare in flax layout.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from robust_e2e_gan_torch.config import JointConfig
+from robust_e2e_gan_torch.config import DiscriminatorConfig, JointConfig
 
 
 def _flatten(tree, prefix=""):
@@ -46,6 +48,24 @@ def from_flax(params) -> Dict[str, torch.Tensor]:
             arr = arr.transpose(3, 2, 0, 1)
         state[key] = torch.from_numpy(np.ascontiguousarray(arr))
     return state
+
+
+def to_flax(state) -> dict:
+    """State dict (or any name -> tensor mapping) -> nested numpy tree in
+    the flax layout; the inverse of ``from_flax``."""
+    tree: dict = {}
+    for key, value in state.items():
+        arr = value.detach().float().cpu().numpy().copy()
+        if key.endswith("loc_conv.kernel"):
+            arr = arr.transpose(2, 1, 0)
+        elif key.endswith(".kernel") and arr.ndim == 4:
+            arr = arr.transpose(2, 3, 1, 0)
+        node = tree
+        *path, leaf = key.split(".")
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree
 
 
 # ---------------------------------------------------------------------------
@@ -97,11 +117,24 @@ def dense_params(rng, d_in, d_out, bias=True):
     return p
 
 
-def _conv2d(rng, c_in, c_out):
+def _conv2d(rng, c_in, c_out, kh=3, kw=3):
     return {
         "bias": np.zeros((c_out,)),
-        "kernel": _lecun_normal(rng, (3, 3, c_in, c_out), 9 * c_in),
+        "kernel": _lecun_normal(rng, (kh, kw, c_in, c_out), kh * kw * c_in),
     }
+
+
+def init_disc_params(dcfg: DiscriminatorConfig, seed: int = 0) -> dict:
+    """Flax-layout parameter tree of ``Discriminator(dcfg)``: one strided
+    conv per channel count, then the (D' * C, 1) score projection."""
+    rng = np.random.default_rng(seed)
+    tree = {}
+    c_in, d = 1, dcfg.input_dim
+    for i, ch in enumerate(dcfg.channels):
+        tree[f"conv{i}"] = _conv2d(rng, c_in, ch, *dcfg.kernel)
+        c_in, d = ch, (d + 1) // 2
+    tree["out"] = dense_params(rng, d * c_in, 1)
+    return _as_f32(tree)
 
 
 def init_params(jcfg: JointConfig, seed: int = 0) -> dict:

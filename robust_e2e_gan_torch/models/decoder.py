@@ -1,15 +1,20 @@
-"""Attention decoder: the decode-time step API.
+"""Attention decoder: teacher-forced training loop, decode-time step API
+and the cross-entropy loss.
 
-Port of the serving half of ``robust_e2e_gan_tpu/models/decoder.py``:
-``DecoderStep``'s beam and non-beam steps, and ``Decoder``'s
-``initial_carry``, ``project_encoder`` and ``step``. The teacher-forced
-scan, scheduled sampling and the fused full-step kernel are not ported
-yet. flax's ``DenseIO`` readout is a ``Dense`` here (same parameters and
+Port of ``robust_e2e_gan_tpu/models/decoder.py``: ``DecoderStep``'s beam
+and non-beam steps; ``Decoder``'s teacher-forced loop over ``ys_in`` (the
+JAX ``nn.scan``, here a Python loop over the same step), with scheduled
+sampling, ``initial_carry``, ``project_encoder`` and ``step``; and
+``decoder_cross_entropy``. The fused full-step kernel is not ported yet.
+flax's ``DenseIO`` readout is a ``Dense`` here (same parameters and
 rounding points). The carry is (h (L, N, H) f32, c (L, N, H) f32, att (N, T),
-prev_pred (N,) int32), as in the JAX package.
+prev_pred (N,) int32), as in the JAX package. ``DecoderConfig.dropout_rate``
+is read nowhere in the JAX decoder, so none is applied here either.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -84,9 +89,57 @@ class Decoder(nn.Module):
                                device=enc_mask.device)
         return (h0, h0, initial_alignment(enc_mask), prev_pred)
 
+    def forward(self, enc: torch.Tensor, enc_mask: torch.Tensor,
+                ys_in: torch.Tensor, deterministic: bool = True,
+                gen: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Teacher forcing over (B, S) inputs -> (logits (B, S, V),
+        attentions (B, S, T)).
+
+        Scheduled sampling (training only): each step feeds back the
+        previous step's argmax instead of the gold token with probability
+        ``sampling_probability``, a Bernoulli draw per row from ``gen``;
+        never at step 0, where the previous prediction is the -1 sentinel.
+        """
+        b, s = ys_in.shape
+        p = 0.0 if deterministic else self.dcfg.sampling_probability
+        enc_proj = self.enc_projection(enc)
+        carry = self.initial_carry(b, enc_mask)
+        logits, atts = [], []
+        for i in range(s):
+            tok = ys_in[:, i].to(torch.int32)
+            if p > 0.0:
+                draw = torch.rand((b,), generator=gen, device=tok.device) < p
+                prev = carry[3]
+                tok = torch.where(draw & (prev >= 0), prev, tok)
+            carry, (lg, att) = self.step_mod(carry, tok, enc, enc_proj,
+                                             enc_mask)
+            logits.append(lg)
+            atts.append(att)
+        return torch.stack(logits, dim=1), torch.stack(atts, dim=1)
+
     def project_encoder(self, enc: torch.Tensor) -> torch.Tensor:
         return self.enc_projection(enc)
 
     def step(self, carry, tokens, enc, enc_proj, enc_mask):
         """One decode step on raw token ids (beam-search entry point)."""
         return self.step_mod(carry, tokens, enc, enc_proj, enc_mask)
+
+
+def decoder_cross_entropy(logits: torch.Tensor, ys_out: torch.Tensor,
+                          ignore_id: int = -1, label_smoothing: float = 0.0
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked cross entropy with label smoothing, normalised per valid
+    token -> (loss, accuracy)."""
+    valid = (ys_out != ignore_id).float()
+    targets = torch.clamp_min(ys_out, 0).long()
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(lp, -1, targets[..., None])[..., 0]
+    if label_smoothing > 0.0:
+        smooth = -lp.mean(dim=-1)
+        nll = (1.0 - label_smoothing) * nll + label_smoothing * smooth
+    denom = torch.clamp_min(valid.sum(), 1.0)
+    loss = (nll * valid).sum() / denom
+    pred = torch.argmax(logits, dim=-1)
+    acc = ((pred == targets).float() * valid).sum() / denom
+    return loss, acc

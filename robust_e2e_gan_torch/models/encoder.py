@@ -63,10 +63,13 @@ class Encoder(nn.Module):
         self.vgg = VGG2L(cfg.vgg_channels, dtype)
         d_vgg = subsampled_frames(cfg.input_dim) * cfg.vgg_channels[-1]
         self.blstmp = BLSTMP(d_vgg, cfg.num_layers, cfg.hidden_dim,
-                             cfg.proj_dim, dtype, cfg.lstm_impl)
+                             cfg.proj_dim, dtype, cfg.lstm_impl,
+                             cfg.dropout_rate)
 
     def forward(self, feats: torch.Tensor,
-                feat_lengths: Optional[torch.Tensor] = None):
+                feat_lengths: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                gen: Optional[torch.Generator] = None):
         b = feats.shape[0]
         h = self.vgg(feats)
         tt = h.shape[1]
@@ -77,4 +80,4 @@ class Encoder(nn.Module):
         hmask = (torch.arange(tt, device=h.device)[None, :]
                  < hlens[:, None]).to(h.dtype)
         h = h * hmask[..., None]
-        return self.blstmp(h, hmask), hmask, hlens
+        return self.blstmp(h, hmask, deterministic, gen), hmask, hlens

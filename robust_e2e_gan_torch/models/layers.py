@@ -16,7 +16,26 @@ from torch import nn
 
 
 def param(*shape: int) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(shape), requires_grad=False)
+    """A trainable float32 master weight (zeros until loaded)."""
+    return nn.Parameter(torch.zeros(shape))
+
+
+class _MmF32(torch.autograd.Function):
+    """bfloat16 product with a float32 result on CUDA, differentiable: the
+    gradients are the float32 products the widened form's autograd gives,
+    rounded back to the operands' dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = (g @ b.float().t()).to(a.dtype) if ctx.needs_input_grad[0] else None
+        gb = (a.float().t() @ g).to(b.dtype) if ctx.needs_input_grad[1] else None
+        return ga, gb
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -25,6 +44,8 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     product runs on the tensor cores with float32 accumulation; elsewhere
     the operands are widened to float32, which gives the same products."""
     if a.is_cuda and a.dtype == torch.bfloat16:
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            return _MmF32.apply(a, b)
         return torch.mm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
 
@@ -46,17 +67,33 @@ class Dense(nn.Module):
         return y
 
 
-class Conv2d(nn.Module):
-    """3x3 SAME conv over NCHW; kernel (out, in, 3, 3)."""
+def _same_pad(n: int, k: int, s: int):
+    """XLA's SAME padding (low, high) of one spatial dimension."""
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
 
-    def __init__(self, c_in: int, c_out: int, dtype: torch.dtype):
+
+class Conv2d(nn.Module):
+    """SAME conv over NCHW (3x3, stride 1 unless given); kernel
+    (out, in, kh, kw)."""
+
+    def __init__(self, c_in: int, c_out: int, dtype: torch.dtype,
+                 kernel=(3, 3), stride: int = 1):
         super().__init__()
         self.dtype = dtype
-        self.kernel = param(c_out, c_in, 3, 3)
+        self.stride = stride
+        self.kernel = param(c_out, c_in, *kernel)
         self.bias = param(c_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x.to(self.dtype), self.kernel.to(self.dtype), padding=1)
+        kh, kw = self.kernel.shape[2:]
+        (t0, t1), (f0, f1) = (_same_pad(x.shape[2], kh, self.stride),
+                              _same_pad(x.shape[3], kw, self.stride))
+        x, pad = x.to(self.dtype), (t0, f0)
+        if (t0, f0) != (t1, f1):  # uneven: pad the high side by hand
+            x, pad = F.pad(x, (f0, f1, t0, t1)), 0
+        y = F.conv2d(x, self.kernel.to(self.dtype), stride=self.stride,
+                     padding=pad)
         return y + self.bias.to(self.dtype)[:, None, None]
 
 

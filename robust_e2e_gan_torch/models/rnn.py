@@ -3,8 +3,9 @@
 Port of ``robust_e2e_gan_tpu/models/rnn.py``: gate order i, f, g, o; the
 forget-gate bias is a parameter like the others; length-mask semantics
 (pad frames leave the state unchanged and output exact zeros). The BLSTM
-frame loop runs through ``ops/blstm.py``: the CUDA kernel, or its plain
-version.
+frame loop runs through ``ops/blstm.py`` (inference) or
+``ops/blstm_train.py`` (training): the CUDA kernels, or their plain
+versions.
 """
 
 from __future__ import annotations
@@ -18,6 +19,11 @@ from robust_e2e_gan_torch.models.layers import Dense, mm_f32, param
 from robust_e2e_gan_torch.ops.blstm import (
     blstm_recurrence,
     blstm_recurrence_plain,
+)
+from robust_e2e_gan_torch.ops.blstm_train import (
+    blstm_train,
+    blstm_train_gx,
+    train_kernel_for,
 )
 from robust_e2e_gan_torch.utils.impl import kernel_enabled
 
@@ -49,8 +55,12 @@ class BLSTM(nn.Module):
     """Bidirectional masked LSTM, (B, T, D) -> (B, T, 2H) in the compute
     dtype. Parameters as flax: wx (2, D, 4H), wh (2, H, 4H), bias (2, 4H).
 
-    ``impl``: "scan" runs the plain frame loop; "auto" (or the JAX kernel
-    names "tiled"/"fused") runs the kernel wrapper.
+    ``impl``: "scan" runs the plain frame loop (differentiable by
+    autograd, the JAX scan); "auto" (or the JAX kernel names
+    "tiled"/"fused") runs a kernel wrapper: ``blstm_train`` or
+    ``blstm_train_gx`` when autograd records, chosen per layer by the JAX
+    package's rule (``ops/blstm_train.py::train_kernel_for``), and the
+    inference ``blstm_recurrence`` when it does not.
     """
 
     def __init__(self, d_in: int, hidden: int, dtype: torch.dtype,
@@ -64,34 +74,59 @@ class BLSTM(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        b, t, _ = x.shape
+        b, t, d = x.shape
         lengths = lengths_from_mask(mask, b, t, x.device)
-        gx = input_projection(x, self.wx, self.bias, self.dtype)
         wh = self.wh.to(self.dtype).contiguous()
+        recording = torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
+        if self.use_kernel and recording:
+            h = self.wh.shape[1]
+            if train_kernel_for(b, t, d, h, self.dtype) == "fused":
+                return blstm_train(x, lengths, self.wx.to(self.dtype), wh,
+                                   self.bias)
+            gx = input_projection(x, self.wx, self.bias, self.dtype)
+            return blstm_train_gx(gx, wh, lengths)
+        gx = input_projection(x, self.wx, self.bias, self.dtype)
         if self.use_kernel:
             return blstm_recurrence(gx, wh, lengths)
         return blstm_recurrence_plain(gx, wh, lengths)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            gen: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``Dropout``: keep with probability 1 - rate, scaled by
+    1 / (1 - rate); the draws come from ``gen``."""
+    keep = 1.0 - rate
+    draw = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(draw, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
 class BLSTMP(nn.Module):
-    """BLSTM layers, each followed by a projection + tanh (ESPnet BLSTMP)."""
+    """BLSTM layers, each followed by a projection + tanh (ESPnet BLSTMP),
+    and dropout after each projection in training."""
 
     def __init__(self, d_in: int, num_layers: int, hidden: int, proj: int,
-                 dtype: torch.dtype, impl: str = "scan"):
+                 dtype: torch.dtype, impl: str = "scan",
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.num_layers = num_layers
+        self.dropout_rate = dropout_rate
         d = d_in
         for i in range(num_layers):
             self.add_module(f"blstm{i}", BLSTM(d, hidden, dtype, impl))
             self.add_module(f"proj{i}", Dense(2 * hidden, proj, dtype=dtype))
             d = proj
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         h = x
         for i in range(self.num_layers):
             h = getattr(self, f"blstm{i}")(h, mask)
             h = torch.tanh(getattr(self, f"proj{i}")(h))
+            if self.dropout_rate > 0.0 and not deterministic:
+                h = dropout(h, self.dropout_rate, gen)
             if mask is not None:
                 h = h * mask[..., None].to(h.dtype)
         return h

@@ -14,7 +14,7 @@ from typing import Tuple
 import torch
 
 from robust_e2e_gan_torch.utils.build import launch
-from robust_e2e_gan_torch.utils.impl import check, on_cuda
+from robust_e2e_gan_torch.utils.impl import check, check_no_grad, on_cuda
 
 MASK_MIN = -1e9
 MAX_CHANNELS = 32  # location-conv channels a warp keeps in shared memory
@@ -59,6 +59,7 @@ def att_loc_step(feat, enc_proj, enc, dec, wloc, g, mask,
     CPU tensors run the plain version; CUDA tensors launch
     ``csrc/att_loc.cu`` or raise.
     """
+    check_no_grad("att_loc_step", feat, enc_proj, enc, dec, wloc, g, mask)
     if not on_cuda(feat, enc_proj, enc, dec, wloc, g, mask):
         return att_loc_step_plain(feat, enc_proj, enc, dec, wloc, g, mask,
                                   sharpening)

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from robust_e2e_gan_torch.utils.build import launch
-from robust_e2e_gan_torch.utils.impl import check, on_cuda
+from robust_e2e_gan_torch.utils.impl import check, check_no_grad, on_cuda
 
 MAX_HIDDEN = 1024  # one thread per hidden unit in a block
 
@@ -69,6 +69,7 @@ def blstm_recurrence(gx: torch.Tensor, wh: torch.Tensor,
     CPU tensors run the plain version; CUDA tensors launch
     ``csrc/blstm.cu`` or raise.
     """
+    check_no_grad("blstm_recurrence", gx, wh)
     if not on_cuda(gx, wh, lengths):
         return blstm_recurrence_plain(gx, wh, lengths)
     b, t, two, four_h = gx.shape

@@ -15,7 +15,7 @@ from typing import Tuple
 import torch
 
 from robust_e2e_gan_torch.utils.build import launch
-from robust_e2e_gan_torch.utils.impl import check, on_cuda
+from robust_e2e_gan_torch.utils.impl import check, check_no_grad, on_cuda
 
 LOG_ZERO = -1e10
 
@@ -123,6 +123,7 @@ def prefix_psi(lpz, last_tok, lengths, r_n, r_b, blank: int,
     CPU tensors run the plain version; CUDA tensors launch
     ``csrc/ctc_prefix.cu::ctc_prefix_psi`` or raise.
     """
+    check_no_grad("prefix_psi", lpz, r_n, r_b)
     if not on_cuda(lpz, last_tok, lengths, r_n, r_b):
         return prefix_psi_plain(lpz, last_tok, lengths, r_n, r_b, blank, eos)
     b, k, t, v = _check_common(lpz, r_n, r_b,
@@ -151,6 +152,7 @@ def prefix_state(lpz, tok, last_tok, lengths, r_n, r_b,
     CPU tensors run the plain version; CUDA tensors launch
     ``csrc/ctc_prefix.cu::ctc_prefix_state`` or raise.
     """
+    check_no_grad("prefix_state", lpz, r_n, r_b)
     if not on_cuda(lpz, tok, last_tok, lengths, r_n, r_b):
         return prefix_state_plain(lpz, tok, last_tok, lengths, r_n, r_b, blank)
     b, k, t, v = _check_common(

@@ -1,17 +1,19 @@
 """Top-level pipeline: waveform -> enhancer -> fbank -> hybrid CTC/att ASR.
 
-Port of the serving half of ``robust_e2e_gan_tpu/pipeline.py``: the
-feature paths (``noisy_power``, ``enhance``, ``features_from_power``,
-``normalize_feats`` with utterance, global or no CMVN) and the decode entry
-points. Speaker CMVN and the precomputed-feature inputs are not ported
-yet. Parameters are float32 masters; ``dtype`` is the
-compute dtype. Load weights with ``load_state_dict(convert.from_flax(...))``
+Port of ``robust_e2e_gan_tpu/pipeline.py``: the feature paths
+(``noisy_power``, ``enhance``, ``features_from_power``, ``normalize_feats``
+with utterance, global or no CMVN, ``logmel_no_cmvn``), the training
+forwards on waveforms (``asr_forward``, ``joint_forward``) and the decode
+entry points. Speaker CMVN and the precomputed-feature inputs are not
+ported yet (ROADMAP queue 1 item 10). The discriminator lives outside this
+module, as in the JAX package. Parameters are float32 masters; ``dtype``
+is the compute dtype. Load weights with ``load_state_dict(convert.from_flax(...))``
 and move the model to its device once.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -102,6 +104,56 @@ class RobustE2E(nn.Module):
         if fmask is not None:
             feats = feats * fmask[..., None].to(feats.dtype)
         return feats
+
+    def logmel_no_cmvn(self, power):
+        """Un-normalised log-mel: the discriminator's input domain."""
+        return fbank_ops.log_mel(power, self.cfg.e2e.frontend)
+
+    # ---------- training forwards ----------
+
+    def asr_forward(self, wav, wav_lengths, ys_pad,
+                    use_enhancer: bool = False, deterministic: bool = True,
+                    rngs: Optional[Dict[str, torch.Generator]] = None):
+        """ASR losses of waveforms (clean-ASR pretraining, dev eval)."""
+        fcfg = self.cfg.e2e.frontend
+        if fcfg.fused and not use_enhancer and fcfg.cmvn == "utterance":
+            raise NotImplementedError(
+                "the fused trainable fbank kernel (FrontendConfig.fused) is "
+                "not ported yet (ROADMAP queue 2 #9); use fused=False")
+        power, fmask = self.noisy_power(wav, wav_lengths)
+        if use_enhancer:
+            power, _ = self.enhancer(power, fmask)
+        feats = self.features_from_power(power, fmask)
+        flens = None if fmask is None else fmask.sum(dim=-1).to(torch.int32)
+        return self.asr(feats, flens, ys_pad, deterministic, rngs)
+
+    def joint_forward(self, noisy_wav, clean_wav, wav_lengths, ys_pad,
+                      deterministic: bool = True,
+                      rngs: Optional[Dict[str, torch.Generator]] = None,
+                      with_asr: bool = True):
+        """Everything the G- and D-steps need in one forward: the ASR
+        losses of the enhanced noisy speech (skipped with
+        ``with_asr=False``, where no caller reads them), and the spectra
+        and log-mel maps of the GAN terms."""
+        noisy_power, fmask = self.noisy_power(noisy_wav, wav_lengths)
+        clean_power, _ = self.noisy_power(clean_wav, wav_lengths)
+        enhanced_power, tf_mask = self.enhancer(noisy_power, fmask)
+        out = {}
+        if with_asr:
+            feats = self.features_from_power(enhanced_power, fmask)
+            flens = (None if fmask is None
+                     else fmask.sum(dim=-1).to(torch.int32))
+            out = self.asr(feats, flens, ys_pad, deterministic, rngs)
+        return {
+            **out,
+            "enhanced_power": enhanced_power,
+            "clean_power": clean_power,
+            "noisy_power": noisy_power,
+            "enhanced_logmel": self.logmel_no_cmvn(enhanced_power),
+            "clean_logmel": self.logmel_no_cmvn(clean_power),
+            "frame_mask": fmask,
+            "tf_mask": tf_mask,
+        }
 
     # ---------- decode-time entry points ----------
 

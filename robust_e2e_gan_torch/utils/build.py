@@ -1,10 +1,11 @@
 """Build the CUDA kernels of ``robust_e2e_gan_torch/csrc`` and load them.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` into a shared library with
-a plain C interface for ``sm_90a`` (a few seconds; no PyTorch headers are
-included). The library lands in ``robust_e2e_gan_torch/_build/`` beside a
-stamp of the sources' hash and is rebuilt when a source changes. It is
-loaded with ``ctypes``; every pointer and the stream are ``c_void_p``.
+One ``nvcc`` process per ``csrc/*.cu``, all started together, compiles the
+sources to objects for ``sm_90a`` (no PyTorch headers are included), and
+one more links them into a shared library with a plain C interface. The
+library lands in ``robust_e2e_gan_torch/_build/`` beside a stamp of the
+sources' hash and is rebuilt when a source changes. It is loaded with
+``ctypes``; every pointer and the stream are ``c_void_p``.
 
 The first kernel launch builds and loads the library; ``build()`` does it
 ahead of time and says how long it took.
@@ -28,12 +29,13 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "librg_kernels.so")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: name -> argtypes (every function returns cudaError_t)
 SIGNATURES = {
     # gx, wh, lengths, out, B, T, H, rows_per_block, bf16, stream
@@ -46,6 +48,22 @@ SIGNATURES = {
     # lpz, tok, last_tok, lengths, r_n, r_b, rn_out, rb_out,
     # B, K, T, V, blank, stream
     "ctc_prefix_state": [_P] * 8 + [_I] * 5 + [_P],
+    # gx, wh, lengths, out, y_ext, c_ext, B, T, H, rows_per_block, bf16,
+    # stream
+    "blstm_train_fwd": [_P] * 6 + [_I] * 5 + [_P],
+    # gx, wh, wh_t, lengths, y_ext, c_ext, dy, dgates, B, T, H,
+    # rows_per_block, bf16, stream
+    "blstm_train_bwd": [_P] * 8 + [_I] * 5 + [_P],
+    # A, B, C, bias, batch, M, N, K, KI, 12 element strides (A: batch, m,
+    # k outer, k inner; B: batch, k outer, k inner, n; C: batch, m, n;
+    # bias: batch), a_bf16, b_bf16, round_bf16, accumulate, stream
+    "gemm": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_I] * 4 + [_P],
+    # X, out, M, N, stream
+    "colsum": [_P, _P, _I, _I, _P],
+    # emit, alpha0, skip, pos, lens, hist (or null), afin, B, T, U, stream
+    "ctc_alpha_fwd": [_P] * 7 + [_I] * 3 + [_P],
+    # emit, skip, pos, lens, hist, dfin, demit, da0, B, T, U, stream
+    "ctc_alpha_bwd": [_P] * 8 + [_I] * 3 + [_P],
 }
 
 
@@ -93,17 +111,34 @@ def build() -> float:
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    nvcc = _nvcc()
     cu = [p for p in _sources() if p.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    objs = [os.path.join(BUILD_DIR, os.path.basename(p)[:-3] + ".o")
+            for p in cu]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, p] for p, o in zip(cu, objs)]
+    jobs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True))
+            for cmd in cmds]
+    log, failed = [], []
+    for cmd, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out)
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout)
+        if proc.returncode != 0:
+            failed.append(proc.stdout)
     seconds = time.perf_counter() - t0
     with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout)
-    if proc.returncode != 0:
+        f.write("\n".join(log))
+    if failed:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}")
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, LIB_PATH)
     with open(stamp, "w") as f:
         f.write(digest)

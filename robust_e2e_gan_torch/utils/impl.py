@@ -6,7 +6,11 @@ of the tensors instead, inside each kernel's wrapper:
 
 * the kernel values ("auto", and the JAX names of the kernel paths) go
   through the wrapper, which launches the kernel on CUDA tensors and runs
-  the plain version on CPU tensors;
+  the plain version on CPU tensors. Where a module has both, it takes the
+  training kernels (``ops/blstm_train.py``, ``ops/ctc.py``, autograd
+  functions) when autograd records, and the inference kernel otherwise;
+  the inference-only wrappers refuse inputs autograd would record
+  (``check_no_grad``), since their outputs carry no graph;
 * the plain values ("scan", "xla", "twopass") call the plain PyTorch
   version directly, on any device.
 """
@@ -47,3 +51,14 @@ def check(cond: bool, msg: str) -> None:
     """Raise ValueError(msg) unless ``cond`` (kernel argument checks)."""
     if not cond:
         raise ValueError(msg)
+
+
+def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise ValueError if autograd would record through an
+    inference-only wrapper: its kernel writes a fresh tensor that carries
+    no graph, so every parameter upstream would silently get no gradient.
+    Checked on every device, so the CPU tests see what the card would."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{name} is inference-only and its output carries no graph; "
+            "call it under torch.no_grad() or torch.inference_mode()")

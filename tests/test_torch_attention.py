@@ -165,3 +165,11 @@ def test_decoder_step_matches_jax(beam):
         np.asarray(jdec.apply(jvars, jnp.asarray(x["enc"]),
                               method=JaxDecoder.project_encoder)),
         rtol=RTOL, atol=ATOL)
+
+
+@pytest.fixture(autouse=True)
+def _forward_only():
+    """These tests compare forward values: parameters are trainable, and
+    the inference-only kernel wrappers refuse inputs autograd records."""
+    with torch.no_grad():
+        yield

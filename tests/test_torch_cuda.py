@@ -93,3 +93,131 @@ def test_ctc_prefix_kernels_match_plain(dev):
             torch.testing.assert_close(g, w, rtol=0, atol=1e-3)
         r_n, r_b = got
         last, lens = tok, lens + 1
+
+
+def _train_inputs(gen, dev, b, t, d, h, dtype):
+    x = torch.randn((b, t, d), generator=gen, device=dev)
+    wx = (torch.randn((2, d, 4 * h), generator=gen, device=dev)
+          / d ** 0.5).to(dtype)
+    wh = (torch.randn((2, h, 4 * h), generator=gen, device=dev)
+          / h ** 0.5).to(dtype)
+    bias = torch.randn((2, 4 * h), generator=gen, device=dev) * 0.3
+    lengths = torch.tensor([t, 1, 0, t - 3, 5][:b], dtype=torch.int32,
+                           device=dev)
+    dy = torch.randn((b, t, 2 * h), generator=gen, device=dev)
+    return x, wx, wh, bias, lengths, dy
+
+
+def _grads(fn, leaves, dy):
+    leaves = [a.detach().requires_grad_() for a in leaves]
+    y = fn(*leaves)
+    return [y] + list(torch.autograd.grad(y.float().mul(dy).sum(), leaves))
+
+
+def _grad_tol(dtype, want):
+    # weight gradients sum over B*T rows: scale the limit by their size
+    if dtype == torch.float32:
+        return dict(rtol=1e-4, atol=1e-4 * want.abs().max().item() + 1e-6)
+    return dict(rtol=0, atol=2e-2 * want.abs().max().item() + 1e-6)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("h", [32, 256, 512])
+def test_blstm_train_kernels_match_plain(dev, dtype, h):
+    from robust_e2e_gan_torch.ops import blstm_train as bt
+
+    gen = torch.Generator(device=dev).manual_seed(h)
+    b, t, d = 5, 23, 70
+    x, wx, wh, bias, lengths, dy = _train_inputs(gen, dev, b, t, d, h, dtype)
+
+    def fused(kernel):
+        fn = bt.blstm_train if kernel else bt.blstm_train_plain
+        return _grads(lambda x_, wx_, wh_, b_: fn(x_, lengths, wx_, wh_, b_),
+                      [x, wx, wh, bias], dy)
+
+    got, want = fused(True), fused(False)
+    torch.cuda.synchronize()
+    assert got[0].dtype == dtype
+    torch.testing.assert_close(got[0].float(), want[0].float(),
+                               **_tol(dtype, want[0]))
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g.float(), w.float(), **_grad_tol(dtype, w))
+    assert not got[0][2].any() and not got[1][2].any()  # an empty row
+
+    gx = torch.randn((b, t, 2, 4 * h), generator=gen, device=dev)
+
+    def gx_path(kernel):
+        fn = bt.blstm_train_gx if kernel else bt.blstm_train_gx_plain
+        return _grads(lambda g_, wh_: fn(g_, wh_, lengths), [gx, wh], dy)
+
+    got, want = gx_path(True), gx_path(False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0].float(), want[0].float(),
+                               **_tol(dtype, want[0]))
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g.float(), w.float(), **_grad_tol(dtype, w))
+
+
+@pytest.mark.parametrize("s", [1, 9])
+def test_ctc_alpha_kernel_matches_plain(dev, s):
+    from robust_e2e_gan_torch.ops import ctc
+
+    gen = torch.Generator(device=dev).manual_seed(s)
+    b, t, v = 6, 31, 13
+    logits = torch.randn((b, t, v), generator=gen, device=dev) * 3
+    labels = torch.randint(1, v, (b, s), generator=gen, device=dev)
+    labels[0, 1:] = labels[0, :1] if s > 1 else labels[0, 1:]  # repeats
+    label_lengths = torch.tensor([s, s, 0, max(s - 2, 0), 1, s],
+                                 device=dev).clamp(max=s)
+    logit_lengths = torch.tensor([t, t - 4, 3, t, 1, 2 * s + 1], device=dev)
+    out = {}
+    for impl in ("auto", "scan"):
+        lg = logits.clone().requires_grad_()
+        loss = ctc.ctc_loss(lg, logit_lengths, labels, label_lengths,
+                            impl=impl, reduction="none")
+        grad, = torch.autograd.grad(loss[torch.isfinite(loss)].sum(), lg)
+        out[impl] = (loss, grad)
+    torch.cuda.synchronize()
+    for g, w in zip(out["auto"], out["scan"]):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4)
+    with torch.no_grad():  # the history-free forward
+        loss = ctc.ctc_loss(logits, logit_lengths, labels, label_lengths,
+                            reduction="none")
+    torch.testing.assert_close(loss, out["scan"][0], rtol=0, atol=1e-4)
+
+
+def test_cuda_blstm_under_autograd_passes_gradients_upstream(dev):
+    """The trap of an inference kernel under autograd: a cut gradient
+    chain. Through the training kernels the enhancer's first BLSTM and the
+    VGG convolutions below the encoder's BLSTM get non-zero gradients."""
+    import dataclasses
+
+    import numpy as np
+
+    from robust_e2e_gan_torch.configs import tiny_config
+    from robust_e2e_gan_torch.convert import from_flax, init_params
+    from robust_e2e_gan_torch.data.synthetic import SyntheticConfig, make_batch
+    from robust_e2e_gan_torch.ops import blstm_train
+    from robust_e2e_gan_torch.pipeline import build_model
+
+    jcfg = tiny_config(12)
+    jcfg = dataclasses.replace(
+        jcfg,
+        e2e=dataclasses.replace(jcfg.e2e, encoder=dataclasses.replace(
+            jcfg.e2e.encoder, lstm_impl="auto")),
+        enhancer=dataclasses.replace(jcfg.enhancer, lstm_impl="auto"))
+    model = build_model(jcfg)
+    model.load_state_dict(from_flax(init_params(jcfg, seed=0)))
+    model.to(dev)
+    batch = make_batch(3, SyntheticConfig(vocab_size=12, min_tokens=2,
+                                          max_tokens=4),
+                       np.random.default_rng(0))
+    wav, lens, labels = (torch.from_numpy(batch[k]).to(dev)
+                         for k in ("noisy_wav", "wav_lengths", "labels"))
+    launches = blstm_train.blstm_train.launches
+    out = model.asr_forward(wav, lens, labels, use_enhancer=True)
+    out["loss"].backward()
+    torch.cuda.synchronize()
+    assert blstm_train.blstm_train.launches > launches
+    for p in (model.enhancer.blstm0.wx, model.asr.encoder.vgg.conv0_1.kernel):
+        assert p.grad is not None and p.grad.abs().sum().item() > 0

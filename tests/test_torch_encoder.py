@@ -77,3 +77,11 @@ def test_encode_for_decode_matches_jax(use_enhancer):
         for name, g, w in zip(names, got, want):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
                                        atol=ATOL, err_msg=f"{name} ({impl})")
+
+
+@pytest.fixture(autouse=True)
+def _forward_only():
+    """These tests compare forward values: parameters are trainable, and
+    the inference-only kernel wrappers refuse inputs autograd records."""
+    with torch.no_grad():
+        yield

@@ -130,3 +130,11 @@ def test_enhancenet_matches_jax(mask_floor):
     got_e, got_m = net(torch.from_numpy(power), torch.from_numpy(fmask))
     _close(got_m, want_m)
     _close(got_e, want_e, rtol=RTOL, atol=1e-4)  # power values are O(1-4)
+
+
+@pytest.fixture(autouse=True)
+def _forward_only():
+    """These tests compare forward values: parameters are trainable, and
+    the inference-only kernel wrappers refuse inputs autograd records."""
+    with torch.no_grad():
+        yield

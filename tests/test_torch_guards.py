@@ -39,19 +39,20 @@ CONFIGS = {
             attention=dataclasses.replace(configs.tiny_config(12).e2e.attention,
                                           enc_proj_bias=True))),
 }
-# JAX config fields the port leaves out: training, XLA scheduling and
-# kernel-selection knobs that do not change what the serving decode computes
+# JAX config fields the port leaves out: XLA scheduling knobs and the
+# fused decoder step, which do not change what is computed
 LEFT_OUT = {
     "FrontendConfig": set(),
-    "EncoderConfig": {"dropout_rate", "subsample_factor", "remat",
-                      "scan_unroll", "gate_storage"},
+    "EncoderConfig": {"subsample_factor", "remat", "scan_unroll",
+                      "gate_storage"},
     "AttentionConfig": set(),
-    "DecoderConfig": {"dropout_rate", "label_smoothing",
-                      "sampling_probability", "scan_unroll", "step_impl"},
+    "DecoderConfig": {"scan_unroll", "step_impl"},
     "EnhancerConfig": {"remat", "scan_unroll", "gate_storage"},
-    "E2EConfig": {"mtlalpha", "ignore_id", "ctc_impl"},
-    "JointConfig": {"discriminator", "lambda_adv", "mu_enh", "enh_loss"},
+    "DiscriminatorConfig": set(),
+    "E2EConfig": set(),
+    "JointConfig": set(),
     "BeamSearchConfig": {"scan_unroll"},
+    "TrainConfig": set(),
 }
 
 
@@ -210,3 +211,32 @@ def test_impl_selection():
     assert not on_cuda(torch.zeros(1), torch.zeros(2))
     with pytest.raises(ValueError):
         on_cuda(torch.zeros(1), torch.zeros(1, device="meta"))
+
+
+def test_inference_wrappers_refuse_autograd():
+    """The inference kernel wrappers write fresh tensors that carry no graph;
+    under autograd they raise instead of cutting the gradient chain."""
+    from robust_e2e_gan_torch.ops import att, blstm, ctc_prefix
+
+    def leaf(*shape):
+        return torch.randn(shape).requires_grad_()
+
+    b, k, t, h, v = 2, 3, 5, 4, 6
+    ints = torch.ones((b, k), dtype=torch.int32)
+    calls = {
+        "blstm_recurrence": lambda: blstm.blstm_recurrence(
+            leaf(b, t, 2, 4 * h), leaf(2, h, 4 * h),
+            torch.full((b,), t, dtype=torch.int32)),
+        "att_loc_step": lambda: att.att_loc_step(
+            leaf(b, k, t, 2), leaf(b, t, 3), leaf(b, t, 3), leaf(b, k, 3),
+            leaf(2, 3), leaf(3), torch.ones(b, t), 2.0),
+        "prefix_psi": lambda: ctc_prefix.prefix_psi(
+            leaf(b, t, v), ints, ints, leaf(b, k, t), leaf(b, k, t), 0, 1),
+        "prefix_state": lambda: ctc_prefix.prefix_state(
+            leaf(b, t, v), ints, ints, ints, leaf(b, k, t), leaf(b, k, t), 0),
+    }
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match="inference-only"):
+            call()
+        with torch.no_grad():
+            call()  # the same inputs without autograd run
