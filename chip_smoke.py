@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving decode and its joint adversarial
-training on one NVIDIA GPU.
+"""Drive the PyTorch port's serving decodes and its training on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -16,7 +16,12 @@ Phases, each of which exits non-zero on failure:
    TF32 off and in bfloat16, with the time of each; then the training
    kernels, forward and every gradient, at the train shapes (B=32 ~2.9 s
    utterances: 286 STFT frames, 72 encoder frames; the train CLI's model
-   for blstm_train_gx);
+   for blstm_train_gx); then the clean-speech kernels: the fused frontend
+   at decode and train shapes, its backward at train shapes, and the RNNLM
+   step at N=1024 lanes (float32 and bfloat16, 1 and 2 layers, and the
+   CLI's E=H=512). Each kernel's entry also holds the least time the card
+   could take for the same work (``bound_ms``) and, where one PyTorch call
+   computes the same function, that call's time (``library_ms``);
 4. main path: the flagship model in bfloat16 compute (random weights from
    seed 0) through ``make_beam_searcher(..., use_enhancer=True)`` on 3
    batches of 128 utterances; checks the results and that every kernel
@@ -34,7 +39,20 @@ Phases, each of which exits non-zero on failure:
    dir, then a resume for 1 more; the encoder's first layer takes
    blstm_train_gx, the others blstm_train;
 8. train-slice parity: one float32 joint step of the flagship at B=16,
-   kernel path against plain path from the same parameters.
+   kernel path against plain path from the same parameters;
+9. clean-speech serving: the flagship with the fused frontend in bfloat16
+   compute, without the enhancer, with RNNLM shallow fusion (an LM at the
+   ``LMConfig`` defaults in float32, weights from seed 2, lm_weight 0.3)
+   on 3 batches of 128 clean utterances; checks that the fused frontend,
+   the LM step and the four serving kernels launched and no plain version
+   ran; then times the same path with the plain versions;
+10. its slice parity: one batch of 16 in float32, kernel path against
+    plain path; best-hypothesis scores must agree;
+11. the clean-speech recipe through its entry points: ``train.cli --mode
+    asr --fused-frontend`` and ``train.cli --mode lm`` (3 steps each, the
+    LM resumed to a 4th) at the CLI's default model, then both runs
+    restored and one batch of 16 decoded without the enhancer with the LM
+    fused.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -42,6 +60,7 @@ The line before the last is a JSON object of the kernels; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -52,12 +71,21 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from robust_e2e_gan_torch.config import BeamSearchConfig, TrainConfig
+from robust_e2e_gan_torch import config as config_lib
+from robust_e2e_gan_torch import pipeline
+from robust_e2e_gan_torch.config import (
+    BeamSearchConfig,
+    JointConfig,
+    LMConfig,
+    TrainConfig,
+)
 from robust_e2e_gan_torch.configs import flagship_config
 from robust_e2e_gan_torch.convert import (
     from_flax,
     init_disc_params,
+    init_lm_params,
     init_params,
 )
 from robust_e2e_gan_torch.data.synthetic import SyntheticConfig, make_batch
@@ -67,11 +95,23 @@ from robust_e2e_gan_torch.decode.beam import (
 )
 from robust_e2e_gan_torch.models.encoder import subsampled_frames
 from robust_e2e_gan_torch.models.enhancement import Discriminator
-from robust_e2e_gan_torch.ops import att, blstm, blstm_train, ctc, ctc_prefix
+from robust_e2e_gan_torch.models.layers import mm_f32
+from robust_e2e_gan_torch.models.lm import RNNLM
+from robust_e2e_gan_torch.ops import (
+    att,
+    blstm,
+    blstm_train,
+    ctc,
+    ctc_prefix,
+    fbank_fused,
+    lm_step,
+)
 from robust_e2e_gan_torch.ops.fbank import num_frames
 from robust_e2e_gan_torch.pipeline import build_model
 from robust_e2e_gan_torch.train import cli as train_cli
 from robust_e2e_gan_torch.train import steps as train_steps
+from robust_e2e_gan_torch.train.lm import load_lm
+from robust_e2e_gan_torch.utils import checkpoint as ckpt_lib
 from robust_e2e_gan_torch.utils.build import build
 
 VOCAB = 52
@@ -117,9 +157,31 @@ KERNELS = {
         wrapper=ctc.ctc_alpha, plain=ctc.ctc_alpha_fwd_plain,
         source="robust_e2e_gan_torch/csrc/ctc_alpha.cu",
         replaces="robust_e2e_gan_tpu/ops/ctc_pallas.py:296"),
+    "fbank_fused": dict(
+        wrapper=fbank_fused.fbank_fused, plain=fbank_fused.fbank_fused_plain,
+        source="robust_e2e_gan_torch/csrc/fbank.cu",
+        replaces="robust_e2e_gan_tpu/ops/fbank_pallas.py:147"),
+    "fbank_fused_bwd": dict(
+        wrapper=fbank_fused.fbank_fused_bwd,
+        plain=fbank_fused.fbank_fused_bwd_plain,
+        source="robust_e2e_gan_torch/csrc/fbank.cu",
+        replaces="robust_e2e_gan_tpu/ops/fbank_pallas.py:448"),
+    "lm_step": dict(
+        wrapper=lm_step.lm_step, plain=lm_step.lm_step_plain,
+        source="robust_e2e_gan_torch/csrc/lm_step.cu",
+        replaces="robust_e2e_gan_tpu/ops/lm_step_pallas.py:104"),
 }
 SERVING = ("blstm_recurrence", "att_loc_step", "ctc_prefix_psi",
            "ctc_prefix_state")
+# the clean-speech serving path: no enhancer, fused frontend, LM fusion
+CLEAN_SERVING = ("fbank_fused", "lm_step") + SERVING
+LM_WEIGHT = 0.3
+# peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W): a
+# bound takes the rate of its operands' type, the tensor cores' for
+# bfloat16 and the CUDA cores' for float32, whatever the kernel itself
+# runs on; HBM3 bandwidth
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+HBM_BYTES = 3.35e12
 # the kernels of the train step: the D-step's no-grad generator forward
 # takes the inference BLSTM kernel
 TRAINING = ("blstm_train", "ctc_alpha", "blstm_recurrence")
@@ -157,6 +219,69 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors (nested lists allowed), each counted once."""
+    total = 0
+    for x in tensors:
+        if isinstance(x, (list, tuple)):
+            total += nbytes(*x)
+        elif x is not None:
+            total += x.numel() * x.element_size()
+    return total
+
+
+def entry(name, err, ms, plain_ms, flops, moved, dtype, library_ms=None
+          ) -> dict:
+    """A kernel's numbers for the JSON line. ``bound_ms``: the larger of
+    ``flops`` (the operations the function needs on these inputs) over the
+    card's peak for the operands' ``dtype`` and ``moved`` (its inputs read
+    once, its outputs written once) over the memory rate."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = moved / HBM_BYTES * 1e3
+    bound = max(t_ops, t_bytes)
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"    {name}: {ms:.3f} ms (plain {plain_ms:.3f}"
+          f"{f', library {library_ms:.3f}' if library_ms else ''}); "
+          f"bound {bound:.4f} ms by {by} ({flops / 1e9:.3f} GFLOP at the "
+          f"{dtype} peak, {moved / 1e6:.2f} MB)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=library_ms)
+
+
+def lstm_library_ms(x, lengths, h, train: bool) -> float:
+    """Device time of cuDNN's bidirectional LSTM (``torch.nn.LSTM`` over a
+    packed sequence, the input projection included) on x (B, T, D): the
+    forward alone, or the forward and every gradient for a random
+    cotangent. A yardstick only: the port never calls it."""
+    from torch.nn.utils.rnn import PackedSequence, pack_padded_sequence
+
+
+    def run(x):
+        lstm = torch.nn.LSTM(x.shape[-1], h, batch_first=True,
+                             bidirectional=True).to(x.device, x.dtype)
+        lstm.flatten_parameters()  # cuDNN's one weight buffer
+        packed = pack_padded_sequence(x, lengths.cpu().long(),
+                                      batch_first=True, enforce_sorted=False)
+        data = packed.data.detach().requires_grad_(train)
+        seq = PackedSequence(data, packed.batch_sizes, packed.sorted_indices,
+                             packed.unsorted_indices)
+        if not train:
+            with torch.inference_mode():
+                return cuda_ms(lambda: lstm(seq), 3)
+        dy = torch.randn((data.shape[0], 2 * h), device=x.device,
+                         dtype=x.dtype)
+        leaves = [data, *lstm.parameters()]
+        return cuda_ms(
+            lambda: torch.autograd.grad(lstm(seq)[0].data, leaves, dy), 3)
+
+    try:
+        return run(x)
+    except RuntimeError as exc:  # a cuDNN build without bfloat16 RNNs
+        print(f"    cuDNN LSTM refused {x.dtype} ({str(exc)[:100]}); "
+              "library time taken in float32")
+        return run(x.float())
 
 
 def compare(name, got, want, rtol=0.0, atol=0.0, scale_atol=0.0):
@@ -227,6 +352,31 @@ def ctc_inputs(gen, b, k, t, v, dev):
     return lpz, tok, last, lens, r_n, r_b
 
 
+def blstm_row(err, gx, wh, lengths, out, d_in) -> dict:
+    """Kernel, plain and library times of the inference BLSTM recurrence
+    on gx (B, T, 2, 4H). The recurrence needs 2 * 4H * H multiply-adds per
+    valid frame and direction. cuDNN's LSTM takes x (B, T, D) and computes
+    the input projection too, so the projection (the port's bf16 GEMM) is
+    timed beside the kernel and counted on its side."""
+    b, t, _, g4 = gx.shape
+    h = g4 // 4
+    valid = int(lengths.sum())
+    ms = cuda_ms(lambda: blstm.blstm_recurrence(gx, wh, lengths), 5)
+    plain_ms = cuda_ms(lambda: blstm.blstm_recurrence_plain(gx, wh, lengths),
+                       2)
+    x = torch.randn((b, t, d_in), device=gx.device, dtype=wh.dtype)
+    w = torch.randn((d_in, 2 * g4), device=gx.device, dtype=wh.dtype)
+    proj_ms = cuda_ms(lambda: mm_f32(x.reshape(b * t, d_in), w), 5)
+    library_ms = lstm_library_ms(x, lengths, h, train=False)
+    print(f"    blstm_recurrence: projection GEMM (B*T, {d_in}) x ({d_in}, "
+          f"{2 * g4}) {proj_ms:.3f} ms; kernel + projection "
+          f"{ms + proj_ms:.3f} ms vs cuDNN LSTM {library_ms:.3f} ms "
+          f"({x.dtype})")
+    return entry("blstm_recurrence", err, ms, plain_ms,
+                 2 * valid * 2 * 4 * h * h, nbytes(gx, wh, lengths, out),
+                 wh.dtype, library_ms)
+
+
 def kernel_parity(b: int, t_enh: int, t_enc: int, jcfg, dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -249,12 +399,8 @@ def kernel_parity(b: int, t_enh: int, t_enc: int, jcfg, dev) -> dict:
                               [got], [want], **tol)
             ok_all &= ok
             if tag == "enhancer" and dt == bf16:
-                res["blstm_recurrence"] = dict(
-                    max_abs_err=err,
-                    ms=cuda_ms(lambda: blstm.blstm_recurrence(
-                        gx, wh, lengths), 5),
-                    plain_ms=cuda_ms(lambda: blstm.blstm_recurrence_plain(
-                        gx, wh, lengths), 2))
+                res["blstm_recurrence"] = blstm_row(
+                    err, gx, wh, lengths, got, jcfg.enhancer.input_dim)
             print(f"    (B={b} valid frames {int(lengths.sum())})")
 
     # attention step
@@ -270,11 +416,15 @@ def kernel_parity(b: int, t_enh: int, t_enc: int, jcfg, dev) -> dict:
         ok_all &= ok
         if dt == bf16:
             sharp = acfg.sharpening
-            res["att_loc_step"] = dict(
-                max_abs_err=err,
-                ms=cuda_ms(lambda: att.att_loc_step(*args, sharp), 20),
-                plain_ms=cuda_ms(
-                    lambda: att.att_loc_step_plain(*args, sharp), 20))
+            c, a = acfg.conv_channels, acfg.dim
+            # per (b, k): location projection, energies, softmax, context
+            flops = b * BEAM * (t_enc * (2 * c * a + 6 * a + 5)
+                                + 2 * t_enc * e_dim)
+            res["att_loc_step"] = entry(
+                "att_loc_step", err,
+                cuda_ms(lambda: att.att_loc_step(*args, sharp), 20),
+                cuda_ms(lambda: att.att_loc_step_plain(*args, sharp), 20),
+                flops, nbytes(args, got), dt)
 
     # CTC prefix psi and state (float32 only, as in the JAX package)
     lpz, tok, last, lens, r_n, r_b = ctc_inputs(gen, b, BEAM, t_enc, VOCAB,
@@ -289,8 +439,11 @@ def kernel_parity(b: int, t_enh: int, t_enc: int, jcfg, dev) -> dict:
     err, ok = compare(f"ctc_prefix_psi B={b} K={BEAM} T={t_enc} V={VOCAB}",
                       [psi_kernel()], [psi_plain()], atol=1e-3)
     ok_all &= ok
-    res["ctc_prefix_psi"] = dict(max_abs_err=err, ms=cuda_ms(psi_kernel, 20),
-                                 plain_ms=cuda_ms(psi_plain, 5))
+    # one log-space update (~8 operations) per (b, k, v, frame)
+    res["ctc_prefix_psi"] = entry(
+        "ctc_prefix_psi", err, cuda_ms(psi_kernel, 20), cuda_ms(psi_plain, 5),
+        8 * b * BEAM * VOCAB * t_enc,
+        nbytes(lpz, last, lens, r_n, r_b, psi_kernel()), lpz.dtype)
 
     def state_kernel():
         return ctc_prefix.prefix_state(lpz, tok, last, lens, r_n, r_b, 0)
@@ -301,9 +454,11 @@ def kernel_parity(b: int, t_enh: int, t_enc: int, jcfg, dev) -> dict:
     err, ok = compare(f"ctc_prefix_state B={b} K={BEAM} T={t_enc}",
                       state_kernel(), state_plain(), atol=1e-3)
     ok_all &= ok
-    res["ctc_prefix_state"] = dict(max_abs_err=err,
-                                   ms=cuda_ms(state_kernel, 20),
-                                   plain_ms=cuda_ms(state_plain, 5))
+    # two log-space updates per (b, k, frame)
+    res["ctc_prefix_state"] = entry(
+        "ctc_prefix_state", err, cuda_ms(state_kernel, 20),
+        cuda_ms(state_plain, 5), 16 * b * BEAM * t_enc,
+        nbytes(lpz, tok, last, lens, r_n, r_b, state_kernel()), lpz.dtype)
     require(ok_all, "a kernel disagrees with its plain version")
     return res
 
@@ -371,11 +526,16 @@ def train_kernel_parity(jcfg, t_enh, t_enc, dev) -> dict:
                 ok_all &= ok
                 errs.append(err)
             if tag == "enhancer0" and dt == bf16:
-                res["blstm_train"] = dict(
-                    max_abs_err=max(errs),
-                    ms=cuda_ms(lambda: run(blstm_train.blstm_train), 3),
-                    plain_ms=cuda_ms(lambda: run(blstm_train.blstm_train_plain),
-                                     1))
+                valid = int(lengths.sum())
+                # per valid frame: the projection, dx and dW_x (2 * D * 8H
+                # each), the recurrence, dh and dW_h (2 * 2 * 4H * H each)
+                res["blstm_train"] = entry(
+                    "blstm_train", max(errs),
+                    cuda_ms(lambda: run(blstm_train.blstm_train), 3),
+                    cuda_ms(lambda: run(blstm_train.blstm_train_plain), 1),
+                    valid * 3 * (2 * d * 8 * h + 16 * h * h),
+                    nbytes(x, wx, wh, bias, lengths, dy, got), dt,
+                    lstm_library_ms(x.to(dt), lengths, h, train=True))
 
     # blstm_train_gx: the train CLI's encoder layer 0 (B=16, D=2560, H=512)
     gb, gh = 16, 512
@@ -395,10 +555,16 @@ def train_kernel_parity(jcfg, t_enh, t_enc, dev) -> dict:
                           **(out_tol if name == "y" else g_tol))
         ok_all &= ok
         errs.append(err)
-    res["blstm_train_gx"] = dict(
-        max_abs_err=max(errs),
-        ms=cuda_ms(lambda: run_gx(blstm_train.blstm_train_gx), 5),
-        plain_ms=cuda_ms(lambda: run_gx(blstm_train.blstm_train_gx_plain), 1))
+    # per valid frame: the recurrence, dh and dW_h; the library call takes
+    # x (B, T, 2560) and computes the projection and its gradients too
+    res["blstm_train_gx"] = entry(
+        "blstm_train_gx", max(errs),
+        cuda_ms(lambda: run_gx(blstm_train.blstm_train_gx), 5),
+        cuda_ms(lambda: run_gx(blstm_train.blstm_train_gx_plain), 1),
+        int(lengths.sum()) * 3 * 16 * gh * gh,
+        nbytes(gx, wh, lengths, dy, got), wh.dtype,
+        lstm_library_ms(torch.randn((gb, t_enc, d_enc), generator=gen,
+                                    device=dev), lengths, gh, train=True))
 
     # ctc_alpha: the CTC loss and its gradient at the train shapes
     s_len = TRAIN_SYNTH.max_tokens
@@ -419,11 +585,132 @@ def train_kernel_parity(jcfg, t_enh, t_enc, dev) -> dict:
     err, ok = compare(f"ctc_alpha loss+grad B={b} T={t_enc} S={s_len} "
                       f"V={VOCAB}", got, want, atol=1e-4)
     ok_all &= ok
-    res["ctc_alpha"] = dict(max_abs_err=err,
-                            ms=cuda_ms(lambda: run_ctc("auto"), 5),
-                            plain_ms=cuda_ms(lambda: run_ctc("scan"), 2))
+
+    def library_ctc():
+        lg = logits.clone().requires_grad_()
+        lp = torch.log_softmax(lg, -1).transpose(0, 1)
+        loss = F.ctc_loss(lp, labels, logit_lengths, label_lengths,
+                          reduction="none")
+        return torch.autograd.grad(loss.sum(), lg)
+
+    # log-softmax and its gradient (~8 per logit), the alpha and beta
+    # recursions (~10 per (b, t, u) each way), U = 2S + 1
+    res["ctc_alpha"] = entry(
+        "ctc_alpha", err, cuda_ms(lambda: run_ctc("auto"), 5),
+        cuda_ms(lambda: run_ctc("scan"), 2),
+        b * t_enc * (8 * VOCAB + 20 * (2 * s_len + 1)),
+        nbytes(logits, labels, label_lengths, logit_lengths, got),
+        logits.dtype, cuda_ms(library_ctc, 5))
     require(ok_all, "a training kernel disagrees with its plain version")
     return res
+
+
+def lm_inputs(gen, n, v, e, h, layers, dev):
+    """Token ids, LM weights at their initialisers' scales and a carry."""
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+    return (torch.randint(0, v, (n,), generator=gen, device=dev),
+            rnd(v, e, scale=e ** -0.5),
+            [rnd(e if i == 0 else h, 4 * h, scale=(e if i == 0 else h) ** -0.5)
+             for i in range(layers)],
+            [rnd(h, 4 * h, scale=h ** -0.5) for _ in range(layers)],
+            [rnd(4 * h, scale=0.1) for _ in range(layers)],
+            rnd(h, v, scale=h ** -0.5), rnd(v, scale=0.1),
+            rnd(layers, n, h, scale=0.5), rnd(layers, n, h, scale=0.5))
+
+
+def clean_kernel_parity(jcfg, dev):
+    """Phase 3, the clean-speech kernels: the fused frontend at decode and
+    train shapes and its backward at train shapes (float32 throughout, as
+    the JAX kernel's HIGHEST-precision products), then the RNNLM step.
+    Returns the kernels' entries and the backward's launches: no serving
+    or training path runs the backward (no parameter lies upstream of the
+    waveform), so its launches are this phase's."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    fcfg = dataclasses.replace(jcfg.e2e.frontend, fused=True)
+    l_, f_, m_ = fcfg.frame_length, fcfg.n_freqs, fcfg.n_mels
+    bases = fbank_fused.device_bases(fcfg, dev)[:3]
+    res, ok_all = {}, True
+
+    for tag, b, synth in (("decode", BATCH, SYNTH),
+                          ("train", TRAIN_BATCH, TRAIN_SYNTH)):
+        data = make_batch(b, synth, np.random.default_rng(3))
+        wav = torch.from_numpy(data["noisy_wav"]).to(dev)
+        lens = torch.from_numpy(data["wav_lengths"]).to(dev)
+        got = fbank_fused.fbank_fused(wav, fcfg, lens)
+        want = fbank_fused.fbank_fused_plain(wav, fcfg, lens)
+        n_valid = fbank_fused.valid_frames(wav, fcfg, lens)
+        frames = int(n_valid.sum())
+        # float32 DFT and mel sums in another order: ~1e-6 of O(1) features
+        err, ok = compare(f"fbank_fused {tag} B={b} N={wav.shape[1]} "
+                          f"T={got[0].shape[1]} (valid frames {frames})",
+                          got, want, rtol=1e-4, atol=1e-4)
+        ok_all &= ok
+        if tag == "decode":
+            # per valid frame: the windowed DFT (two bases, 2 * L * F
+            # each), power, mel (2 * F * M), log and CMVN
+            res["fbank_fused"] = entry(
+                "fbank_fused", err,
+                cuda_ms(lambda: fbank_fused.fbank_fused(wav, fcfg, lens), 10),
+                cuda_ms(lambda: fbank_fused.fbank_fused_plain(wav, fcfg,
+                                                              lens), 5),
+                frames * (4 * l_ * f_ + 3 * f_ + 2 * f_ * m_ + 6 * m_),
+                nbytes(wav, lens, got, bases), wav.dtype)
+
+    # the backward at the train shapes, for a fixed random cotangent
+    g = torch.randn(got[0].shape, generator=gen, device=dev)
+
+    def bwd_kernel():
+        return fbank_fused.fbank_fused_bwd(wav, n_valid, g, fcfg)
+
+    def bwd_plain():
+        return fbank_fused.fbank_fused_bwd_plain(wav, n_valid, g, fcfg)
+
+    fbank_fused.fbank_fused_bwd.launches = 0
+    dwav = bwd_kernel()
+    err, ok = compare(f"fbank_fused_bwd train B={wav.shape[0]} "
+                      f"N={wav.shape[1]} dwav", [dwav], [bwd_plain()],
+                      scale_atol=1e-4)
+    ok_all &= ok
+    # per valid frame: the forward again, CMVN, log and mel transposes
+    # (2 * F * M), the power's chain rule, the transposed DFT (2 * 2 * L * F);
+    # the overlap-add (2 per sample)
+    res["fbank_fused_bwd"] = entry(
+        "fbank_fused_bwd", err, cuda_ms(bwd_kernel, 10),
+        cuda_ms(bwd_plain, 5),
+        frames * (8 * l_ * f_ + 10 * f_ + 4 * f_ * m_ + 12 * m_)
+        + 2 * wav.numel(), nbytes(wav, n_valid, g, dwav, bases), wav.dtype)
+    bwd_launches = fbank_fused.fbank_fused_bwd.launches
+
+    # the RNNLM step over the B*K = 1024 lanes of a beam step
+    f32, bf16 = torch.float32, torch.bfloat16
+    n = BATCH * BEAM
+    for tag, layers, e, h, v, dt in (
+            ("LMConfig() float32", 1, 128, 256, VOCAB, f32),
+            ("LMConfig() bfloat16", 1, 128, 256, VOCAB, bf16),
+            ("2 layers float32", 2, 128, 256, VOCAB, f32),
+            ("train CLI E=H=512 float32", 1, 512, 512, 12, f32)):
+        args = lm_inputs(gen, n, v, e, h, layers, dev)
+        got = lm_step.lm_step(*args, dtype=dt)
+        want = lm_step.lm_step_plain(*args, dtype=dt)
+        tol = (dict(rtol=1e-4, atol=1e-5) if dt == f32
+               else dict(scale_atol=2e-2))
+        err, ok = compare(f"lm_step {tag} N={n} V={v} E={e} H={h} "
+                          f"L={layers}", got, want, **tol)
+        ok_all &= ok
+        if tag == "LMConfig() float32":
+            # per lane: 2 * (E + L * H + (L - 1) * H) * 4H for the gates,
+            # 2 * H * V for the readout, ~10 per unit for the cells
+            res["lm_step"] = entry(
+                "lm_step", err,
+                cuda_ms(lambda: lm_step.lm_step(*args, dtype=f32), 50),
+                cuda_ms(lambda: lm_step.lm_step_plain(*args, dtype=f32), 50),
+                n * (2 * (e + (2 * layers - 1) * h) * 4 * h + 2 * h * v
+                     + 10 * layers * h),
+                nbytes(args, got), f32)
+    require(ok_all, "a clean-speech kernel disagrees with its plain version")
+    return res, bwd_launches
 
 
 # ---------------------------------------------------------------------------
@@ -449,9 +736,9 @@ def load(jcfg, state, dev):
     return model.to(dev).eval()
 
 
-def batch_tensors(b, seed, dev):
-    data = make_batch(b, SYNTH, np.random.default_rng(seed))
-    return (torch.from_numpy(data["noisy_wav"]).to(dev),
+def batch_tensors(b, seed, dev, wav="noisy_wav", synth=SYNTH):
+    data = make_batch(b, synth, np.random.default_rng(seed))
+    return (torch.from_numpy(data[wav]).to(dev),
             torch.from_numpy(data["wav_lengths"]).to(dev))
 
 
@@ -472,19 +759,32 @@ def check_result(res, b):
             "hypothesis lengths outside [0, max_steps]")
 
 
-def split_ms(model, jcfg, bcfg, wav, lens):
+def split_ms(model, jcfg, bcfg, wav, lens, use_enhancer=True, lm=None):
     """(encode ms, search ms) of one batch, each ending in a synchronize."""
+    lm_fns = (lm.step, lm.initial_carry) if lm is not None else (None, None)
     with torch.inference_mode():
-        enc, enc_ms = timed(lambda: model.encode_for_decode(wav, lens, True))
+        enc, enc_ms = timed(lambda: model.encode_for_decode(wav, lens,
+                                                            use_enhancer))
         hs, hmask, hlens, ctc_logits, enc_proj = enc
         _, search_ms = timed(lambda: beam_search_from_encoder(
             model.decoder_step, model.decoder_initial_carry, hs, hmask, hlens,
-            enc_proj, ctc_logits, jcfg.e2e, bcfg))
+            enc_proj, ctc_logits, jcfg.e2e, bcfg, *lm_fns))
     return enc_ms, search_ms
 
 
 def mean(xs):
     return sum(xs) / len(xs)
+
+
+def steady(batches, search, model, jcfg, bcfg, use_enhancer=True, lm=None):
+    """Warm per-batch ms of the whole search, then of its two halves:
+    (whole, encode, search) means over the batches."""
+    whole = [timed(lambda: search(w, n))[1] for w, n in batches]
+    halves = [split_ms(model, jcfg, bcfg, w, n, use_enhancer, lm)
+              for w, n in batches]
+    print(f"  warm ms per batch {['%.1f' % x for x in whole]}")
+    return (mean(whole), mean([h[0] for h in halves]),
+            mean([h[1] for h in halves]))
 
 
 def main_path(b, n_batches, state, dev):
@@ -512,15 +812,7 @@ def main_path(b, n_batches, state, dev):
     require(not any(plain_calls.values()),
             f"a plain version ran on the main path: {plain_calls}")
 
-    def steady(search, model_, cfg, bc):
-        """Warm per-batch ms of the whole search, then its two halves."""
-        whole = [timed(lambda: search(w, n))[1] for w, n in batches]
-        halves = [split_ms(model_, cfg, bc, w, n) for w, n in batches]
-        print(f"  warm ms per batch {['%.1f' % x for x in whole]}")
-        return (mean(whole), mean([h[0] for h in halves]),
-                mean([h[1] for h in halves]))
-
-    k_ms, k_enc, k_search = steady(searcher, model, kcfg, bcfg)
+    k_ms, k_enc, k_search = steady(batches, searcher, model, kcfg, bcfg)
     print(f"  kernel path: {b * 1e3 / k_ms:.2f} utt/s, {k_ms:.1f} ms/batch "
           f"(encode {k_enc:.1f} ms + search {k_search:.1f} ms when timed "
           f"apart; means over {n_batches} warm batches)")
@@ -530,7 +822,8 @@ def main_path(b, n_batches, state, dev):
     pbcfg = dataclasses.replace(bcfg, prefix_impl="twopass")
     plain_search = make_beam_searcher(plain_model, pcfg.e2e, pbcfg)
     check_result(plain_search(*batches[0]), b)  # warm-up
-    p_ms, p_enc, p_search = steady(plain_search, plain_model, pcfg, pbcfg)
+    p_ms, p_enc, p_search = steady(batches, plain_search, plain_model, pcfg,
+                                   pbcfg)
     print(f"  plain path: {b * 1e3 / p_ms:.2f} utt/s, {p_ms:.1f} ms/batch "
           f"(encode {p_enc:.1f} ms + search {p_search:.1f} ms)")
     return launches
@@ -594,28 +887,37 @@ def check_metrics(metrics):
     require(not bad, f"non-finite train metrics {bad}")
 
 
-def profile_step(step, state, batch):
-    """Device time by kernel over one warm step, and the device's busy
-    share of the step's wall time (the kernels' summed time; one stream)."""
+def device_profile(fn, top: int):
+    """Run fn once under torch.profiler; print its ``top`` device rows by
+    kernel and return (device ms summed over kernels, launches, profiled
+    wall ms). One stream, so the kernels' sum is the device's busy time."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        step(state, batch)
+        fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     rows.sort(key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    print(f"  profile of one warm step: wall {wall_ms:.1f} ms (profiled), "
-          f"device kernels {busy_ms:.1f} ms, busy share "
-          f"{busy_ms / wall_ms:.3f}, {sum(e.count for e in rows)} launches")
-    for e in rows[:15]:
+    for e in rows[:top]:
         print(f"    {e.self_device_time_total / 1e3:9.2f} ms "
               f"{e.count:6d}x  {e.key[:90]}")
+    return (sum(e.self_device_time_total for e in rows) / 1e3,
+            sum(e.count for e in rows), wall_ms)
+
+
+def profile_step(step, state, batch):
+    """Device time by kernel over one warm step, and the device's busy
+    share of the step's wall time."""
+    busy_ms, launches, wall_ms = device_profile(lambda: step(state, batch),
+                                                15)
+    print(f"  profile of one warm step: wall {wall_ms:.1f} ms (profiled), "
+          f"device kernels {busy_ms:.1f} ms, busy share "
+          f"{busy_ms / wall_ms:.3f}, {launches} launches")
 
 
 def train_path(state_g, state_d, dev):
@@ -706,6 +1008,204 @@ def train_slice_parity(state_g, state_d, dev):
     require(ok, "kernel and plain train steps disagree")
 
 
+# ---------------------------------------------------------------------------
+# phases 9-11: clean-speech serving with RNNLM fusion, and its recipe
+# ---------------------------------------------------------------------------
+
+
+def clean_cfg(lstm: str, score: str, dtype: str):
+    """The flagship with the fused frontend (used where no enhancer sits
+    between STFT and mel)."""
+    cfg = with_impls(flagship_config(VOCAB), lstm, score, dtype)
+    return dataclasses.replace(cfg, e2e=dataclasses.replace(
+        cfg.e2e, frontend=dataclasses.replace(cfg.e2e.frontend, fused=True)))
+
+
+def make_lm(step_impl: str, dev):
+    """An RNNLM at the LMConfig defaults (V=52, E=128, H=256, one layer),
+    float32, weights from seed 2."""
+    lmcfg = LMConfig(vocab_size=VOCAB, step_impl=step_impl)
+    lm = RNNLM(lmcfg)
+    lm.load_state_dict(from_flax(init_lm_params(lmcfg, seed=2)))
+    return lm.to(dev).eval()
+
+
+@contextlib.contextmanager
+def plain_frontend():
+    """The pipeline's fused frontend through its plain version. The JAX
+    package selects the fused frontend by ``FrontendConfig.fused`` alone,
+    with no impl field of its own, so the plain paths swap it here."""
+    kernel = pipeline.fbank_fused
+    pipeline.fbank_fused = fbank_fused.fbank_fused_plain
+    try:
+        yield
+    finally:
+        pipeline.fbank_fused = kernel
+
+
+def clean_path(b, n_batches, state, dev):
+    """Phase 9: no enhancer, fused frontend, LM fusion; kernel then plain."""
+    bcfg = BeamSearchConfig(beam_size=BEAM, ctc_weight=0.3, max_steps=STEPS,
+                            early_exit=False, lm_weight=LM_WEIGHT)
+    kcfg = clean_cfg("auto", "auto", "bfloat16")
+    model, lm = load(kcfg, state, dev), make_lm("auto", dev)
+    searcher = make_beam_searcher(model, kcfg.e2e, bcfg, use_enhancer=False,
+                                  lm=lm)
+    batches = [batch_tensors(b, seed, dev, "clean_wav")
+               for seed in range(n_batches)]
+    print(f"  batch: B={b} clean samples={batches[0][0].shape[1]} "
+          f"mean length {batches[0][1].float().mean().item() / 16000:.2f} s;"
+          f" LM V={VOCAB} E=128 H=256 L=1 float32, lm_weight {LM_WEIGHT}")
+
+    reset_counts()
+    first = []
+    for wav, lens in batches:
+        res, ms = timed(lambda: searcher(wav, lens))
+        check_result(res, b)
+        first.append(ms)
+    launches, plain_calls = counts(CLEAN_SERVING)
+    print(f"  kernel path, first pass: ms per batch "
+          f"{['%.1f' % x for x in first]} (the first includes warm-up)")
+    print(f"  launches {launches}  plain calls {plain_calls}")
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel of the clean path never launched: {launches}")
+    require(not any(plain_calls.values()),
+            f"a plain version ran on the clean path: {plain_calls}")
+    require(launches["lm_step"] == n_batches * STEPS,
+            f"LM steps {launches['lm_step']} != {n_batches} x {STEPS}")
+
+    k_ms, k_enc, k_search = steady(batches, searcher, model, kcfg, bcfg,
+                                   False, lm)
+    print(f"  kernel path: {b * 1e3 / k_ms:.2f} utt/s, {k_ms:.1f} ms/batch "
+          f"(encode {k_enc:.1f} ms + search {k_search:.1f} ms when timed "
+          f"apart; means over {n_batches} warm batches)")
+    # device time by kernel over one warm batch, and the device's busy
+    # share of that batch's unprofiled wall time
+    wav, lens = batches[0]
+    _, wall_ms = timed(lambda: searcher(wav, lens))
+    busy_ms, launches_p, _ = device_profile(lambda: searcher(wav, lens), 12)
+    print(f"  profile of one warm batch: device kernels {busy_ms:.1f} ms of "
+          f"an unprofiled {wall_ms:.1f} ms batch (busy share "
+          f"{busy_ms / wall_ms:.3f}), {launches_p} launches")
+
+    pcfg = clean_cfg("scan", "xla", "bfloat16")
+    plain_model, plain_lm = load(pcfg, state, dev), make_lm("xla", dev)
+    pbcfg = dataclasses.replace(bcfg, prefix_impl="twopass")
+    plain_search = make_beam_searcher(plain_model, pcfg.e2e, pbcfg,
+                                      use_enhancer=False, lm=plain_lm)
+    with plain_frontend():
+        check_result(plain_search(*batches[0]), b)  # warm-up
+        p_ms, p_enc, p_search = steady(batches, plain_search, plain_model,
+                                       pcfg, pbcfg, False, plain_lm)
+    print(f"  plain path: {b * 1e3 / p_ms:.2f} utt/s, {p_ms:.1f} ms/batch "
+          f"(encode {p_enc:.1f} ms + search {p_search:.1f} ms)")
+    require(k_ms < p_ms, "the kernel path is not faster than the plain path")
+    return launches
+
+
+def clean_slice_parity(state, dev):
+    """Phase 10: one float32 batch of 16, kernel path against plain path."""
+    bcfg = BeamSearchConfig(beam_size=BEAM, ctc_weight=0.3, max_steps=STEPS,
+                            early_exit=False, lm_weight=LM_WEIGHT)
+    wav, lens = batch_tensors(16, 100, dev, "clean_wav")
+    out = {}
+    for tag, lstm_impl, score, prefix, lm_impl in (
+            ("kernel", "auto", "auto", "auto", "auto"),
+            ("plain", "scan", "xla", "twopass", "xla")):
+        cfg = clean_cfg(lstm_impl, score, "float32")
+        search = make_beam_searcher(
+            load(cfg, state, dev), cfg.e2e,
+            dataclasses.replace(bcfg, prefix_impl=prefix),
+            use_enhancer=False, lm=make_lm(lm_impl, dev))
+        reset_counts()
+        if tag == "kernel":
+            out[tag] = search(wav, lens)
+            launches, _ = counts(CLEAN_SERVING)
+            require(all(v > 0 for v in launches.values()),
+                    f"a kernel never launched in the f32 slice: {launches}")
+        else:
+            with plain_frontend():
+                out[tag] = search(wav, lens)
+        check_result(out[tag], 16)
+    k, p = out["kernel"], out["plain"]
+    rel = ((k.scores - p.scores).abs() / p.scores.abs().clamp_min(1e-6)).max()
+    same = sum(bool(torch.equal(a, c)) for a, c in zip(k.tokens, p.tokens))
+    print(f"  float32 B=16: best-score max rel diff {rel.item():.3e} "
+          f"(limit 1e-3); best hypotheses token-identical {same}/16")
+    require(rel.item() <= 1e-3, "kernel and plain clean paths disagree")
+
+
+def clean_recipe(dev):
+    """Phase 11: train the clean ASR through the fused frontend and the LM
+    through the CLI, restore both and decode with LM fusion."""
+    argv = ["--synthetic", "--synthetic-utts", "16", "--batch-size", "16",
+            "--log-every", "1"]
+    with tempfile.TemporaryDirectory() as root:
+        asr_dir, lm_dir = os.path.join(root, "asr"), os.path.join(root, "lm")
+        reset_counts()
+        t0 = time.perf_counter()
+        train_cli.main(["--mode", "asr", "--fused-frontend", "--ckpt-dir",
+                        asr_dir, "--epochs", "3"] + argv)
+        torch.cuda.synchronize()
+        asr_s = time.perf_counter() - t0
+        asr_kernels = ("fbank_fused", "blstm_train", "blstm_train_gx",
+                       "ctc_alpha")
+        asr_launches, plain_calls = counts(asr_kernels)
+        print(f"  --mode asr --fused-frontend: 3 steps + dev evals in "
+              f"{asr_s:.1f} s; launches {asr_launches}")
+        # 3 training steps and 3 one-batch dev evals, all through the kernel
+        require(asr_launches["fbank_fused"] == 6,
+                f"fused frontend launches {asr_launches['fbank_fused']} != 6")
+        require(all(v > 0 for v in asr_launches.values()),
+                f"a kernel never launched in --mode asr: {asr_launches}")
+        # (the teacher-forced decoder's attention is plain PyTorch, as the
+        # JAX package's is XLA: its beam-step kernel serves decoding only)
+        require(not any(plain_calls[n] for n in asr_kernels),
+                f"a plain version ran in --mode asr: {plain_calls}")
+
+        t0 = time.perf_counter()
+        train_cli.main(["--mode", "lm", "--ckpt-dir", lm_dir,
+                        "--epochs", "3"] + argv)
+        train_cli.main(["--mode", "lm", "--ckpt-dir", lm_dir,
+                        "--epochs", "4"] + argv)
+        torch.cuda.synchronize()
+        lm_s = time.perf_counter() - t0
+        with open(os.path.join(lm_dir, "checkpoints.json")) as f:
+            lm_latest = json.load(f)["latest"]
+        print(f"  --mode lm: 3 steps and a resume in {lm_s:.1f} s; resumed to "
+              f"step {lm_latest['step']}")
+        require(lm_latest["step"] == 4, f"LM resume at {lm_latest['step']}")
+
+        with open(os.path.join(asr_dir, "config.json")) as f:
+            jcfg = config_lib.from_dict(JointConfig, json.load(f)["joint"])
+        model = build_model(jcfg).to(dev)
+        disc = Discriminator(jcfg.discriminator, model.dtype).to(dev)
+        state = train_steps.init_train_state(model, disc, TrainConfig())
+        _, step = ckpt_lib.restore_checkpoint(asr_dir, state, "latest")
+        lm = load_lm(lm_dir)
+        require(step == 3, f"ASR restored at step {step}")
+
+    vocab = jcfg.e2e.decoder.vocab_size
+    bcfg = BeamSearchConfig(beam_size=BEAM, ctc_weight=0.3, max_steps=STEPS,
+                            early_exit=False, lm_weight=LM_WEIGHT)
+    wav, lens = batch_tensors(16, 7, dev, "clean_wav",
+                              SyntheticConfig())
+    reset_counts()
+    res = make_beam_searcher(model.eval(), jcfg.e2e, bcfg, use_enhancer=False,
+                             lm=lm)(wav, lens)
+    torch.cuda.synchronize()
+    check_result(res, 16)
+    require(bool(((res.tokens >= -1) & (res.tokens < vocab)).all()),
+            "decoded tokens outside the vocabulary")
+    launches, plain_calls = counts(CLEAN_SERVING)
+    print(f"  restored ASR (step {step}) + LM (step {lm_latest['step']}) "
+          f"decoded B=16, V={vocab}: launches {launches}")
+    require(launches["fbank_fused"] > 0 and launches["lm_step"] > 0,
+            f"the restored decode skipped a kernel: {launches}")
+    require(not any(plain_calls.values()),
+            f"a plain version ran in the restored decode: {plain_calls}")
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -741,6 +1241,8 @@ def main() -> int:
     t_train = num_frames(TRAIN_SYNTH.max_samples, jcfg.e2e.frontend)
     timings.update(train_kernel_parity(jcfg, t_train,
                                        subsampled_frames(t_train), dev))
+    clean_timings, bwd_launches = clean_kernel_parity(jcfg, dev)
+    timings.update(clean_timings)
 
     # 4. main path
     state = from_flax(init_params(jcfg, seed=0))
@@ -764,9 +1266,27 @@ def main() -> int:
     print("train-slice parity (float32 B=16, kernel vs plain step):")
     train_slice_parity(state, state_d, dev)
 
+    # 9. clean-speech serving
+    print("clean-speech serving (flagship, fused frontend, no enhancer, "
+          "RNNLM fusion, bfloat16 compute, beam 8, 48 steps):")
+    clean_launches = clean_path(BATCH, N_BATCHES, state, dev)
+
+    # 10. its slice parity
+    print("clean-speech slice parity (float32 B=16, kernel vs plain path):")
+    clean_slice_parity(state, dev)
+
+    # 11. the clean-speech recipe through its entry points
+    print("clean-speech recipe (train.cli --mode asr --fused-frontend, "
+          "--mode lm, restore, decode with LM fusion):")
+    clean_recipe(dev)
+
     launches.update({n: train_launches[n] for n in ("blstm_train",
                                                      "ctc_alpha")})
     launches["blstm_train_gx"] = cli_launches["blstm_train_gx"]
+    launches.update({n: clean_launches[n] for n in ("fbank_fused",
+                                                     "lm_step")})
+    # no path runs the backward of the fused frontend: phase 3's launches
+    launches["fbank_fused_bwd"] = bwd_launches
     kernels = [
         dict(name=n, route="cuda", source=k["source"],
              replaces=k["replaces"], launches=launches[n], **timings[n])

@@ -5,11 +5,10 @@ fields. Names, defaults and meanings are the JAX package's, so
 ``from_dict(JointConfig, dataclasses.asdict(jax_config))`` carries a JAX
 configuration over; the fields left out (remat, scan unrolls, gate
 storage, the fused decoder step) are XLA scheduling knobs that do not
-change what is computed. Fields whose other values select code the port
-does not have yet (``FrontendConfig.fused``, ``AttentionConfig.variant``,
-``BeamSearchConfig.lm_weight``) are kept so that those values raise.
-The kernel-impl fields take the JAX values; ``utils/impl.py`` says what
-each selects.
+change what is computed. ``AttentionConfig.variant`` is kept so that the
+variants the port does not have yet raise. The kernel-impl fields take the
+JAX values; ``utils/impl.py`` says what each selects. ``LMConfig`` is the
+JAX package's ``models/lm.py::LMConfig``.
 """
 
 from __future__ import annotations
@@ -37,7 +36,9 @@ class FrontendConfig:
     log_floor: float = 1.1920928955078125e-07  # FLT_EPSILON, Kaldi log floor
     use_power: bool = True  # power spectrum (Kaldi default) vs magnitude
     cmvn: str = "utterance"  # utterance | global | none
-    fused: bool = False  # the fused fbank kernel: not ported yet, raises
+    # the fused fbank kernel (ops/fbank_fused.py) on enhancer-free paths
+    # with utterance CMVN
+    fused: bool = False
 
     @property
     def n_freqs(self) -> int:
@@ -161,7 +162,7 @@ class BeamSearchConfig:
     end_detect: bool = False
     end_detect_window: int = 3
     end_detect_margin: float = 10.0
-    lm_weight: float = 0.0  # RNNLM shallow fusion: not ported yet, raises
+    lm_weight: float = 0.0  # RNNLM shallow fusion weight (0 = no LM)
 
 
 @dataclass(frozen=True)
@@ -183,6 +184,22 @@ class TrainConfig:
     max_label_len: int = 128
     checkpoint_dir: str = "checkpoints/default"
     log_every: int = 10
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    """LSTM language model over the ASR token vocabulary (shallow fusion)."""
+
+    vocab_size: int = 52
+    embed_dim: int = 128
+    hidden_dim: int = 256
+    num_layers: int = 1
+    sos_id: int = 1  # shared <sos>/<eos>, as E2EConfig
+    eos_id: int = 1
+    ignore_id: int = -1
+    # beam-step implementation: "xla" (plain cells) | "auto", "fused" (the
+    # kernel, ops/lm_step.py); training always runs the plain cells
+    step_impl: str = "auto"
 
 
 _NESTED = {

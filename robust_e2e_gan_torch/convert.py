@@ -6,11 +6,12 @@ dense and LSTM weights copy as they are. Convolution kernels are the one
 exception: they are transposed once, to the layout ``F.conv2d`` and
 ``F.conv1d`` take.
 
-``init_params`` (the generator, ``RobustE2E``) and ``init_disc_params``
-(the discriminator) build trees in the flax layout with numpy alone, drawn
-from the same distributions as the flax initialisers (``models/rnn.py``,
-flax's lecun-normal dense and conv kernels, normal embeddings), so a caller
-without JAX gets weights at the real scale. ``to_flax`` is the inverse of
+``init_params`` (the generator, ``RobustE2E``), ``init_disc_params`` (the
+discriminator) and ``init_lm_params`` (the RNNLM) build trees in the flax
+layout with numpy alone, drawn from the same distributions as the flax
+initialisers (``models/rnn.py``, flax's lecun-normal dense and conv
+kernels, normal embeddings), so a caller without JAX gets weights at the
+real scale. ``to_flax`` is the inverse of
 ``from_flax``: gradients and updated parameters compare in flax layout.
 """
 
@@ -21,7 +22,11 @@ from typing import Dict
 import numpy as np
 import torch
 
-from robust_e2e_gan_torch.config import DiscriminatorConfig, JointConfig
+from robust_e2e_gan_torch.config import (
+    DiscriminatorConfig,
+    JointConfig,
+    LMConfig,
+)
 
 
 def _flatten(tree, prefix=""):
@@ -94,6 +99,16 @@ def _lecun_normal(rng, shape, fan_in):
         bad = np.abs(x) > 2.0
         x[bad] = rng.standard_normal(int(bad.sum()))
     return x * std
+
+
+def _embedding(rng, vocab, dim):
+    # flax nn.Embed: variance scaling 1.0, fan_in = dim, normal
+    return rng.standard_normal((vocab, dim)) / np.sqrt(dim)
+
+
+def _lstm_cell(rng, d, h):
+    return {"bias": _lstm_bias(h), "wh": _orthogonal(rng, (h, 4 * h)),
+            "wx": _xavier_uniform(rng, (d, 4 * h))}
 
 
 def _lstm_bias(h):
@@ -178,19 +193,12 @@ def init_params(jcfg: JointConfig, seed: int = 0) -> dict:
             "mlp_loc": dense_params(rng, att.conv_channels, att.dim,
                                     bias=False),
         },
-        "embed": {
-            "embedding": rng.standard_normal((dec.vocab_size, dec.embed_dim))
-            / np.sqrt(dec.embed_dim)
-        },
+        "embed": {"embedding": _embedding(rng, dec.vocab_size, dec.embed_dim)},
         "output": dense_params(rng, dec.hidden_dim + e_dim, dec.vocab_size),
     }
     d = dec.embed_dim + e_dim
     for i in range(dec.num_layers):
-        step[f"lstm{i}"] = {
-            "bias": _lstm_bias(dec.hidden_dim),
-            "wh": _orthogonal(rng, (dec.hidden_dim, 4 * dec.hidden_dim)),
-            "wx": _xavier_uniform(rng, (d, 4 * dec.hidden_dim)),
-        }
+        step[f"lstm{i}"] = _lstm_cell(rng, d, dec.hidden_dim)
         d = dec.hidden_dim
 
     tree = {
@@ -208,6 +216,19 @@ def init_params(jcfg: JointConfig, seed: int = 0) -> dict:
         "enhancer": enhancer,
     }
     return _as_f32(tree)
+
+
+def init_lm_params(lmcfg: LMConfig, seed: int = 0) -> dict:
+    """Flax-layout parameter tree of ``RNNLM(lmcfg)``, made with numpy."""
+    rng = np.random.default_rng(seed)
+    step = {"embed": {"embedding": _embedding(rng, lmcfg.vocab_size,
+                                              lmcfg.embed_dim)}}
+    d = lmcfg.embed_dim
+    for i in range(lmcfg.num_layers):
+        step[f"lstm{i}"] = _lstm_cell(rng, d, lmcfg.hidden_dim)
+        d = lmcfg.hidden_dim
+    step["output"] = dense_params(rng, lmcfg.hidden_dim, lmcfg.vocab_size)
+    return _as_f32({"step_mod": step})
 
 
 def _as_f32(tree):

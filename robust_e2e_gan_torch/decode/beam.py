@@ -10,14 +10,15 @@ breaks them.
 
 With ``early_exit=False`` the loop runs ``max_steps`` steps and the host
 never waits for the device inside it; ``early_exit=True`` reads
-``finished.all()`` on the host once per step. The scan, parallel and
-per-utterance Pallas prefix forms, RNNLM fusion and the pipelined
-searchers are not ported.
+``finished.all()`` on the host once per step. RNNLM shallow fusion adds
+``lm_weight * log p_LM`` to every candidate when an LM is given and
+``lm_weight`` is not 0. The scan, parallel and per-utterance Pallas prefix
+forms and the pipelined searchers are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -70,15 +71,19 @@ def beam_search_from_encoder(
     ctc_logits: torch.Tensor,
     ecfg: E2EConfig,
     bcfg: BeamSearchConfig,
+    lm_step_fn: Optional[Callable] = None,
+    lm_init_fn: Optional[Callable] = None,
 ) -> BeamResult:
     """Core search given encoder outputs.
 
     step_fn: (carry, tokens (N,), enc, enc_proj, enc_mask) ->
       (new_carry, (logits (N, V), att (N, T))), N = B*K lanes.
     init_carry_fn: (n, enc_mask (N, T)) -> initial decoder carry.
+    lm_step_fn/lm_init_fn: optional RNNLM step (carry, tokens (N,)) ->
+      (new_carry, logits (N, V)) and its initial carry (n) -> carry, for
+      shallow fusion (score += lm_weight * log p_LM); the carry is permuted
+      with the surviving parents like the decoder's.
     """
-    if bcfg.lm_weight != 0.0:
-        raise NotImplementedError("RNNLM shallow fusion is not ported yet")
     if bcfg.prefix_impl not in ("auto", "tiled", "twopass"):
         raise NotImplementedError(
             f"prefix_impl={bcfg.prefix_impl!r} is not ported; use auto, "
@@ -104,6 +109,8 @@ def beam_search_from_encoder(
     lpz = torch.where(frame_valid[..., None], lpz, pad_row).contiguous()
 
     dec_carry = init_carry_fn(b * k, enc_mask.repeat_interleave(k, dim=0))
+    use_lm = lm_step_fn is not None and bcfg.lm_weight != 0.0
+    lm_carry = lm_init_fn(b * k) if use_lm else None
 
     # CTC prefix state of the empty prefix: all-blank paths
     r_b = torch.cumsum(lpz[:, :, blank], dim=1)[:, None].expand(b, k, t)
@@ -144,11 +151,18 @@ def beam_search_from_encoder(
         new_dec_carry, (logits, _) = step_fn(
             dec_carry, last_tok.reshape(b * k), enc, enc_proj, enc_mask)
         att_lp = torch.log_softmax(logits.float(), dim=-1).reshape(b, k, v)
+        if use_lm:  # RNNLM shallow fusion on the same B*K lanes
+            new_lm_carry, lm_logits = lm_step_fn(lm_carry,
+                                                 last_tok.reshape(b * k))
+            lm_lp = torch.log_softmax(lm_logits.float(), dim=-1).reshape(
+                b, k, v)
         psi = psi_fn(lpz, last_tok, lengths, r_n, r_b, blank, eos)
 
         # joint candidate scores
         cand = (scores[..., None] + (1.0 - cw) * att_lp
                 + cw * (psi - psi_g[..., None]) + bcfg.penalty)
+        if use_lm:
+            cand = cand + bcfg.lm_weight * lm_lp
         cand[..., blank] = neg
         cand[..., eos] = torch.where(lengths < min_len_b, neg, cand[..., eos])
         # finished hypotheses: frozen, eos-only continuation
@@ -205,6 +219,8 @@ def beam_search_from_encoder(
         r_b = torch.where(append[..., None], rb_sel, rb_par)
 
         dec_carry = tuple(_permute_carry(x, k_idx) for x in new_dec_carry)
+        if use_lm:
+            lm_carry = tuple(_permute_carry(x, k_idx) for x in new_lm_carry)
         last_tok = tok
         scores = top_scores
 
@@ -221,12 +237,16 @@ def beam_search_from_encoder(
 
 
 def make_beam_searcher(model, ecfg: E2EConfig, bcfg: BeamSearchConfig,
-                       use_enhancer: bool = True) -> Callable:
+                       use_enhancer: bool = True, lm=None) -> Callable:
     """Bind a ``RobustE2E`` into ``search(wav, wav_lengths) -> BeamResult``:
     enhancer -> fbank -> encoder -> batched joint CTC/attention beam search
-    for a batch of utterances, on the model's device. There is no batch
-    padding: the TPU lane-packing rule of the JAX package does not
-    apply."""
+    for a batch of utterances, on the model's device. ``lm``: an ``RNNLM``
+    (``models/lm.py``) with its weights on the same device, fused with
+    ``bcfg.lm_weight``. There is no batch padding: the TPU lane-packing
+    rule of the JAX package does not apply."""
+    lm_step_fn = lm_init_fn = None
+    if lm is not None and bcfg.lm_weight != 0.0:
+        lm_step_fn, lm_init_fn = lm.step, lm.initial_carry
 
     @torch.inference_mode()
     def search(wav, wav_lengths) -> BeamResult:
@@ -234,6 +254,6 @@ def make_beam_searcher(model, ecfg: E2EConfig, bcfg: BeamSearchConfig,
             wav, wav_lengths, use_enhancer)
         return beam_search_from_encoder(
             model.decoder_step, model.decoder_initial_carry, hs, hmask,
-            hlens, enc_proj, ctc_logits, ecfg, bcfg)
+            hlens, enc_proj, ctc_logits, ecfg, bcfg, lm_step_fn, lm_init_fn)
 
     return search

@@ -4,9 +4,12 @@ Port of ``robust_e2e_gan_tpu/pipeline.py``: the feature paths
 (``noisy_power``, ``enhance``, ``features_from_power``, ``normalize_feats``
 with utterance, global or no CMVN, ``logmel_no_cmvn``), the training
 forwards on waveforms (``asr_forward``, ``joint_forward``) and the decode
-entry points. Speaker CMVN and the precomputed-feature inputs are not
-ported yet (ROADMAP queue 1 item 10). The discriminator lives outside this
-module, as in the JAX package. Parameters are float32 masters; ``dtype``
+entry points. With ``FrontendConfig.fused`` the enhancer-free paths with
+utterance CMVN take the fused frontend (``ops/fbank_fused.py``): the
+trainable form in ``asr_forward``, the inference kernel in
+``encode_for_decode``. Speaker CMVN and the precomputed-feature inputs are
+not ported yet (ROADMAP queue 1 item 10). The discriminator lives outside
+this module, as in the JAX package. Parameters are float32 masters; ``dtype``
 is the compute dtype. Load weights with ``load_state_dict(convert.from_flax(...))``
 and move the model to its device once.
 """
@@ -22,6 +25,10 @@ from robust_e2e_gan_torch.config import FrontendConfig, JointConfig
 from robust_e2e_gan_torch.models.e2e import E2E
 from robust_e2e_gan_torch.models.enhancement import EnhanceNet
 from robust_e2e_gan_torch.ops import fbank as fbank_ops
+from robust_e2e_gan_torch.ops.fbank_fused import (
+    fbank_fused,
+    fbank_fused_trainable,
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -111,19 +118,24 @@ class RobustE2E(nn.Module):
 
     # ---------- training forwards ----------
 
+    def _use_fused_frontend(self, use_enhancer: bool) -> bool:
+        """The fused frontend applies only where the chain is unsplit: no
+        enhancer between STFT and mel, utterance CMVN."""
+        fcfg = self.cfg.e2e.frontend
+        return fcfg.fused and not use_enhancer and fcfg.cmvn == "utterance"
+
     def asr_forward(self, wav, wav_lengths, ys_pad,
                     use_enhancer: bool = False, deterministic: bool = True,
                     rngs: Optional[Dict[str, torch.Generator]] = None):
         """ASR losses of waveforms (clean-ASR pretraining, dev eval)."""
-        fcfg = self.cfg.e2e.frontend
-        if fcfg.fused and not use_enhancer and fcfg.cmvn == "utterance":
-            raise NotImplementedError(
-                "the fused trainable fbank kernel (FrontendConfig.fused) is "
-                "not ported yet (ROADMAP queue 2 #9); use fused=False")
-        power, fmask = self.noisy_power(wav, wav_lengths)
-        if use_enhancer:
-            power, _ = self.enhancer(power, fmask)
-        feats = self.features_from_power(power, fmask)
+        if self._use_fused_frontend(use_enhancer):
+            feats, fmask = fbank_fused_trainable(
+                wav, self.cfg.e2e.frontend, wav_lengths=wav_lengths)
+        else:
+            power, fmask = self.noisy_power(wav, wav_lengths)
+            if use_enhancer:
+                power, _ = self.enhancer(power, fmask)
+            feats = self.features_from_power(power, fmask)
         flens = None if fmask is None else fmask.sum(dim=-1).to(torch.int32)
         return self.asr(feats, flens, ys_pad, deterministic, rngs)
 
@@ -160,16 +172,14 @@ class RobustE2E(nn.Module):
     def encode_for_decode(self, wav, wav_lengths, use_enhancer: bool = True):
         """wav -> (hs, hmask, hlens, ctc_logits, enc_proj): everything the
         batched beam search needs."""
-        fcfg = self.cfg.e2e.frontend
-        if fcfg.fused and not use_enhancer and fcfg.cmvn == "utterance":
-            raise NotImplementedError(
-                "the fused fbank kernel (FrontendConfig.fused) is not ported "
-                "yet; use fused=False"
-            )
-        power, fmask = self.noisy_power(wav, wav_lengths)
-        if use_enhancer:
-            power, _ = self.enhancer(power, fmask)
-        feats = self.features_from_power(power, fmask)
+        if self._use_fused_frontend(use_enhancer):
+            feats, fmask = fbank_fused(wav, self.cfg.e2e.frontend,
+                                       wav_lengths=wav_lengths)
+        else:
+            power, fmask = self.noisy_power(wav, wav_lengths)
+            if use_enhancer:
+                power, _ = self.enhancer(power, fmask)
+            feats = self.features_from_power(power, fmask)
         flens = None if fmask is None else fmask.sum(dim=-1).to(torch.int32)
         hs, hmask, hlens = self.asr.encode(feats, flens)
         ctc_logits = self.asr.ctc_logits(hs)

@@ -1,21 +1,26 @@
-"""Training CLI: clean-ASR pretraining, GAN pretraining, joint adversarial.
+"""Training CLI: clean-ASR pretraining, GAN pretraining, joint adversarial,
+and the RNNLM.
 
 Port of ``robust_e2e_gan_tpu/train/cli.py``: the same flags, names and
 defaults; flags override the config tree, and the resolved config is
-written into the checkpoint dir. It trains on the GPU when there is one,
-else on the CPU. ``--lstm-impl auto`` (the default) and ``fused`` take
+written into the checkpoint dir. It trains on the GPU (``--device cuda``,
+the default; it raises without one) or, when asked, on the CPU
+(``--device cpu``). ``--lstm-impl auto`` (the default) and ``fused`` take
 the CUDA kernels on the GPU and their plain versions on the CPU; ``scan``
-takes the plain versions everywhere.
+takes the plain versions everywhere. ``--fused-frontend`` takes the fused
+frontend kernel on the enhancer-free path (``--mode asr``).
 
   python -m robust_e2e_gan_torch.train.cli --mode joint --synthetic \\
       --ckpt-dir /tmp/exp_demo --epochs 2      # no-corpus run
+  python -m robust_e2e_gan_torch.train.cli --mode lm --synthetic \\
+      --ckpt-dir /tmp/lm_demo                  # the shallow-fusion LM
 
 Only the synthetic task is ported as a data source: the corpus and
-precomputed-feature flags, global or speaker CMVN, ``--mesh-data`` and
-``--mode lm`` raise ``NotImplementedError`` naming their ROADMAP item.
-``--remat``, ``--scan-unroll`` and ``--gate-storage`` are XLA scheduling
-knobs, accepted and without effect; ``--prefetch-depth`` likewise (the
-loop is synchronous).
+precomputed-feature flags, global or speaker CMVN and ``--mesh-data``
+raise ``NotImplementedError`` naming their ROADMAP item. ``--remat``,
+``--scan-unroll`` and ``--gate-storage`` are XLA scheduling knobs,
+accepted and without effect; ``--prefetch-depth`` likewise (the loop is
+synchronous).
 """
 
 from __future__ import annotations
@@ -90,7 +95,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cmvn", choices=("utterance", "global", "speaker",
                                       "none"), default="utterance")
     p.add_argument("--fused-frontend", action="store_true",
-                   help="not ported yet (ROADMAP queue 2 #9)")
+                   help="fused fbank kernel on enhancer-free paths "
+                        "(clean-ASR pretraining forward and backward, "
+                        "no-enhancer decode)")
     # optimisation
     p.add_argument("--optimizer", choices=("adadelta", "adam"),
                    default="adadelta")
@@ -115,6 +122,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="mid-epoch checkpoint every N steps (0 = per epoch)")
     p.add_argument("--prefetch-depth", type=int, default=2,
                    help="no effect here")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="where to train: the GPU (raises without one) or, "
+                        "when asked, the CPU")
     return p
 
 
@@ -177,11 +187,54 @@ def _synthetic_factories(args):
     return train_batches, dev_batches, scfg.vocab_size
 
 
+def _lm_label_batches(args):
+    """(factory of one epoch of (B, max_tokens) -1-padded label batches,
+    vocab size): synthetic transcripts from one generator seeded once, so
+    each epoch continues the stream, as the JAX CLI's ``--mode lm``."""
+    from robust_e2e_gan_torch.data.synthetic import (
+        SyntheticConfig,
+        sample_transcript,
+    )
+
+    scfg = SyntheticConfig()
+    rng = np.random.default_rng(args.seed)
+    steps = max(args.synthetic_utts // args.batch_size, 1)
+
+    def label_batches():
+        for _ in range(steps):
+            ys = np.full((args.batch_size, scfg.max_tokens), -1, np.int32)
+            for i in range(args.batch_size):
+                t = sample_transcript(scfg, rng)
+                ys[i, :len(t)] = t
+            yield ys
+
+    return label_batches, scfg.vocab_size
+
+
+def _lm_main(args) -> None:
+    """--mode lm: train the shallow-fusion RNNLM on transcripts only."""
+    from robust_e2e_gan_torch.config import LMConfig
+    from robust_e2e_gan_torch.train.lm import train_lm
+
+    label_batches, vocab = _lm_label_batches(args)
+    lmcfg = LMConfig(vocab_size=vocab, embed_dim=args.dec_embed,
+                     hidden_dim=args.dec_hidden)
+    tcfg = TrainConfig(
+        optimizer=args.optimizer, learning_rate=args.lr,
+        warmup_steps=args.warmup_steps, grad_clip=args.grad_clip,
+        batch_size=args.batch_size, num_epochs=args.epochs, seed=args.seed,
+        max_label_len=args.max_label_len, checkpoint_dir=args.ckpt_dir,
+        log_every=args.log_every)
+    os.makedirs(args.ckpt_dir, exist_ok=True)
+    with open(os.path.join(args.ckpt_dir, "config.json"), "w") as f:
+        json.dump({"lm": dataclasses.asdict(lmcfg),
+                   "train": dataclasses.asdict(tcfg), "mode": "lm"}, f,
+                  indent=2)
+    train_lm(lmcfg, tcfg, label_batches, log_dir=args.ckpt_dir,
+             resume=not args.no_resume, device=args.device)
+
+
 def _refuse_unported(args) -> None:
-    if args.mode == "lm":
-        raise NotImplementedError(
-            "--mode lm (RNNLM training) is not ported yet (ROADMAP queue 1 "
-            "item 9)")
     given = [f for f in CORPUS_FLAGS if getattr(args, f)]
     if given or not args.synthetic:
         raise NotImplementedError(
@@ -199,8 +252,14 @@ def _refuse_unported(args) -> None:
 
 
 def main(argv: Optional[list] = None) -> None:
+    from robust_e2e_gan_torch.train.loop import resolve_device
+
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
+    resolve_device(args.device)  # raises before any output without a GPU
+    if args.mode == "lm":
+        _lm_main(args)
+        return
     train_b, dev_b, vocab = _synthetic_factories(args)
     jcfg, tcfg = configs_from_args(args, vocab)
     os.makedirs(args.ckpt_dir, exist_ok=True)
@@ -213,7 +272,8 @@ def main(argv: Optional[list] = None) -> None:
 
     train(jcfg, tcfg, train_b, dev_batches=dev_b, mode=args.mode,
           log_dir=args.ckpt_dir, resume=not args.no_resume,
-          init_from=args.init_from, save_every_steps=args.save_every_steps)
+          init_from=args.init_from, save_every_steps=args.save_every_steps,
+          device=args.device)
 
 
 if __name__ == "__main__":

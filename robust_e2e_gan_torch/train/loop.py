@@ -13,7 +13,7 @@ checkpointer are not ported yet.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, Optional, Union
 
 import numpy as np
 import torch
@@ -28,6 +28,19 @@ from robust_e2e_gan_torch.utils.logging import MetricLogger, StepTimer
 
 MODES = ("asr", "gan", "joint")
 BATCH_KEYS = ("noisy_wav", "clean_wav", "wav_lengths", "labels")
+
+
+def resolve_device(device: Union[str, torch.device, None] = "cuda"
+                   ) -> torch.device:
+    """The training device: the GPU unless the caller asks for the CPU.
+    Raises when a CUDA device is asked for and none is present; nothing
+    falls back to the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port trains on the GPU; pass device='cpu' "
+            "(train.cli --device cpu) to train on the CPU")
+    return device
 
 
 def device_batch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -60,7 +73,7 @@ def train(
     cmvn_stats=None,
     save_every_steps: int = 0,
     input_kind: str = "wav",
-    device=None,
+    device: Union[str, torch.device] = "cuda",
 ) -> steps_lib.TrainState:
     """Run ``tcfg.num_epochs`` of the selected regime; returns the state.
 
@@ -68,12 +81,12 @@ def train(
     epoch of host batches (noisy_wav, clean_wav, wav_lengths, labels).
     ``mode``: "asr", "gan" or "joint". ``init_from``: a checkpoint dir
     whose best parameters start this run (its step count is not resumed).
-    ``device``: default the GPU when there is one, else the CPU.
+    ``device``: the GPU by default (raises without one); "cpu" only when
+    asked for.
     """
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}")
-    device = torch.device(device or ("cuda" if torch.cuda.is_available()
-                                     else "cpu"))
+    device = resolve_device(device)
     state = init_state(jcfg, tcfg, device, cmvn_stats)
 
     start_epoch = 0

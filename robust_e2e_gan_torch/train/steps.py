@@ -115,6 +115,31 @@ class TrainState:
     rngs: Dict[str, torch.Generator]
     step: int = 0
 
+    def state_dict(self) -> dict:
+        """What a checkpoint holds (``utils/checkpoint.py``)."""
+        return {
+            "step": self.step,
+            "model": self.model.state_dict(),
+            "discriminator": self.discriminator.state_dict(),
+            "opt_g": self.opt_g.state_dict(),
+            "opt_d": self.opt_d.state_dict(),
+            "rngs": {k: g.get_state() for k, g in self.rngs.items()},
+        }
+
+    def load_state_dict(self, saved: dict, params_only: bool = False
+                        ) -> None:
+        """Restore in place; ``params_only`` loads the two modules alone
+        (a warm start)."""
+        self.model.load_state_dict(saved["model"])
+        self.discriminator.load_state_dict(saved["discriminator"])
+        if params_only:
+            return
+        self.opt_g.load_state_dict(saved["opt_g"])
+        self.opt_d.load_state_dict(saved["opt_d"])
+        for k, g in self.rngs.items():
+            g.set_state(saved["rngs"][k].cpu())
+        self.step = int(saved["step"])
+
 
 def init_train_state(model: RobustE2E, discriminator: Discriminator,
                      tcfg: TrainConfig, seed: int = 0) -> TrainState:

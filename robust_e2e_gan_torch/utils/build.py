@@ -64,6 +64,16 @@ SIGNATURES = {
     "ctc_alpha_fwd": [_P] * 7 + [_I] * 3 + [_P],
     # emit, skip, pos, lens, hist, dfin, demit, da0, B, T, U, stream
     "ctc_alpha_bwd": [_P] * 8 + [_I] * 3 + [_P],
+    # wav, n_valid, mcos, msin, fb, out, B, N, T, L, shift, F, M,
+    # log_floor, use_power, norm_var, eps, stream
+    "fbank_fwd": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _F, _P],
+    # wav, n_valid, mcos, msin, fb, mcos_t, msin_t, fb_t, g, feats, dfeats,
+    # dframes, dwav, B, N, T, L, shift, F, M, log_floor, norm_var, eps,
+    # stream
+    "fbank_bwd": [_P] * 13 + [_I] * 7 + [_F, _I, _F, _P],
+    # tok, emb, wx0, wxs, whs, bias, wout, bout, h_in, c_in, h_out, c_out,
+    # logits, N, V, E, H, L, bf16, stream
+    "lm_step": [_P] * 13 + [_I] * 6 + [_P],
 }
 
 

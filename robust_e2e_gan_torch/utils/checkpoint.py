@@ -5,10 +5,13 @@ format: ``ckpt_<step>.pt`` written with ``torch.save`` into a temporary
 file and renamed into place (a save cut short never corrupts the latest
 checkpoint), beside the same ``checkpoints.json`` sidecar (latest, best,
 a bounded history, and the ``extra`` dict of the loop's schedule: epoch,
-``epoch_complete``, ``best_acc``). A checkpoint holds both modules, both
-optimizer states, the step, and the states of the "dropout" and
-"sampling" generators, so a resumed run continues the same random stream.
-Saves are synchronous. Loading a JAX msgpack checkpoint is not ported yet.
+``epoch_complete``, ``best_acc``). What a checkpoint holds is the state's
+own ``state_dict()`` / ``load_state_dict(saved, params_only)``: a
+``train/steps.py::TrainState`` of the acoustic regimes keeps both
+modules, both optimizer states, the step and its generators' states (a
+resumed run continues the same random stream); a ``train/lm.py::LMState``
+keeps the LM, its optimizer state and the step. Saves are synchronous.
+Loading a JAX msgpack checkpoint is not ported yet.
 """
 
 from __future__ import annotations
@@ -20,34 +23,22 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from robust_e2e_gan_torch.train.steps import TrainState
-
 _HISTORY_CAP = 200  # most recent save-history entries kept in the sidecar
 
 
-def _state_dict(state: TrainState) -> dict:
-    return {
-        "step": state.step,
-        "model": state.model.state_dict(),
-        "discriminator": state.discriminator.state_dict(),
-        "opt_g": state.opt_g.state_dict(),
-        "opt_d": state.opt_d.state_dict(),
-        "rngs": {k: g.get_state() for k, g in state.rngs.items()},
-    }
-
-
-def save_checkpoint(ckpt_dir: str, state: TrainState, step: int,
+def save_checkpoint(ckpt_dir: str, state, step: int,
                     metric: Optional[float] = None, keep: int = 3,
                     best_mode: str = "max",
                     extra: Optional[Dict] = None) -> str:
     """Write ``ckpt_dir/ckpt_<step>.pt`` atomically; update latest and
-    best (``metric``, e.g. dev accuracy); keep ``keep`` others."""
+    best (``metric``, e.g. dev accuracy); keep ``keep`` others. ``state``
+    is a ``TrainState`` or an ``LMState``."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"ckpt_{step}.pt")
     fd, tmp = tempfile.mkstemp(dir=ckpt_dir, suffix=".tmp")
     try:
         with os.fdopen(fd, "wb") as f:
-            torch.save(_state_dict(state), f)
+            torch.save(state.state_dict(), f)
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
@@ -72,26 +63,19 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, step: int,
     return path
 
 
-def restore_checkpoint(ckpt_dir: str, state: TrainState,
-                       which: str = "latest",
-                       params_only: bool = False) -> Tuple[TrainState, int]:
-    """Load 'latest' or 'best' into ``state`` in place; returns (state,
-    step). ``params_only`` loads the two modules alone (a warm start).
-    Raises FileNotFoundError if absent."""
+def restore_checkpoint(ckpt_dir: str, state, which: str = "latest",
+                       params_only: bool = False) -> Tuple[object, int]:
+    """Load 'latest' or 'best' into ``state`` (a ``TrainState`` or an
+    ``LMState``) in place; returns (state, step). ``params_only`` loads the
+    modules alone (a warm start). Raises FileNotFoundError if absent."""
     entry = _read_meta(ckpt_dir).get(which)
     if not entry:
         raise FileNotFoundError(f"no '{which}' checkpoint in {ckpt_dir}")
-    dev = next(state.model.parameters()).device
+    # loaded to the host; each module and optimizer copies its tensors
+    # onto its parameters' device
     saved = torch.load(os.path.join(ckpt_dir, entry["path"]),
-                       map_location=dev, weights_only=True)
-    state.model.load_state_dict(saved["model"])
-    state.discriminator.load_state_dict(saved["discriminator"])
-    if not params_only:
-        state.opt_g.load_state_dict(saved["opt_g"])
-        state.opt_d.load_state_dict(saved["opt_d"])
-        for k, g in state.rngs.items():
-            g.set_state(saved["rngs"][k].cpu())
-        state.step = int(saved["step"])
+                       map_location="cpu", weights_only=True)
+    state.load_state_dict(saved, params_only)
     return state, int(entry["step"])
 
 

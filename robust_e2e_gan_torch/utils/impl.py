@@ -21,6 +21,7 @@ import torch
 
 _KERNEL = ("auto", "fused", "tiled")
 _PLAIN = ("xla", "scan", "twopass")
+SMEM_LIMIT = 232_448  # bytes of shared memory one block may use (sm_90)
 
 
 def kernel_enabled(impl: str) -> bool:

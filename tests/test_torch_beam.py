@@ -76,3 +76,53 @@ def test_beam_search_slice_matches_jax(name):
     np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores),
                                rtol=1e-3)
     assert np.isfinite(got.scores.numpy()).all()
+
+
+def test_clean_speech_lm_fusion_slice_matches_jax():
+    """The clean-speech serving path: ``FrontendConfig(fused=True)``, no
+    enhancer, RNNLM shallow fusion. The JAX side runs its fused frontend in
+    interpret mode; the port's kernel impls run their plain versions."""
+    from robust_e2e_gan_tpu.models import lm as jax_lm
+    from robust_e2e_gan_torch.config import LMConfig
+    from robust_e2e_gan_torch.convert import init_lm_params
+    from robust_e2e_gan_torch.models.lm import RNNLM
+    from robust_e2e_gan_torch.ops.fbank_fused import fbank_fused_plain
+    from robust_e2e_gan_torch.ops.lm_step import lm_step_plain
+
+    base = tiny_config()
+    jcfg = dataclasses.replace(base, e2e=dataclasses.replace(
+        base.e2e,
+        frontend=dataclasses.replace(base.e2e.frontend, fused=True),
+        encoder=dataclasses.replace(base.e2e.encoder, lstm_impl="auto")))
+    lmcfg = LMConfig(vocab_size=12, embed_dim=16, hidden_dim=24)
+    bcfg = BeamSearchConfig(beam_size=3, ctc_weight=0.3, max_steps=8,
+                            early_exit=False, lm_weight=0.4)
+    params = init_params(jcfg, 7)
+    lm_params = init_lm_params(lmcfg, seed=2)
+    batch = make_batch(3, SyntheticConfig(vocab_size=12, min_tokens=2,
+                                          max_tokens=4),
+                       np.random.default_rng(4))
+    wav, lens = batch["clean_wav"], batch["wav_lengths"]
+    want = jax_make_beam_searcher(
+        JaxRobustE2E(_jax(jcfg)), _jax(jcfg.e2e), _jax(bcfg),
+        use_enhancer=False,
+        lm=jax_lm.RNNLM(jax_lm.LMConfig(**dataclasses.asdict(lmcfg))),
+        lm_params=lm_params)(
+        params, jnp.asarray(wav), jnp.asarray(lens))
+
+    model = build_model(jcfg)
+    model.load_state_dict(from_flax(params))
+    lm = RNNLM(lmcfg)
+    lm.load_state_dict(from_flax(lm_params))
+    calls = (fbank_fused_plain.calls, lm_step_plain.calls)
+    got = make_beam_searcher(model, jcfg.e2e, bcfg, use_enhancer=False,
+                             lm=lm)(torch.from_numpy(wav),
+                                    torch.from_numpy(lens))
+    # one fused frontend call, one LM step per beam step
+    assert (fbank_fused_plain.calls - calls[0],
+            lm_step_plain.calls - calls[1]) == (1, bcfg.max_steps)
+    np.testing.assert_array_equal(got.beam_tokens.numpy(),
+                                  np.asarray(want.beam_tokens))
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+    np.testing.assert_allclose(got.beam_scores.numpy(),
+                               np.asarray(want.beam_scores), rtol=1e-4)

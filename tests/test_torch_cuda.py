@@ -221,3 +221,78 @@ def test_cuda_blstm_under_autograd_passes_gradients_upstream(dev):
     assert blstm_train.blstm_train.launches > launches
     for p in (model.enhancer.blstm0.wx, model.asr.encoder.vgg.conv0_1.kernel):
         assert p.grad is not None and p.grad.abs().sum().item() > 0
+
+
+def test_fbank_fused_kernels_match_plain(dev):
+    """Forward (features, masks, exact-zero pad frames, an utterance shorter
+    than one frame) and the backward to the waveform, float32 throughout."""
+    from robust_e2e_gan_torch.config import FrontendConfig
+    from robust_e2e_gan_torch.ops import fbank_fused as ff
+
+    cfg = FrontendConfig()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b, n = 4, 16000
+    wav = torch.randn((b, n), generator=gen, device=dev)
+    lens = torch.tensor([n, 9000, 300, 401], dtype=torch.int32, device=dev)
+    launches = ff.fbank_fused.launches
+    got, mask = ff.fbank_fused(wav, cfg, wav_lengths=lens)
+    want, want_mask = ff.fbank_fused_plain(wav, cfg, wav_lengths=lens)
+    torch.cuda.synchronize()
+    assert ff.fbank_fused.launches == launches + 1
+    torch.testing.assert_close(mask, want_mask, rtol=0, atol=0)
+    # float32 DFT and mel sums in another order: ~1e-6 of O(1) features
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert not got[mask == 0].any() and not got[2].any()
+
+    g = torch.randn(got.shape, generator=gen, device=dev)
+    n_valid = ff.valid_frames(wav, cfg, lens)
+    for norm_var in (True, False):
+        d_got = ff.fbank_fused_bwd(wav, n_valid, g, cfg, norm_var)
+        d_want = ff.fbank_fused_bwd_plain(wav, n_valid, g, cfg, norm_var)
+        torch.cuda.synchronize()
+        scale = d_want.abs().max().item()
+        torch.testing.assert_close(d_got / scale, d_want / scale, rtol=1e-4,
+                                   atol=1e-4)
+        assert not d_got[1, 9000:].any() and not d_got[2].any()
+
+    # the autograd form launches the forward and the backward kernels
+    x = wav.clone().requires_grad_()
+    bwd = ff.fbank_fused_bwd.launches
+    feats, _ = ff.fbank_fused_trainable(x, cfg, wav_lengths=lens)
+    (feats * g).sum().backward()
+    torch.cuda.synchronize()
+    assert ff.fbank_fused_bwd.launches == bwd + 1
+    scale = x.grad.abs().max().item()
+    d_want = ff.fbank_fused_bwd_plain(wav, n_valid, g, cfg)
+    torch.testing.assert_close(x.grad / scale, d_want / scale, rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("layers,n,h,e,v", [(1, 9, 24, 16, 200),
+                                             (2, 1024, 256, 128, 52),
+                                             (1, 33, 512, 512, 12)])
+def test_lm_step_kernel_matches_plain(dev, dtype, layers, n, h, e, v):
+    from robust_e2e_gan_torch.ops import lm_step as ls
+
+    gen = torch.Generator(device=dev).manual_seed(h)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    tok = torch.randint(0, v, (n,), generator=gen, device=dev)
+    args = (tok, rnd(v, e),
+            [rnd(e if i == 0 else h, 4 * h, scale=e ** -0.5)
+             for i in range(layers)],
+            [rnd(h, 4 * h, scale=h ** -0.5) for _ in range(layers)],
+            [rnd(4 * h, scale=0.3) for _ in range(layers)],
+            rnd(h, v, scale=h ** -0.5), rnd(v, scale=0.3),
+            rnd(layers, n, h, scale=0.5), rnd(layers, n, h, scale=0.5))
+    launches = ls.lm_step.launches
+    got = ls.lm_step(*args, dtype=dtype)
+    want = ls.lm_step_plain(*args, dtype=dtype)
+    torch.cuda.synchronize()
+    assert ls.lm_step.launches == launches + 1
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g, w, **_tol(dtype, w))

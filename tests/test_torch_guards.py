@@ -1,7 +1,8 @@
 """Guards of the PyTorch port: the parameter mapping covers the JAX tree,
-the configs and synthetic data match the JAX package's, the package
-imports neither JAX nor the JAX package, and chip_smoke.py refuses to run
-without a GPU."""
+the configs, synthetic data and LM label batches match the JAX package's,
+the package imports neither JAX nor the JAX package, the inference-only
+wrappers refuse autograd, the entry points refuse to fall back to the CPU,
+and chip_smoke.py refuses to run without a GPU."""
 
 import dataclasses
 import os
@@ -21,6 +22,7 @@ import torch  # noqa: E402
 import __graft_entry__ as graft  # noqa: E402
 from robust_e2e_gan_tpu import config as jax_config  # noqa: E402
 from robust_e2e_gan_tpu.data import synthetic as jax_synthetic  # noqa: E402
+from robust_e2e_gan_tpu.models import lm as jax_lm  # noqa: E402
 from robust_e2e_gan_tpu.pipeline import RobustE2E as JaxRobustE2E  # noqa: E402
 from robust_e2e_gan_torch import config, configs  # noqa: E402
 from robust_e2e_gan_torch.data import synthetic  # noqa: E402
@@ -53,7 +55,10 @@ LEFT_OUT = {
     "JointConfig": set(),
     "BeamSearchConfig": {"scan_unroll"},
     "TrainConfig": set(),
+    "LMConfig": set(),
 }
+# JAX config classes that live outside robust_e2e_gan_tpu/config.py
+JAX_CLASSES = {"LMConfig": jax_lm.LMConfig}
 
 
 def _jax(cfg):
@@ -140,7 +145,8 @@ def test_configs_match_graft_entry(name):
 def test_config_fields_are_the_jax_fields(name):
     """Every port field is the JAX field of that name with its default;
     every JAX field the port lacks is one it leaves out on purpose."""
-    ours, theirs = getattr(config, name), getattr(jax_config, name)
+    ours = getattr(config, name)
+    theirs = JAX_CLASSES.get(name) or getattr(jax_config, name)
     names = {f.name for f in dataclasses.fields(ours)}
     jax_names = {f.name for f in dataclasses.fields(theirs)}
     assert jax_names - names == LEFT_OUT[name]
@@ -172,8 +178,10 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = [m for m in ('jax', 'jaxlib', 'flax', 'robust_e2e_gan_tpu')\n"
         "       if m in sys.modules]\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 15 else 0)\n"
+        "need = {'robust_e2e_gan_torch.' + m for m in ('models.lm',\n"
+        "        'ops.lm_step', 'ops.fbank_fused', 'train.lm')}\n"
+        "print(len(names), bad, need - set(names))\n"
+        "sys.exit(1 if bad or need - set(names) or len(names) < 19 else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", child], cwd=REPO,
                           capture_output=True, text=True, timeout=120,
@@ -216,7 +224,9 @@ def test_impl_selection():
 def test_inference_wrappers_refuse_autograd():
     """The inference kernel wrappers write fresh tensors that carry no graph;
     under autograd they raise instead of cutting the gradient chain."""
-    from robust_e2e_gan_torch.ops import att, blstm, ctc_prefix
+    from robust_e2e_gan_torch.config import FrontendConfig
+    from robust_e2e_gan_torch.ops import att, blstm, ctc_prefix, fbank_fused
+    from robust_e2e_gan_torch.ops import lm_step
 
     def leaf(*shape):
         return torch.randn(shape).requires_grad_()
@@ -234,9 +244,63 @@ def test_inference_wrappers_refuse_autograd():
             leaf(b, t, v), ints, ints, leaf(b, k, t), leaf(b, k, t), 0, 1),
         "prefix_state": lambda: ctc_prefix.prefix_state(
             leaf(b, t, v), ints, ints, ints, leaf(b, k, t), leaf(b, k, t), 0),
+        "fbank_fused": lambda: fbank_fused.fbank_fused(
+            leaf(b, 800), FrontendConfig(n_mels=8)),
+        "lm_step": lambda: lm_step.lm_step(
+            torch.tensor([0, 2, 1]), leaf(v, 3), [leaf(3, 4 * h)],
+            [leaf(h, 4 * h)], [leaf(4 * h)], leaf(h, v), leaf(v),
+            torch.zeros(1, 3, h), torch.zeros(1, 3, h)),
     }
     for name, call in calls.items():
         with pytest.raises(ValueError, match="inference-only"):
             call()
         with torch.no_grad():
             call()  # the same inputs without autograd run
+
+
+def test_lm_label_batches_match_the_jax_cli(monkeypatch, tmp_path):
+    """``--mode lm --synthetic`` trains on the same (B, max_tokens) label
+    batches as the JAX CLI, epoch after epoch, for the same seed."""
+    from robust_e2e_gan_tpu.train import cli as jax_cli
+    from robust_e2e_gan_tpu.train import lm as jax_train_lm
+    from robust_e2e_gan_torch.train import cli
+
+    argv = ["--mode", "lm", "--synthetic", "--seed", "3", "--batch-size", "4",
+            "--synthetic-utts", "12", "--ckpt-dir", str(tmp_path)]
+    captured = {}
+    monkeypatch.setattr(jax_train_lm, "train_lm",
+                        lambda lmcfg, tcfg, batches, **kw: captured.update(
+                            batches=batches, vocab=lmcfg.vocab_size))
+    jax_cli._lm_main(jax_cli.build_parser().parse_args(argv))
+    batches, vocab = cli._lm_label_batches(cli.build_parser().parse_args(argv))
+    assert vocab == captured["vocab"]
+    for _ in range(2):  # two epochs continue one stream
+        want = list(captured["batches"]())
+        got = list(batches())
+        assert len(got) == len(want) == 3
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape == (4, 10)
+            np.testing.assert_array_equal(g, w)
+
+
+def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch, tmp_path):
+    """Without a card the training entry points raise unless the caller
+    asks for the CPU."""
+    from robust_e2e_gan_torch.config import LMConfig, TrainConfig
+    from robust_e2e_gan_torch.train import cli, loop
+    from robust_e2e_gan_torch.train.lm import load_lm, train_lm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tcfg = TrainConfig(checkpoint_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loop.train(configs.tiny_config(12), tcfg, lambda: iter(()))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_lm(LMConfig(), tcfg, lambda: iter(()))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_lm(str(tmp_path))
+    for mode in ("joint", "lm"):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            cli.main(["--mode", mode, "--synthetic", "--ckpt-dir",
+                      str(tmp_path)])
+    assert not os.listdir(tmp_path)  # refused before writing anything
+    assert loop.resolve_device("cpu") == torch.device("cpu")

@@ -2,7 +2,9 @@
 ``train.cli --synthetic --mode joint`` writes checkpoints and resumes from
 them; a resumed run continues the step count, the optimizer state and the
 random streams (it ends bit-identical to an uninterrupted run); dropout
-and scheduled sampling fire at their rates."""
+and scheduled sampling fire at their rates; ``--mode lm`` trains, resumes
+and reloads the RNNLM; ``--mode asr --fused-frontend`` trains through the
+fused frontend. Every run asks for the CPU (``--device cpu``)."""
 
 import dataclasses
 import json
@@ -23,12 +25,16 @@ from robust_e2e_gan_torch.data.synthetic import (  # noqa: E402
 )
 from robust_e2e_gan_torch.models.decoder import Decoder  # noqa: E402
 from robust_e2e_gan_torch.models.rnn import dropout  # noqa: E402
+from robust_e2e_gan_torch.ops.fbank_fused import fbank_fused_plain  # noqa: E402
+from robust_e2e_gan_torch.pipeline import RobustE2E  # noqa: E402
 from robust_e2e_gan_torch.train import cli, loop  # noqa: E402
+from robust_e2e_gan_torch.train.lm import load_lm  # noqa: E402
 
 TINY = ["--n-mels", "24", "--enc-layers", "1", "--enc-hidden", "32",
         "--enc-proj", "32", "--att-dim", "24", "--dec-hidden", "32",
         "--dec-embed", "16", "--enh-layers", "1", "--enh-hidden", "32",
-        "--batch-size", "2", "--synthetic-utts", "4", "--log-every", "1"]
+        "--batch-size", "2", "--synthetic-utts", "4", "--log-every", "1",
+        "--device", "cpu"]
 
 
 def _latest(ckpt_dir):
@@ -51,13 +57,55 @@ def test_cli_trains_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--mode", "lm", "--synthetic"],
     ["--train-manifest", "train.jsonl"],
     ["--synthetic", "--cmvn", "global"],
-], ids=["lm", "corpus", "global_cmvn"])
+], ids=["corpus", "global_cmvn"])
 def test_cli_refuses_unported_sources(tmp_path, argv):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         cli.main(argv + ["--ckpt-dir", str(tmp_path)])
+
+
+def test_cli_trains_the_lm_resumes_and_reloads(tmp_path):
+    ckpt = str(tmp_path / "lm")
+    argv = ["--mode", "lm", "--synthetic", "--ckpt-dir", ckpt,
+            "--optimizer", "adam", "--lr", "1e-3", *TINY]
+    cli.main(argv + ["--epochs", "1"])
+    assert _latest(ckpt)["step"] == 2
+    cli.main(argv + ["--epochs", "2"])  # resumes: one more epoch
+    assert _latest(ckpt)["step"] == 4
+    with open(os.path.join(ckpt, "config.json")) as f:
+        saved_cfg = json.load(f)
+    assert saved_cfg["mode"] == "lm"
+    assert saved_cfg["lm"]["embed_dim"] == 16
+    assert saved_cfg["lm"]["hidden_dim"] == 32
+
+    lm = load_lm(ckpt, device="cpu")  # "best": the lowest last-step loss
+    with open(os.path.join(ckpt, "checkpoints.json")) as f:
+        best = json.load(f)["best"]
+    saved = torch.load(os.path.join(ckpt, best["path"]), weights_only=True)
+    assert not lm.training
+    assert all(p.dtype == torch.float32 for p in lm.parameters())
+    for k, v in lm.state_dict().items():
+        assert torch.equal(v, saved["lm"][k]), k
+    # the reloaded LM steps on token ids
+    with torch.no_grad():
+        (h, c), logits = lm.step(lm.initial_carry(3),
+                                 torch.tensor([1, 2, 3]))
+    assert logits.shape == (3, 12) and bool(torch.isfinite(logits).all())
+
+
+def test_cli_trains_through_the_fused_frontend(tmp_path, monkeypatch):
+    ckpt = str(tmp_path / "asr")
+    calls = fbank_fused_plain.calls
+    power_calls = []
+    split = RobustE2E.noisy_power
+    monkeypatch.setattr(RobustE2E, "noisy_power", lambda self, *a: (
+        power_calls.append(1), split(self, *a))[1])
+    cli.main(["--mode", "asr", "--fused-frontend", "--synthetic",
+              "--ckpt-dir", ckpt, "--epochs", "1", *TINY])
+    assert _latest(ckpt)["step"] == 2
+    # 2 train steps and a dev batch per epoch, none through the split chain
+    assert fbank_fused_plain.calls - calls == 3 and not power_calls
 
 
 def _loop_run(ckpt_dir, epochs):
