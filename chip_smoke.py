@@ -12,8 +12,9 @@ Phases, each of which exits non-zero on failure:
    checkout (nvcc, sm_90a) and prints the seconds it took;
 3. kernel parity: each kernel's wrapper against its plain PyTorch version
    on the card, at the shapes of the main path (B utterances of ~7 s, beam
-   8, ~694 STFT frames, ~174 encoder frames, vocab 52), in float32 with
-   TF32 off and in bfloat16, with the time of each; then the training
+   8, ~694 STFT frames, ~174 encoder frames, vocab 52; the fused decoder
+   step at the flagship's decoder widths), in float32 with TF32 off and in
+   bfloat16, with the time of each; then the training
    kernels, forward and every gradient, at the train shapes (B=32 ~2.9 s
    utterances: 286 STFT frames, 72 encoder frames; the train CLI's model
    for blstm_train_gx); then the clean-speech kernels: the fused frontend
@@ -52,7 +53,19 @@ Phases, each of which exits non-zero on failure:
     asr --fused-frontend`` and ``train.cli --mode lm`` (3 steps each, the
     LM resumed to a 4th) at the CLI's default model, then both runs
     restored and one batch of 16 decoded without the enhancer with the LM
-    fused.
+    fused;
+12. the serving entry point: ``decode.cli`` on phase 7's experiment (the
+    CLI's default model, float32) over a manifest of 128 .npy utterances
+    of its task, one batch, beam 8, 48 steps without early exit:
+    ``--serving-impls fused`` must launch the fused decoder step 48 times
+    beside the BLSTM and prefix kernels with no plain version;
+    ``--serving-impls xla`` on the same inputs must agree on the best
+    scores;
+13. the fused-step A/B: phase 4's traffic through the fused decoder step
+    and the unfused one, in turns, with one profiled batch of each;
+14. the per-utterance CTC prefix kernel (``prefix_impl="pallas"``) on
+    phase 4's traffic, against the tiled prefix kernels in turns with one
+    profiled batch of each, then an f32 B=16 parity against them.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -64,6 +77,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -88,7 +102,12 @@ from robust_e2e_gan_torch.convert import (
     init_lm_params,
     init_params,
 )
-from robust_e2e_gan_torch.data.synthetic import SyntheticConfig, make_batch
+from robust_e2e_gan_torch.data.synthetic import (
+    SyntheticConfig,
+    make_batch,
+    sample_transcript,
+    synth_utterance,
+)
 from robust_e2e_gan_torch.decode.beam import (
     beam_search_from_encoder,
     make_beam_searcher,
@@ -97,8 +116,11 @@ from robust_e2e_gan_torch.models.encoder import subsampled_frames
 from robust_e2e_gan_torch.models.enhancement import Discriminator
 from robust_e2e_gan_torch.models.layers import mm_f32
 from robust_e2e_gan_torch.models.lm import RNNLM
+from robust_e2e_gan_torch.decode import cli as decode_cli
+from robust_e2e_gan_torch.data.dataset import CharTokenizer
 from robust_e2e_gan_torch.ops import (
     att,
+    att_dec,
     blstm,
     blstm_train,
     ctc,
@@ -170,11 +192,27 @@ KERNELS = {
         wrapper=lm_step.lm_step, plain=lm_step.lm_step_plain,
         source="robust_e2e_gan_torch/csrc/lm_step.cu",
         replaces="robust_e2e_gan_tpu/ops/lm_step_pallas.py:104"),
+    "att_dec_step": dict(
+        wrapper=att_dec.att_dec_step, plain=att_dec.att_dec_step_plain,
+        source="robust_e2e_gan_torch/csrc/att_dec.cu",
+        replaces="robust_e2e_gan_tpu/ops/att_pallas.py:416"),
+    "ctc_prefix_utt": dict(
+        wrapper=ctc_prefix.prefix_psi_utt,
+        plain=ctc_prefix.prefix_psi_recursion_plain,
+        source="robust_e2e_gan_torch/csrc/ctc_prefix_utt.cu",
+        replaces="robust_e2e_gan_tpu/ops/ctc_prefix_pallas.py:110"),
 }
 SERVING = ("blstm_recurrence", "att_loc_step", "ctc_prefix_psi",
            "ctc_prefix_state")
 # the clean-speech serving path: no enhancer, fused frontend, LM fusion
 CLEAN_SERVING = ("fbank_fused", "lm_step") + SERVING
+# the decode CLI with --serving-impls fused: the fused step replaces the
+# attention kernel
+FUSED_SERVING = ("blstm_recurrence", "att_dec_step", "ctc_prefix_psi",
+                 "ctc_prefix_state")
+# the per-utterance prefix search
+UTT_SERVING = ("blstm_recurrence", "att_loc_step", "ctc_prefix_utt",
+               "ctc_prefix_state")
 LM_WEIGHT = 0.3
 # peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W): a
 # bound takes the rate of its operands' type, the tensor cores' for
@@ -219,6 +257,19 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps: int = 50) -> float:
+    """Mean host time of one call of ``fn`` without waiting for the device:
+    what a launch costs the host, and whether the call blocks."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def nbytes(*tensors) -> int:
@@ -459,8 +510,74 @@ def kernel_parity(b: int, t_enh: int, t_enc: int, jcfg, dev) -> dict:
         "ctc_prefix_state", err, cuda_ms(state_kernel, 20),
         cuda_ms(state_plain, 5), 16 * b * BEAM * t_enc,
         nbytes(lpz, tok, last, lens, r_n, r_b, state_kernel()), lpz.dtype)
+
+    # the per-utterance psi kernel: the same function, eos and blank
+    # columns included
+    def utt_kernel():
+        return ctc_prefix.prefix_psi_utt(lpz, last, lens, r_n, r_b, 0, 1)
+
+    err, ok = compare(f"ctc_prefix_utt B={b} K={BEAM} T={t_enc} V={VOCAB}",
+                      [utt_kernel()], [psi_plain()], atol=1e-3)
+    ok_all &= ok
+    res["ctc_prefix_utt"] = entry(
+        "ctc_prefix_utt", err, cuda_ms(utt_kernel, 20), cuda_ms(psi_plain, 5),
+        8 * b * BEAM * VOCAB * t_enc,
+        nbytes(lpz, last, lens, r_n, r_b, utt_kernel()), lpz.dtype)
+    print(f"    host time per call: ctc_prefix_psi {host_us(psi_kernel):.1f} "
+          f"us, ctc_prefix_utt {host_us(utt_kernel):.1f} us")
+
+    # the fused decoder step at the flagship's decoder widths
+    emb_dim = jcfg.e2e.decoder.embed_dim
+    h_dec = jcfg.e2e.decoder.hidden_dim
+    for dt in (f32, bf16):
+        args = dec_step_inputs(gen, b, BEAM, t_enc, acfg, e_dim, emb_dim,
+                               h_dec, VOCAB, dt, dev)
+        got = att_dec.att_dec_step(*args)
+        want = att_dec.att_dec_step_plain(*args)
+        tol = (dict(rtol=1e-4, atol=1e-5) if dt == f32
+               else dict(scale_atol=2e-2))
+        err, ok = compare(f"att_dec_step B={b} K={BEAM} T={t_enc} "
+                          f"EMB={emb_dim} H={h_dec} V={VOCAB} {dt}",
+                          got, want, **tol)
+        ok_all &= ok
+        if dt == bf16:
+            c, a = acfg.conv_channels, acfg.dim
+            n = b * BEAM
+            # the attention as att_loc_step, then per lane the gate products
+            # over [emb | ctx | z], the readout over [z | ctx] and ~10
+            # operations per unit for the cell
+            flops = (n * (t_enc * (2 * c * a + 6 * a + 5) + 2 * t_enc * e_dim)
+                     + n * (2 * (emb_dim + e_dim + h_dec) * 4 * h_dec
+                            + 2 * (h_dec + e_dim) * VOCAB + 10 * h_dec))
+            res["att_dec_step"] = entry(
+                "att_dec_step", err,
+                cuda_ms(lambda: att_dec.att_dec_step(*args), 20),
+                cuda_ms(lambda: att_dec.att_dec_step_plain(*args), 20),
+                flops, nbytes(args[:7], args[8:], got), dt)
+            print("    host time per call: att_dec_step "
+                  f"{host_us(lambda: att_dec.att_dec_step(*args)):.1f} us, "
+                  "att_loc_step "
+                  f"{host_us(lambda: att.att_loc_step(*args[:8])):.1f} us")
     require(ok_all, "a kernel disagrees with its plain version")
     return res
+
+
+def dec_step_inputs(gen, b, k, t, acfg, e, emb_dim, h, v, dtype, dev):
+    """The fused decoder step's arguments: the attention's as att_inputs,
+    token ids, the cell and readout weights at their initialisers' scales
+    in the compute dtype, f32 biases and an f32 state."""
+    def rnd(*shape, scale=1.0, dt=dtype):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dt)
+
+    f32 = torch.float32
+    return (*att_inputs(gen, b, k, t, acfg.conv_channels, acfg.dim, e, dtype,
+                        dev),
+            acfg.sharpening,
+            torch.randint(0, v, (b, k), generator=gen, device=dev),
+            rnd(v, emb_dim), rnd(emb_dim + e, 4 * h, scale=(emb_dim + e) ** -0.5),
+            rnd(h, 4 * h, scale=h ** -0.5), rnd(4 * h, scale=0.1, dt=f32),
+            rnd(h + e, v, scale=(h + e) ** -0.5), rnd(v, scale=0.1, dt=f32),
+            rnd(b, k, h, scale=0.5, dt=f32), rnd(b, k, h, scale=0.5, dt=f32))
 
 
 def train_inputs(gen, b, t, d, h, dtype, dev):
@@ -709,6 +826,9 @@ def clean_kernel_parity(jcfg, dev):
                 n * (2 * (e + (2 * layers - 1) * h) * 4 * h + 2 * h * v
                      + 10 * layers * h),
                 nbytes(args, got), f32)
+            print("    host time per call: lm_step "
+                  f"{host_us(lambda: lm_step.lm_step(*args, dtype=f32)):.1f}"
+                  " us")
     require(ok_all, "a clean-speech kernel disagrees with its plain version")
     return res, bwd_launches
 
@@ -826,7 +946,7 @@ def main_path(b, n_batches, state, dev):
                                    pbcfg)
     print(f"  plain path: {b * 1e3 / p_ms:.2f} utt/s, {p_ms:.1f} ms/batch "
           f"(encode {p_enc:.1f} ms + search {p_search:.1f} ms)")
-    return launches
+    return launches, k_ms
 
 
 def slice_parity(state, dev):
@@ -958,21 +1078,21 @@ def train_path(state_g, state_d, dev):
     return result
 
 
-def cli_path():
-    """Phase 7: the train CLI at its default model, 3 steps and a resume."""
-    with tempfile.TemporaryDirectory() as ckpt:
-        argv = ["--mode", "joint", "--synthetic", "--ckpt-dir", ckpt,
-                "--synthetic-utts", "16", "--batch-size", "16",
-                "--log-every", "1"]
-        reset_counts()
-        t0 = time.perf_counter()
-        train_cli.main(argv + ["--epochs", "3"])
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        train_cli.main(argv + ["--epochs", "4"])
-        torch.cuda.synchronize()
-        with open(os.path.join(ckpt, "checkpoints.json")) as f:
-            latest = json.load(f)["latest"]
+def cli_path(ckpt):
+    """Phase 7: the train CLI at its default model, 3 steps and a resume,
+    into the experiment dir ``ckpt`` (phase 12 decodes it)."""
+    argv = ["--mode", "joint", "--synthetic", "--ckpt-dir", ckpt,
+            "--synthetic-utts", "16", "--batch-size", "16",
+            "--log-every", "1"]
+    reset_counts()
+    t0 = time.perf_counter()
+    train_cli.main(argv + ["--epochs", "3"])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    train_cli.main(argv + ["--epochs", "4"])
+    torch.cuda.synchronize()
+    with open(os.path.join(ckpt, "checkpoints.json")) as f:
+        latest = json.load(f)["latest"]
     launches, plain_calls = counts(("blstm_train", "blstm_train_gx",
                                     "ctc_alpha"))
     print(f"  3 steps + dev evals in {first_s:.1f} s; resumed to step "
@@ -1206,6 +1326,192 @@ def clean_recipe(dev):
             f"a plain version ran in the restored decode: {plain_calls}")
 
 
+# ---------------------------------------------------------------------------
+# phases 12-14: the decode CLI, the fused-step A/B, the per-utterance prefix
+# ---------------------------------------------------------------------------
+
+
+def write_manifest(work, n, synth, seed):
+    """A jsonl manifest of ``n`` noisy .npy utterances of ``synth``'s task
+    from ``seed``, and its tokenizer: characters for ids 3.., so each text
+    encodes back to its token ids (token 2 is written as an unknown
+    character, which encodes to <unk> = 2)."""
+    chars = [chr(ord("a") + i) for i in range(synth.vocab_size - 3)]
+    rng = np.random.default_rng(seed)
+    entries = []
+    for i in range(n):
+        tokens = sample_transcript(synth, rng)
+        _, noisy = synth_utterance(tokens, synth, rng)
+        path = os.path.join(work, f"u{i:03d}.npy")
+        np.save(path, noisy)
+        entries.append({"utt_id": f"u{i:03d}", "noisy": path,
+                        "n_samples": len(noisy),
+                        "text": "".join("?" if t == 2 else chars[t - 3]
+                                        for t in tokens)})
+    manifest = os.path.join(work, "manifest.jsonl")
+    with open(manifest, "w") as f:
+        f.write("\n".join(json.dumps(e) for e in entries) + "\n")
+    return manifest, CharTokenizer(chars)
+
+
+def best_scores(out_dir):
+    """utt id -> the best hypothesis' score, from ``--nbest 1``."""
+    with open(os.path.join(out_dir, "nbest.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return {r["utt_id"]: r["nbest"][0]["score"] for r in rows}
+
+
+def decode_cli_path(ckpt, work):
+    """Phase 12: ``decode.cli`` on phase 7's experiment (the CLI's default
+    model, float32) over 128 utterances of its task in one batch:
+    ``--serving-impls fused``, then ``xla`` on the same inputs."""
+    synth = SyntheticConfig()  # the train CLI's task
+    manifest, tok = write_manifest(work, BATCH, synth, seed=12)
+    tok.save(os.path.join(ckpt, "tokenizer.json"))
+    argv = ["--manifest", manifest, "--ckpt-dir", ckpt, "--batch-size",
+            str(BATCH), "--beam-size", str(BEAM), "--max-steps", str(STEPS),
+            "--no-early-exit", "--nbest", "1"]
+    out, secs, runs = {}, {}, {}
+    for impls in ("fused", "xla"):
+        out[impls] = os.path.join(work, f"decode_{impls}")
+        reset_counts()
+        t0 = time.perf_counter()
+        decode_cli.main(argv + ["--serving-impls", impls, "--out",
+                                out[impls]])
+        torch.cuda.synchronize()
+        secs[impls] = time.perf_counter() - t0
+        runs[impls] = counts(KERNELS)
+        print(f"  --serving-impls {impls}: {secs[impls]:.2f} s wall "
+              f"(restore, one batch of {BATCH}, scoring)")
+    launches, plain_calls = runs["fused"]
+    path = {n: launches[n] for n in FUSED_SERVING}
+    print(f"  fused launches {path}  plain calls {plain_calls}")
+    require(path["att_dec_step"] == STEPS,
+            f"att_dec_step launched {path['att_dec_step']} times, not {STEPS}")
+    require(all(v > 0 for v in path.values()),
+            f"a kernel of the fused path never launched: {path}")
+    require(launches["att_loc_step"] == 0,
+            "the fused step ran beside the attention kernel")
+    require(not any(plain_calls.values()),
+            f"a plain version ran with --serving-impls fused: {plain_calls}")
+    require(not any(runs["xla"][0].values()),
+            f"a kernel launched with --serving-impls xla: {runs['xla'][0]}")
+    got, want = best_scores(out["fused"]), best_scores(out["xla"])
+    require(sorted(got) == sorted(want) and len(got) == BATCH,
+            "the two runs decoded different utterances")
+    rel = max(abs(got[u] - want[u]) / max(abs(want[u]), 1e-6) for u in got)
+    with open(os.path.join(out["fused"], "hyp.txt")) as f:
+        hyp_f = f.read().splitlines()
+    with open(os.path.join(out["xla"], "hyp.txt")) as f:
+        hyp_x = f.read().splitlines()
+    same = sum(a == c for a, c in zip(hyp_f, hyp_x))
+    print(f"  best-score max rel diff fused vs xla {rel:.3e} (limit 1e-3); "
+          f"hyp.txt lines identical {same}/{len(hyp_x)}")
+    require(rel <= 1e-3, "--serving-impls fused and xla disagree on scores")
+    return path
+
+
+def with_step_impl(jcfg, step_impl):
+    return dataclasses.replace(jcfg, e2e=dataclasses.replace(
+        jcfg.e2e, decoder=dataclasses.replace(jcfg.e2e.decoder,
+                                              step_impl=step_impl)))
+
+
+def fused_step_ab(b, n_batches, state, dev, phase4_ms):
+    """Phase 13: phase 4's traffic with the fused decoder step, against the
+    unfused step in turns (unfused, fused, fused, unfused), and one
+    profiled warm batch of each."""
+    bcfg = BeamSearchConfig(beam_size=BEAM, ctc_weight=0.3, max_steps=STEPS,
+                            early_exit=False)
+    base = with_impls(flagship_config(VOCAB), "auto", "auto", "bfloat16")
+    searchers = {}
+    for tag, step_impl in (("unfused step", "auto"), ("fused step", "fused")):
+        cfg = with_step_impl(base, step_impl)
+        searchers[tag] = make_beam_searcher(load(cfg, state, dev), cfg.e2e,
+                                            bcfg)
+    batches = [batch_tensors(b, seed, dev) for seed in range(n_batches)]
+    reset_counts()
+    for wav, lens in batches:
+        check_result(searchers["fused step"](wav, lens), b)
+    launches, plain_calls = counts(FUSED_SERVING)
+    print(f"  fused step, first pass: launches {launches}")
+    require(launches["att_dec_step"] == n_batches * STEPS,
+            f"att_dec_step launched {launches['att_dec_step']} times")
+    require(KERNELS["att_loc_step"]["wrapper"].launches == 0,
+            "the fused step ran beside the attention kernel")
+    require(not any(plain_calls.values()),
+            f"a plain version ran with the fused step: {plain_calls}")
+    in_turns(searchers, batches, b)
+    print(f"  (phase 4's kernel path: {b * 1e3 / phase4_ms:.2f} utt/s, "
+          f"{phase4_ms:.1f} ms/batch)")
+    return launches
+
+
+def in_turns(searchers, batches, b):
+    """Warm ms per batch of two searchers timed in turns (A, B, B, A over
+    the batches), and one profiled warm batch of each: its device time,
+    busy share and launches."""
+    a, c = searchers
+    ms = {a: [], c: []}
+    for tag in (a, c, c, a):
+        ms[tag] += [timed(lambda: searchers[tag](w, n))[1]
+                    for w, n in batches]
+    for tag in (a, c):
+        mean_ms = mean(ms[tag])
+        wav, lens = batches[0]
+        _, wall_ms = timed(lambda: searchers[tag](wav, lens))
+        busy_ms, n_launch, _ = device_profile(
+            lambda: searchers[tag](wav, lens), 6)
+        print(f"  {tag}: {b * 1e3 / mean_ms:.2f} utt/s, "
+              f"{mean_ms:.1f} ms/batch (mean of {len(ms[tag])} warm "
+              f"batches, in turns); profiled batch: device kernels "
+              f"{busy_ms:.1f} ms of an unprofiled {wall_ms:.1f} ms (busy "
+              f"share {busy_ms / wall_ms:.3f}), {n_launch} launches")
+
+
+def utt_prefix_path(b, n_batches, state, dev):
+    """Phase 14: phase 4's traffic with ``prefix_impl="pallas"``, against
+    the tiled prefix kernels in turns, then an f32 B=16 parity against
+    them."""
+    bcfg = BeamSearchConfig(beam_size=BEAM, ctc_weight=0.3, max_steps=STEPS,
+                            early_exit=False, prefix_impl="pallas")
+    kcfg = with_impls(flagship_config(VOCAB), "auto", "auto", "bfloat16")
+    model = load(kcfg, state, dev)
+    searchers = {
+        f"{p} prefix": make_beam_searcher(
+            model, kcfg.e2e, dataclasses.replace(bcfg, prefix_impl=p))
+        for p in ("tiled", "pallas")}
+    batches = [batch_tensors(b, seed, dev) for seed in range(n_batches)]
+    reset_counts()
+    for wav, lens in batches:
+        check_result(searchers["pallas prefix"](wav, lens), b)
+    launches, plain_calls = counts(UTT_SERVING)
+    print(f"  launches {launches}  plain calls {plain_calls}")
+    require(launches["ctc_prefix_utt"] == n_batches * STEPS,
+            f"ctc_prefix_utt launched {launches['ctc_prefix_utt']} times")
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel of the per-utterance path never launched: {launches}")
+    require(KERNELS["ctc_prefix_psi"]["wrapper"].launches == 0,
+            "the tiled psi kernel ran on the per-utterance path")
+    require(not any(plain_calls.values()),
+            f"a plain version ran on the per-utterance path: {plain_calls}")
+    in_turns(searchers, batches, b)
+
+    wav, lens = batch_tensors(16, 100, dev)
+    cfg = with_impls(flagship_config(VOCAB), "auto", "auto", "float32")
+    model = load(cfg, state, dev)
+    out = {p: make_beam_searcher(model, cfg.e2e, dataclasses.replace(
+        bcfg, prefix_impl=p))(wav, lens) for p in ("pallas", "tiled")}
+    u, t = out["pallas"], out["tiled"]
+    check_result(u, 16)
+    rel = ((u.scores - t.scores).abs() / t.scores.abs().clamp_min(1e-6)).max()
+    same = sum(bool(torch.equal(a, c)) for a, c in zip(u.tokens, t.tokens))
+    print(f"  float32 B=16 pallas vs tiled: best-score max rel diff "
+          f"{rel.item():.3e} (limit 1e-3); token-identical {same}/16")
+    require(rel.item() <= 1e-3, "the per-utterance and tiled paths disagree")
+    return launches
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -1247,7 +1553,7 @@ def main() -> int:
     # 4. main path
     state = from_flax(init_params(jcfg, seed=0))
     print("main path (flagship, bfloat16 compute, beam 8, 48 steps):")
-    launches = main_path(BATCH, N_BATCHES, state, dev)
+    launches, phase4_ms = main_path(BATCH, N_BATCHES, state, dev)
 
     # 5. slice parity
     print("slice parity (kernel path vs plain path):")
@@ -1257,10 +1563,34 @@ def main() -> int:
     state_d = from_flax(init_disc_params(jcfg.discriminator, seed=1))
     print("train step (flagship, bfloat16 compute, joint D/G, Adadelta):")
     train_launches = train_path(state, state_d, dev)
+    launches.update({n: train_launches[n] for n in ("blstm_train",
+                                                     "ctc_alpha")})
+    # no path runs the backward of the fused frontend: phase 3's launches
+    launches["fbank_fused_bwd"] = bwd_launches
 
+    # 7-14, in a scratch dir: phase 12 decodes phase 7's experiment
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        launches.update(later_phases(state, state_d, dev, work, phase4_ms))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    kernels = [
+        dict(name=n, route="cuda", source=k["source"],
+             replaces=k["replaces"], launches=launches[n], **timings[n])
+        for n, k in KERNELS.items()
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def later_phases(state, state_d, dev, work, phase4_ms) -> dict:
+    """Phases 7-14; returns the launches of the kernels they hold."""
     # 7. entry point
     print("train CLI (--mode joint --synthetic, default model, float32):")
-    cli_launches = cli_path()
+    ckpt = os.path.join(work, "joint")
+    cli_launches = cli_path(ckpt)
 
     # 8. train-slice parity
     print("train-slice parity (float32 B=16, kernel vs plain step):")
@@ -1280,22 +1610,25 @@ def main() -> int:
           "--mode lm, restore, decode with LM fusion):")
     clean_recipe(dev)
 
-    launches.update({n: train_launches[n] for n in ("blstm_train",
-                                                     "ctc_alpha")})
-    launches["blstm_train_gx"] = cli_launches["blstm_train_gx"]
-    launches.update({n: clean_launches[n] for n in ("fbank_fused",
-                                                     "lm_step")})
-    # no path runs the backward of the fused frontend: phase 3's launches
-    launches["fbank_fused_bwd"] = bwd_launches
-    kernels = [
-        dict(name=n, route="cuda", source=k["source"],
-             replaces=k["replaces"], launches=launches[n], **timings[n])
-        for n, k in KERNELS.items()
-    ]
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
-    return 0
+    # 12. the decode CLI
+    print("decode CLI (phase 7's experiment, --serving-impls fused vs xla, "
+          f"B={BATCH}, beam {BEAM}, {STEPS} steps, no early exit):")
+    dec_launches = decode_cli_path(ckpt, work)
+
+    # 13. the fused-step A/B
+    print("fused decoder step A/B (phase 4's traffic, bfloat16):")
+    fused_step_ab(BATCH, N_BATCHES, state, dev, phase4_ms)
+
+    # 14. the per-utterance prefix search
+    print("per-utterance CTC prefix search (phase 4's traffic, "
+          "prefix_impl=pallas):")
+    utt_launches = utt_prefix_path(BATCH, N_BATCHES, state, dev)
+
+    return {"blstm_train_gx": cli_launches["blstm_train_gx"],
+            "fbank_fused": clean_launches["fbank_fused"],
+            "lm_step": clean_launches["lm_step"],
+            "att_dec_step": dec_launches["att_dec_step"],
+            "ctc_prefix_utt": utt_launches["ctc_prefix_utt"]}
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
-"""robust_e2e_gan_torch: the serving decode of robust_e2e_gan_tpu, in PyTorch.
+"""robust_e2e_gan_torch: robust_e2e_gan_tpu in PyTorch.
 
 The port runs waveform -> enhancer -> fbank -> VGG/BLSTMP encoder -> joint
-CTC/attention beam search on an NVIDIA Hopper card, through four CUDA
-kernels written by hand for ``sm_90a`` (``csrc/``). Every kernel has a plain
+CTC/attention beam search, its decode CLI, and the training of the models,
+on an NVIDIA Hopper card, through CUDA kernels written by hand for
+``sm_90a`` (``csrc/``). Every kernel has a plain
 PyTorch version beside it; a wrapper given a CPU tensor runs that version,
 so the whole path also runs on the CPU, where the tests hold it against the
 JAX package.

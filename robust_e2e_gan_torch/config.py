@@ -4,11 +4,13 @@ Counterpart of ``robust_e2e_gan_tpu/config.py``: the serving and training
 fields. Names, defaults and meanings are the JAX package's, so
 ``from_dict(JointConfig, dataclasses.asdict(jax_config))`` carries a JAX
 configuration over; the fields left out (remat, scan unrolls, gate
-storage, the fused decoder step) are XLA scheduling knobs that do not
-change what is computed. ``AttentionConfig.variant`` is kept so that the
-variants the port does not have yet raise. The kernel-impl fields take the
-JAX values; ``utils/impl.py`` says what each selects. ``LMConfig`` is the
-JAX package's ``models/lm.py::LMConfig``.
+storage) are XLA scheduling knobs that do not change what is computed.
+``DecoderConfig.step_impl`` is kept: the fused decoder step it selects
+rounds where the unfused step does not in bfloat16, and runs one launch
+where the unfused step runs several. ``AttentionConfig.variant`` is kept
+so that the variants the port does not have yet raise. The kernel-impl
+fields take the JAX values; ``utils/impl.py`` says what each selects.
+``LMConfig`` is the JAX package's ``models/lm.py::LMConfig``.
 """
 
 from __future__ import annotations
@@ -83,6 +85,11 @@ class DecoderConfig:
     dropout_rate: float = 0.0
     label_smoothing: float = 0.0
     sampling_probability: float = 0.0  # scheduled sampling
+    # beam-mode step: "fused" runs attention, embedding, cell and readout in
+    # one kernel (ops/att_dec.py; one layer, location attention, a kernel
+    # score_impl); "auto" and "xla" run the unfused step, as in the JAX
+    # package, where "auto" resolves to the unfused step by a TPU A/B
+    step_impl: str = "auto"
 
 
 @dataclass(frozen=True)
@@ -154,7 +161,8 @@ class BeamSearchConfig:
     maxlen_ratio: float = 0.0
     minlen_ratio: float = 0.0
     length_normalize: bool = False  # normalize final scores by length
-    # CTC prefix recursion: twopass (plain) | auto, tiled (kernels)
+    # CTC prefix recursion: twopass (plain) | auto, tiled (the tiled
+    # kernels) | pallas (the per-utterance psi kernel)
     prefix_impl: str = "auto"
     # stop once every hypothesis has ended: one host sync per step
     early_exit: bool = True

@@ -32,4 +32,18 @@ __device__ __forceinline__ float logaddexp(float a, float b) {
 
 constexpr float LOG_ZERO = -1e10f;
 
+// Lets Kernel take `bytes` of dynamic shared memory. The attribute is set
+// only past the 48 KB every kernel may take and only when it grows, once
+// per kernel and process, not on every launch: kernels launched once per
+// beam step call this each time.
+template <auto Kernel>
+cudaError_t reserve_smem(size_t bytes) {
+  static size_t reserved = 48 * 1024;
+  if (bytes <= reserved) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) reserved = bytes;
+  return err;
+}
+
 }  // namespace rg

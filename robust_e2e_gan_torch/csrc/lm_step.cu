@@ -168,8 +168,7 @@ cudaError_t launch_kernel(const int* tok, const W* emb, const W* wx0, const W* w
   const int ks = max(1, min(4, 1024 / H));
   const size_t smem =
       (size_t)(ROWS * (max(E, H) + H) + (ks - 1) * ROWS * 4 * H) * sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(
-      lm_step_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err = rg::reserve_smem<lm_step_kernel<W>>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + ROWS - 1) / ROWS);
   lm_step_kernel<W><<<grid, ks * H, smem, stream>>>(tok, emb, wx0, wxs, whs, bias, wout, bout,

@@ -12,8 +12,12 @@ With ``early_exit=False`` the loop runs ``max_steps`` steps and the host
 never waits for the device inside it; ``early_exit=True`` reads
 ``finished.all()`` on the host once per step. RNNLM shallow fusion adds
 ``lm_weight * log p_LM`` to every candidate when an LM is given and
-``lm_weight`` is not 0. The scan, parallel and per-utterance Pallas prefix
-forms and the pipelined searchers are not ported.
+``lm_weight`` is not 0. The CTC prefix scores take the tiled kernels
+(``prefix_impl`` "auto" or "tiled"), the per-utterance psi kernel with the
+tiled state kernel ("pallas": the state kernel computes the
+``prefix_state_for_token`` that JAX pairs with it), or the plain versions
+("twopass"). The scan and parallel prefix forms and the pipelined
+searchers are not ported.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from robust_e2e_gan_torch.config import BeamSearchConfig, E2EConfig
 from robust_e2e_gan_torch.ops.ctc_prefix import (
     prefix_psi,
     prefix_psi_plain,
+    prefix_psi_utt,
     prefix_state,
     prefix_state_plain,
 )
@@ -84,11 +89,13 @@ def beam_search_from_encoder(
       shallow fusion (score += lm_weight * log p_LM); the carry is permuted
       with the surviving parents like the decoder's.
     """
-    if bcfg.prefix_impl not in ("auto", "tiled", "twopass"):
+    if bcfg.prefix_impl not in ("auto", "tiled", "pallas", "twopass"):
         raise NotImplementedError(
             f"prefix_impl={bcfg.prefix_impl!r} is not ported; use auto, "
-            "tiled (the kernels) or twopass (the plain version)")
-    if kernel_enabled(bcfg.prefix_impl):
+            "tiled, pallas (the kernels) or twopass (the plain version)")
+    if bcfg.prefix_impl == "pallas":
+        psi_fn, state_fn = prefix_psi_utt, prefix_state
+    elif kernel_enabled(bcfg.prefix_impl):
         psi_fn, state_fn = prefix_psi, prefix_state
     else:
         psi_fn, state_fn = prefix_psi_plain, prefix_state_plain

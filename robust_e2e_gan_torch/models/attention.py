@@ -5,7 +5,10 @@ non-beam mode, ``initial_alignment``, ``EncoderProjection``). The location
 conv stays ``F.conv1d`` outside the kernel, as it stays an XLA conv in the
 JAX package. Beam mode with the kernel impl runs the score, softmax and
 context through ``ops/att.py``; non-beam mode (training, streaming) always
-runs the plain form. AttAdd and AttDot are not ported yet.
+runs the plain form. Given a step pack in beam mode, the kernel impl runs
+the whole decoder step through ``ops/att_dec.py`` instead and returns its
+4-tuple, as the JAX AttLoc does (``models/attention.py:127-162``). AttAdd
+and AttDot are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from torch import nn
 from robust_e2e_gan_torch.config import AttentionConfig
 from robust_e2e_gan_torch.models.layers import Conv1d, Dense
 from robust_e2e_gan_torch.ops.att import att_loc_step, att_loc_step_plain
+from robust_e2e_gan_torch.ops.att_dec import att_dec_step
 from robust_e2e_gan_torch.utils.impl import kernel_enabled
 
 
@@ -45,8 +49,12 @@ class AttLoc(nn.Module):
         self.mlp_dec = Dense(dec_dim, cfg.dim, bias=False, dtype=dtype)
         self.gvec = Dense(cfg.dim, 1, bias=False, dtype=dtype)
 
-    def forward(self, enc, enc_proj, mask, dec_z, att_prev
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, enc, enc_proj, mask, dec_z, att_prev, step_pack=None
+                ) -> Tuple[torch.Tensor, ...]:
+        """``step_pack`` (beam mode, kernel impl only): the decoder-step
+        tensors (tok, emb_table, cell_wx, cell_wh, cell_bias, out_w, out_b,
+        z_prev, c_prev); then the whole step runs in one kernel and the
+        result is (logits, att, z_new, c_new), all float32."""
         beam = dec_z.dim() == 3
         if not beam:  # one hypothesis per utterance: K = 1
             dec_z, att_prev = dec_z[:, None], att_prev[:, None]
@@ -56,12 +64,18 @@ class AttLoc(nn.Module):
         feat = self.loc_conv(att_prev.reshape(b * k, 1, t))
         feat = feat.transpose(1, 2).reshape(b, k, t, -1)
         dec = self.mlp_dec(dec_z)
+        args = (feat, enc_proj.to(dt), enc.to(dt), dec,
+                self.mlp_loc.kernel.to(dt), self.gvec.kernel[:, 0].to(dt),
+                mask, self.cfg.sharpening)
+        if step_pack is not None and beam and self.use_kernel:
+            sp = step_pack
+            return att_dec_step(
+                *args, sp["tok"], sp["emb_table"].to(dt),
+                sp["cell_wx"].to(dt), sp["cell_wh"].to(dt), sp["cell_bias"],
+                sp["out_w"].to(dt), sp["out_b"], sp["z_prev"], sp["c_prev"])
         step = (att_loc_step if beam and self.use_kernel
                 else att_loc_step_plain)
-        ctx, att = step(feat, enc_proj.to(dt), enc.to(dt), dec,
-                        self.mlp_loc.kernel.to(dt),
-                        self.gvec.kernel[:, 0].to(dt), mask,
-                        self.cfg.sharpening)
+        ctx, att = step(*args)
         ctx, att = ctx.to(enc.dtype), att.to(att_prev.dtype)
         return (ctx, att) if beam else (ctx[:, 0], att[:, 0])
 

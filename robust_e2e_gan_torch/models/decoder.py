@@ -5,9 +5,11 @@ Port of ``robust_e2e_gan_tpu/models/decoder.py``: ``DecoderStep``'s beam
 and non-beam steps; ``Decoder``'s teacher-forced loop over ``ys_in`` (the
 JAX ``nn.scan``, here a Python loop over the same step), with scheduled
 sampling, ``initial_carry``, ``project_encoder`` and ``step``; and
-``decoder_cross_entropy``. The fused full-step kernel is not ported yet.
-flax's ``DenseIO`` readout is a ``Dense`` here (same parameters and
-rounding points). The carry is (h (L, N, H) f32, c (L, N, H) f32, att (N, T),
+``decoder_cross_entropy``. With ``DecoderConfig.step_impl="fused"`` the
+beam step hands the attention a step pack and runs attention, embedding,
+cell and readout in one kernel (``ops/att_dec.py``). flax's ``DenseIO``
+readout is a ``Dense`` here (same parameters and rounding points). The
+carry is (h (L, N, H) f32, c (L, N, H) f32, att (N, T),
 prev_pred (N,) int32), as in the JAX package. ``DecoderConfig.dropout_rate``
 is read nowhere in the JAX decoder, so none is applied here either.
 """
@@ -27,6 +29,7 @@ from robust_e2e_gan_torch.models.attention import (
 )
 from robust_e2e_gan_torch.models.layers import Dense, Embed
 from robust_e2e_gan_torch.models.rnn import LSTMCell
+from robust_e2e_gan_torch.utils.impl import kernel_enabled
 
 
 class DecoderStep(nn.Module):
@@ -37,6 +40,13 @@ class DecoderStep(nn.Module):
                  enc_dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_layers = dcfg.num_layers
+        self.dtype = dtype
+        kernel_enabled(dcfg.step_impl)  # unknown values raise
+        # the JAX gate (models/decoder.py:160-178): "fused" alone selects
+        # the fused step, and only for its structure; the attention takes
+        # it only with a kernel score_impl
+        self.fused_step = (dcfg.step_impl == "fused" and dcfg.num_layers == 1
+                           and acfg.variant == "location")
         h = dcfg.hidden_dim
         self.embed = Embed(dcfg.vocab_size, dcfg.embed_dim, dtype)
         d = dcfg.embed_dim + enc_dim
@@ -53,9 +63,29 @@ class DecoderStep(nn.Module):
         if n != b:
             # beam search: N = B*K hypothesis lanes share the B encoder rows
             k = n // b
-            ctx, att = self.att(enc, enc_proj, enc_mask,
-                                h_prev[-1].reshape(b, k, -1),
-                                att_prev.reshape(b, k, -1))
+            step_pack = None
+            if self.fused_step:
+                step_pack = {
+                    "tok": torch.clamp_min(tok, 0).reshape(b, k),
+                    "emb_table": self.embed.embedding,
+                    "cell_wx": self.lstm0.wx, "cell_wh": self.lstm0.wh,
+                    "cell_bias": self.lstm0.bias,
+                    "out_w": self.output.kernel, "out_b": self.output.bias,
+                    "z_prev": h_prev[-1].reshape(b, k, -1),
+                    "c_prev": c_prev[-1].reshape(b, k, -1),
+                }
+            res = self.att(enc, enc_proj, enc_mask,
+                           h_prev[-1].reshape(b, k, -1),
+                           att_prev.reshape(b, k, -1), step_pack=step_pack)
+            if len(res) == 4:
+                logits, att, z_new, c_new = res
+                # the readout's rounding point in the compute dtype, as JAX
+                logits = logits.reshape(n, -1).to(self.dtype)
+                att = att.reshape(n, -1).to(att_prev.dtype)
+                new_pred = torch.argmax(logits, dim=-1).to(torch.int32)
+                return ((z_new.reshape(1, n, -1), c_new.reshape(1, n, -1),
+                         att, new_pred), (logits, att))
+            ctx, att = res
             ctx, att = ctx.reshape(n, -1), att.reshape(n, -1)
         else:
             ctx, att = self.att(enc, enc_proj, enc_mask, h_prev[-1], att_prev)

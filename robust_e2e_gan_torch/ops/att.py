@@ -30,13 +30,21 @@ def att_loc_step_plain(feat, enc_proj, enc, dec, wloc, g, mask,
     are in the compute dtype; the score, softmax and context are float32.
     """
     att_loc_step_plain.calls += 1
+    return location_attention(feat, enc_proj, enc, dec, wloc, g, mask,
+                              sharpening)
+
+
+att_loc_step_plain.calls = 0
+
+
+def location_attention(feat, enc_proj, enc, dec, wloc, g, mask,
+                       sharpening: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The arithmetic of ``att_loc_step_plain``, uncounted: the plain
+    version of ``ops/att_dec.py`` runs it too."""
     loc = feat @ wloc  # (B, K, T, A)
     pre = enc_proj[:, None] + loc + dec[:, :, None, :]
     e = (torch.tanh(pre).float() * g.float()).sum(dim=-1)
     return finish(e, mask[:, None, :], enc, sharpening)
-
-
-att_loc_step_plain.calls = 0
 
 
 def finish(e: torch.Tensor, m: torch.Tensor, enc: torch.Tensor,

@@ -1,11 +1,12 @@
 """CTC prefix scores of the beam search: kernel wrappers and plain versions.
 
 Counterparts of ``robust_e2e_gan_tpu/ops/ctc_prefix_tiled.py``
-(``prefix_psi_tiled``, ``prefix_state_tiled``), same contracts. The plain
-versions are the JAX package's twopass forms,
+(``prefix_psi_tiled``, ``prefix_state_tiled``) and of
+``ops/ctc_prefix_pallas.py::prefix_scores_psi_pallas`` (``prefix_psi_utt``),
+same contracts. The plain versions are the JAX package's twopass forms,
 ``decode/beam.py::batched_prefix_psi`` and ``prefix_state_for_token``,
-with the frame loop written out. The kernels are ``csrc/ctc_prefix.cu``.
-Everything is float32.
+with the frame loop written out. The kernels are ``csrc/ctc_prefix.cu``
+and ``csrc/ctc_prefix_utt.cu``. Everything is float32.
 """
 
 from __future__ import annotations
@@ -15,9 +16,15 @@ from typing import Tuple
 import torch
 
 from robust_e2e_gan_torch.utils.build import launch
-from robust_e2e_gan_torch.utils.impl import check, check_no_grad, on_cuda
+from robust_e2e_gan_torch.utils.impl import (
+    SMEM_LIMIT,
+    check,
+    check_no_grad,
+    on_cuda,
+)
 
 LOG_ZERO = -1e10
+UTT_THREADS = 1024  # one thread per (k, v) lane in ctc_prefix_utt's block
 
 
 def _phi_prev(r_n, r_b, is_last, lengths):
@@ -142,6 +149,44 @@ def prefix_psi(lpz, last_tok, lengths, r_n, r_b, blank: int,
 
 
 prefix_psi.launches = 0
+
+
+def prefix_psi_utt(lpz, last_tok, lengths, r_n, r_b, blank: int,
+                   eos: int) -> torch.Tensor:
+    """The per-utterance kernel's wrapper: the contract of
+    ``robust_e2e_gan_tpu/ops/ctc_prefix_pallas.py::prefix_scores_psi_pallas``,
+    which is ``prefix_psi``'s, so its plain version is ``prefix_psi_plain``.
+
+    CPU tensors run the plain version; CUDA tensors launch
+    ``csrc/ctc_prefix_utt.cu`` (one block per utterance, the eos and blank
+    columns set in the kernel) or raise.
+    """
+    check_no_grad("prefix_psi_utt", lpz, r_n, r_b)
+    if not on_cuda(lpz, last_tok, lengths, r_n, r_b):
+        return prefix_psi_plain(lpz, last_tok, lengths, r_n, r_b, blank, eos)
+    b, k, t, v = _check_common(lpz, r_n, r_b,
+                               {"last_tok": last_tok, "lengths": lengths})
+    check(k * v <= UTT_THREADS,
+          f"K*V={k * v} lanes, more than a block's {UTT_THREADS} threads")
+    need = 4 * (t * v + 2 * k * t)
+    check(need <= SMEM_LIMIT,
+          f"T={t}, V={v}, K={k} stage {need} bytes, more than a block's "
+          f"{SMEM_LIMIT} of shared memory")
+    lpz, r_n, r_b = lpz.contiguous(), r_n.contiguous(), r_b.contiguous()
+    last_tok = last_tok.to(torch.int32).contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
+    psi = torch.empty((b, k, v), dtype=torch.float32, device=lpz.device)
+    launch(
+        "ctc_prefix_utt", lpz.data_ptr(), last_tok.data_ptr(),
+        lengths.data_ptr(), r_n.data_ptr(), r_b.data_ptr(), psi.data_ptr(),
+        b, k, t, v, blank, eos,
+        torch.cuda.current_stream(lpz.device).cuda_stream,
+    )
+    prefix_psi_utt.launches += 1
+    return psi
+
+
+prefix_psi_utt.launches = 0
 
 
 def prefix_state(lpz, tok, last_tok, lengths, r_n, r_b,

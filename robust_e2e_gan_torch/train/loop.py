@@ -32,14 +32,14 @@ BATCH_KEYS = ("noisy_wav", "clean_wav", "wav_lengths", "labels")
 
 def resolve_device(device: Union[str, torch.device, None] = "cuda"
                    ) -> torch.device:
-    """The training device: the GPU unless the caller asks for the CPU.
-    Raises when a CUDA device is asked for and none is present; nothing
-    falls back to the CPU."""
+    """The device of training and decoding: the GPU unless the caller
+    asks for the CPU. Raises when a CUDA device is asked for and none is
+    present; nothing falls back to the CPU."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "no CUDA device: the port trains on the GPU; pass device='cpu' "
-            "(train.cli --device cpu) to train on the CPU")
+            "no CUDA device: the port runs on the GPU; pass device='cpu' "
+            "(train.cli or decode.cli --device cpu) to run on the CPU")
     return device
 
 

@@ -74,6 +74,12 @@ SIGNATURES = {
     # tok, emb, wx0, wxs, whs, bias, wout, bout, h_in, c_in, h_out, c_out,
     # logits, N, V, E, H, L, bf16, stream
     "lm_step": [_P] * 13 + [_I] * 6 + [_P],
+    # feat, enc_proj, enc, dec, wloc, g, mask, tok, emb, wx, wh, bias, wout,
+    # bout, z_in, c_in, logits, att, z_out, c_out, B, K, T, C, A, E, V, EMB,
+    # H, sharpening, bf16, stream
+    "att_dec_step": [_P] * 20 + [_I] * 9 + [_F, _I, _P],
+    # lpz, last_tok, lengths, r_n, r_b, psi, B, K, T, V, blank, eos, stream
+    "ctc_prefix_utt": [_P] * 6 + [_I] * 6 + [_P],
 }
 
 

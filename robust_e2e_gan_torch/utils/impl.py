@@ -13,13 +13,21 @@ of the tensors instead, inside each kernel's wrapper:
   (``check_no_grad``), since their outputs carry no graph;
 * the plain values ("scan", "xla", "twopass") call the plain PyTorch
   version directly, on any device.
+
+``BeamSearchConfig.prefix_impl`` takes "pallas" as a kernel value: the
+per-utterance prefix kernel (``ops/ctc_prefix.py::prefix_psi_utt``), where
+"auto" and "tiled" take the tiled one. ``DecoderConfig.step_impl`` has a
+rule of its own, the JAX package's: only "fused" selects the fused
+decoder step (``ops/att_dec.py``), and only with one decoder layer, the
+location attention and a kernel ``score_impl``; "auto" and "xla" select
+the unfused step (the attention wrapper, then the plain cell and readout).
 """
 
 from __future__ import annotations
 
 import torch
 
-_KERNEL = ("auto", "fused", "tiled")
+_KERNEL = ("auto", "fused", "tiled", "pallas")
 _PLAIN = ("xla", "scan", "twopass")
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use (sm_90)
 

@@ -126,3 +126,37 @@ def test_clean_speech_lm_fusion_slice_matches_jax():
     np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
     np.testing.assert_allclose(got.beam_scores.numpy(),
                                np.asarray(want.beam_scores), rtol=1e-4)
+
+
+def test_per_utterance_prefix_search_matches_jax():
+    """``prefix_impl="pallas"``: the per-utterance psi and the state of the
+    chosen extensions, against the JAX searcher with the same config (its
+    Pallas kernel in interpret mode)."""
+    from robust_e2e_gan_torch.ops import ctc_prefix
+
+    bcfg = BeamSearchConfig(beam_size=3, ctc_weight=0.5, max_steps=8,
+                            early_exit=False, prefix_impl="pallas")
+    jcfg = tiny_config()
+    params = init_params(jcfg, 5)
+    batch = make_batch(3, SyntheticConfig(vocab_size=12, min_tokens=2,
+                                          max_tokens=4),
+                       np.random.default_rng(6))
+    wav, lens = batch["noisy_wav"], batch["wav_lengths"]
+    want = jax_make_beam_searcher(JaxRobustE2E(_jax(jcfg)), _jax(jcfg.e2e),
+                                  _jax(bcfg), use_enhancer=True)(
+        params, jnp.asarray(wav), jnp.asarray(lens))
+    model = build_model(jcfg)
+    model.load_state_dict(from_flax(params))
+    calls = (ctc_prefix.prefix_psi_recursion_plain.calls,
+             ctc_prefix.prefix_state_plain.calls)
+    got = make_beam_searcher(model, jcfg.e2e, bcfg, use_enhancer=True)(
+        torch.from_numpy(wav), torch.from_numpy(lens))
+    # psi and the chosen extensions' state once per step
+    assert (ctc_prefix.prefix_psi_recursion_plain.calls - calls[0],
+            ctc_prefix.prefix_state_plain.calls - calls[1]) == (8, 8)
+    np.testing.assert_array_equal(got.beam_tokens.numpy(),
+                                  np.asarray(want.beam_tokens))
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+    np.testing.assert_allclose(got.beam_scores.numpy(),
+                               np.asarray(want.beam_scores), rtol=1e-4,
+                               atol=1e-3)

@@ -1,6 +1,6 @@
 """The port's CTC prefix scoring against the JAX package: the twopass XLA
-forms (``batched_prefix_psi``, ``prefix_state_for_token``) and the tiled
-Pallas kernels (interpret mode)."""
+forms (``batched_prefix_psi``, ``prefix_state_for_token``), the tiled
+Pallas kernels and the per-utterance psi kernel (interpret mode)."""
 
 import pytest
 
@@ -14,6 +14,9 @@ import torch  # noqa: E402
 from robust_e2e_gan_tpu.decode.beam import (  # noqa: E402
     batched_prefix_psi,
     prefix_state_for_token,
+)
+from robust_e2e_gan_tpu.ops.ctc_prefix_pallas import (  # noqa: E402
+    prefix_scores_psi_pallas,
 )
 from robust_e2e_gan_tpu.ops.ctc_prefix_tiled import (  # noqa: E402
     prefix_psi_tiled,
@@ -108,3 +111,25 @@ def test_wrappers_take_plain_versions_on_cpu():
              ops.prefix_psi_recursion_plain.calls,
              ops.prefix_state_plain.calls)
     assert after == (before[0], before[1], before[2] + 1, before[3] + 1)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_psi_utt_matches_jax_per_utterance_kernel(seed):
+    """``prefix_psi_utt`` (on the CPU, its plain version
+    ``prefix_psi_plain``) against ``prefix_scores_psi_pallas``, eos and
+    blank columns included."""
+    s = _state(seed, b=3, k=4, t=17, v=9)
+    j = {n: jnp.asarray(a) for n, a in s.items()}
+    want = prefix_scores_psi_pallas(j["lpz"], j["last"], j["lens"], j["r_n"],
+                                    j["r_b"], BLANK, EOS, interpret=True)
+    t_ = {n: torch.from_numpy(np.ascontiguousarray(a)) for n, a in s.items()}
+    before = (ops.prefix_psi_utt.launches,
+              ops.prefix_psi_recursion_plain.calls)
+    got = ops.prefix_psi_utt(t_["lpz"], t_["last"], t_["lens"], t_["r_n"],
+                             t_["r_b"], BLANK, EOS).numpy()
+    assert (ops.prefix_psi_utt.launches,
+            ops.prefix_psi_recursion_plain.calls) == (before[0],
+                                                      before[1] + 1)
+    # the same float32 log-space sums, in the same frame order
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-4)
+    assert (got[..., BLANK] == -1e10).all()

@@ -296,3 +296,124 @@ def test_lm_step_kernel_matches_plain(dev, dtype, layers, n, h, e, v):
     for g, w in zip(got, want):
         assert g.dtype == torch.float32
         torch.testing.assert_close(g, w, **_tol(dtype, w))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("k,h", [(3, 24), (10, 256)])
+def test_att_dec_kernel_matches_plain(dev, dtype, k, h):
+    """The fused decoder step: ragged masks, one and two passes of the
+    cell's 8 lanes, and a plan past the shared memory raising."""
+    from robust_e2e_gan_torch.ops import att_dec
+
+    gen = torch.Generator(device=dev).manual_seed(h)
+    b, t, c, a, e, v, embd = 3, 37, 10, 64, 48, 30, 40
+
+    def rnd(*shape, scale=1.0, dt=dtype):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dt)
+
+    mask = (torch.arange(t, device=dev)[None]
+            < torch.tensor([[t], [5], [0]], device=dev)).to(dtype)
+    f32 = torch.float32
+    args = (rnd(b, k, t, c, scale=0.1), rnd(b, t, a), rnd(b, t, e),
+            rnd(b, k, a), rnd(c, a), rnd(a, scale=0.3), mask, 2.0,
+            torch.randint(0, v, (b, k), generator=gen, device=dev),
+            rnd(v, embd), rnd(embd + e, 4 * h, scale=(embd + e) ** -0.5),
+            rnd(h, 4 * h, scale=h ** -0.5), rnd(4 * h, scale=0.3, dt=f32),
+            rnd(h + e, v, scale=(h + e) ** -0.5), rnd(v, scale=0.3, dt=f32),
+            rnd(b, k, h, scale=0.5, dt=f32), rnd(b, k, h, scale=0.5, dt=f32))
+    launches = att_dec.att_dec_step.launches
+    got = att_dec.att_dec_step(*args)
+    want = att_dec.att_dec_step_plain(*args)
+    torch.cuda.synchronize()
+    assert att_dec.att_dec_step.launches == launches + 1
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        torch.testing.assert_close(g, w, **_tol(dtype, w))
+    assert not got[1][1, :, 5:].any()
+    big = 700  # K lanes whose [emb | ctx] and z rows overflow the block
+    with pytest.raises(ValueError, match="shared memory"):
+        att_dec.att_dec_step(
+            rnd(b, big, t, c), *args[1:3], rnd(b, big, a), *args[4:8],
+            torch.zeros((b, big), dtype=torch.long, device=dev), *args[9:15],
+            rnd(b, big, h, dt=f32), rnd(b, big, h, dt=f32))
+
+
+def test_ctc_prefix_utt_kernel_matches_plain(dev):
+    """The per-utterance psi kernel, eos and blank columns included, over
+    three steps of parents; K*V past a block's threads raises."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    b, k, t, v = 3, 4, 29, 9
+    lpz = torch.log_softmax(
+        torch.randn((b, t, v), generator=gen, device=dev), -1).contiguous()
+    r_b = torch.cumsum(lpz[:, :, 0], 1)[:, None].expand(b, k, t).contiguous()
+    r_n = torch.full((b, k, t), ctc_prefix.LOG_ZERO, device=dev)
+    last = torch.ones((b, k), dtype=torch.int32, device=dev)
+    lens = torch.zeros((b, k), dtype=torch.int32, device=dev)
+    launches = ctc_prefix.prefix_psi_utt.launches
+    for step in range(3):
+        psi = ctc_prefix.prefix_psi_utt(lpz, last, lens, r_n, r_b, 0, 1)
+        want = ctc_prefix.prefix_psi_plain(lpz, last, lens, r_n, r_b, 0, 1)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(psi, want, rtol=0, atol=1e-3)
+        tok = torch.randint(2, v, (b, k), generator=gen, device=dev,
+                            dtype=torch.int32)
+        tok[:, 0] = last[:, 0] if step else tok[:, 0]
+        r_n, r_b = ctc_prefix.prefix_state(lpz, tok, last, lens, r_n, r_b, 0)
+        last, lens = tok, lens + 1
+    assert ctc_prefix.prefix_psi_utt.launches == launches + 3
+    wide = torch.zeros((b, 40), dtype=torch.int32, device=dev)
+    rows = torch.zeros((b, 40, t), device=dev)
+    with pytest.raises(ValueError, match="threads"):
+        ctc_prefix.prefix_psi_utt(torch.zeros((b, t, 30), device=dev), wide,
+                                  wide, rows, rows, 0, 1)
+
+
+def test_decode_cli_on_the_card(dev, tmp_path):
+    """``train.cli`` then ``decode.cli`` on the card at a small model:
+    ``--serving-impls fused`` launches the fused step once per beam step and
+    decodes what ``xla`` (the plain versions) decodes."""
+    import json
+
+    import numpy as np
+
+    from robust_e2e_gan_torch.data.synthetic import (
+        SyntheticConfig,
+        sample_transcript,
+        synth_utterance,
+    )
+    from robust_e2e_gan_torch.decode import cli as decode_cli
+    from robust_e2e_gan_torch.ops import att_dec
+    from robust_e2e_gan_torch.train import cli as train_cli
+
+    ckpt = str(tmp_path / "exp")
+    train_cli.main(["--mode", "joint", "--synthetic", "--ckpt-dir", ckpt,
+                    "--synthetic-utts", "8", "--batch-size", "4",
+                    "--epochs", "1", "--n-mels", "24", "--enc-layers", "1",
+                    "--enc-hidden", "32", "--enc-proj", "32", "--att-dim",
+                    "24", "--dec-hidden", "32", "--dec-embed", "16",
+                    "--enh-layers", "1", "--enh-hidden", "32"])
+    synth = SyntheticConfig()
+    rng = np.random.default_rng(0)
+    entries = []
+    for i in range(6):
+        _, noisy = synth_utterance(sample_transcript(synth, rng), synth, rng)
+        np.save(tmp_path / f"u{i}.npy", noisy)
+        entries.append({"utt_id": f"u{i}", "noisy": f"u{i}.npy",
+                        "n_samples": len(noisy), "text": "ab"})
+    manifest = tmp_path / "m.jsonl"
+    manifest.write_text("\n".join(json.dumps(e) for e in entries))
+    hyps = {}
+    for impls in ("fused", "xla"):
+        out = tmp_path / impls
+        launches = att_dec.att_dec_step.launches
+        decode_cli.main(["--manifest", str(manifest), "--ckpt-dir", ckpt,
+                         "--out", str(out), "--batch-size", "4",
+                         "--beam-size", "3", "--max-steps", "5",
+                         "--no-early-exit", "--serving-impls", impls])
+        torch.cuda.synchronize()
+        # two batches of 4 (the second padded), 5 steps each
+        assert att_dec.att_dec_step.launches - launches == (
+            10 if impls == "fused" else 0)
+        hyps[impls] = (out / "hyp.txt").read_text()
+    assert hyps["fused"] == hyps["xla"]
+    assert len(hyps["fused"].splitlines()) == 6

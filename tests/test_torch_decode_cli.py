@@ -1,0 +1,191 @@
+"""The port's serving entry point ``robust_e2e_gan_torch.decode.cli`` against
+the JAX package's ``decode/cli.py`` on the CPU: the same manifest and the
+same parameters decode to the same ``hyp.txt``, ``wer.json`` and n-best
+lists, with ``--serving-impls fused`` and ``xla``, a ragged final batch and
+``--greedy``; the flags of unported paths raise, and without ``--device
+cpu`` the CLI raises where there is no GPU."""
+
+import dataclasses
+import json
+import os
+
+import pytest
+
+pytest.importorskip("jax")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from robust_e2e_gan_tpu import config as jax_config  # noqa: E402
+from robust_e2e_gan_tpu.data import synthetic as jax_synthetic  # noqa: E402
+from robust_e2e_gan_tpu.decode import cli as jax_cli  # noqa: E402
+from robust_e2e_gan_tpu.models.enhancement import Discriminator  # noqa: E402
+from robust_e2e_gan_tpu.pipeline import build_model as jax_build_model  # noqa: E402
+from robust_e2e_gan_tpu.train.steps import init_train_state  # noqa: E402
+from robust_e2e_gan_tpu.utils import checkpoint as jax_ckpt  # noqa: E402
+from robust_e2e_gan_torch import configs  # noqa: E402
+from robust_e2e_gan_torch.config import TrainConfig  # noqa: E402
+from robust_e2e_gan_torch.convert import from_flax  # noqa: E402
+from robust_e2e_gan_torch.data.dataset import CharTokenizer  # noqa: E402
+from robust_e2e_gan_torch.data.synthetic import (  # noqa: E402
+    SyntheticConfig,
+    synth_utterance,
+)
+from robust_e2e_gan_torch.decode import cli  # noqa: E402
+from robust_e2e_gan_torch.ops import att_dec  # noqa: E402
+from robust_e2e_gan_torch.train.loop import init_state  # noqa: E402
+from robust_e2e_gan_torch.utils import checkpoint as ckpt_lib  # noqa: E402
+
+ALPHABET = "abcdefghij"
+N_UTTS = 7  # batches of 4: the final batch is ragged and padded
+
+
+def _jax(cfg):
+    """The JAX package's config of the same class name and field values."""
+    return jax_config.from_dict(getattr(jax_config, type(cfg).__name__),
+                                dataclasses.asdict(cfg))
+
+
+@pytest.fixture(scope="module")
+def exp(tmp_path_factory):
+    """A manifest of synthetic .npy utterances, and one set of parameters
+    in a JAX experiment dir (msgpack) and a port experiment dir (.pt)."""
+    root = tmp_path_factory.mktemp("decode_cli")
+    scfg = SyntheticConfig(vocab_size=12, min_tokens=2, max_tokens=4)
+    rng = np.random.default_rng(0)
+    entries = []
+    for i in range(N_UTTS):
+        toks = rng.integers(2, 12, size=(int(rng.integers(2, 5)),))
+        clean, noisy = synth_utterance(toks.astype(np.int32), scfg, rng)
+        np.save(root / f"n{i}.npy", noisy)
+        np.save(root / f"c{i}.npy", clean)
+        entries.append({"utt_id": f"u{i}", "noisy": f"n{i}.npy",
+                        "clean": f"c{i}.npy", "n_samples": len(clean),
+                        "text": "".join(ALPHABET[t - 2] for t in toks)})
+    manifest = root / "manifest.jsonl"
+    manifest.write_text("\n".join(json.dumps(e) for e in entries))
+
+    tok = CharTokenizer(list(ALPHABET))
+    jcfg = configs.tiny_config(tok.vocab_size)
+    tcfg = TrainConfig(optimizer="adam", learning_rate=1e-3)
+    dirs = {"jax": str(root / "jax_exp"), "port": str(root / "port_exp")}
+    for d in dirs.values():
+        os.makedirs(d)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump({"joint": dataclasses.asdict(jcfg),
+                       "train": dataclasses.asdict(tcfg), "mode": "joint",
+                       "input_kind": "wav"}, f)
+        tok.save(os.path.join(d, "tokenizer.json"))
+    jj = _jax(jcfg)
+    sample = {k: jnp.asarray(v) for k, v in jax_synthetic.make_batch(
+        2, jax_synthetic.SyntheticConfig(vocab_size=tok.vocab_size),
+        np.random.default_rng(0), ignore_id=-1).items()}
+    state, _, _ = init_train_state(jax_build_model(jj),
+                                   Discriminator(jj.discriminator),
+                                   _jax(tcfg), sample, seed=3)
+    jax_ckpt.save_checkpoint(dirs["jax"], state, 1)
+    port = init_state(jcfg, tcfg, "cpu")
+    for module, params in ((port.model, state.params_g),
+                           (port.discriminator, state.params_d)):
+        module.load_state_dict(from_flax(jax.tree_util.tree_map(np.asarray,
+                                                                params)))
+    ckpt_lib.save_checkpoint(dirs["port"], port, 1)
+    return {"root": root, "manifest": str(manifest), **dirs}
+
+
+def _decode(exp, which, out, *extra):
+    argv = ["--manifest", exp["manifest"], "--ckpt-dir", exp[which],
+            "--out", str(exp["root"] / out), "--batch-size", "4",
+            "--beam-size", "3", "--max-steps", "6",
+            "--length-buckets", "16000", *extra]
+    if which == "port":
+        cli.main(argv + ["--device", "cpu"])
+    else:
+        jax_cli.main(argv)
+    return str(exp["root"] / out)
+
+
+def _read(path):
+    with open(path) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("impls", ["fused", "xla"])
+def test_decode_cli_matches_jax(exp, impls):
+    want = _decode(exp, "jax", f"jax_{impls}", "--serving-impls", impls,
+                   "--nbest", "2")
+    calls = att_dec.att_dec_step_plain.calls
+    got = _decode(exp, "port", f"port_{impls}", "--serving-impls", impls,
+                  "--nbest", "2")
+    # fused: one fused step per beam step of each of the two batches
+    assert att_dec.att_dec_step_plain.calls - calls == (
+        2 * 6 if impls == "fused" else 0)
+    for name in ("hyp.txt", "wer.json"):
+        assert _read(os.path.join(got, name)) == _read(os.path.join(want,
+                                                                    name))
+    hyp = _read(os.path.join(got, "hyp.txt")).split("\n")[:-1]
+    assert sorted(line.split()[0] for line in hyp) == [
+        f"u{i}" for i in range(N_UTTS)]  # each once: no pad duplicates
+    rows = [[json.loads(line) for line in _read(os.path.join(d, "nbest.jsonl"))
+             .splitlines()] for d in (got, want)]
+    assert len(rows[0]) == len(rows[1]) == N_UTTS
+    for g, w in zip(*rows):
+        assert g["utt_id"] == w["utt_id"]
+        assert [e["tokens"] for e in g["nbest"]] == [
+            e["tokens"] for e in w["nbest"]]
+        assert [e["text"] for e in g["nbest"]] == [
+            e["text"] for e in w["nbest"]]
+        np.testing.assert_allclose([e["score"] for e in g["nbest"]],
+                                   [e["score"] for e in w["nbest"]],
+                                   rtol=1e-4, atol=1e-3)
+
+
+def test_greedy_and_attention_dump(exp):
+    """--greedy against the JAX CLI; --dump-attention writes one map per
+    utterance, labels + eos rows by valid encoder frames."""
+    want = _decode(exp, "jax", "jax_greedy", "--greedy")
+    got = _decode(exp, "port", "port_greedy", "--greedy", "--dump-attention")
+    for name in ("hyp.txt", "wer.json"):
+        assert _read(os.path.join(got, name)) == _read(os.path.join(want,
+                                                                    name))
+    assert json.loads(_read(os.path.join(got, "wer.json")))["decoder"] == (
+        "greedy")
+    maps = sorted(os.listdir(os.path.join(got, "att")))
+    assert maps == [f"u{i}.npy" for i in range(N_UTTS)]
+    entries = [json.loads(line) for line in _read(exp["manifest"]).split("\n")]
+    for e in entries:
+        att = np.load(os.path.join(got, "att", e["utt_id"] + ".npy"))
+        assert att.shape[0] == len(e["text"]) + 1
+        np.testing.assert_allclose(att.sum(axis=1), 1.0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("flag", [
+    ["--noisy-scp", "x.scp", "--text", "text"], ["--feats-scp", "f.scp"],
+    ["--utt2num-frames", "u"], ["--index-cache", "c"], ["--utt2spk", "u"],
+    ["--cmvn-ark", "c.ark"], ["--mesh-data", "2"], ["--pipelined", "on"],
+    ["--pipelined", "chunked"]], ids=lambda f: f[0] + f[-1])
+def test_unported_flags_raise(tmp_path, flag):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(["--ckpt-dir", str(tmp_path), "--manifest", "m.jsonl",
+                  "--device", "cpu", *flag])
+    assert not os.listdir(tmp_path)
+
+
+def test_precomputed_feature_experiment_raises(exp, tmp_path):
+    with open(os.path.join(exp["port"], "config.json")) as f:
+        saved = json.load(f)
+    with open(tmp_path / "config.json", "w") as f:
+        json.dump({**saved, "input_kind": "feats"}, f)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        cli.load_experiment(str(tmp_path), device="cpu")
+
+
+def test_cli_raises_without_a_gpu(exp, monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "out"
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["--manifest", exp["manifest"], "--ckpt-dir", exp["port"],
+                  "--out", str(out)])
+    assert not out.exists()  # refused before writing anything

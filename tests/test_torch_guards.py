@@ -41,14 +41,15 @@ CONFIGS = {
             attention=dataclasses.replace(configs.tiny_config(12).e2e.attention,
                                           enc_proj_bias=True))),
 }
-# JAX config fields the port leaves out: XLA scheduling knobs and the
-# fused decoder step, which do not change what is computed
+# JAX config fields the port leaves out: XLA scheduling knobs, which do
+# not change what is computed (the fused decoder step's step_impl is kept:
+# it rounds where the unfused step does not, and launches once)
 LEFT_OUT = {
     "FrontendConfig": set(),
     "EncoderConfig": {"subsample_factor", "remat", "scan_unroll",
                       "gate_storage"},
     "AttentionConfig": set(),
-    "DecoderConfig": {"scan_unroll", "step_impl"},
+    "DecoderConfig": {"scan_unroll"},
     "EnhancerConfig": {"remat", "scan_unroll", "gate_storage"},
     "DiscriminatorConfig": set(),
     "E2EConfig": set(),
@@ -179,9 +180,10 @@ def test_port_imports_no_jax():
         "bad = [m for m in ('jax', 'jaxlib', 'flax', 'robust_e2e_gan_tpu')\n"
         "       if m in sys.modules]\n"
         "need = {'robust_e2e_gan_torch.' + m for m in ('models.lm',\n"
-        "        'ops.lm_step', 'ops.fbank_fused', 'train.lm')}\n"
+        "        'ops.lm_step', 'ops.fbank_fused', 'train.lm', 'decode.cli',\n"
+        "        'data.dataset', 'ops.editdistance', 'ops.att_dec')}\n"
         "print(len(names), bad, need - set(names))\n"
-        "sys.exit(1 if bad or need - set(names) or len(names) < 19 else 0)\n"
+        "sys.exit(1 if bad or need - set(names) or len(names) < 23 else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", child], cwd=REPO,
                           capture_output=True, text=True, timeout=120,
@@ -212,6 +214,7 @@ def test_chip_smoke_fails_alone(tmp_path):
 
 def test_impl_selection():
     assert kernel_enabled("auto") and kernel_enabled("tiled")
+    assert kernel_enabled("pallas") and kernel_enabled("fused")
     assert not kernel_enabled("scan") and not kernel_enabled("xla")
     assert not kernel_enabled("twopass")
     with pytest.raises(ValueError):
@@ -225,8 +228,8 @@ def test_inference_wrappers_refuse_autograd():
     """The inference kernel wrappers write fresh tensors that carry no graph;
     under autograd they raise instead of cutting the gradient chain."""
     from robust_e2e_gan_torch.config import FrontendConfig
-    from robust_e2e_gan_torch.ops import att, blstm, ctc_prefix, fbank_fused
-    from robust_e2e_gan_torch.ops import lm_step
+    from robust_e2e_gan_torch.ops import att, att_dec, blstm, ctc_prefix
+    from robust_e2e_gan_torch.ops import fbank_fused, lm_step
 
     def leaf(*shape):
         return torch.randn(shape).requires_grad_()
@@ -241,6 +244,13 @@ def test_inference_wrappers_refuse_autograd():
             leaf(b, k, t, 2), leaf(b, t, 3), leaf(b, t, 3), leaf(b, k, 3),
             leaf(2, 3), leaf(3), torch.ones(b, t), 2.0),
         "prefix_psi": lambda: ctc_prefix.prefix_psi(
+            leaf(b, t, v), ints, ints, leaf(b, k, t), leaf(b, k, t), 0, 1),
+        "att_dec_step": lambda: att_dec.att_dec_step(
+            leaf(b, k, t, 2), leaf(b, t, 3), leaf(b, t, 3), leaf(b, k, 3),
+            leaf(2, 3), leaf(3), torch.ones(b, t), 2.0, ints, leaf(v, 4),
+            leaf(4 + 3, 4 * h), leaf(h, 4 * h), leaf(4 * h), leaf(h + 3, v),
+            leaf(v), torch.zeros(b, k, h), torch.zeros(b, k, h)),
+        "prefix_psi_utt": lambda: ctc_prefix.prefix_psi_utt(
             leaf(b, t, v), ints, ints, leaf(b, k, t), leaf(b, k, t), 0, 1),
         "prefix_state": lambda: ctc_prefix.prefix_state(
             leaf(b, t, v), ints, ints, ints, leaf(b, k, t), leaf(b, k, t), 0),
@@ -284,9 +294,10 @@ def test_lm_label_batches_match_the_jax_cli(monkeypatch, tmp_path):
 
 
 def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch, tmp_path):
-    """Without a card the training entry points raise unless the caller
-    asks for the CPU."""
+    """Without a card the training and decoding entry points raise unless
+    the caller asks for the CPU."""
     from robust_e2e_gan_torch.config import LMConfig, TrainConfig
+    from robust_e2e_gan_torch.decode import cli as decode_cli
     from robust_e2e_gan_torch.train import cli, loop
     from robust_e2e_gan_torch.train.lm import load_lm, train_lm
 
@@ -302,5 +313,9 @@ def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="--device cpu"):
             cli.main(["--mode", mode, "--synthetic", "--ckpt-dir",
                       str(tmp_path)])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        decode_cli.main(["--ckpt-dir", str(tmp_path), "--manifest", "m"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        decode_cli.load_experiment(str(tmp_path))
     assert not os.listdir(tmp_path)  # refused before writing anything
     assert loop.resolve_device("cpu") == torch.device("cpu")
