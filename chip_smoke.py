@@ -12,9 +12,13 @@ Phases, each of which exits non-zero on failure:
    checkout (nvcc, sm_90a) and prints the seconds it took;
 3. kernel parity: each kernel's wrapper against its plain PyTorch version
    on the card, at the shapes of the main path (B utterances of ~7 s, beam
-   8, ~694 STFT frames, ~174 encoder frames, vocab 52; the fused decoder
+   8, ~694 STFT frames, ~174 encoder frames, vocab 52; the W_x-resident
+   BLSTM at each of the flagship's four BLSTM layers, timed in bfloat16
+   beside the gate-stream route and cuDNN's LSTM; the fused decoder
    step at the flagship's decoder widths), in float32 with TF32 off and in
-   bfloat16, with the time of each; then the training
+   bfloat16, with the time of each; one BLSTM layer too wide for the
+   W_x-resident kernel, which must take the gate-stream one; then the
+   training
    kernels, forward and every gradient, at the train shapes (B=32 ~2.9 s
    utterances: 286 STFT frames, 72 encoder frames; the train CLI's model
    for blstm_train_gx); then the clean-speech kernels: the fused frontend
@@ -25,8 +29,11 @@ Phases, each of which exits non-zero on failure:
    computes the same function, that call's time (``library_ms``);
 4. main path: the flagship model in bfloat16 compute (random weights from
    seed 0) through ``make_beam_searcher(..., use_enhancer=True)`` on 3
-   batches of 128 utterances; checks the results and that every kernel
-   launched and no plain version ran; then times the same path with the
+   batches of 128 utterances; checks the results, that every kernel
+   launched (the W_x-resident BLSTM once per layer and batch, the
+   gate-stream one never) and no plain version ran; times it against the
+   same path with every BLSTM layer on the gate-stream route, in turns,
+   with one profiled batch of each; then times the same path with the
    plain versions;
 5. slice parity: one batch of 16 at full width in float32 through the
    kernel path and the plain path; best-hypothesis scores must agree;
@@ -114,8 +121,9 @@ from robust_e2e_gan_torch.decode.beam import (
 )
 from robust_e2e_gan_torch.models.encoder import subsampled_frames
 from robust_e2e_gan_torch.models.enhancement import Discriminator
-from robust_e2e_gan_torch.models.layers import mm_f32
 from robust_e2e_gan_torch.models.lm import RNNLM
+from robust_e2e_gan_torch.models import rnn
+from robust_e2e_gan_torch.models.rnn import BLSTM, input_projection
 from robust_e2e_gan_torch.decode import cli as decode_cli
 from robust_e2e_gan_torch.data.dataset import CharTokenizer
 from robust_e2e_gan_torch.ops import (
@@ -149,10 +157,16 @@ TRAIN_STEPS = 5
 TRAIN_SYNTH = SyntheticConfig(vocab_size=VOCAB, min_tokens=20, max_tokens=24)
 
 KERNELS = {
+    "blstm_infer": dict(
+        wrapper=blstm.blstm_infer, plain=blstm.blstm_infer_plain,
+        source="robust_e2e_gan_torch/csrc/blstm_infer.cu",
+        replaces="robust_e2e_gan_tpu/ops/blstm_pallas.py:332 "
+                 "(W_x-resident, pallas_call :403)"),
     "blstm_recurrence": dict(
         wrapper=blstm.blstm_recurrence, plain=blstm.blstm_recurrence_plain,
         source="robust_e2e_gan_torch/csrc/blstm.cu",
-        replaces="robust_e2e_gan_tpu/ops/blstm_pallas.py:332"),
+        replaces="robust_e2e_gan_tpu/ops/blstm_pallas.py:332 "
+                 "(gate-stream, pallas_call :455)"),
     "att_loc_step": dict(
         wrapper=att.att_loc_step, plain=att.att_loc_step_plain,
         source="robust_e2e_gan_torch/csrc/att_loc.cu",
@@ -202,16 +216,16 @@ KERNELS = {
         source="robust_e2e_gan_torch/csrc/ctc_prefix_utt.cu",
         replaces="robust_e2e_gan_tpu/ops/ctc_prefix_pallas.py:110"),
 }
-SERVING = ("blstm_recurrence", "att_loc_step", "ctc_prefix_psi",
+SERVING = ("blstm_infer", "att_loc_step", "ctc_prefix_psi",
            "ctc_prefix_state")
 # the clean-speech serving path: no enhancer, fused frontend, LM fusion
 CLEAN_SERVING = ("fbank_fused", "lm_step") + SERVING
 # the decode CLI with --serving-impls fused: the fused step replaces the
 # attention kernel
-FUSED_SERVING = ("blstm_recurrence", "att_dec_step", "ctc_prefix_psi",
+FUSED_SERVING = ("blstm_infer", "att_dec_step", "ctc_prefix_psi",
                  "ctc_prefix_state")
 # the per-utterance prefix search
-UTT_SERVING = ("blstm_recurrence", "att_loc_step", "ctc_prefix_utt",
+UTT_SERVING = ("blstm_infer", "att_loc_step", "ctc_prefix_utt",
                "ctc_prefix_state")
 LM_WEIGHT = 0.3
 # peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W): a
@@ -222,7 +236,7 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 HBM_BYTES = 3.35e12
 # the kernels of the train step: the D-step's no-grad generator forward
 # takes the inference BLSTM kernel
-TRAINING = ("blstm_train", "ctc_alpha", "blstm_recurrence")
+TRAINING = ("blstm_train", "ctc_alpha", "blstm_infer")
 
 
 class SmokeFailure(RuntimeError):
@@ -404,28 +418,119 @@ def ctc_inputs(gen, b, k, t, v, dev):
 
 
 def blstm_row(err, gx, wh, lengths, out, d_in) -> dict:
-    """Kernel, plain and library times of the inference BLSTM recurrence
+    """Kernel, plain and library times of the gate-stream BLSTM recurrence
     on gx (B, T, 2, 4H). The recurrence needs 2 * 4H * H multiply-adds per
     valid frame and direction. cuDNN's LSTM takes x (B, T, D) and computes
-    the input projection too, so the projection (the port's bf16 GEMM) is
-    timed beside the kernel and counted on its side."""
+    the input projection too (``blstm_infer_parity`` times the projection
+    and this kernel together against it)."""
     b, t, _, g4 = gx.shape
     h = g4 // 4
     valid = int(lengths.sum())
     ms = cuda_ms(lambda: blstm.blstm_recurrence(gx, wh, lengths), 5)
-    plain_ms = cuda_ms(lambda: blstm.blstm_recurrence_plain(gx, wh, lengths),
-                       2)
+    plain_ms = cuda_ms(lambda: blstm.blstm_recurrence_plain(
+        gx, wh, lengths, round_h=True), 2)
     x = torch.randn((b, t, d_in), device=gx.device, dtype=wh.dtype)
-    w = torch.randn((d_in, 2 * g4), device=gx.device, dtype=wh.dtype)
-    proj_ms = cuda_ms(lambda: mm_f32(x.reshape(b * t, d_in), w), 5)
     library_ms = lstm_library_ms(x, lengths, h, train=False)
-    print(f"    blstm_recurrence: projection GEMM (B*T, {d_in}) x ({d_in}, "
-          f"{2 * g4}) {proj_ms:.3f} ms; kernel + projection "
-          f"{ms + proj_ms:.3f} ms vs cuDNN LSTM {library_ms:.3f} ms "
-          f"({x.dtype})")
     return entry("blstm_recurrence", err, ms, plain_ms,
                  2 * valid * 2 * 4 * h * h, nbytes(gx, wh, lengths, out),
                  wh.dtype, library_ms)
+
+
+def blstm_infer_parity(gen, b, t_enh, t_enc, jcfg, dev):
+    """The W_x-resident BLSTM against its plain version at the flagship's
+    four BLSTM layers (float32 and bfloat16), and per layer in bfloat16
+    the times of the kernel, of the gate-stream route (the cuBLAS
+    projection, then ``csrc/blstm.cu``) and of cuDNN's LSTM from x.
+    Returns (the enhancer layer 0 entry, whether every layer agreed)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    enc = jcfg.e2e.encoder
+    h_enh, h_enc = jcfg.enhancer.hidden_dim, enc.hidden_dim
+    d_vgg = subsampled_frames(enc.input_dim) * enc.vgg_channels[-1]
+    layers = (("enhancer0", t_enh, jcfg.enhancer.input_dim, h_enh),
+              ("enhancer1", t_enh, 2 * h_enh, h_enh),
+              ("encoder0", t_enc, d_vgg, h_enc),
+              ("encoder1", t_enc, enc.proj_dim, h_enc))
+    ok_all, row, total = True, None, [0.0, 0.0, 0.0]
+    for tag, t, d, h in layers:
+        for dt in (f32, bf16):
+            x, wx, wh, bias, lengths, _ = train_inputs(gen, b, t, d, h, dt,
+                                                       dev)
+            x = x.to(dt)
+
+            def kernel(x=x, wx=wx, wh=wh, bias=bias, lengths=lengths):
+                return blstm.blstm_infer(x, lengths, wx, wh, bias)
+
+            def plain(x=x, wx=wx, wh=wh, bias=bias, lengths=lengths):
+                return blstm.blstm_infer_plain(x, lengths, wx, wh, bias)
+
+            got = kernel()
+            tol = dict(rtol=1e-4, atol=1e-5) if dt == f32 else dict(
+                scale_atol=2e-2)
+            err, ok = compare(f"blstm_infer {tag} B={b} T={t} D={d} H={h} "
+                              f"{dt}", [got], [plain()], **tol)
+            ok_all &= ok
+            if dt != bf16:
+                continue
+            ms = cuda_ms(kernel, 3)
+            gx_ms = cuda_ms(lambda: blstm.blstm_recurrence(
+                input_projection(x, wx, bias, dt), wh, lengths), 3)
+            library_ms = lstm_library_ms(x, lengths, h, train=False)
+            for i, v in enumerate((ms, gx_ms, library_ms)):
+                total[i] += v
+            print(f"    {tag} {dt}: blstm_infer {ms:.3f} ms, projection + "
+                  f"blstm_recurrence {gx_ms:.3f} ms, cuDNN LSTM "
+                  f"{library_ms:.3f} ms (valid frames {int(lengths.sum())})")
+            if tag == "enhancer0":
+                # per valid frame and direction: the projection (D * 4H
+                # multiply-adds) and the recurrent product (H * 4H)
+                row = entry("blstm_infer", err, ms, cuda_ms(plain, 1),
+                            2 * int(lengths.sum()) * 2 * 4 * h * (d + h),
+                            nbytes(x, wx, wh, bias, lengths, got), dt,
+                            library_ms)
+    print(f"    the four layers, bf16: blstm_infer {total[0]:.3f} ms, "
+          f"projection + blstm_recurrence {total[1]:.3f} ms, cuDNN LSTM "
+          f"{total[2]:.3f} ms")
+    return row, ok_all
+
+
+def oversize_blstm(dev) -> int:
+    """One BLSTM layer past the fit rule, through ``models/rnn.py::BLSTM``
+    on the card: B=16, T=72, D=32,768, H=256 in bfloat16, where W_x alone
+    (128 MB) is over the JAX kernel's 64 MB budget. It must take the
+    gate-stream kernel and agree with its plain version. Returns the
+    launches of that kernel, its only path."""
+    b, t, d, h, dt = 16, 72, 32768, 256, torch.bfloat16
+    require(blstm.infer_kernel_for(b, t, d, h, dt) == "gx",
+            "the fit rule keeps the oversize layer in the W_x-resident kernel")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    layer = BLSTM(d, h, dt, "auto").to(dev)
+    with torch.no_grad():
+        for p, scale in ((layer.wx, d ** -0.5), (layer.wh, h ** -0.5),
+                         (layer.bias, 0.3)):
+            p.copy_(torch.randn(p.shape, generator=gen, device=dev) * scale)
+    x = torch.randn((b, t, d), generator=gen, device=dev)
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    lengths[0] = t
+    mask = (torch.arange(t, device=dev)[None] < lengths[:, None]).float()
+    reset_counts()
+    with torch.inference_mode():
+        got = layer(x, mask)
+        launches, plain_calls = counts(("blstm_recurrence", "blstm_infer"))
+        want = blstm.blstm_recurrence_plain(
+            input_projection(x, layer.wx, layer.bias, dt),
+            layer.wh.to(dt), lengths, round_h=True)
+    print(f"  oversize BLSTM layer: launches {launches}")
+    require(launches == {"blstm_recurrence": 1, "blstm_infer": 0},
+            f"the oversize layer did not take the gate-stream kernel: "
+            f"{launches}")
+    require(not any(plain_calls.values()),
+            f"a plain version ran in the oversize layer: {plain_calls}")
+    _, ok = compare(f"BLSTM(auto) B={b} T={t} D={d} H={h} {dt} vs plain",
+                    [got], [want], scale_atol=2e-2)
+    require(ok, "the oversize layer disagrees with its plain version")
+    return launches["blstm_recurrence"]
 
 
 def kernel_parity(b: int, t_enh: int, t_enc: int, jcfg, dev) -> dict:
@@ -436,14 +541,15 @@ def kernel_parity(b: int, t_enh: int, t_enc: int, jcfg, dev) -> dict:
     e_dim = jcfg.e2e.encoder.proj_dim
     f32, bf16 = torch.float32, torch.bfloat16
     res = {}
-    ok_all = True
+    res["blstm_infer"], ok_all = blstm_infer_parity(gen, b, t_enh, t_enc,
+                                                    jcfg, dev)
 
-    # BLSTM recurrence: enhancer and encoder layer shapes
+    # BLSTM recurrence (gate stream): enhancer and encoder layer shapes
     for tag, t, h in (("enhancer", t_enh, h_enh), ("encoder", t_enc, h_enc)):
         for dt in (f32, bf16):
             gx, wh, lengths = blstm_inputs(gen, b, t, h, dt, dev)
             got = blstm.blstm_recurrence(gx, wh, lengths)
-            want = blstm.blstm_recurrence_plain(gx, wh, lengths)
+            want = blstm.blstm_recurrence_plain(gx, wh, lengths, round_h=True)
             tol = dict(rtol=1e-4, atol=1e-5) if dt == f32 else dict(
                 scale_atol=2e-2)
             err, ok = compare(f"blstm_recurrence {tag} T={t} H={h} {dt}",
@@ -931,11 +1037,20 @@ def main_path(b, n_batches, state, dev):
             f"a kernel of the path never launched: {launches}")
     require(not any(plain_calls.values()),
             f"a plain version ran on the main path: {plain_calls}")
+    n_layers = kcfg.enhancer.num_layers + kcfg.e2e.encoder.num_layers
+    require(launches["blstm_infer"] == n_batches * n_layers
+            and blstm.blstm_recurrence.launches == 0,
+            f"not every BLSTM layer took the W_x-resident kernel: "
+            f"{launches['blstm_infer']} launches for {n_batches} x "
+            f"{n_layers} layers, {blstm.blstm_recurrence.launches} "
+            "gate-stream launches")
 
     k_ms, k_enc, k_search = steady(batches, searcher, model, kcfg, bcfg)
     print(f"  kernel path: {b * 1e3 / k_ms:.2f} utt/s, {k_ms:.1f} ms/batch "
           f"(encode {k_enc:.1f} ms + search {k_search:.1f} ms when timed "
           f"apart; means over {n_batches} warm batches)")
+    in_turns({"W_x-resident BLSTM": searcher,
+              "gate-stream BLSTM": gate_stream(searcher)}, batches, b)
 
     pcfg = with_impls(kcfg, "scan", "xla", "bfloat16")
     plain_model = load(pcfg, state, dev)
@@ -947,6 +1062,20 @@ def main_path(b, n_batches, state, dev):
     print(f"  plain path: {b * 1e3 / p_ms:.2f} utt/s, {p_ms:.1f} ms/batch "
           f"(encode {p_enc:.1f} ms + search {p_search:.1f} ms)")
     return launches, k_ms
+
+
+def gate_stream(search):
+    """``search`` with every BLSTM layer on the gate-stream route (the
+    cuBLAS projection, then ``csrc/blstm.cu``): the fit rule answers "gx"
+    while it runs."""
+    def run(wav, lens):
+        rule = rnn.infer_kernel_for
+        rnn.infer_kernel_for = lambda *args: "gx"
+        try:
+            return search(wav, lens)
+        finally:
+            rnn.infer_kernel_for = rule
+    return run
 
 
 def slice_parity(state, dev):
@@ -1544,6 +1673,7 @@ def main() -> int:
     # 3. kernel parity
     print("kernel parity (kernel vs plain version on the card):")
     timings = kernel_parity(BATCH, t_enh, t_enc, jcfg, dev)
+    gx_launches = oversize_blstm(dev)
     t_train = num_frames(TRAIN_SYNTH.max_samples, jcfg.e2e.frontend)
     timings.update(train_kernel_parity(jcfg, t_train,
                                        subsampled_frames(t_train), dev))
@@ -1565,8 +1695,10 @@ def main() -> int:
     train_launches = train_path(state, state_d, dev)
     launches.update({n: train_launches[n] for n in ("blstm_train",
                                                      "ctc_alpha")})
-    # no path runs the backward of the fused frontend: phase 3's launches
+    # no path runs the backward of the fused frontend, and only a layer
+    # past the fit rule takes the gate-stream BLSTM: phase 3's launches
     launches["fbank_fused_bwd"] = bwd_launches
+    launches["blstm_recurrence"] = gx_launches
 
     # 7-14, in a scratch dir: phase 12 decodes phase 7's experiment
     work = tempfile.mkdtemp(prefix="chip_smoke_")

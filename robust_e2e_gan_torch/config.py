@@ -3,8 +3,10 @@
 Counterpart of ``robust_e2e_gan_tpu/config.py``: the serving and training
 fields. Names, defaults and meanings are the JAX package's, so
 ``from_dict(JointConfig, dataclasses.asdict(jax_config))`` carries a JAX
-configuration over; the fields left out (remat, scan unrolls, gate
-storage) are XLA scheduling knobs that do not change what is computed.
+configuration over; the fields left out (remat, scan unrolls) are XLA
+scheduling knobs that do not change what is computed. ``gate_storage`` is
+kept: "compute" rounds the plain BLSTM frame loop's gate projections to
+the compute dtype, as it rounds the JAX scan's.
 ``DecoderConfig.step_impl`` is kept: the fused decoder step it selects
 rounds where the unfused step does not in bfloat16, and runs one launch
 where the unfused step runs several. ``AttentionConfig.variant`` is kept
@@ -58,6 +60,9 @@ class EncoderConfig:
     proj_dim: int = 512  # projection after each BLSTM layer
     dropout_rate: float = 0.0  # after each projection, in training
     lstm_impl: str = "scan"  # BLSTM frame loop: scan (plain) | auto (kernel)
+    # storage of the scan path's hoisted gate projections: "f32" exact,
+    # "compute" rounded to the compute dtype; the kernels ignore it
+    gate_storage: str = "f32"
 
 
 @dataclass(frozen=True)
@@ -102,6 +107,7 @@ class EnhancerConfig:
     mask_floor: float = 0.0  # optional lower bound on the mask
     compression: str = "log1p"  # input compression: log1p | log | none
     lstm_impl: str = "scan"  # see EncoderConfig.lstm_impl
+    gate_storage: str = "f32"  # see EncoderConfig.gate_storage
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,9 @@
 // Masked bidirectional LSTM recurrence for inference.
 //
 // Replaces robust_e2e_gan_tpu/ops/blstm_pallas.py::blstm_infer, in the form
-// of its gate-stream variant (_gx_kernel): the input projection
+// of its gate-stream variant (_gx_kernel, pallas_call :455), the one the
+// JAX package takes for layers too large for its W_x-resident variant:
+// the input projection
 // x @ W_x + bias of both directions is one matrix product outside the
 // kernel, and the kernel owns the serial frame loop
 //   gates = gx_t + h_{t-1} @ W_h  ->  i, f, g, o  ->  c_t, h_t.
@@ -26,8 +28,11 @@
 // wrapper takes 2, or 4 when 2 would need more blocks than SMs. The
 // backward direction walks t = len-1 ... 0 directly, so no flipped copy of
 // the input is made; frames at or past a row's length are written as exact
-// zeros and leave the state alone. Keeping W_h in the shared memory of a
-// cluster's CTAs is work for a later change.
+// zeros and leave the state alone. The recurrent product reads h_{t-1}
+// rounded to the compute type, as the TPU kernel's h_prev.astype(cdtype);
+// the output is h_t, written in the compute type. The W_x-resident variant
+// of the same TPU function is csrc/blstm_infer.cu. Keeping W_h in the
+// shared memory of a cluster's CTAs is work for a later change.
 
 #include "common.cuh"
 
@@ -41,7 +46,7 @@ blstm_rec_kernel(const float* __restrict__ gx,      // (B, T, 2, 4H)
                  W* __restrict__ out,               // (B, T, 2H)
                  int B, int T, int H, int KS) {
   extern __shared__ float smem[];
-  float* h_s = smem;              // (ROWS, H): h_{t-1} of the block's rows
+  float* h_s = smem;              // (ROWS, H): h_{t-1} rounded to W
   float* part_s = smem + ROWS * H;  // (KS-1, ROWS, 4, H): partial gate sums
   const int z = blockIdx.x;
   const int row0 = blockIdx.y * ROWS;
@@ -116,7 +121,7 @@ blstm_rec_kernel(const float* __restrict__ gx,      // (B, T, 2, 4H)
         const float cn = rg::sigmoid(gf) * c[r] + rg::sigmoid(gi) * tanhf(gg);
         const float hn = rg::sigmoid(go) * tanhf(cn);
         c[r] = cn;
-        h_s[r * H + u] = hn;
+        h_s[r * H + u] = rg::rnd<W>(hn);
         out[((size_t)b * T + t) * 2 * H + z * H + u] = rg::from_f<W>(hn);
       }
     }

@@ -130,8 +130,8 @@ def _refuse_unported(args) -> None:
 
 
 def with_serving_impls(jcfg: JointConfig, serving_impls: str) -> JointConfig:
-    """The kernel-impl fields ``--serving-impls`` selects
-    (``decode/cli.py:146-158`` of the JAX package)."""
+    """The kernel-impl fields ``--serving-impls`` selects, with exact
+    float32 gate storage (``decode/cli.py:146-163`` of the JAX package)."""
     lstm = {"auto": "auto", "fused": "tiled", "xla": "scan"}[serving_impls]
     step = {"auto": "auto", "fused": "fused", "xla": "xla"}[serving_impls]
     e2e = jcfg.e2e
@@ -139,10 +139,12 @@ def with_serving_impls(jcfg: JointConfig, serving_impls: str) -> JointConfig:
         jcfg,
         e2e=dataclasses.replace(
             e2e,
-            encoder=dataclasses.replace(e2e.encoder, lstm_impl=lstm),
+            encoder=dataclasses.replace(e2e.encoder, lstm_impl=lstm,
+                                        gate_storage="f32"),
             decoder=dataclasses.replace(e2e.decoder, step_impl=step),
             attention=dataclasses.replace(e2e.attention, score_impl=step)),
-        enhancer=dataclasses.replace(jcfg.enhancer, lstm_impl=lstm))
+        enhancer=dataclasses.replace(jcfg.enhancer, lstm_impl=lstm,
+                                     gate_storage="f32"))
 
 
 def load_experiment(ckpt_dir: str, which: str = "best",

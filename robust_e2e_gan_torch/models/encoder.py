@@ -64,7 +64,7 @@ class Encoder(nn.Module):
         d_vgg = subsampled_frames(cfg.input_dim) * cfg.vgg_channels[-1]
         self.blstmp = BLSTMP(d_vgg, cfg.num_layers, cfg.hidden_dim,
                              cfg.proj_dim, dtype, cfg.lstm_impl,
-                             cfg.dropout_rate)
+                             cfg.dropout_rate, cfg.gate_storage)
 
     def forward(self, feats: torch.Tensor,
                 feat_lengths: Optional[torch.Tensor] = None,

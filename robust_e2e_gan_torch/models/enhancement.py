@@ -32,7 +32,8 @@ class EnhanceNet(nn.Module):
         d = cfg.input_dim
         for i in range(cfg.num_layers):
             self.add_module(
-                f"blstm{i}", BLSTM(d, cfg.hidden_dim, dtype, cfg.lstm_impl)
+                f"blstm{i}", BLSTM(d, cfg.hidden_dim, dtype, cfg.lstm_impl,
+                                   cfg.gate_storage)
             )
             d = 2 * cfg.hidden_dim
         self.mask_out = Dense(d, cfg.input_dim, dtype=dtype)

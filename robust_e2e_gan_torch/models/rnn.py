@@ -5,7 +5,8 @@ forget-gate bias is a parameter like the others; length-mask semantics
 (pad frames leave the state unchanged and output exact zeros). The BLSTM
 frame loop runs through ``ops/blstm.py`` (inference) or
 ``ops/blstm_train.py`` (training): the CUDA kernels, or their plain
-versions.
+versions. ``gate_storage`` is the JAX field: "compute" rounds the plain
+frame loop's hoisted gate projections to the compute dtype.
 """
 
 from __future__ import annotations
@@ -17,8 +18,10 @@ from torch import nn
 
 from robust_e2e_gan_torch.models.layers import Dense, mm_f32, param
 from robust_e2e_gan_torch.ops.blstm import (
+    blstm_infer,
     blstm_recurrence,
     blstm_recurrence_plain,
+    infer_kernel_for,
 )
 from robust_e2e_gan_torch.ops.blstm_train import (
     blstm_train,
@@ -57,17 +60,28 @@ class BLSTM(nn.Module):
 
     ``impl``: "scan" runs the plain frame loop (differentiable by
     autograd, the JAX scan); "auto" (or the JAX kernel names
-    "tiled"/"fused") runs a kernel wrapper: ``blstm_train`` or
-    ``blstm_train_gx`` when autograd records, chosen per layer by the JAX
-    package's rule (``ops/blstm_train.py::train_kernel_for``), and the
-    inference ``blstm_recurrence`` when it does not.
+    "tiled"/"fused") runs a kernel wrapper, chosen per layer by the JAX
+    package's rules: ``blstm_train`` or ``blstm_train_gx`` when autograd
+    records (``ops/blstm_train.py::train_kernel_for``), and when it does
+    not the inference ``blstm_infer`` (W_x-resident) or
+    ``blstm_recurrence`` (gate stream) (``ops/blstm.py::infer_kernel_for``).
+    The kernel paths round ``h`` to the compute dtype for the recurrent
+    product, as the JAX kernels do; "scan" keeps it float32, as the JAX
+    scan does.
+
+    ``gate_storage`` "compute" rounds the hoisted gate projections of the
+    "scan" path to the compute dtype (JAX ``rnn.py:243-248``); the kernel
+    paths ignore it, as the JAX kernels do.
     """
 
     def __init__(self, d_in: int, hidden: int, dtype: torch.dtype,
-                 impl: str = "scan"):
+                 impl: str = "scan", gate_storage: str = "f32"):
         super().__init__()
+        if gate_storage not in ("f32", "compute"):
+            raise ValueError(f"unknown gate_storage {gate_storage!r}")
         self.dtype = dtype
         self.use_kernel = kernel_enabled(impl)
+        self.gate_storage = gate_storage
         self.wx = param(2, d_in, 4 * hidden)
         self.wh = param(2, hidden, 4 * hidden)
         self.bias = param(2, 4 * hidden)
@@ -75,20 +89,26 @@ class BLSTM(nn.Module):
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, t, d = x.shape
+        h = self.wh.shape[1]
         lengths = lengths_from_mask(mask, b, t, x.device)
         wh = self.wh.to(self.dtype).contiguous()
         recording = torch.is_grad_enabled() and (
             x.requires_grad or any(p.requires_grad for p in self.parameters()))
         if self.use_kernel and recording:
-            h = self.wh.shape[1]
             if train_kernel_for(b, t, d, h, self.dtype) == "fused":
                 return blstm_train(x, lengths, self.wx.to(self.dtype), wh,
                                    self.bias)
             gx = input_projection(x, self.wx, self.bias, self.dtype)
             return blstm_train_gx(gx, wh, lengths)
-        gx = input_projection(x, self.wx, self.bias, self.dtype)
         if self.use_kernel:
+            if infer_kernel_for(b, t, d, h, self.dtype) == "fused":
+                return blstm_infer(x, lengths, self.wx.to(self.dtype), wh,
+                                   self.bias)
+            gx = input_projection(x, self.wx, self.bias, self.dtype)
             return blstm_recurrence(gx, wh, lengths)
+        gx = input_projection(x, self.wx, self.bias, self.dtype)
+        if self.gate_storage == "compute" and self.dtype != torch.float32:
+            gx = gx.to(self.dtype).float()
         return blstm_recurrence_plain(gx, wh, lengths)
 
 
@@ -108,13 +128,14 @@ class BLSTMP(nn.Module):
 
     def __init__(self, d_in: int, num_layers: int, hidden: int, proj: int,
                  dtype: torch.dtype, impl: str = "scan",
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, gate_storage: str = "f32"):
         super().__init__()
         self.num_layers = num_layers
         self.dropout_rate = dropout_rate
         d = d_in
         for i in range(num_layers):
-            self.add_module(f"blstm{i}", BLSTM(d, hidden, dtype, impl))
+            self.add_module(f"blstm{i}",
+                            BLSTM(d, hidden, dtype, impl, gate_storage))
             self.add_module(f"proj{i}", Dense(2 * hidden, proj, dtype=dtype))
             d = proj
 

@@ -86,7 +86,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scan-unroll", type=int, default=4,
                    help="no effect here")
     p.add_argument("--gate-storage", choices=("f32", "compute"),
-                   default="f32", help="no effect here")
+                   default="f32",
+                   help="'compute' rounds the plain BLSTM frame loop's gate "
+                        "projections to the compute dtype (--lstm-impl "
+                        "scan); the kernels ignore it")
     p.add_argument("--lstm-impl", choices=("auto", "scan", "fused"),
                    default="auto",
                    help="BLSTM frame loops: 'auto'/'fused' run the CUDA "
@@ -136,7 +139,7 @@ def configs_from_args(args, vocab_size: int):
             encoder=EncoderConfig(
                 input_dim=args.n_mels, num_layers=args.enc_layers,
                 hidden_dim=args.enc_hidden, proj_dim=args.enc_proj,
-                lstm_impl=args.lstm_impl,
+                lstm_impl=args.lstm_impl, gate_storage=args.gate_storage,
             ),
             attention=AttentionConfig(dim=args.att_dim),
             decoder=DecoderConfig(
@@ -148,7 +151,7 @@ def configs_from_args(args, vocab_size: int):
         ),
         enhancer=EnhancerConfig(
             num_layers=args.enh_layers, hidden_dim=args.enh_hidden,
-            lstm_impl=args.lstm_impl,
+            lstm_impl=args.lstm_impl, gate_storage=args.gate_storage,
         ),
         discriminator=DiscriminatorConfig(input_dim=args.n_mels),
         lambda_adv=args.lambda_adv,

@@ -80,6 +80,9 @@ SIGNATURES = {
     "att_dec_step": [_P] * 20 + [_I] * 9 + [_F, _I, _P],
     # lpz, last_tok, lengths, r_n, r_b, psi, B, K, T, V, blank, eos, stream
     "ctc_prefix_utt": [_P] * 6 + [_I] * 6 + [_P],
+    # x, wx, wh, bias, lengths, out, B, T, D, DW (wx rows), H,
+    # rows_per_block, bf16, mma, stream
+    "blstm_infer": [_P] * 6 + [_I] * 8 + [_P],
 }
 
 

@@ -41,11 +41,67 @@ def test_blstm_kernel_matches_plain(dev, dtype, h):
           / h ** 0.5).to(dtype)
     lengths = torch.tensor([t, 1, 0, 17, t - 1], dtype=torch.int32, device=dev)
     got = blstm.blstm_recurrence(gx, wh, lengths)
-    want = blstm.blstm_recurrence_plain(gx, wh, lengths)
+    want = blstm.blstm_recurrence_plain(gx, wh, lengths, round_h=True)
     torch.cuda.synchronize()
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype, want))
     assert not got[2].any() and not got[1, 1:].any()  # pad frames
+
+
+def _infer_inputs(gen, dev, b, t, d, h, dtype):
+    x = torch.randn((b, t, d), generator=gen, device=dev)
+    wx = (torch.randn((2, d, 4 * h), generator=gen, device=dev)
+          / d ** 0.5).to(dtype)
+    wh = (torch.randn((2, h, 4 * h), generator=gen, device=dev)
+          / h ** 0.5).to(dtype)
+    bias = torch.randn((2, 4 * h), generator=gen, device=dev) * 0.3
+    return x, wx, wh, bias
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("h", [32, 256, 512, 1024])
+@pytest.mark.parametrize("d", [10, 257, 2560])
+def test_blstm_infer_kernel_matches_plain(dev, dtype, h, d):
+    """The W_x-resident kernel: both projections (tensor cores in bf16 up
+    to H = 512 in 32- and 16-pair chunks, FMAs otherwise in 16- and 8-pair
+    chunks), ragged lengths with an empty row, pad frames exact zeros."""
+    gen = torch.Generator(device=dev).manual_seed(h + d)
+    b, t = 5, 23
+    x, wx, wh, bias = _infer_inputs(gen, dev, b, t, d, h, dtype)
+    lengths = torch.tensor([t, 1, 0, 17, t - 1], dtype=torch.int32, device=dev)
+    got = blstm.blstm_infer(x, lengths, wx, wh, bias)
+    want = blstm.blstm_infer_plain(x, lengths, wx, wh, bias)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype, want))
+    assert not got[2].any() and not got[1, 1:].any() and not got[3, 17:].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_blstm_infer_kernel_four_rows_per_block(dev, dtype):
+    """More rows than two per block fit in one wave of SMs: four rows a
+    block, bf16 x given in float32."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, t, d, h = 150, 9, 257, 256
+    x, wx, wh, bias = _infer_inputs(gen, dev, b, t, d, h, dtype)
+    lengths = torch.randint(0, t + 1, (b,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    got = blstm.blstm_infer(x, lengths, wx, wh, bias)
+    want = blstm.blstm_infer_plain(x, lengths, wx, wh, bias)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype, want))
+    pad = torch.arange(t, device=dev)[None] >= lengths[:, None]
+    assert not got[pad].any()
+
+
+def test_blstm_infer_refuses_autograd(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x, wx, wh, bias = _infer_inputs(gen, dev, 2, 5, 10, 32, torch.float32)
+    lengths = torch.tensor([5, 3], dtype=torch.int32, device=dev)
+    launches = blstm.blstm_infer.launches
+    with pytest.raises(ValueError, match="inference-only"):
+        blstm.blstm_infer(x, lengths, wx.requires_grad_(), wh, bias)
+    assert blstm.blstm_infer.launches == launches
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])

@@ -42,15 +42,16 @@ CONFIGS = {
                                           enc_proj_bias=True))),
 }
 # JAX config fields the port leaves out: XLA scheduling knobs, which do
-# not change what is computed (the fused decoder step's step_impl is kept:
-# it rounds where the unfused step does not, and launches once)
+# not change what is computed, and the fixed subsampling factor (the fused
+# decoder step's step_impl is kept: it rounds where the unfused step does
+# not, and launches once; gate_storage is kept: "compute" rounds the bf16
+# scan's gate projections)
 LEFT_OUT = {
     "FrontendConfig": set(),
-    "EncoderConfig": {"subsample_factor", "remat", "scan_unroll",
-                      "gate_storage"},
+    "EncoderConfig": {"subsample_factor", "remat", "scan_unroll"},
     "AttentionConfig": set(),
     "DecoderConfig": {"scan_unroll"},
-    "EnhancerConfig": {"remat", "scan_unroll", "gate_storage"},
+    "EnhancerConfig": {"remat", "scan_unroll"},
     "DiscriminatorConfig": set(),
     "E2EConfig": set(),
     "JointConfig": set(),
@@ -240,6 +241,9 @@ def test_inference_wrappers_refuse_autograd():
         "blstm_recurrence": lambda: blstm.blstm_recurrence(
             leaf(b, t, 2, 4 * h), leaf(2, h, 4 * h),
             torch.full((b,), t, dtype=torch.int32)),
+        "blstm_infer": lambda: blstm.blstm_infer(
+            leaf(b, t, 3), torch.full((b,), t, dtype=torch.int32),
+            leaf(2, 3, 4 * h), leaf(2, h, 4 * h), leaf(2, 4 * h)),
         "att_loc_step": lambda: att.att_loc_step(
             leaf(b, k, t, 2), leaf(b, t, 3), leaf(b, t, 3), leaf(b, k, 3),
             leaf(2, 3), leaf(3), torch.ones(b, t), 2.0),
