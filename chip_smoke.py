@@ -21,7 +21,10 @@ Phases, each of which exits non-zero on failure:
    training
    kernels, forward and every gradient, at the train shapes (B=32 ~2.9 s
    utterances: 286 STFT frames, 72 encoder frames; the train CLI's model
-   for blstm_train_gx); then the clean-speech kernels: the fused frontend
+   for blstm_train_gx; the whole CTC loss and its gradient, float32 and
+   bfloat16 logits, timed in turns with F.ctc_loss, with a profiler split
+   of its device time against its wall time, and the bare alpha recursion
+   alone); then the clean-speech kernels: the fused frontend
    at decode and train shapes, its backward at train shapes, and the RNNLM
    step at N=1024 lanes (float32 and bfloat16, 1 and 2 layers, and the
    CLI's E=H=512). Each kernel's entry also holds the least time the card
@@ -40,8 +43,9 @@ Phases, each of which exits non-zero on failure:
 6. train step: the flagship in bfloat16 through ``make_joint_train_step``
    (D-step, then G-step; Adadelta) on B=32 utterances of 20-24 tokens:
    one warm-up and 5 timed steps on the kernel path, checking finite
-   metrics, that every kernel of the path launched and no plain version
-   ran, and a profile of one warm step; then the same on the plain path;
+   metrics, that every kernel of the path launched (the CTC loss twice a
+   G-step, forward and backward) and no plain version ran, and a profile
+   of one warm step; then the same on the plain path;
 7. entry point: ``train.cli --mode joint --synthetic`` at the CLI's
    default model (float32, B=16) for 3 steps into a temporary checkpoint
    dir, then a resume for 1 more; the encoder's first layer takes
@@ -189,6 +193,11 @@ KERNELS = {
         plain=blstm_train.blstm_train_gx_plain,
         source="robust_e2e_gan_torch/csrc/blstm_train.cu",
         replaces="robust_e2e_gan_tpu/ops/blstm_train_pallas.py:1050"),
+    "ctc_nll": dict(
+        wrapper=ctc.ctc_nll, plain=ctc.ctc_nll_plain,
+        source="robust_e2e_gan_torch/csrc/ctc_alpha.cu",
+        replaces="robust_e2e_gan_tpu/ops/ctc_pallas.py:296 "
+                 "(with the loss around it, ops/ctc.py:61-90,145-158)"),
     "ctc_alpha": dict(
         wrapper=ctc.ctc_alpha, plain=ctc.ctc_alpha_fwd_plain,
         source="robust_e2e_gan_torch/csrc/ctc_alpha.cu",
@@ -235,8 +244,9 @@ LM_WEIGHT = 0.3
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 HBM_BYTES = 3.35e12
 # the kernels of the train step: the D-step's no-grad generator forward
-# takes the inference BLSTM kernel
-TRAINING = ("blstm_train", "ctc_alpha", "blstm_infer")
+# takes the inference BLSTM kernel; the G-step's CTC loss is ctc_nll, one
+# forward and one backward launch (ctc_alpha runs on no path)
+TRAINING = ("blstm_train", "ctc_nll", "blstm_infer")
 
 
 class SmokeFailure(RuntimeError):
@@ -789,8 +799,9 @@ def train_kernel_parity(jcfg, t_enh, t_enc, dev) -> dict:
         lstm_library_ms(torch.randn((gb, t_enc, d_enc), generator=gen,
                                     device=dev), lengths, gh, train=True))
 
-    # ctc_alpha: the CTC loss and its gradient at the train shapes
+    # ctc_nll: the whole CTC loss and its gradient at the train shapes
     s_len = TRAIN_SYNTH.max_tokens
+    u = 2 * s_len + 1
     logits = 3 * torch.randn((b, t_enc, VOCAB), generator=gen, device=dev)
     labels = torch.randint(2, VOCAB, (b, s_len), generator=gen, device=dev)
     label_lengths = torch.randint(TRAIN_SYNTH.min_tokens, s_len + 1, (b,),
@@ -798,16 +809,22 @@ def train_kernel_parity(jcfg, t_enh, t_enc, dev) -> dict:
     logit_lengths = torch.randint(t_enc - 12, t_enc + 1, (b,), generator=gen,
                                   device=dev)
 
-    def run_ctc(impl):
-        lg = logits.clone().requires_grad_()
+    def run_ctc(impl, lg=logits):
+        lg = lg.detach().requires_grad_()
         loss = ctc.ctc_loss(lg, logit_lengths, labels, label_lengths,
                             impl=impl, reduction="none")
         return [loss, torch.autograd.grad(loss.sum(), lg)[0]]
 
-    got, want = run_ctc("auto"), run_ctc("scan")
-    err, ok = compare(f"ctc_alpha loss+grad B={b} T={t_enc} S={s_len} "
-                      f"V={VOCAB}", got, want, atol=1e-4)
-    ok_all &= ok
+    for dt in (f32, bf16):
+        got, want = run_ctc("auto", logits.to(dt)), run_ctc("scan",
+                                                           logits.to(dt))
+        err, ok = compare(f"ctc_nll loss+grad B={b} T={t_enc} S={s_len} "
+                          f"V={VOCAB} {dt}", got, want,
+                          **(dict(atol=1e-4) if dt == f32
+                             else dict(scale_atol=2e-2)))
+        ok_all &= ok
+        if dt == f32:
+            nll_err, nll_out = err, got
 
     def library_ctc():
         lg = logits.clone().requires_grad_()
@@ -816,16 +833,98 @@ def train_kernel_parity(jcfg, t_enh, t_enc, dev) -> dict:
                           reduction="none")
         return torch.autograd.grad(loss.sum(), lg)
 
+    # both are host-bound at these shapes: timed in turns (kernel,
+    # library, library, kernel), so one host's drift falls on both
+    nll_ms, lib_ms = cuda_ms_in_turns([lambda: run_ctc("auto"), library_ctc],
+                                      50)
     # log-softmax and its gradient (~8 per logit), the alpha and beta
     # recursions (~10 per (b, t, u) each way), U = 2S + 1
+    res["ctc_nll"] = entry(
+        "ctc_nll", nll_err, nll_ms, cuda_ms(lambda: run_ctc("scan"), 2),
+        b * t_enc * (8 * VOCAB + 20 * u),
+        nbytes(logits, labels, label_lengths, logit_lengths, nll_out),
+        logits.dtype, lib_ms)
+    print(f"    host time per call (loss + gradient): ctc_nll "
+          f"{host_us(lambda: run_ctc('auto')):.1f} us, plain "
+          f"{host_us(lambda: run_ctc('scan'), 5):.1f} us, F.ctc_loss "
+          f"{host_us(library_ctc):.1f} us")
+    ctc_split("ctc_nll", lambda: run_ctc("auto"))
+    ctc_split("F.ctc_loss", library_ctc)
+
+    # ctc_alpha alone: the recursion from the same inputs' emissions and
+    # alpha0 to the final alpha, and its gradient for a random cotangent
+    with torch.no_grad():
+        emit, alpha0, skip, pos = ctc.ctc_alpha_inputs(logits, labels,
+                                                       label_lengths)
+    dfin = torch.randn((b, u), generator=gen, device=dev)
+
+    def run_alpha(fn):
+        return with_grads(lambda e, a0: fn(e, a0, skip, pos, logit_lengths),
+                          [emit, alpha0], dfin)
+
+    ctc.ctc_alpha.launches = 0
+    got = run_alpha(ctc.ctc_alpha)
+    alpha_launches = ctc.ctc_alpha.launches
+    want = run_alpha(ctc.ctc_alpha_plain)
+    reach = want[0] > ctc.NEG_THRESH  # unreachable positions hold ~-1e30
+    err, ok = compare(f"ctc_alpha final alpha + grads B={b} T={t_enc} U={u}",
+                      [got[0][reach]] + got[1:], [want[0][reach]] + want[1:],
+                      atol=1e-4)
+    ok_all &= ok
+    # the alpha and beta recursions, ~10 per (b, t, u) each way
     res["ctc_alpha"] = entry(
-        "ctc_alpha", err, cuda_ms(lambda: run_ctc("auto"), 5),
-        cuda_ms(lambda: run_ctc("scan"), 2),
-        b * t_enc * (8 * VOCAB + 20 * (2 * s_len + 1)),
-        nbytes(logits, labels, label_lengths, logit_lengths, got),
-        logits.dtype, cuda_ms(library_ctc, 5))
+        "ctc_alpha", err, cuda_ms(lambda: run_alpha(ctc.ctc_alpha), 20),
+        cuda_ms(lambda: run_alpha(ctc.ctc_alpha_plain), 2),
+        b * t_enc * 20 * u,
+        nbytes(emit, alpha0, skip, pos, logit_lengths, dfin, got), emit.dtype)
     require(ok_all, "a training kernel disagrees with its plain version")
-    return res
+    return res, alpha_launches
+
+
+def cuda_ms_in_turns(fns, reps: int):
+    """``cuda_ms`` of each of ``fns``, taken twice in turns (A, B, B, A)
+    and averaged."""
+    times = [[] for _ in fns]
+    for i in list(range(len(fns))) + list(reversed(range(len(fns)))):
+        times[i].append(cuda_ms(fns[i], reps))
+    return [mean(t) for t in times]
+
+
+def ctc_split(tag, fn, reps: int = 20):
+    """One torch.profiler window over ``reps`` calls of a CTC loss and its
+    gradient: the device time of the two ctc_nll kernels and of every
+    other kernel, against the calls' wall time (profiled, and unprofiled on
+    the host clock)."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3 / reps
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    ours = [e for e in rows
+            if "nll_fwd_kernel" in e.key or "nll_bwd_kernel" in e.key]
+    per_call = {("fwd" if "nll_fwd" in e.key else "bwd"):
+                round(e.self_device_time_total / 1e3 / reps, 4) for e in ours}
+    kern_ms = sum(per_call.values())
+    other_ms = sum(e.self_device_time_total for e in rows) / 1e3 / reps \
+        - kern_ms
+    other_n = sum(e.count for e in rows if e not in ours) / reps
+    print(f"    {tag} split per loss + gradient ({reps} calls): ctc_nll "
+          f"kernels {kern_ms:.4f} ms of device time {per_call}, other kernels "
+          f"{other_ms:.4f} ms in {other_n:.1f} launches; wall "
+          f"{wall_ms:.4f} ms ({prof_ms:.4f} profiled)")
 
 
 def lm_inputs(gen, n, v, e, h, layers, dev):
@@ -1198,8 +1297,11 @@ def train_path(state_g, state_d, dev):
             print(f"  launches {launches}  plain calls {plain_calls}")
             require(all(v > 0 for v in launches.values()),
                     f"a kernel of the train path never launched: {launches}")
+            require(launches["ctc_nll"] == 2 * (TRAIN_STEPS + 1),
+                    f"ctc_nll launched {launches['ctc_nll']} times in "
+                    f"{TRAIN_STEPS + 1} steps, not 2 per G-step loss")
             train_plain = {n: plain_calls[n] for n in
-                           TRAINING + ("blstm_train_gx",)}
+                           TRAINING + ("blstm_train_gx", "ctc_alpha")}
             require(not any(train_plain.values()),
                     f"a plain version ran on the train path: {train_plain}")
             result = launches
@@ -1223,7 +1325,7 @@ def cli_path(ckpt):
     with open(os.path.join(ckpt, "checkpoints.json")) as f:
         latest = json.load(f)["latest"]
     launches, plain_calls = counts(("blstm_train", "blstm_train_gx",
-                                    "ctc_alpha"))
+                                    "ctc_nll"))
     print(f"  3 steps + dev evals in {first_s:.1f} s; resumed to step "
           f"{latest['step']}; launches {launches}")
     require(latest["step"] == 4, f"resume ended at step {latest['step']}")
@@ -1398,7 +1500,7 @@ def clean_recipe(dev):
         torch.cuda.synchronize()
         asr_s = time.perf_counter() - t0
         asr_kernels = ("fbank_fused", "blstm_train", "blstm_train_gx",
-                       "ctc_alpha")
+                       "ctc_nll")
         asr_launches, plain_calls = counts(asr_kernels)
         print(f"  --mode asr --fused-frontend: 3 steps + dev evals in "
               f"{asr_s:.1f} s; launches {asr_launches}")
@@ -1675,8 +1777,9 @@ def main() -> int:
     timings = kernel_parity(BATCH, t_enh, t_enc, jcfg, dev)
     gx_launches = oversize_blstm(dev)
     t_train = num_frames(TRAIN_SYNTH.max_samples, jcfg.e2e.frontend)
-    timings.update(train_kernel_parity(jcfg, t_train,
-                                       subsampled_frames(t_train), dev))
+    train_timings, alpha_launches = train_kernel_parity(
+        jcfg, t_train, subsampled_frames(t_train), dev)
+    timings.update(train_timings)
     clean_timings, bwd_launches = clean_kernel_parity(jcfg, dev)
     timings.update(clean_timings)
 
@@ -1694,10 +1797,12 @@ def main() -> int:
     print("train step (flagship, bfloat16 compute, joint D/G, Adadelta):")
     train_launches = train_path(state, state_d, dev)
     launches.update({n: train_launches[n] for n in ("blstm_train",
-                                                     "ctc_alpha")})
-    # no path runs the backward of the fused frontend, and only a layer
-    # past the fit rule takes the gate-stream BLSTM: phase 3's launches
+                                                     "ctc_nll")})
+    # no path runs the backward of the fused frontend or the bare alpha
+    # recursion, and only a layer past the fit rule takes the gate-stream
+    # BLSTM: phase 3's launches
     launches["fbank_fused_bwd"] = bwd_launches
+    launches["ctc_alpha"] = alpha_launches
     launches["blstm_recurrence"] = gx_launches
 
     # 7-14, in a scratch dir: phase 12 decodes phase 7's experiment

@@ -1,17 +1,24 @@
-"""CTC loss: log-space forward algorithm, its kernel and plain versions.
+"""CTC loss: log-space forward algorithm, its kernels and plain versions.
 
-Port of ``robust_e2e_gan_tpu/ops/ctc.py``. What the JAX package keeps
-outside its kernel stays outside here: the log-softmax, the emission
-gather and ``alpha0`` (``ctc.py:61-90``), and the final two-position
-log-sum-exp and the reduction (``ctc.py:145-167``). The alpha recursion
-in between is ``ctc_alpha`` (the counterpart of
-``ops/ctc_pallas.py::ctc_alpha_final``, kernel ``csrc/ctc_alpha.cu``) for
-``ctc_impl`` "auto"/"fused", or its plain version for "scan".
+Port of ``robust_e2e_gan_tpu/ops/ctc.py``. ``ctc_loss`` is the dispatch
+and the reduction (``ctc.py:160-167``); the per-utterance loss is
+``ctc_nll`` (kernels ``ctc_nll_fwd``/``ctc_nll_bwd`` of
+``csrc/ctc_alpha.cu``, one launch each way) for ``ctc_impl``
+"auto"/"fused", or ``ctc_nll_plain`` for "scan". The JAX package keeps
+the log-softmax, the emission gather, ``alpha0`` (``ctc.py:61-90``) and
+the final two-position log-sum-exp (``ctc.py:145-158``) outside its
+kernel; ``ctc_nll_plain`` keeps them so, around the alpha recursion
+``ctc_alpha_plain``, and the kernels take them in.
+
+``ctc_alpha`` is the JAX kernel's own contract (``ops/ctc_pallas.py::
+ctc_alpha_final``: emissions and alpha0 in, final alpha out), on the same
+per-frame steps in ``csrc/ctc_alpha.cu``; no path runs it.
 
 The plain forward is the JAX scan step (``ctc.py:92-115``) as a loop; the
 plain backward is the hand-derived adjoint of ``ctc_pallas.py:144-199``.
 Sentinels and clamps are the reference's: -1e30 for log 0, -5e29 as the
-kernel's compare threshold, sums clamped at 1e-37. Everything is float32.
+kernel's compare threshold, sums clamped at 1e-37. The recursion is
+float32.
 """
 
 from __future__ import annotations
@@ -175,16 +182,12 @@ def ctc_alpha(emit: torch.Tensor, alpha0: torch.Tensor,
 ctc_alpha.launches = 0
 
 
-def ctc_loss(logits: torch.Tensor, logit_lengths: torch.Tensor,
-             labels: torch.Tensor, label_lengths: torch.Tensor,
-             blank_id: int = 0, log_input: bool = False,
-             reduction: str = "mean", impl: str = "auto") -> torch.Tensor:
-    """Negative log-likelihood of the CTC alignment marginal, as
-    ``ops/ctc.py::ctc_loss``: logits (B, T, V), logit_lengths (B,), labels
-    (B, S) (padding arbitrary past label_lengths), label_lengths (B,).
-    ``reduction``: "mean" (per label token, torch semantics), "sum" or
-    "none" -> (B,). ``impl``: "scan" runs the plain recursion, "auto" or
-    "fused" the kernel wrapper."""
+def ctc_alpha_inputs(logits: torch.Tensor, labels: torch.Tensor,
+                     label_lengths: torch.Tensor, blank_id: int = 0,
+                     log_input: bool = False):
+    """What the recursion takes (``ops/ctc.py:61-90``): the emissions
+    (B, T, U) (the log-softmax gathered at the blank-interleaved labels,
+    float32), alpha0, the skip and position masks (B, U)."""
     b, t, v = logits.shape
     s = labels.shape[1]
     u = 2 * s + 1
@@ -208,10 +211,25 @@ def ctc_loss(logits: torch.Tensor, logit_lengths: torch.Tensor,
     if s > 0:
         alpha0[:, 1] = torch.where(label_lengths > 0, emit[:, 0, 1], NEG_INF)
     alpha0 = torch.clamp_min(alpha0 + pos_add, NEG_INF)
+    return emit, alpha0, skip_add, pos_add
 
-    fn = ctc_alpha if kernel_enabled(impl) else ctc_alpha_plain
-    alpha = fn(emit, alpha0, skip_add, pos_add, logit_lengths)
 
+def ctc_nll_plain(logits: torch.Tensor, logit_lengths: torch.Tensor,
+                  labels: torch.Tensor, label_lengths: torch.Tensor,
+                  blank_id: int = 0, log_input: bool = False) -> torch.Tensor:
+    """Negative log-likelihood (B,) of each utterance's CTC alignment
+    marginal, as ``ops/ctc.py::ctc_loss`` before its reduction: logits
+    (B, T, V) (log-probabilities with ``log_input``), logit_lengths (B,),
+    labels (B, S) (padding arbitrary past label_lengths, but in [0, V)),
+    label_lengths (B,). An utterance too short for its label gets 1e30.
+    Plain PyTorch on any device, differentiable with respect to the
+    logits."""
+    ctc_nll_plain.calls += 1
+    emit, alpha0, skip_add, pos_add = ctc_alpha_inputs(
+        logits, labels, label_lengths, blank_id, log_input)
+    alpha = ctc_alpha_plain(emit, alpha0, skip_add, pos_add, logit_lengths)
+
+    label_lengths = label_lengths.long()
     last = 2 * label_lengths
     a_last = alpha.gather(1, last[:, None])[:, 0]
     a_prev = alpha.gather(1, torch.clamp_min(last - 1, 0)[:, None])[:, 0]
@@ -220,7 +238,140 @@ def ctc_loss(logits: torch.Tensor, logit_lengths: torch.Tensor,
     safe_m = torch.where(m <= NEG_INF, 0.0, m)
     ll = safe_m + torch.log(torch.clamp_min(
         torch.exp(a_last - safe_m) + torch.exp(a_prev - safe_m), 1e-37))
-    nll = -torch.where(m <= NEG_INF, NEG_INF, ll)
+    return -torch.where(m <= NEG_INF, NEG_INF, ll)
+
+
+ctc_nll_plain.calls = 0
+
+
+_LOGIT_DTYPES = (torch.float32, torch.bfloat16)
+_INDEX_DTYPES = (torch.int32, torch.int64)
+
+
+def _nll_flags(logits, logit_lengths, labels, label_lengths,
+               blank_id) -> int:
+    """Check what the kernels take; returns their int64 flags (bit 0
+    labels, 1 logit lengths, 2 label lengths). Messages are formatted only
+    for a refusal."""
+    check(logits.dim() == 3 and logits.dtype in _LOGIT_DTYPES,
+          "logits %s %s: expected (B, T, V) float32 or bfloat16",
+          tuple(logits.shape), logits.dtype)
+    b, t, v = logits.shape
+    check(b >= 1 and t >= 1, "logits shape %s", tuple(logits.shape))
+    check(labels.dim() == 2 and labels.shape[0] == b
+          and logit_lengths.shape == (b,) and label_lengths.shape == (b,),
+          "labels %s, logit_lengths %s, label_lengths %s for B=%d",
+          tuple(labels.shape), tuple(logit_lengths.shape),
+          tuple(label_lengths.shape), b)
+    index = (labels, logit_lengths, label_lengths)
+    check(all(x.dtype in _INDEX_DTYPES for x in index),
+          "labels and lengths must be int32 or int64, not %s %s %s",
+          labels.dtype, logit_lengths.dtype, label_lengths.dtype)
+    u = 2 * labels.shape[1] + 1
+    check(u <= MAX_POSITIONS, "U=%d outside [1, %d]", u, MAX_POSITIONS)
+    check(0 <= blank_id < v, "blank_id %d outside [0, %d)", blank_id, v)
+    return sum((x.dtype == torch.int64) << bit for bit, x in enumerate(index))
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _nll_fwd(logits, logit_lengths, labels, label_lengths, blank_id,
+             log_input, flags, with_hist: bool):
+    """-> nll (B,), lse (B, T), and with the history hist (T, B, U) and
+    the backward's scratch: demit (B, T, U), two sums (B, 2T) and the
+    label heads (B, V) as int32 (``csrc/ctc_alpha.cu::nll_bwd_kernel``)."""
+    b, t, v = logits.shape
+    u = 2 * labels.shape[1] + 1
+    nll = torch.empty((b,), device=logits.device)
+    size = b * t + (t * b * u + b * t * (u + 2) + b * v if with_hist else 0)
+    work = torch.empty((size,), device=logits.device)  # one buffer for all
+    lse = work[:b * t].view(b, t)
+    hist = work[b * t:b * t * (u + 1)].view(t, b, u) if with_hist else None
+    scratch = work[b * t * (u + 1):] if with_hist else None
+    launch("ctc_nll_fwd", logits.data_ptr(), labels.data_ptr(),
+           logit_lengths.data_ptr(), label_lengths.data_ptr(),
+           0 if hist is None else hist.data_ptr(), lse.data_ptr(),
+           nll.data_ptr(), b, t, v, u, blank_id, int(log_input),
+           int(logits.dtype == torch.bfloat16), flags, _stream(logits))
+    ctc_nll.launches += 1
+    return nll, lse, hist, scratch
+
+
+class _CTCNLL(torch.autograd.Function):
+    """logits -> nll (B,); lengths and labels are constants."""
+
+    @staticmethod
+    def forward(ctx, logits, logit_lengths, labels, label_lengths, blank_id,
+                log_input, flags):
+        nll, lse, hist, scratch = _nll_fwd(logits, logit_lengths, labels,
+                                           label_lengths, blank_id, log_input,
+                                           flags, True)
+        ctx.save_for_backward(logits, logit_lengths, labels, label_lengths,
+                              hist, lse, scratch)
+        ctx.args = (blank_id, log_input, flags)
+        return nll
+
+    @staticmethod
+    def backward(ctx, dnll):
+        logits, logit_lengths, labels, label_lengths, hist, lse, scratch = \
+            ctx.saved_tensors
+        blank_id, log_input, flags = ctx.args
+        b, t, v = logits.shape
+        dlogits = torch.empty_like(logits)
+        launch("ctc_nll_bwd", logits.data_ptr(), labels.data_ptr(),
+               logit_lengths.data_ptr(), label_lengths.data_ptr(),
+               hist.data_ptr(), lse.data_ptr(), dnll.data_ptr(),
+               scratch.data_ptr(), dlogits.data_ptr(), dnll.stride(0), b, t,
+               v, hist.shape[2], blank_id, int(log_input),
+               int(logits.dtype == torch.bfloat16), flags, _stream(logits))
+        ctc_nll.launches += 1
+        return dlogits, None, None, None, None, None, None
+
+
+def ctc_nll(logits: torch.Tensor, logit_lengths: torch.Tensor,
+            labels: torch.Tensor, label_lengths: torch.Tensor,
+            blank_id: int = 0, log_input: bool = False) -> torch.Tensor:
+    """``ctc_nll_plain``'s function, differentiable with respect to the
+    logits: one launch of ``ctc_nll_fwd`` (with the alpha history only
+    when autograd records) and one of ``ctc_nll_bwd`` for the gradient.
+    Logits float32 or bfloat16, labels and lengths int32 or int64, each
+    read as it is. A label outside [0, V) at a position inside the label,
+    or a label length outside [0, S], is a device-side assert in the
+    forward, as ``torch.gather``'s in the plain version on CUDA.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernels or
+    raise (U <= 1,024).
+    """
+    if not on_cuda(logits, logit_lengths, labels, label_lengths):
+        return ctc_nll_plain(logits, logit_lengths, labels, label_lengths,
+                             blank_id, log_input)
+    flags = _nll_flags(logits, logit_lengths, labels, label_lengths, blank_id)
+    args = (logits.contiguous(), logit_lengths.contiguous(),
+            labels.contiguous(), label_lengths.contiguous(), blank_id,
+            log_input, flags)
+    if _needs_grad(logits):
+        return _CTCNLL.apply(*args)
+    return _nll_fwd(*args, with_hist=False)[0]
+
+
+ctc_nll.launches = 0
+
+
+def ctc_loss(logits: torch.Tensor, logit_lengths: torch.Tensor,
+             labels: torch.Tensor, label_lengths: torch.Tensor,
+             blank_id: int = 0, log_input: bool = False,
+             reduction: str = "mean", impl: str = "auto") -> torch.Tensor:
+    """Negative log-likelihood of the CTC alignment marginal, as
+    ``ops/ctc.py::ctc_loss``: logits (B, T, V), logit_lengths (B,), labels
+    (B, S) (padding arbitrary past label_lengths), label_lengths (B,).
+    ``reduction``: "mean" (per label token, torch semantics), "sum" or
+    "none" -> (B,). ``impl``: "scan" runs ``ctc_nll_plain``, "auto" or
+    "fused" the kernel wrapper ``ctc_nll``."""
+    fn = ctc_nll if kernel_enabled(impl) else ctc_nll_plain
+    nll = fn(logits, logit_lengths, labels, label_lengths, blank_id,
+             log_input)
     if reduction == "none":
         return nll
     if reduction == "sum":

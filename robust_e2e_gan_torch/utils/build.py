@@ -64,6 +64,13 @@ SIGNATURES = {
     "ctc_alpha_fwd": [_P] * 7 + [_I] * 3 + [_P],
     # emit, skip, pos, lens, hist, dfin, demit, da0, B, T, U, stream
     "ctc_alpha_bwd": [_P] * 8 + [_I] * 3 + [_P],
+    # logits, labels, logit_lens, label_lens, hist (or null), lse, nll, B,
+    # T, V, U, blank, log_input, bf16, idx64, stream
+    "ctc_nll_fwd": [_P] * 7 + [_I] * 8 + [_P],
+    # logits, labels, logit_lens, label_lens, hist, lse, dnll, scratch,
+    # dlogits, dnll_stride, B, T, V, U, blank, log_input, bf16, idx64,
+    # stream
+    "ctc_nll_bwd": [_P] * 9 + [_I] * 9 + [_P],
     # wav, n_valid, mcos, msin, fb, out, B, N, T, L, shift, F, M,
     # log_floor, use_power, norm_var, eps, stream
     "fbank_fwd": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _F, _P],

@@ -56,10 +56,11 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"tensors on mixed devices: {sorted(kinds)}")
 
 
-def check(cond: bool, msg: str) -> None:
-    """Raise ValueError(msg) unless ``cond`` (kernel argument checks)."""
+def check(cond: bool, msg: str, *args) -> None:
+    """Raise ValueError(msg) unless ``cond`` (kernel argument checks);
+    with ``args``, the message is ``msg % args``, formatted only then."""
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg % args if args else msg)
 
 
 def check_no_grad(name: str, *tensors: torch.Tensor) -> None:

@@ -1,7 +1,9 @@
 """The port's CTC loss against the JAX package: the loss and its gradient
 with respect to the logits against the JAX scan (the trustworthy gradient
-oracle), the alpha recursion against the Pallas ``ctc_alpha_final``
-(interpret mode), and the greedy decode."""
+oracle), for every reduction and for the per-utterance loss at its edges
+(log-probability input, a blank other than 0, labels too long for their
+frames, one frame), the alpha recursion against the Pallas
+``ctc_alpha_final`` (interpret mode), and the greedy decode."""
 
 import pytest
 
@@ -57,6 +59,75 @@ def test_ctc_loss_and_grad_match_jax_scan(impl, reduction):
                                rtol=LOSS_RTOL, atol=ATOL)
     np.testing.assert_allclose(grad.numpy(), np.asarray(want_grad), rtol=0,
                                atol=ATOL)
+
+
+# name: (logit lengths, label lengths, blank_id, log_input)
+EDGE_CASES = {
+    "log_input": (LOGIT_LENGTHS, LABEL_LENGTHS, 0, True),
+    # blank is the last column, and label 0 is an ordinary token
+    "blank_last": (LOGIT_LENGTHS, LABEL_LENGTHS, V - 1, False),
+    # row 3 (one token three times) needs 5 frames and has 4; row 1 has
+    # fewer than 2 S_b + 1 frames and no repeat, so it fits
+    "infeasible": ([13, 5, 4, 4, 11], [4, 4, 0, 3, 4], 0, False),
+    # one frame: a one-token label, an empty one, one that cannot fit
+    "one_frame": ([1, 1, 13, 1, 9], [1, 0, 2, 2, 4], 0, False),
+}
+
+
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_ctc_nll_edge_cases_match_jax_scan(case):
+    """ctc_nll_plain and ctc_loss(impl="auto", reduction="none") against
+    the JAX scan, loss and gradient."""
+    logit_lengths, label_lengths, blank, log_input = EDGE_CASES[case]
+    logits, labels = _inputs(4)
+    if log_input:
+        logits = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+    if blank:
+        labels = labels - 1  # tokens in [0, V - 1)
+        labels[0, :2] = 0
+    labels[1] = [1, 2, 3, 4]
+    args = (jnp.asarray(logit_lengths), jnp.asarray(labels),
+            jnp.asarray(label_lengths))
+    weights = np.arange(1, B + 1, dtype=np.float32)
+
+    def jfn(lg):
+        return jax_ctc.ctc_loss(lg, *args, blank_id=blank, log_input=log_input,
+                                reduction="none", impl="scan")
+
+    want, vjp = jax.vjp(jfn, jnp.asarray(logits))
+    want_grad, = vjp(jnp.asarray(weights))
+    targs = (torch.tensor(logit_lengths), torch.from_numpy(labels),
+             torch.tensor(label_lengths))
+    for fn in (lambda lg: ctc.ctc_nll_plain(lg, *targs, blank, log_input),
+               lambda lg: ctc.ctc_loss(lg, *targs, blank, log_input,
+                                       reduction="none", impl="auto")):
+        lg = torch.from_numpy(logits).requires_grad_()
+        got = fn(lg)
+        grad, = torch.autograd.grad(got, lg, torch.from_numpy(weights))
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   rtol=LOSS_RTOL, atol=ATOL)
+        np.testing.assert_allclose(grad.numpy(), np.asarray(want_grad),
+                                   rtol=0, atol=ATOL)
+        if case == "infeasible":
+            assert got[3].item() == np.float32(1e30) and got[1].item() < 1e29
+            assert not grad[3].any()
+
+
+@pytest.mark.parametrize("bad", ["label", "label_length"])
+@pytest.mark.parametrize("impl", ["auto", "scan"])
+def test_ctc_loss_refuses_a_bad_label(impl, bad):
+    """A label outside [0, V) inside an utterance, or a label length past
+    S, raises on the CPU on both impls (the card's kernel asserts)."""
+    logits, labels = _inputs(5)
+    label_lengths = list(LABEL_LENGTHS)
+    if bad == "label":
+        labels[1, 1] = V
+    else:
+        label_lengths[4] = S + 1
+    with pytest.raises(RuntimeError, match="out of bounds"):
+        ctc.ctc_loss(torch.from_numpy(logits), torch.tensor(LOGIT_LENGTHS),
+                     torch.from_numpy(labels), torch.tensor(label_lengths),
+                     impl=impl)
 
 
 def test_ctc_alpha_matches_pallas_kernel():

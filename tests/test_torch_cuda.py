@@ -216,30 +216,186 @@ def test_blstm_train_kernels_match_plain(dev, dtype, h):
 
 @pytest.mark.parametrize("s", [1, 9])
 def test_ctc_alpha_kernel_matches_plain(dev, s):
+    """The bare recursion (the JAX kernel's contract, on no path): final
+    alpha, the emission and alpha0 gradients, the history-free forward."""
+    from robust_e2e_gan_torch.ops import ctc
+
+    gen = torch.Generator(device=dev).manual_seed(s)
+    b, t = 6, 31
+    u = 2 * s + 1
+    emit = torch.log(torch.rand((b, t, u), generator=gen, device=dev))
+    label_lengths = torch.tensor([s, s, 0, max(s - 2, 0), 1, s], device=dev)
+    pos = torch.where(torch.arange(u, device=dev)[None]
+                      < 2 * label_lengths[:, None] + 1, 0.0, ctc.NEG_INF)
+    skip = torch.where(torch.rand((b, u), generator=gen, device=dev) < 0.7,
+                       0.0, ctc.NEG_INF)
+    alpha0 = torch.full((b, u), ctc.NEG_INF, device=dev)
+    alpha0[:, :2] = emit[:, 0, :2]
+    alpha0 = torch.clamp_min(alpha0 + pos, ctc.NEG_INF)
+    lens = torch.tensor([t, t - 4, 3, t, 1, 2 * s + 1], device=dev)
+    dfin = torch.randn((b, u), generator=gen, device=dev)
+    e, a0 = emit.clone().requires_grad_(), alpha0.clone().requires_grad_()
+    launches = ctc.ctc_alpha.launches
+    got = ctc.ctc_alpha(e, a0, skip, pos, lens)
+    de, da0 = torch.autograd.grad(got, [e, a0], dfin)
+    assert ctc.ctc_alpha.launches == launches + 2
+    want, hist = ctc.ctc_alpha_fwd_plain(emit, alpha0, skip, pos, lens)
+    want_de, want_da0 = ctc.ctc_alpha_bwd_plain(emit, skip, pos, lens, hist,
+                                                dfin)
+    torch.cuda.synchronize()
+    finite = want > ctc.NEG_THRESH
+    torch.testing.assert_close(got[finite], want[finite], rtol=0, atol=1e-4)
+    assert bool((got[~finite] <= ctc.NEG_THRESH).all())
+    torch.testing.assert_close(de, want_de, rtol=0, atol=1e-4)
+    torch.testing.assert_close(da0, want_da0, rtol=0, atol=1e-4)
+    with torch.no_grad():  # the history-free forward
+        torch.testing.assert_close(ctc.ctc_alpha(emit, alpha0, skip, pos, lens),
+                                   got.detach(), rtol=0, atol=0)
+
+
+CTC_CASES = ["f32", "bf16", "log_input", "blank_last", "int32"]
+
+
+@pytest.mark.parametrize("case", CTC_CASES)
+@pytest.mark.parametrize("s", [1, 9])
+def test_ctc_nll_kernels_match_plain(dev, s, case):
+    """ctc_nll (one forward and one backward launch) against ctc_nll_plain
+    on the card: ragged frames and labels, an empty label, repeats, one
+    frame; log-probability input, blank = V - 1 with label 0 present,
+    int32 labels and lengths (int64 otherwise); the no-grad forward."""
     from robust_e2e_gan_torch.ops import ctc
 
     gen = torch.Generator(device=dev).manual_seed(s)
     b, t, v = 6, 31, 13
+    dtype = torch.bfloat16 if case == "bf16" else torch.float32
+    blank = v - 1 if case == "blank_last" else 0
     logits = torch.randn((b, t, v), generator=gen, device=dev) * 3
+    if case == "log_input":
+        logits = torch.log_softmax(logits, -1)
+    logits = logits.to(dtype)
     labels = torch.randint(1, v, (b, s), generator=gen, device=dev)
+    if blank:
+        labels[:, 0] = 0
+        labels[labels == blank] = 1
     labels[0, 1:] = labels[0, :1] if s > 1 else labels[0, 1:]  # repeats
     label_lengths = torch.tensor([s, s, 0, max(s - 2, 0), 1, s],
                                  device=dev).clamp(max=s)
     logit_lengths = torch.tensor([t, t - 4, 3, t, 1, 2 * s + 1], device=dev)
+    if case == "int32":
+        labels, label_lengths, logit_lengths = (
+            x.to(torch.int32) for x in (labels, label_lengths, logit_lengths))
+    args = (logit_lengths, labels, label_lengths, blank, case == "log_input")
+    weights = torch.arange(1, b + 1, dtype=torch.float32, device=dev)
     out = {}
-    for impl in ("auto", "scan"):
+    for fn in (ctc.ctc_nll, ctc.ctc_nll_plain):
         lg = logits.clone().requires_grad_()
-        loss = ctc.ctc_loss(lg, logit_lengths, labels, label_lengths,
-                            impl=impl, reduction="none")
-        grad, = torch.autograd.grad(loss[torch.isfinite(loss)].sum(), lg)
-        out[impl] = (loss, grad)
+        launches = ctc.ctc_nll.launches
+        nll = fn(lg, *args)
+        grad, = torch.autograd.grad(nll, lg, weights)
+        out[fn] = (nll, grad)
+        assert ctc.ctc_nll.launches - launches == (2 if fn is ctc.ctc_nll
+                                                   else 0)
     torch.cuda.synchronize()
-    for g, w in zip(out["auto"], out["scan"]):
-        torch.testing.assert_close(g, w, rtol=0, atol=1e-4)
+    for got, want in zip(out[ctc.ctc_nll], out[ctc.ctc_nll_plain]):
+        assert got.dtype == want.dtype
+        tol = 0 if dtype == torch.float32 else 2e-2 * want.abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=max(tol, 1e-4))
+    launches = ctc.ctc_nll.launches
     with torch.no_grad():  # the history-free forward
-        loss = ctc.ctc_loss(logits, logit_lengths, labels, label_lengths,
-                            reduction="none")
-    torch.testing.assert_close(loss, out["scan"][0], rtol=0, atol=1e-4)
+        nll = ctc.ctc_nll(logits, *args)
+    assert ctc.ctc_nll.launches == launches + 1
+    torch.testing.assert_close(nll, out[ctc.ctc_nll][0].detach(), rtol=0,
+                               atol=0)
+
+
+def test_ctc_loss_takes_the_fused_pair(dev):
+    """ctc_loss(impl="auto") on CUDA is one forward and one backward
+    launch per loss and gradient; the wrapper raises past U = 1,024."""
+    from robust_e2e_gan_torch.ops import ctc
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    lg = torch.randn((4, 20, 9), generator=gen, device=dev).requires_grad_()
+    labels = torch.randint(1, 9, (4, 5), generator=gen, device=dev)
+    lens = torch.tensor([20, 17, 12, 20], device=dev)
+    label_lengths = torch.tensor([5, 3, 0, 4], device=dev)
+    launches, plain = ctc.ctc_nll.launches, ctc.ctc_nll_plain.calls
+    for reduction in ("mean", "sum", "none"):
+        loss = ctc.ctc_loss(lg, lens, labels, label_lengths,
+                            reduction=reduction)
+        want = ctc.ctc_loss(lg, lens, labels, label_lengths,
+                            reduction=reduction, impl="scan")
+        got_g, = torch.autograd.grad(loss.sum(), lg)
+        want_g, = torch.autograd.grad(want.sum(), lg)
+        torch.testing.assert_close(loss, want, rtol=0, atol=1e-4)
+        torch.testing.assert_close(got_g, want_g, rtol=0, atol=1e-4)
+    assert ctc.ctc_nll.launches == launches + 6
+    assert ctc.ctc_nll_plain.calls == plain + 3  # the "scan" calls
+    wide = torch.ones((1, 512), dtype=torch.long, device=dev)  # U = 1,025
+    with pytest.raises(ValueError, match="U=1025"):
+        ctc.ctc_nll(lg[:1], lens[:1], wide, label_lengths[:1])
+
+
+def test_ctc_nll_long_utterance_matches_plain(dev):
+    """A long shape: 400 frames (16 s at 40 ms a frame) and 150 labels
+    (U = 301), where the (T, U) emission adjoints (470 KB an utterance)
+    outgrow a block's shared memory; the kernels keep them in global
+    scratch. Both sides are float32 chains of 400 frames that round the
+    emissions differently (x - lse against torch's log_softmax); at
+    |nll| ~ 2,000 one ulp is 1.2e-4, so alpha + beta - nll differ by a few
+    of them. Loss to rtol 1e-5; gradient (occupancies times exp of that
+    difference) to atol 5e-4."""
+    from robust_e2e_gan_torch.ops import ctc
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, t, v, s = 3, 400, 52, 150
+    logits = torch.randn((b, t, v), generator=gen, device=dev) * 2
+    labels = torch.randint(1, v, (b, s), generator=gen, device=dev)
+    args = (torch.tensor([t, 371, 350], device=dev), labels,
+            torch.tensor([s, 150, 120], device=dev))
+    out = []
+    for fn in (ctc.ctc_nll, ctc.ctc_nll_plain):
+        lg = logits.clone().requires_grad_()
+        nll = fn(lg, *args)
+        out.append((nll, *torch.autograd.grad(nll.sum(), lg)))
+    torch.cuda.synchronize()
+    (got, got_g), (want, want_g) = out
+    assert bool((want < 1e29).all())  # every utterance fits its label
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got_g, want_g, rtol=0, atol=5e-4)
+
+
+_BAD_LABEL = """
+import torch
+from robust_e2e_gan_torch.ops import ctc
+lg = torch.randn((2, 20, 9), device="cuda", requires_grad=True)
+labels = torch.tensor([[1, 2, 3], [4, 9, 5]], device="cuda")  # 9 = V
+try:
+    loss = ctc.ctc_loss(lg, torch.tensor([20, 20], device="cuda"), labels,
+                        torch.tensor([3, 3], device="cuda"), impl="{impl}")
+    torch.cuda.synchronize()
+except RuntimeError as err:
+    print("raised:", err)
+else:
+    print("no error:", loss.item())
+"""
+
+
+@pytest.mark.parametrize("impl", ["auto", "scan"])
+def test_ctc_loss_bad_label_fails_on_both_paths(dev, impl):
+    """A label outside [0, V) inside an utterance fails loudly on the card
+    on both paths: torch.gather's device-side assert on the plain one, the
+    forward kernel's on ctc_nll. A device-side assert ends the process's
+    CUDA context, so each path runs in a process of its own."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", _BAD_LABEL.format(impl=impl)],
+                         cwd=root, capture_output=True, text=True, timeout=600)
+    assert "raised:" in res.stdout and "assert" in res.stdout, (
+        res.stdout + res.stderr)
 
 
 def test_cuda_blstm_under_autograd_passes_gradients_upstream(dev):
