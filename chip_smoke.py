@@ -21,7 +21,11 @@ Phases, each of which exits non-zero on failure:
    training
    kernels, forward and every gradient, at the train shapes (B=32 ~2.9 s
    utterances: 286 STFT frames, 72 encoder frames; the train CLI's model
-   for blstm_train_gx; the whole CTC loss and its gradient, float32 and
+   for blstm_train_gx; the BLSTM's frame loops on both routes, the
+   resident one and the row-tiled one, held to the plain version, timed
+   in turns and split by the profiler into frame loops, gemm.cu and the
+   rest, and blstm_train_gx's layer from x at D=2560 timed in turns with
+   cuDNN's LSTM; the whole CTC loss and its gradient, float32 and
    bfloat16 logits, timed in turns with F.ctc_loss, with a profiler split
    of its device time against its wall time, and the bare alpha recursion
    alone); then the clean-speech kernels: the fused frontend
@@ -44,12 +48,14 @@ Phases, each of which exits non-zero on failure:
    (D-step, then G-step; Adadelta) on B=32 utterances of 20-24 tokens:
    one warm-up and 5 timed steps on the kernel path, checking finite
    metrics, that every kernel of the path launched (the CTC loss twice a
-   G-step, forward and backward) and no plain version ran, and a profile
-   of one warm step; then the same on the plain path;
+   G-step, forward and backward; every BLSTM layer's frame loops on the
+   resident route) and no plain version ran, and a profile of one warm
+   step; then the same on the plain path;
 7. entry point: ``train.cli --mode joint --synthetic`` at the CLI's
    default model (float32, B=16) for 3 steps into a temporary checkpoint
    dir, then a resume for 1 more; the encoder's first layer takes
-   blstm_train_gx, the others blstm_train;
+   blstm_train_gx, the others blstm_train, every one on the resident
+   frame loops;
 8. train-slice parity: one float32 joint step of the flagship at B=16,
    kernel path against plain path from the same parameters;
 9. clean-speech serving: the flagship with the fused frontend in bfloat16
@@ -186,12 +192,12 @@ KERNELS = {
         replaces="robust_e2e_gan_tpu/ops/ctc_prefix_tiled.py:237"),
     "blstm_train": dict(
         wrapper=blstm_train.blstm_train, plain=blstm_train.blstm_train_plain,
-        source="robust_e2e_gan_torch/csrc/blstm_train.cu",
+        source="robust_e2e_gan_torch/csrc/blstm_train_resident.cu",
         replaces="robust_e2e_gan_tpu/ops/blstm_train_pallas.py:624"),
     "blstm_train_gx": dict(
         wrapper=blstm_train.blstm_train_gx,
         plain=blstm_train.blstm_train_gx_plain,
-        source="robust_e2e_gan_torch/csrc/blstm_train.cu",
+        source="robust_e2e_gan_torch/csrc/blstm_train_resident.cu",
         replaces="robust_e2e_gan_tpu/ops/blstm_train_pallas.py:1050"),
     "ctc_nll": dict(
         wrapper=ctc.ctc_nll, plain=ctc.ctc_nll_plain,
@@ -247,6 +253,11 @@ HBM_BYTES = 3.35e12
 # takes the inference BLSTM kernel; the G-step's CTC loss is ctc_nll, one
 # forward and one backward launch (ctc_alpha runs on no path)
 TRAINING = ("blstm_train", "ctc_nll", "blstm_infer")
+# the training BLSTM's two frame-loop routes: W_h resident across a
+# co-resident grid (csrc/blstm_train_resident.cu), chosen by
+# ops/blstm_train.py::resident_plan, and the row-tiled loops past it
+# (csrc/blstm_train.cu)
+ROUTES = ("resident", "loop")
 
 
 class SmokeFailure(RuntimeError):
@@ -262,6 +273,18 @@ def reset_counts() -> None:
     for k in KERNELS.values():
         k["wrapper"].launches = 0
         k["plain"].calls = 0
+    for route in ROUTES:
+        blstm_train.ROUTE_LAUNCHES[route] = 0
+
+
+def require_resident(where: str) -> None:
+    """Every training BLSTM layer since the last reset took the resident
+    frame loops: the plan fits every flagship and train CLI layer."""
+    routes = dict(blstm_train.ROUTE_LAUNCHES)
+    print(f"  frame-loop launches by route {routes}")
+    require(routes["resident"] > 0 and routes["loop"] == 0,
+            f"{where}: the training BLSTM layers did not all take the "
+            f"resident frame loops: {routes}")
 
 
 def counts(names):
@@ -748,27 +771,34 @@ def train_kernel_parity(jcfg, t_enh, t_enc, dev) -> dict:
                 return with_grads(lambda *a: fn(a[0], lengths, *a[1:]),
                                   [x, wx, wh, bias], dy)
 
-            got = run(blstm_train.blstm_train)
             want = run(blstm_train.blstm_train_plain)
             out_tol, g_tol = grad_tols(dt)
             errs = []
-            for name, g, w in zip(names, got, want):
-                err, ok = compare(
-                    f"blstm_train {tag} {name} B={b} T={t} D={d} H={h} {dt}",
-                    [g], [w], **(out_tol if name == "y" else g_tol))
-                ok_all &= ok
-                errs.append(err)
+            for route in ROUTES:  # both frame-loop routes
+                with blstm_train._force_route(route):
+                    got = run(blstm_train.blstm_train)
+                for name, g, w in zip(names, got, want):
+                    err, ok = compare(
+                        f"blstm_train {route} {tag} {name} B={b} T={t} D={d} "
+                        f"H={h} {dt}", [g], [w],
+                        **(out_tol if name == "y" else g_tol))
+                    ok_all &= ok
+                    errs.append(err)
             if tag == "enhancer0" and dt == bf16:
                 valid = int(lengths.sum())
+                ms = route_ms(lambda: run(blstm_train.blstm_train), 3)
                 # per valid frame: the projection, dx and dW_x (2 * D * 8H
                 # each), the recurrence, dh and dW_h (2 * 2 * 4H * H each)
                 res["blstm_train"] = entry(
-                    "blstm_train", max(errs),
-                    cuda_ms(lambda: run(blstm_train.blstm_train), 3),
+                    "blstm_train", max(errs), ms["resident"],
                     cuda_ms(lambda: run(blstm_train.blstm_train_plain), 1),
                     valid * 3 * (2 * d * 8 * h + 16 * h * h),
                     nbytes(x, wx, wh, bias, lengths, dy, got), dt,
                     lstm_library_ms(x.to(dt), lengths, h, train=True))
+                gx = blstm_train._projection_kernel(x.to(dt), wx, bias)
+                frame_loop_split("blstm_train",
+                                 lambda: run(blstm_train.blstm_train),
+                                 gx, wh, lengths, dy)
 
     # blstm_train_gx: the train CLI's encoder layer 0 (B=16, D=2560, H=512)
     gb, gh = 16, 512
@@ -778,26 +808,53 @@ def train_kernel_parity(jcfg, t_enh, t_enc, dev) -> dict:
     def run_gx(fn):
         return with_grads(lambda g, w: fn(g, w, lengths), [gx, wh], dy)
 
-    got, want = run_gx(blstm_train.blstm_train_gx), run_gx(
-        blstm_train.blstm_train_gx_plain)
+    want = run_gx(blstm_train.blstm_train_gx_plain)
     out_tol, g_tol = grad_tols(f32)
     errs = []
-    for name, g, w in zip(("y", "dgx", "dwh"), got, want):
-        err, ok = compare(f"blstm_train_gx {name} B={gb} T={t_enc} H={gh} "
-                          f"{f32}", [g], [w],
-                          **(out_tol if name == "y" else g_tol))
-        ok_all &= ok
-        errs.append(err)
+    for route in ROUTES:
+        with blstm_train._force_route(route):
+            got = run_gx(blstm_train.blstm_train_gx)
+        for name, g, w in zip(("y", "dgx", "dwh"), got, want):
+            err, ok = compare(f"blstm_train_gx {route} {name} B={gb} "
+                              f"T={t_enc} H={gh} {f32}", [g], [w],
+                              **(out_tol if name == "y" else g_tol))
+            ok_all &= ok
+            errs.append(err)
+    ms = route_ms(lambda: run_gx(blstm_train.blstm_train_gx), 5)
+    # the layer as models/rnn.py runs it: input_projection from x at
+    # D=2560, then blstm_train_gx, forward and every gradient, timed in
+    # turns with cuDNN's LSTM on the same x (which also computes the
+    # projection and its gradients)
+    x = torch.randn((gb, t_enc, d_enc), generator=gen, device=dev)
+    wx = torch.randn((2, d_enc, 4 * gh), generator=gen, device=dev) \
+        / d_enc ** 0.5
+    bias = torch.randn((2, 4 * gh), generator=gen, device=dev) * 0.3
+
+    def layer():
+        return with_grads(lambda x_, wx_, wh_, b_: blstm_train.blstm_train_gx(
+            input_projection(x_, wx_, b_, f32), wh_, lengths),
+            [x, wx, wh, bias], dy)
+
+    layer_ms, lib_ms = [], []
+    for fn in ("layer", "lib", "lib", "layer"):
+        if fn == "layer":
+            layer_ms.append(cuda_ms(layer, 5))
+        else:
+            lib_ms.append(lstm_library_ms(x, lengths, gh, train=True))
+    print(f"    blstm_train_gx layer from x (D={d_enc}, input_projection "
+          f"+ frame loops, fwd + grads), in turns with cuDNN: "
+          f"{layer_ms[0]:.3f}, {layer_ms[1]:.3f} ms; cuDNN LSTM "
+          f"{lib_ms[0]:.3f}, {lib_ms[1]:.3f} ms")
     # per valid frame: the recurrence, dh and dW_h; the library call takes
     # x (B, T, 2560) and computes the projection and its gradients too
     res["blstm_train_gx"] = entry(
-        "blstm_train_gx", max(errs),
-        cuda_ms(lambda: run_gx(blstm_train.blstm_train_gx), 5),
+        "blstm_train_gx", max(errs), ms["resident"],
         cuda_ms(lambda: run_gx(blstm_train.blstm_train_gx_plain), 1),
         int(lengths.sum()) * 3 * 16 * gh * gh,
-        nbytes(gx, wh, lengths, dy, got), wh.dtype,
-        lstm_library_ms(torch.randn((gb, t_enc, d_enc), generator=gen,
-                                    device=dev), lengths, gh, train=True))
+        nbytes(gx, wh, lengths, dy, got), wh.dtype, mean(lib_ms))
+    frame_loop_split("blstm_train_gx",
+                     lambda: run_gx(blstm_train.blstm_train_gx),
+                     gx, wh, lengths, dy)
 
     # ctc_nll: the whole CTC loss and its gradient at the train shapes
     s_len = TRAIN_SYNTH.max_tokens
@@ -879,6 +936,74 @@ def train_kernel_parity(jcfg, t_enh, t_enc, dev) -> dict:
         nbytes(emit, alpha0, skip, pos, logit_lengths, dfin, got), emit.dtype)
     require(ok_all, "a training kernel disagrees with its plain version")
     return res, alpha_launches
+
+
+def on_route(route, fn):
+    """fn with every BLSTM layer's frame loops forced onto ``route``."""
+    def run():
+        with blstm_train._force_route(route):
+            return fn()
+    return run
+
+
+def route_ms(fn, reps: int) -> dict:
+    """``cuda_ms`` of fn on each frame-loop route, in turns (resident,
+    loop, loop, resident)."""
+    ms = cuda_ms_in_turns([on_route(r, fn) for r in ROUTES], reps)
+    print(f"    in turns: resident route {ms[0]:.3f} ms, row-tiled loops "
+          f"{ms[1]:.3f} ms")
+    return dict(zip(ROUTES, ms))
+
+
+def is_frame_loop(key: str) -> bool:
+    return ("fwd_resident" in key or "bwd_resident" in key
+            or "::fwd_kernel<" in key or "::bwd_kernel<" in key)
+
+
+def frame_loop_split(tag, fn, gx, wh, lengths, dy, reps: int = 5):
+    """Per route: one torch.profiler window over ``reps`` calls of fn (a
+    BLSTM layer forward and every gradient), its device time split into
+    the frame loops, csrc/gemm.cu (for blstm_train_gx only the dW_h
+    product) and the rest; then the forward loop, the backward loop and the
+    dW_h product (``_dwh_kernel``) alone with CUDA events."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    b, t = gx.shape[:2]
+    h = wh.shape[1]
+    for route in ROUTES:
+        with blstm_train._force_route(route):
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            rows = [e for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA]
+
+            def ms_of(pick):
+                return sum(e.self_device_time_total for e in rows
+                           if pick(e.key)) / 1e3 / reps
+
+            loops = ms_of(is_frame_loop)
+            gemm = ms_of(lambda k: "gemm_kernel" in k)
+            other = ms_of(lambda k: True) - loops - gemm
+            with torch.no_grad():
+                _, y_ext, c_ext = blstm_train._recurrence_fwd_kernel(
+                    gx, wh, lengths)
+                dg = blstm_train._recurrence_bwd_kernel(gx, wh, lengths,
+                                                        y_ext, c_ext, dy)
+                fwd = cuda_ms(lambda: blstm_train._recurrence_fwd_kernel(
+                    gx, wh, lengths), reps)
+                bwd = cuda_ms(lambda: blstm_train._recurrence_bwd_kernel(
+                    gx, wh, lengths, y_ext, c_ext, dy), reps)
+                dwh = cuda_ms(lambda: blstm_train._dwh_kernel(
+                    y_ext, dg, b, t, h), reps)
+        print(f"    {tag} {route} split per call ({reps} calls): frame "
+              f"loops {loops:.4f} ms, gemm.cu {gemm:.4f} ms, other "
+              f"{other:.4f} ms of device time; alone: forward loop "
+              f"{fwd:.4f}, backward loop {bwd:.4f}, _dwh_kernel {dwh:.4f} ms")
 
 
 def cuda_ms_in_turns(fns, reps: int):
@@ -1304,6 +1429,7 @@ def train_path(state_g, state_d, dev):
                            TRAINING + ("blstm_train_gx", "ctc_alpha")}
             require(not any(train_plain.values()),
                     f"a plain version ran on the train path: {train_plain}")
+            require_resident("phase 6")
             result = launches
             profile_step(step, state, batch)
     return result
@@ -1333,6 +1459,7 @@ def cli_path(ckpt):
             f"a training kernel never launched from the CLI: {launches}")
     require(not any(plain_calls[n] for n in launches),
             f"a plain version ran from the CLI: {plain_calls}")
+    require_resident("phase 7")
     return launches
 
 

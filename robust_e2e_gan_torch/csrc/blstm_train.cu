@@ -11,6 +11,9 @@
 // frames, each needing all of W_h (H x 4H per direction) -- and in the
 // backward also W_h^T -- far more than one SM's shared memory.
 //
+// These loops run the layers past ops/blstm_train.py::resident_plan; the
+// others take csrc/blstm_train_resident.cu, W_h resident in shared memory.
+//
 // Design: the inference loop of csrc/blstm.cu: grid (2 directions,
 // ceil(B / ROWS) row tiles), KS threads per hidden unit splitting the
 // reduction, W_h read from L2 every frame, h_{t-1} in shared memory.
@@ -326,8 +329,7 @@ cudaError_t launch_fwd(const float* gx, const W* wh, const int* lengths, W* out,
   const int ks = split_ways(H);
   const dim3 grid(2, (B + ROWS - 1) / ROWS);
   const size_t smem = (size_t)(ROWS * H + (ks - 1) * ROWS * 4 * H) * sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<W, ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err = rg::reserve_smem<fwd_kernel<W, ROWS>>(smem);
   if (err != cudaSuccess) return err;
   fwd_kernel<W, ROWS><<<grid, ks * H, smem, stream>>>(gx, wh, lengths, out, y_ext, c_ext, B,
                                                       T, H, ks);
@@ -342,8 +344,7 @@ cudaError_t launch_bwd(const float* gx, const W* wh, const W* wh_t, const int* l
   const dim3 grid(2, (B + ROWS - 1) / ROWS);
   const size_t smem =
       (size_t)(ROWS * H + ROWS * 4 * H + (ks - 1) * ROWS * 4 * H) * sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(
-      bwd_kernel<W, ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err = rg::reserve_smem<bwd_kernel<W, ROWS>>(smem);
   if (err != cudaSuccess) return err;
   bwd_kernel<W, ROWS><<<grid, ks * H, smem, stream>>>(gx, wh, wh_t, lengths, y_ext, c_ext, dy,
                                                       dgates, B, T, H, ks);

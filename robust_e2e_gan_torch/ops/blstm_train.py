@@ -6,7 +6,8 @@ Counterparts of ``robust_e2e_gan_tpu/ops/blstm_train_pallas.py``:
 * ``blstm_train(x, lengths, wx, wh, bias)`` (TPU ``blstm_train``, the
   W_x-resident variant): the input projection ``x @ W_x + bias``, its
   gradients ``dx``, ``dW_x``, ``dbias`` and ``dW_h`` are products of
-  ``csrc/gemm.cu``; the frame loops are ``csrc/blstm_train.cu``. Nothing
+  ``csrc/gemm.cu``; the frame loops are ``csrc/blstm_train_resident.cu``
+  where ``resident_plan`` fits, else ``csrc/blstm_train.cu``. Nothing
   goes through ``torch.matmul``.
 * ``blstm_train_gx(gx, wh, lengths)`` (TPU ``blstm_train_gx``): the input
   projection stays outside, a differentiable product
@@ -31,6 +32,9 @@ come back in the compute dtype; ``dbias`` and ``dgx`` stay float32.
 """
 
 from __future__ import annotations
+
+import contextlib
+import functools
 
 import torch
 
@@ -185,6 +189,84 @@ def _dwh_plain(y_ext: torch.Tensor, dgates: torch.Tensor, t: int):
 
 
 # --------------------------------------------------------------------------
+# which frame loops a layer takes: the resident loops of
+# csrc/blstm_train_resident.cu where their plan fits, else those of
+# csrc/blstm_train.cu; a rule computed before the launch
+# --------------------------------------------------------------------------
+
+
+RESIDENT_THREADS = 512  # a resident block's threads (NT of the source)
+
+
+def resident_smem(b: int, h: int, n_u: int, itemsize: int) -> int:
+    """Bytes of dynamic shared memory of one resident block: the rounded
+    dgates, two buffers of gate pre-activations and two of c and dy
+    (B x 4n_u float32 each), the summed dh and the carried c or dc
+    (B x n_u float32 each), the lengths and the step count (B + 1 int32),
+    two B x H stages of h_{t-1} and the block's W_h slice (H x 4n_u), both
+    in the compute dtype (the forward's one float32 stage takes the same
+    bytes). ``smem_bytes`` of the kernel source computes the same."""
+    c = 4 * n_u
+    return (4 * (5 * b * c + 2 * b * n_u + b + 1)
+            + (2 * b * h + c * h) * itemsize)
+
+
+def resident_plan(b: int, h: int, itemsize: int, n_sm: int,
+                  smem_per_block: int):
+    """(n_u, P, smem) of the resident frame loops, or None where they do
+    not fit: each direction's P = ceil(H / n_u) blocks own n_u hidden units
+    each, the 2P blocks of both directions fit one per SM (the smallest
+    such n_u, which also keeps the W_h slice smallest), a block's 4 n_u
+    gate columns are at most its 512 threads, and its ``resident_smem``
+    fits ``smem_per_block``."""
+    if n_sm < 2:
+        return None
+    n_u = -(-h // (n_sm // 2))
+    p = -(-h // n_u)
+    smem = resident_smem(b, h, n_u, itemsize)
+    fits = 4 * n_u <= RESIDENT_THREADS and smem <= smem_per_block
+    return (n_u, p, smem) if fits else None
+
+
+# frame-loop launches (forward and backward each) by route
+ROUTE_LAUNCHES = {"resident": 0, "loop": 0}
+_forced_route = None
+
+
+@contextlib.contextmanager
+def _force_route(route: str):
+    """Run the frame loops of every layer on one route ("resident" or
+    "loop") inside the block: the tests and ``chip_smoke.py`` hold both
+    routes to the plain version. Forcing "resident" where the plan does not
+    fit raises at the launch."""
+    global _forced_route
+    check(route in ("resident", "loop"), f"unknown route {route!r}")
+    prev, _forced_route = _forced_route, route
+    try:
+        yield
+    finally:
+        _forced_route = prev
+
+
+@functools.lru_cache(maxsize=None)
+def _device_limits(index: int):
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, props.shared_memory_per_block_optin
+
+
+def _resident(b: int, h: int, wh: torch.Tensor):
+    """The resident plan of this layer on wh's card, or None for the loops
+    of ``csrc/blstm_train.cu``."""
+    if _forced_route == "loop":
+        return None
+    plan = resident_plan(b, h, wh.element_size(),
+                         *_device_limits(wh.device.index))
+    check(plan is not None or _forced_route is None,
+          f"the resident frame loops do not fit B={b} H={h} {wh.dtype}")
+    return plan
+
+
+# --------------------------------------------------------------------------
 # kernel launches
 # --------------------------------------------------------------------------
 
@@ -228,29 +310,58 @@ def colsum(x: torch.Tensor, out: torch.Tensor, m: int, n: int) -> None:
     launch("colsum", x.data_ptr(), out.data_ptr(), m, n, _stream(x))
 
 
+def _barrier_count(device) -> torch.Tensor:
+    """The resident loops' two barrier counters (one per direction, 128
+    bytes apart), zeroed."""
+    return torch.zeros(64, dtype=torch.int32, device=device)
+
+
 def _recurrence_fwd_kernel(gx, wh, lengths):
     b, t = gx.shape[:2]
     h = wh.shape[1]
     out = torch.empty((b, t, 2 * h), dtype=wh.dtype, device=gx.device)
     y_ext = torch.empty((2, b, t + 1, h), dtype=wh.dtype, device=gx.device)
     c_ext = torch.empty((2, b, t + 1, h), device=gx.device)
-    launch("blstm_train_fwd", gx.data_ptr(), wh.data_ptr(),
-           lengths.data_ptr(), out.data_ptr(), y_ext.data_ptr(),
-           c_ext.data_ptr(), b, t, h, _rows_per_block(b, gx.device),
-           _is_bf16(wh), _stream(gx))
+    plan = _resident(b, h, wh)
+    if plan is None:
+        ROUTE_LAUNCHES["loop"] += 1
+        launch("blstm_train_fwd", gx.data_ptr(), wh.data_ptr(),
+               lengths.data_ptr(), out.data_ptr(), y_ext.data_ptr(),
+               c_ext.data_ptr(), b, t, h, _rows_per_block(b, gx.device),
+               _is_bf16(wh), _stream(gx))
+    else:
+        ROUTE_LAUNCHES["resident"] += 1
+        count = _barrier_count(gx.device)
+        launch("blstm_train_resident_fwd", gx.data_ptr(), wh.data_ptr(),
+               lengths.data_ptr(), out.data_ptr(), y_ext.data_ptr(),
+               c_ext.data_ptr(), count.data_ptr(), b, t, h, plan[0],
+               _is_bf16(wh), _stream(gx))
     return out, y_ext, c_ext
 
 
 def _recurrence_bwd_kernel(gx, wh, lengths, y_ext, c_ext, dy):
     b, t = gx.shape[:2]
     h = wh.shape[1]
-    wh_t = wh.transpose(1, 2).contiguous()  # (2, 4H, H): coalesced dh
     dy = dy.to(wh.dtype).contiguous()
     dgates = torch.empty((b, t, 2, 4 * h), device=gx.device)
-    launch("blstm_train_bwd", gx.data_ptr(), wh.data_ptr(), wh_t.data_ptr(),
-           lengths.data_ptr(), y_ext.data_ptr(), c_ext.data_ptr(),
-           dy.data_ptr(), dgates.data_ptr(), b, t, h,
-           _rows_per_block(b, gx.device), _is_bf16(wh), _stream(gx))
+    plan = _resident(b, h, wh)
+    if plan is None:
+        ROUTE_LAUNCHES["loop"] += 1
+        wh_t = wh.transpose(1, 2).contiguous()  # (2, 4H, H): coalesced dh
+        launch("blstm_train_bwd", gx.data_ptr(), wh.data_ptr(),
+               wh_t.data_ptr(), lengths.data_ptr(), y_ext.data_ptr(),
+               c_ext.data_ptr(), dy.data_ptr(), dgates.data_ptr(), b, t, h,
+               _rows_per_block(b, gx.device), _is_bf16(wh), _stream(gx))
+    else:
+        ROUTE_LAUNCHES["resident"] += 1
+        n_u, p, _ = plan
+        # each block's partial dh_{t-1}, per direction and step parity
+        part = torch.empty((2, 2, p, b, h), device=gx.device)
+        count = _barrier_count(gx.device)
+        launch("blstm_train_resident_bwd", gx.data_ptr(), wh.data_ptr(),
+               lengths.data_ptr(), y_ext.data_ptr(), c_ext.data_ptr(),
+               dy.data_ptr(), dgates.data_ptr(), part.data_ptr(),
+               count.data_ptr(), b, t, h, n_u, _is_bf16(wh), _stream(gx))
     return dgates
 
 
@@ -405,7 +516,7 @@ def blstm_train(x: torch.Tensor, lengths: torch.Tensor, wx: torch.Tensor,
     float32 -> (B, T, 2H) in the compute dtype, pad frames zero.
 
     CPU tensors run the plain version; CUDA tensors launch
-    ``csrc/gemm.cu`` and ``csrc/blstm_train.cu`` or raise.
+    ``csrc/gemm.cu`` and the frame loops (``resident_plan``) or raise.
     """
     if not on_cuda(x, lengths, wx, wh, bias):
         return blstm_train_plain(x, lengths, wx, wh, bias)
@@ -444,7 +555,8 @@ def blstm_train_gx(gx: torch.Tensor, wh: torch.Tensor,
     lengths (B,) -> (B, T, 2H) in the compute dtype.
 
     CPU tensors run the plain version; CUDA tensors launch
-    ``csrc/blstm_train.cu`` or raise (H above ``MAX_HIDDEN`` included).
+    the frame loops (``resident_plan``) or raise (H above ``MAX_HIDDEN``
+    included).
     """
     if not on_cuda(gx, wh, lengths):
         return blstm_train_gx_plain(gx, wh, lengths)

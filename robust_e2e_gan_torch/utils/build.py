@@ -54,6 +54,11 @@ SIGNATURES = {
     # gx, wh, wh_t, lengths, y_ext, c_ext, dy, dgates, B, T, H,
     # rows_per_block, bf16, stream
     "blstm_train_bwd": [_P] * 8 + [_I] * 5 + [_P],
+    # gx, wh, lengths, out, y_ext, c_ext, count, B, T, H, n_u, bf16, stream
+    "blstm_train_resident_fwd": [_P] * 7 + [_I] * 5 + [_P],
+    # gx, wh, lengths, y_ext, c_ext, dy, dgates, part, count, B, T, H, n_u,
+    # bf16, stream
+    "blstm_train_resident_bwd": [_P] * 9 + [_I] * 5 + [_P],
     # A, B, C, bias, batch, M, N, K, KI, 12 element strides (A: batch, m,
     # k outer, k inner; B: batch, k outer, k inner, n; C: batch, m, n;
     # bias: batch), a_bf16, b_bf16, round_bf16, accumulate, stream

@@ -131,3 +131,48 @@ def test_kernel_choice_is_the_jax_rule():
     # flagship's layers the fused one
     assert ops.train_kernel_for(16, 72, 2560, 512, torch.float32) == "gx"
     assert ops.train_kernel_for(32, 72, 2560, 256, torch.bfloat16) == "fused"
+
+
+H100_SXM = dict(n_sm=132, smem_per_block=232_448)
+H100_PCIE = dict(n_sm=114, smem_per_block=232_448)
+
+
+@pytest.mark.parametrize("b, h, itemsize, card, want", [
+    # the flagship's train layers (B=32, H=256, bf16; the plan does not
+    # depend on T, 286 enhancer or 72 encoder frames)
+    (32, 256, 2, H100_SXM, (4, 64, 52_356)),
+    # the train CLI's layers, encoder layer 0 among them (B=16, H=512, f32)
+    (16, 512, 4, H100_SXM, (8, 64, 142_404)),
+    # an H100 PCIe's 114 SMs
+    (32, 256, 2, H100_PCIE, (5, 52, 57_220)),
+    (16, 512, 4, H100_PCIE, (9, 57, 152_004)),
+    # an odd batch, and bf16 H = 1,024
+    (33, 512, 4, H100_SXM, (8, 64, 224_072)),
+    (16, 1024, 2, H100_SXM, (16, 64, 219_204)),
+    # past the plan: 2 x 16 MiB of f32 W_h at H = 1,024 exceed the card's
+    # shared memory; a batch whose h stages (2 x B x H) cannot fit
+    (16, 1024, 4, H100_SXM, None),
+    (128, 512, 4, H100_SXM, None),
+    (64, 1024, 2, H100_SXM, None),
+], ids=["flagship", "cli", "pcie_flagship", "pcie_cli", "odd_batch",
+        "bf16_h1024", "f32_h1024", "big_batch", "bf16_big_batch"])
+def test_resident_plan(b, h, itemsize, card, want):
+    plan = ops.resident_plan(b, h, itemsize, **card)
+    assert plan == want
+    if plan is not None:
+        n_u, p, smem = plan
+        assert 2 * p <= card["n_sm"] and p * n_u >= h > (p - 1) * n_u
+        assert smem == ops.resident_smem(b, h, n_u, itemsize)
+        assert smem <= card["smem_per_block"]
+
+
+def test_every_flagship_and_cli_train_layer_is_resident():
+    """The layers the train step and the train CLI run fit the plan on an
+    H100 SXM, at the batch each trains with."""
+    from robust_e2e_gan_torch.configs import flagship_config
+
+    cfg = flagship_config(52)
+    for b, h, itemsize in ((32, cfg.enhancer.hidden_dim, 2),
+                           (32, cfg.e2e.encoder.hidden_dim, 2),
+                           (16, 512, 4)):  # train.cli's defaults, f32
+        assert ops.resident_plan(b, h, itemsize, **H100_SXM) is not None

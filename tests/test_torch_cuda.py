@@ -177,9 +177,16 @@ def _grad_tol(dtype, want):
     return dict(rtol=0, atol=2e-2 * want.abs().max().item() + 1e-6)
 
 
+ROUTES = ["resident", "loop"]
+
+
+@pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("h", [32, 256, 512])
-def test_blstm_train_kernels_match_plain(dev, dtype, h):
+def test_blstm_train_kernels_match_plain(dev, dtype, h, route):
+    """Both frame-loop routes (the resident loops of
+    blstm_train_resident.cu, the row-tiled loops of blstm_train.cu) through
+    both autograd functions."""
     from robust_e2e_gan_torch.ops import blstm_train as bt
 
     gen = torch.Generator(device=dev).manual_seed(h)
@@ -191,7 +198,10 @@ def test_blstm_train_kernels_match_plain(dev, dtype, h):
         return _grads(lambda x_, wx_, wh_, b_: fn(x_, lengths, wx_, wh_, b_),
                       [x, wx, wh, bias], dy)
 
-    got, want = fused(True), fused(False)
+    before = dict(bt.ROUTE_LAUNCHES)
+    with bt._force_route(route):
+        got = fused(True)
+    want = fused(False)
     torch.cuda.synchronize()
     assert got[0].dtype == dtype
     torch.testing.assert_close(got[0].float(), want[0].float(),
@@ -206,12 +216,111 @@ def test_blstm_train_kernels_match_plain(dev, dtype, h):
         fn = bt.blstm_train_gx if kernel else bt.blstm_train_gx_plain
         return _grads(lambda g_, wh_: fn(g_, wh_, lengths), [gx, wh], dy)
 
-    got, want = gx_path(True), gx_path(False)
+    with bt._force_route(route):
+        got = gx_path(True)
+    want = gx_path(False)
     torch.cuda.synchronize()
     torch.testing.assert_close(got[0].float(), want[0].float(),
                                **_tol(dtype, want[0]))
     for g, w in zip(got[1:], want[1:]):
         torch.testing.assert_close(g.float(), w.float(), **_grad_tol(dtype, w))
+    # forward and backward of both functions, all on the forced route
+    assert bt.ROUTE_LAUNCHES[route] == before[route] + 4
+    other = ROUTES[1 - ROUTES.index(route)]
+    assert bt.ROUTE_LAUNCHES[other] == before[other]
+
+
+def _gx_inputs(gen, dev, b, t, h, dtype, lengths):
+    gx = torch.randn((b, t, 2, 4 * h), generator=gen, device=dev)
+    wh = (torch.randn((2, h, 4 * h), generator=gen, device=dev)
+          / h ** 0.5).to(dtype)
+    dy = torch.randn((b, t, 2 * h), generator=gen, device=dev)
+    return gx, wh, torch.tensor(lengths, dtype=torch.int32, device=dev), dy
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("b, t, h", [(33, 31, 256), (3, 400, 64), (7, 19, 30)],
+                         ids=["odd_batch", "long", "h_not_multiple_of_4"])
+def test_blstm_train_gx_ragged_and_long(dev, dtype, b, t, h, route):
+    """An odd batch whose lengths include 0 and T (the resident loops run
+    to the longest row, rows past their length idle), a 400-frame case,
+    and an H the resident loops stage one value at a time; pad frames of
+    the output and of dgx are exact zeros."""
+    from robust_e2e_gan_torch.ops import blstm_train as bt
+
+    gen = torch.Generator(device=dev).manual_seed(b + t)
+    lens = torch.randint(0, t + 1, (b,), generator=gen, device=dev).tolist()
+    lens[0], lens[1] = 0, t
+    gx, wh, lengths, dy = _gx_inputs(gen, dev, b, t, h, dtype, lens)
+
+    def run(fn):
+        return _grads(lambda g_, wh_: fn(g_, wh_, lengths), [gx, wh], dy)
+
+    with bt._force_route(route):
+        got = run(bt.blstm_train_gx)
+    want = run(bt.blstm_train_gx_plain)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0].float(), want[0].float(),
+                               **_tol(dtype, want[0]))
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g.float(), w.float(), **_grad_tol(dtype, w))
+    for i, n in enumerate(lens):
+        assert not got[0][i, n:].any() and not got[1][i, n:].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_blstm_train_resident_is_deterministic(dev, dtype):
+    """The dh partials are summed in a fixed block order without float
+    atomics: two runs give bit-identical dgates (dgx) and dW_h."""
+    from robust_e2e_gan_torch.ops import blstm_train as bt
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, t, h = 16, 72, 512
+    lens = [t] + torch.randint(t // 2, t + 1, (b - 1,), generator=gen,
+                               device=dev).tolist()
+    gx, wh, lengths, dy = _gx_inputs(gen, dev, b, t, h, dtype, lens)
+    runs = []
+    with bt._force_route("resident"):
+        for _ in range(2):
+            runs.append(_grads(lambda g_, wh_: bt.blstm_train_gx(
+                g_, wh_, lengths), [gx, wh], dy))
+    torch.cuda.synchronize()
+    for a, c in zip(runs[0], runs[1]):
+        assert torch.equal(a, c)
+
+
+def test_blstm_train_resident_refusals(dev):
+    """The plan sends f32 H = 1,024 to the row-tiled loops, and forcing the
+    resident ones there raises; a grid that cannot be co-resident (one
+    unit per block: 2 x 512 blocks) is refused by the cooperative launch
+    and raises, it never runs, and the next launch runs."""
+    from robust_e2e_gan_torch.ops import blstm_train as bt
+    from robust_e2e_gan_torch.utils.build import launch
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, t = 4, 9
+    gx, wh, lengths, dy = _gx_inputs(gen, dev, b, t, 1024, torch.float32,
+                                     [t, 5, 0, 2])
+    assert bt._resident(b, 1024, wh) is None
+    with bt._force_route("resident"), pytest.raises(ValueError):
+        bt.blstm_train_gx(gx, wh, lengths)
+    h = 512
+    gx, wh = gx[..., :4 * h].contiguous(), wh[:, :h, :4 * h].contiguous()
+    out = torch.empty((b, t, 2 * h), device=dev)
+    y_ext = torch.empty((2, b, t + 1, h), device=dev)
+    c_ext = torch.empty((2, b, t + 1, h), device=dev)
+    count = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="blstm_train_resident_fwd"):
+        launch("blstm_train_resident_fwd", gx.data_ptr(), wh.data_ptr(),
+               lengths.data_ptr(), out.data_ptr(), y_ext.data_ptr(),
+               c_ext.data_ptr(), count.data_ptr(), b, t, h, 1, 0,
+               torch.cuda.current_stream(dev).cuda_stream)
+    # the refusal is not left behind for the next kernel's launch check
+    got = bt.blstm_train_gx(gx, wh, lengths)
+    want = bt.blstm_train_gx_plain(gx, wh, lengths)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **_tol(torch.float32, want))
 
 
 @pytest.mark.parametrize("s", [1, 9])
