@@ -13,8 +13,9 @@ Phases, each of which exits non-zero on failure:
 3. kernel parity: each kernel's wrapper against its plain PyTorch version
    on the card, at the shapes of the main path (B utterances of ~7 s, beam
    8, ~694 STFT frames, ~174 encoder frames, vocab 52; the W_x-resident
-   BLSTM at each of the flagship's four BLSTM layers, timed in bfloat16
-   beside the gate-stream route and cuDNN's LSTM; the fused decoder
+   BLSTM at each of the flagship's four BLSTM layers on both of its
+   routes, the cluster kernel and the row-tiled one, timed in bfloat16 in
+   turns with the gate-stream route and cuDNN's LSTM; the fused decoder
    step at the flagship's decoder widths), in float32 with TF32 off and in
    bfloat16, with the time of each; one BLSTM layer too wide for the
    W_x-resident kernel, which must take the gate-stream one; then the
@@ -37,11 +38,11 @@ Phases, each of which exits non-zero on failure:
 4. main path: the flagship model in bfloat16 compute (random weights from
    seed 0) through ``make_beam_searcher(..., use_enhancer=True)`` on 3
    batches of 128 utterances; checks the results, that every kernel
-   launched (the W_x-resident BLSTM once per layer and batch, the
-   gate-stream one never) and no plain version ran; times it against the
-   same path with every BLSTM layer on the gate-stream route, in turns,
-   with one profiled batch of each; then times the same path with the
-   plain versions;
+   launched (the BLSTM's cluster kernel once per layer and batch, its
+   row-tiled and gate-stream kernels never) and no plain version ran;
+   times it against the same path with every BLSTM layer on the row-tiled
+   route and on the gate-stream route, in turns, with one profiled batch
+   of each; then times the same path with the plain versions;
 5. slice parity: one batch of 16 at full width in float32 through the
    kernel path and the plain path; best-hypothesis scores must agree;
 6. train step: the flagship in bfloat16 through ``make_joint_train_step``
@@ -49,7 +50,8 @@ Phases, each of which exits non-zero on failure:
    one warm-up and 5 timed steps on the kernel path, checking finite
    metrics, that every kernel of the path launched (the CTC loss twice a
    G-step, forward and backward; every BLSTM layer's frame loops on the
-   resident route) and no plain version ran, and a profile of one warm
+   resident route, the D-step's inference BLSTM on the cluster route) and
+   no plain version ran, and a profile of one warm
    step; then the same on the plain path;
 7. entry point: ``train.cli --mode joint --synthetic`` at the CLI's
    default model (float32, B=16) for 3 steps into a temporary checkpoint
@@ -75,7 +77,8 @@ Phases, each of which exits non-zero on failure:
     CLI's default model, float32) over a manifest of 128 .npy utterances
     of its task, one batch, beam 8, 48 steps without early exit:
     ``--serving-impls fused`` must launch the fused decoder step 48 times
-    beside the BLSTM and prefix kernels with no plain version;
+    beside the BLSTM (float32: the row-tiled kernel) and prefix kernels
+    with no plain version;
     ``--serving-impls xla`` on the same inputs must agree on the best
     scores;
 13. the fused-step A/B: phase 4's traffic through the fused decoder step
@@ -167,8 +170,17 @@ TRAIN_STEPS = 5
 TRAIN_SYNTH = SyntheticConfig(vocab_size=VOCAB, min_tokens=20, max_tokens=24)
 
 KERNELS = {
+    # blstm_infer's two routes (ops/blstm.py::cluster_plan): their
+    # launches are counted by route, not by the shared wrapper
     "blstm_infer": dict(
         wrapper=blstm.blstm_infer, plain=blstm.blstm_infer_plain,
+        route="cluster",
+        source="robust_e2e_gan_torch/csrc/blstm_infer_cluster.cu",
+        replaces="robust_e2e_gan_tpu/ops/blstm_pallas.py:332 "
+                 "(W_x-resident, pallas_call :403)"),
+    "blstm_infer_row_tiled": dict(
+        wrapper=blstm.blstm_infer, plain=blstm.blstm_infer_plain,
+        route="row_tiled",
         source="robust_e2e_gan_torch/csrc/blstm_infer.cu",
         replaces="robust_e2e_gan_tpu/ops/blstm_pallas.py:332 "
                  "(W_x-resident, pallas_call :403)"),
@@ -235,10 +247,16 @@ SERVING = ("blstm_infer", "att_loc_step", "ctc_prefix_psi",
            "ctc_prefix_state")
 # the clean-speech serving path: no enhancer, fused frontend, LM fusion
 CLEAN_SERVING = ("fbank_fused", "lm_step") + SERVING
+# the same in float32, whose BLSTM layers take the row-tiled kernel
+F32_CLEAN_SERVING = (("fbank_fused", "lm_step", "blstm_infer_row_tiled")
+                     + SERVING[1:])
 # the decode CLI with --serving-impls fused: the fused step replaces the
 # attention kernel
 FUSED_SERVING = ("blstm_infer", "att_dec_step", "ctc_prefix_psi",
                  "ctc_prefix_state")
+# the decode CLI's model is float32, whose BLSTM layers the cluster plan
+# leaves to the row-tiled kernel
+CLI_SERVING = ("blstm_infer_row_tiled",) + FUSED_SERVING[1:]
 # the per-utterance prefix search
 UTT_SERVING = ("blstm_infer", "att_loc_step", "ctc_prefix_utt",
                "ctc_prefix_state")
@@ -258,6 +276,10 @@ TRAINING = ("blstm_train", "ctc_nll", "blstm_infer")
 # ops/blstm_train.py::resident_plan, and the row-tiled loops past it
 # (csrc/blstm_train.cu)
 ROUTES = ("resident", "loop")
+# blstm_infer's two routes: W_h split over a thread-block cluster
+# (csrc/blstm_infer_cluster.cu), chosen by ops/blstm.py::cluster_plan, and
+# the row-tiled kernel past it (csrc/blstm_infer.cu)
+INFER_ROUTES = ("cluster", "row_tiled")
 
 
 class SmokeFailure(RuntimeError):
@@ -275,6 +297,17 @@ def reset_counts() -> None:
         k["plain"].calls = 0
     for route in ROUTES:
         blstm_train.ROUTE_LAUNCHES[route] = 0
+    for route in INFER_ROUTES:
+        blstm.INFER_ROUTE_LAUNCHES[route] = 0
+
+
+def launch_count(name: str) -> int:
+    """Launches of kernel ``name`` since the last reset: its wrapper's
+    count, or its route's where a wrapper launches two kernels."""
+    k = KERNELS[name]
+    if "route" in k:
+        return blstm.INFER_ROUTE_LAUNCHES[k["route"]]
+    return k["wrapper"].launches
 
 
 def require_resident(where: str) -> None:
@@ -288,7 +321,7 @@ def require_resident(where: str) -> None:
 
 
 def counts(names):
-    return ({n: KERNELS[n]["wrapper"].launches for n in names},
+    return ({n: launch_count(n) for n in names},
             {n: KERNELS[n]["plain"].calls for n in KERNELS})
 
 
@@ -353,10 +386,16 @@ def lstm_library_ms(x, lengths, h, train: bool) -> float:
     packed sequence, the input projection included) on x (B, T, D): the
     forward alone, or the forward and every gradient for a random
     cotangent. A yardstick only: the port never calls it."""
+    return cuda_ms(lstm_library_fn(x, lengths, h, train), 3)
+
+
+def lstm_library_fn(x, lengths, h, train: bool):
+    """A call of cuDNN's LSTM as ``lstm_library_ms`` times it, for timing
+    in turns with other calls (in float32 where cuDNN refuses x's
+    type)."""
     from torch.nn.utils.rnn import PackedSequence, pack_padded_sequence
 
-
-    def run(x):
+    def make(x):
         lstm = torch.nn.LSTM(x.shape[-1], h, batch_first=True,
                              bidirectional=True).to(x.device, x.dtype)
         lstm.flatten_parameters()  # cuDNN's one weight buffer
@@ -366,20 +405,23 @@ def lstm_library_ms(x, lengths, h, train: bool) -> float:
         seq = PackedSequence(data, packed.batch_sizes, packed.sorted_indices,
                              packed.unsorted_indices)
         if not train:
-            with torch.inference_mode():
-                return cuda_ms(lambda: lstm(seq), 3)
+            def forward():
+                with torch.inference_mode():
+                    return lstm(seq)
+            return forward
         dy = torch.randn((data.shape[0], 2 * h), device=x.device,
                          dtype=x.dtype)
         leaves = [data, *lstm.parameters()]
-        return cuda_ms(
-            lambda: torch.autograd.grad(lstm(seq)[0].data, leaves, dy), 3)
+        return lambda: torch.autograd.grad(lstm(seq)[0].data, leaves, dy)
 
+    fn = make(x)
     try:
-        return run(x)
+        fn()
     except RuntimeError as exc:  # a cuDNN build without bfloat16 RNNs
         print(f"    cuDNN LSTM refused {x.dtype} ({str(exc)[:100]}); "
               "library time taken in float32")
-        return run(x.float())
+        fn = make(x.float())
+    return fn
 
 
 def compare(name, got, want, rtol=0.0, atol=0.0, scale_atol=0.0):
@@ -469,12 +511,23 @@ def blstm_row(err, gx, wh, lengths, out, d_in) -> dict:
                  wh.dtype, library_ms)
 
 
+def on_infer_route(route, fn):
+    """``fn`` with every ``blstm_infer`` launch on ``route``."""
+    def run(*args):
+        with blstm._force_infer_route(route):
+            return fn(*args)
+    return run
+
+
 def blstm_infer_parity(gen, b, t_enh, t_enc, jcfg, dev):
-    """The W_x-resident BLSTM against its plain version at the flagship's
-    four BLSTM layers (float32 and bfloat16), and per layer in bfloat16
-    the times of the kernel, of the gate-stream route (the cuBLAS
-    projection, then ``csrc/blstm.cu``) and of cuDNN's LSTM from x.
-    Returns (the enhancer layer 0 entry, whether every layer agreed)."""
+    """Both routes of ``blstm_infer`` against its plain version at the
+    flagship's four BLSTM layers (float32: the row-tiled route, the only
+    one the plan gives float32; bfloat16: the cluster and the row-tiled
+    routes), and per layer in bfloat16 the times, taken in turns, of the
+    cluster route, the row-tiled route, the gate-stream route (the cuBLAS
+    projection, then ``csrc/blstm.cu``) and cuDNN's LSTM from x. Returns
+    (the entries of both kernels at enhancer layer 0, whether every layer
+    agreed)."""
     f32, bf16 = torch.float32, torch.bfloat16
     enc = jcfg.e2e.encoder
     h_enh, h_enc = jcfg.enhancer.hidden_dim, enc.hidden_dim
@@ -483,7 +536,9 @@ def blstm_infer_parity(gen, b, t_enh, t_enc, jcfg, dev):
               ("enhancer1", t_enh, 2 * h_enh, h_enh),
               ("encoder0", t_enc, d_vgg, h_enc),
               ("encoder1", t_enc, enc.proj_dim, h_enc))
-    ok_all, row, total = True, None, [0.0, 0.0, 0.0]
+    names = ("cluster", "row-tiled", "projection + blstm_recurrence",
+             "cuDNN LSTM")
+    ok_all, rows, total = True, {}, [0.0] * len(names)
     for tag, t, d, h in layers:
         for dt in (f32, bf16):
             x, wx, wh, bias, lengths, _ = train_inputs(gen, b, t, d, h, dt,
@@ -496,34 +551,49 @@ def blstm_infer_parity(gen, b, t_enh, t_enc, jcfg, dev):
             def plain(x=x, wx=wx, wh=wh, bias=bias, lengths=lengths):
                 return blstm.blstm_infer_plain(x, lengths, wx, wh, bias)
 
-            got = kernel()
+            want = plain()
             tol = dict(rtol=1e-4, atol=1e-5) if dt == f32 else dict(
                 scale_atol=2e-2)
-            err, ok = compare(f"blstm_infer {tag} B={b} T={t} D={d} H={h} "
-                              f"{dt}", [got], [plain()], **tol)
-            ok_all &= ok
+            errs = {}
+            if dt == bf16:
+                plan = blstm._cluster(b, d, h, wh)
+                print(f"    cluster plan (C, R, F, W_x resident, shared "
+                      f"memory bytes) {plan}; clusters of {plan[0]} the "
+                      f"card runs at once: "
+                      f"{blstm._clusters_at_once(wh.device.index, plan[0])}")
+            for route in (("row_tiled",) if dt == f32 else INFER_ROUTES):
+                got = on_infer_route(route, kernel)()
+                errs[route], ok = compare(
+                    f"blstm_infer {route} {tag} B={b} T={t} D={d} H={h} "
+                    f"{dt}", [got], [want], **tol)
+                ok_all &= ok
             if dt != bf16:
                 continue
-            ms = cuda_ms(kernel, 3)
-            gx_ms = cuda_ms(lambda: blstm.blstm_recurrence(
-                input_projection(x, wx, bias, dt), wh, lengths), 3)
-            library_ms = lstm_library_ms(x, lengths, h, train=False)
-            for i, v in enumerate((ms, gx_ms, library_ms)):
+            ms = cuda_ms_in_turns(
+                [on_infer_route("cluster", kernel),
+                 on_infer_route("row_tiled", kernel),
+                 lambda: blstm.blstm_recurrence(
+                     input_projection(x, wx, bias, dt), wh, lengths),
+                 lstm_library_fn(x, lengths, h, train=False)], 3)
+            for i, v in enumerate(ms):
                 total[i] += v
-            print(f"    {tag} {dt}: blstm_infer {ms:.3f} ms, projection + "
-                  f"blstm_recurrence {gx_ms:.3f} ms, cuDNN LSTM "
-                  f"{library_ms:.3f} ms (valid frames {int(lengths.sum())})")
+            print(f"    {tag} {dt} (valid frames {int(lengths.sum())}), ms "
+                  "in turns: " + ", ".join(
+                      f"{n} {v:.3f}" for n, v in zip(names, ms)))
             if tag == "enhancer0":
                 # per valid frame and direction: the projection (D * 4H
                 # multiply-adds) and the recurrent product (H * 4H)
-                row = entry("blstm_infer", err, ms, cuda_ms(plain, 1),
-                            2 * int(lengths.sum()) * 2 * 4 * h * (d + h),
-                            nbytes(x, wx, wh, bias, lengths, got), dt,
-                            library_ms)
-    print(f"    the four layers, bf16: blstm_infer {total[0]:.3f} ms, "
-          f"projection + blstm_recurrence {total[1]:.3f} ms, cuDNN LSTM "
-          f"{total[2]:.3f} ms")
-    return row, ok_all
+                plain_ms = cuda_ms(plain, 1)
+                for name, route, v in (("blstm_infer", "cluster", ms[0]),
+                                       ("blstm_infer_row_tiled", "row_tiled",
+                                        ms[1])):
+                    rows[name] = entry(
+                        name, errs[route], v, plain_ms,
+                        2 * int(lengths.sum()) * 2 * 4 * h * (d + h),
+                        nbytes(x, wx, wh, bias, lengths, want), dt, ms[3])
+    print("    the four layers, bf16, ms in turns: " + ", ".join(
+        f"{n} {v:.3f}" for n, v in zip(names, total)))
+    return rows, ok_all
 
 
 def oversize_blstm(dev) -> int:
@@ -550,12 +620,14 @@ def oversize_blstm(dev) -> int:
     reset_counts()
     with torch.inference_mode():
         got = layer(x, mask)
-        launches, plain_calls = counts(("blstm_recurrence", "blstm_infer"))
+        launches, plain_calls = counts(("blstm_recurrence", "blstm_infer",
+                                        "blstm_infer_row_tiled"))
         want = blstm.blstm_recurrence_plain(
             input_projection(x, layer.wx, layer.bias, dt),
             layer.wh.to(dt), lengths, round_h=True)
     print(f"  oversize BLSTM layer: launches {launches}")
-    require(launches == {"blstm_recurrence": 1, "blstm_infer": 0},
+    require(launches == {"blstm_recurrence": 1, "blstm_infer": 0,
+                         "blstm_infer_row_tiled": 0},
             f"the oversize layer did not take the gate-stream kernel: "
             f"{launches}")
     require(not any(plain_calls.values()),
@@ -574,8 +646,8 @@ def kernel_parity(b: int, t_enh: int, t_enc: int, jcfg, dev) -> dict:
     e_dim = jcfg.e2e.encoder.proj_dim
     f32, bf16 = torch.float32, torch.bfloat16
     res = {}
-    res["blstm_infer"], ok_all = blstm_infer_parity(gen, b, t_enh, t_enc,
-                                                    jcfg, dev)
+    rows, ok_all = blstm_infer_parity(gen, b, t_enh, t_enc, jcfg, dev)
+    res.update(rows)
 
     # BLSTM recurrence (gate stream): enhancer and encoder layer shapes
     for tag, t, h in (("enhancer", t_enh, h_enh), ("encoder", t_enc, h_enc)):
@@ -1262,18 +1334,25 @@ def main_path(b, n_batches, state, dev):
     require(not any(plain_calls.values()),
             f"a plain version ran on the main path: {plain_calls}")
     n_layers = kcfg.enhancer.num_layers + kcfg.e2e.encoder.num_layers
-    require(launches["blstm_infer"] == n_batches * n_layers
+    routes = dict(blstm.INFER_ROUTE_LAUNCHES)
+    print(f"  blstm_infer launches by route {routes}, gate-stream "
+          f"{blstm.blstm_recurrence.launches}")
+    require(routes == {"cluster": n_batches * n_layers, "row_tiled": 0}
             and blstm.blstm_recurrence.launches == 0,
-            f"not every BLSTM layer took the W_x-resident kernel: "
-            f"{launches['blstm_infer']} launches for {n_batches} x "
-            f"{n_layers} layers, {blstm.blstm_recurrence.launches} "
-            "gate-stream launches")
+            f"not every BLSTM layer took the cluster route: {routes} for "
+            f"{n_batches} x {n_layers} layers, "
+            f"{blstm.blstm_recurrence.launches} gate-stream launches")
 
     k_ms, k_enc, k_search = steady(batches, searcher, model, kcfg, bcfg)
     print(f"  kernel path: {b * 1e3 / k_ms:.2f} utt/s, {k_ms:.1f} ms/batch "
           f"(encode {k_enc:.1f} ms + search {k_search:.1f} ms when timed "
           f"apart; means over {n_batches} warm batches)")
-    in_turns({"W_x-resident BLSTM": searcher,
+    rt_enc = mean([on_infer_route("row_tiled", split_ms)(
+        model, kcfg, bcfg, w, n)[0] for w, n in batches])
+    print(f"  encode ms per batch: cluster route {k_enc:.1f}, row-tiled "
+          f"route {rt_enc:.1f}")
+    in_turns({"cluster BLSTM": searcher,
+              "row-tiled BLSTM": on_infer_route("row_tiled", searcher),
               "gate-stream BLSTM": gate_stream(searcher)}, batches, b)
 
     pcfg = with_impls(kcfg, "scan", "xla", "bfloat16")
@@ -1430,6 +1509,11 @@ def train_path(state_g, state_d, dev):
             require(not any(train_plain.values()),
                     f"a plain version ran on the train path: {train_plain}")
             require_resident("phase 6")
+            routes = dict(blstm.INFER_ROUTE_LAUNCHES)
+            print(f"  blstm_infer launches by route {routes}")
+            require(routes["cluster"] > 0 and routes["row_tiled"] == 0,
+                    f"phase 6: the D-step's BLSTM layers did not all take "
+                    f"the cluster route: {routes}")
             result = launches
             profile_step(step, state, batch)
     return result
@@ -1598,7 +1682,7 @@ def clean_slice_parity(state, dev):
         reset_counts()
         if tag == "kernel":
             out[tag] = search(wav, lens)
-            launches, _ = counts(CLEAN_SERVING)
+            launches, _ = counts(F32_CLEAN_SERVING)
             require(all(v > 0 for v in launches.values()),
                     f"a kernel never launched in the f32 slice: {launches}")
         else:
@@ -1742,7 +1826,7 @@ def decode_cli_path(ckpt, work):
         print(f"  --serving-impls {impls}: {secs[impls]:.2f} s wall "
               f"(restore, one batch of {BATCH}, scoring)")
     launches, plain_calls = runs["fused"]
-    path = {n: launches[n] for n in FUSED_SERVING}
+    path = {n: launches[n] for n in CLI_SERVING}
     print(f"  fused launches {path}  plain calls {plain_calls}")
     require(path["att_dec_step"] == STEPS,
             f"att_dec_step launched {path['att_dec_step']} times, not {STEPS}")
@@ -1806,15 +1890,15 @@ def fused_step_ab(b, n_batches, state, dev, phase4_ms):
 
 
 def in_turns(searchers, batches, b):
-    """Warm ms per batch of two searchers timed in turns (A, B, B, A over
-    the batches), and one profiled warm batch of each: its device time,
-    busy share and launches."""
-    a, c = searchers
-    ms = {a: [], c: []}
-    for tag in (a, c, c, a):
+    """Warm ms per batch of the searchers timed in turns (A, B, B, A, or
+    A, B, C, C, B, A, over the batches), and one profiled warm batch of
+    each: its device time, busy share and launches."""
+    tags = list(searchers)
+    ms = {tag: [] for tag in tags}
+    for tag in tags + tags[::-1]:
         ms[tag] += [timed(lambda: searchers[tag](w, n))[1]
                     for w, n in batches]
-    for tag in (a, c):
+    for tag in tags:
         mean_ms = mean(ms[tag])
         wav, lens = batches[0]
         _, wall_ms = timed(lambda: searchers[tag](wav, lens))
@@ -1992,6 +2076,7 @@ def later_phases(state, state_d, dev, work, phase4_ms) -> dict:
             "fbank_fused": clean_launches["fbank_fused"],
             "lm_step": clean_launches["lm_step"],
             "att_dec_step": dec_launches["att_dec_step"],
+            "blstm_infer_row_tiled": dec_launches["blstm_infer_row_tiled"],
             "ctc_prefix_utt": utt_launches["ctc_prefix_utt"]}
 
 

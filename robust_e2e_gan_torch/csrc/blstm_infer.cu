@@ -44,10 +44,13 @@
 // kernel's h_prev.astype(cdtype)); the output is h_t written in the
 // compute type. The backward direction walks t = len-1 ... 0 directly, so
 // there is no flipped copy of x and no reversed write; frames at or past a
-// row's length are exact zeros and leave the state alone. Keeping W_x and
-// W_h in a cluster's distributed shared memory, overlapping a chunk's
-// projection with the previous chunk's frames, and wgmma tiles are work
-// for a later change.
+// row's length are exact zeros and leave the state alone. This is the
+// "row-tiled" route of ops/blstm.py::blstm_infer: the layers that
+// cluster_plan fits (bfloat16, H a multiple of 16 that splits into at
+// most 32 hidden units a block) take csrc/blstm_infer_cluster.cu, which
+// splits W_h over a thread-block cluster and exchanges h through
+// distributed shared memory; this kernel takes the rest (float32, other
+// H).
 
 #include "common.cuh"
 

@@ -6,9 +6,13 @@ in its two variants:
 
 * ``blstm_infer(x, lengths, wx, wh, bias)``, the W_x-resident variant
   (``_fused_kernel``): raw input frames in, hidden states out, in one
-  launch of ``csrc/blstm_infer.cu``; the input projection is computed in
-  the kernel a chunk of frames at a time, so no gate tensor goes through
-  device memory.
+  launch; the input projection is computed in the kernel a chunk of
+  frames at a time, so no gate tensor goes through device memory. Two
+  kernels compute it, chosen by ``cluster_plan`` before the launch: the
+  "cluster" route (``csrc/blstm_infer_cluster.cu``: W_h split over a
+  thread-block cluster, h exchanged through distributed shared memory)
+  where the plan fits, else the "row-tiled" route
+  (``csrc/blstm_infer.cu``).
 * ``blstm_recurrence(gx, wh, lengths)``, the gate-stream variant
   (``_gx_kernel``): the input projection of both directions is one matrix
   product over the whole sequence (``models/rnn.py::input_projection``)
@@ -24,11 +28,20 @@ frame loop takes ``round_h`` for that, and the JAX scan's arithmetic
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from robust_e2e_gan_torch.utils.build import launch
-from robust_e2e_gan_torch.utils.impl import check, check_no_grad, on_cuda
+from robust_e2e_gan_torch.utils.impl import (
+    check,
+    check_no_grad,
+    device_limits,
+    on_cuda,
+)
 
 MAX_HIDDEN = 1024  # one thread per hidden unit in a block
 
@@ -155,6 +168,151 @@ blstm_infer_plain.calls = 0
 
 
 # --------------------------------------------------------------------------
+# which kernel runs blstm_infer: the cluster route of
+# csrc/blstm_infer_cluster.cu where its plan fits, else the row-tiled
+# csrc/blstm_infer.cu; a rule computed before the launch
+# --------------------------------------------------------------------------
+
+CLUSTER_SIZES = (1, 2, 4, 8)  # blocks a cluster (8 is the portable limit)
+CLUSTER_PAIRS = 128  # (row, frame) pairs of a chunk: R * F
+CLUSTER_SLICE = 64  # input columns per projection slice (DS)
+CLUSTER_UNITS = 32  # hidden units a block at most: 8 warps of 4
+_PAD = 8  # bf16 elements of padding of a row of an h slice
+
+
+def cluster_smem(h: int, c: int, r: int, dw: int, resident: bool) -> int:
+    """Bytes of dynamic shared memory of one cluster block, n_u = H / C:
+    two x stages (128 pairs of DS), W_x's columns resident (ceil(DW / DS)
+    slices of 4 n_u rows of DS) or two staged slices of them, two h
+    buffers (C slices of R rows of n_u + 8), all bfloat16; the chunk's gx
+    (128 pairs by 4 n_u columns, float32); R int32 lengths, seven 8-byte
+    mbarriers and 1 KB to align the base (its W_h columns live in
+    registers). ``smem_bytes`` of the kernel source computes the same."""
+    n_u = h // c
+    n = 4 * n_u
+    slices = -(-dw // CLUSTER_SLICE) if resident else 2
+    elems = (2 * CLUSTER_PAIRS * CLUSTER_SLICE + slices * n * CLUSTER_SLICE
+             + 2 * c * r * (n_u + _PAD))
+    return 1024 + 2 * elems + 4 * CLUSTER_PAIRS * n + 4 * r + 56
+
+
+def cluster_plan(b: int, d: int, h: int, itemsize: int, n_sm: int,
+                 smem_optin: int, max_clusters: int | None = None):
+    """(C, R, F, W_x resident, shared-memory bytes) of the cluster route,
+    or None where it does not fit: bfloat16 only; C, the fewest blocks a
+    cluster (of 1, 2, 4, 8) that leaves each at most 32 hidden units, a
+    multiple of 8 (16-byte pieces of h); R = 16 rows a group, or 32 where
+    the 2 ceil(B / 16) clusters of 16-row groups would not all run at once
+    (``max_clusters`` of C blocks fit the card, n_sm // C where not
+    given: the card's cluster placement can fit fewer, 15 of 8 on an
+    H100); F = 128 / R frames a chunk; W_x's columns resident where they
+    fit beside the rest, else streamed; the block's bytes within
+    ``smem_optin``."""
+    if itemsize != 2 or h % 16:
+        return None
+    c = next((c for c in CLUSTER_SIZES
+              if h % (8 * c) == 0 and h // c <= CLUSTER_UNITS), None)
+    if c is None:
+        return None
+    fit = n_sm // c if max_clusters is None else max_clusters
+    r = 16 if 2 * -(-b // 16) <= fit else 32
+    dw = _round_up(d, 16)
+    for resident in (True, False):
+        smem = cluster_smem(h, c, r, dw, resident)
+        if smem <= smem_optin:
+            return c, r, CLUSTER_PAIRS // r, resident, smem
+    return None
+
+
+# blstm_infer launches by route
+INFER_ROUTE_LAUNCHES = {"cluster": 0, "row_tiled": 0}
+_forced_infer_route = None
+
+
+@contextlib.contextmanager
+def _force_infer_route(route: str):
+    """Run every ``blstm_infer`` launch inside the block on one route
+    ("cluster" or "row_tiled"): the tests and ``chip_smoke.py`` hold both
+    to the plain version. Forcing "cluster" where the plan does not fit
+    raises."""
+    global _forced_infer_route
+    check(route in INFER_ROUTE_LAUNCHES, f"unknown route {route!r}")
+    prev, _forced_infer_route = _forced_infer_route, route
+    try:
+        yield
+    finally:
+        _forced_infer_route = prev
+
+
+@functools.lru_cache(maxsize=None)
+def _clusters_at_once(index: int, c: int) -> int:
+    """Clusters of c blocks (one block an SM) that card ``index`` runs at
+    once, as the CUDA runtime places them."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        launch("blstm_infer_cluster_fit", c, ctypes.addressof(n))
+    return n.value
+
+
+def _cluster(b: int, d: int, h: int, wh: torch.Tensor):
+    """The cluster plan of this layer on wh's card, or None for the
+    row-tiled kernel."""
+    if _forced_infer_route == "row_tiled":
+        return None
+    index = wh.device.index
+    plan = cluster_plan(b, d, h, wh.element_size(), *device_limits(index))
+    if plan is not None:
+        plan = cluster_plan(b, d, h, wh.element_size(), *device_limits(index),
+                            max_clusters=_clusters_at_once(index, plan[0]))
+    check(plan is not None or _forced_infer_route is None,
+          f"the cluster route does not fit B={b} D={d} H={h} {wh.dtype}")
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_columns(h: int, c: int, device: torch.device) -> torch.Tensor:
+    """The gate columns of (2, ., 4H) weights in the cluster kernel's
+    order: block j's 4 n_u columns, 16 per group of 4 units u, ordered
+    (i f) of each u, then (g o) of each u. Made once per shape and device:
+    a copy from the host would wait for the stream."""
+    n_u = h // c
+    col = torch.arange(4 * n_u)
+    grp, w = col // 16, col % 16
+    unit = grp * 4 + (w % 8) // 2
+    gate = (w // 8) * 2 + w % 2
+    return torch.cat([gate * h + j * n_u + unit for j in range(c)]).to(device)
+
+
+def _reversed_rows(xc: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """x_rev[b, s] = xc[b, len_b - 1 - s] for s < len_b (and frame 0 past
+    it, which no output reads): the backward direction's input in its own
+    order, so that the cluster kernel reads the same frame of every row of
+    a group as one box. One row gather over (B T, DW), moving the rows as
+    8-byte words (DW is a multiple of 16)."""
+    b, t, dw = xc.shape
+    src = (lengths.long().clamp(0, t)[:, None] - 1
+           - torch.arange(t, device=xc.device)[None, :]).clamp(min=0)
+    rows = (torch.arange(b, device=xc.device)[:, None] * t + src).reshape(-1)
+    words = xc.reshape(b * t, dw).view(torch.int64)
+    return words.index_select(0, rows).view(xc.dtype).view(b, t, dw)
+
+
+def _cluster_pack(wx, wh, bias, dw: int, c: int):
+    """wx (2, D, 4H) -> (2, C, N, DW) with zero rows past D, wh (2, H, 4H)
+    -> (2, C, N, H), both transposed so that block j's N = 4H / C gate
+    columns lie in rows, and bias (2, 4H) -> (2, C, N), in the kernel's
+    column order (``_cluster_columns``)."""
+    h = wh.shape[1]
+    cols = _cluster_columns(h, c, wh.device)
+    n = 4 * h // c
+    if wx.shape[1] != dw:
+        wx = F.pad(wx, (0, 0, 0, dw - wx.shape[1]))
+    wxp = wx[:, :, cols].view(2, dw, c, n).permute(0, 2, 3, 1).contiguous()
+    whp = wh[:, :, cols].view(2, h, c, n).permute(0, 2, 3, 1).contiguous()
+    return wxp, whp, bias[:, cols].contiguous()
+
+
+# --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
 
@@ -206,10 +364,13 @@ def blstm_infer(x: torch.Tensor, lengths: torch.Tensor, wx: torch.Tensor,
                 wh: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """Kernel wrapper, same contract as ``blstm_infer_plain``.
 
-    CPU tensors run the plain version; CUDA tensors launch
-    ``csrc/blstm_infer.cu`` or raise. In bfloat16 with H a multiple of 16
-    the kernel projects on the tensor cores, reading W_x in 16-row tiles,
-    so its rows are zero-padded to a multiple of 16 here.
+    CPU tensors run the plain version; CUDA tensors launch the kernel of
+    the layer's route (``cluster_plan``; ``INFER_ROUTE_LAUNCHES`` counts
+    them) or raise. Both kernels project on the tensor cores in bfloat16
+    with H a multiple of 16, reading W_x in 16-row tiles, so its rows are
+    zero-padded to a multiple of 16 here; the cluster route takes x padded
+    the same way, a copy of it reversed per row for the backward direction
+    (``_reversed_rows``) and its weights repacked (``_cluster_pack``).
     """
     check_no_grad("blstm_infer", x, wx, wh, bias)
     if not on_cuda(x, lengths, wx, wh, bias):
@@ -226,6 +387,28 @@ def blstm_infer(x: torch.Tensor, lengths: torch.Tensor, wx: torch.Tensor,
     check(1 <= h_dim <= MAX_HIDDEN, f"H={h_dim} outside [1, {MAX_HIDDEN}]")
     check(d >= 1 and t >= 1 and b >= 1, f"x shape {tuple(x.shape)}")
     check(tuple(lengths.shape) == (b,), f"lengths shape {tuple(lengths.shape)}")
+    lengths = lengths.to(torch.int32).contiguous()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    out = torch.empty((b, t, 2 * h_dim), dtype=wx.dtype, device=x.device)
+    plan = _cluster(b, d, h_dim, wh)
+    if plan is not None:
+        c, r, _, resident, _ = plan
+        dw = _round_up(d, 16)
+        wxp, whp, bp = _cluster_pack(wx, wh, bias.contiguous(), dw, c)
+        xc = x.to(wx.dtype)
+        if dw != d:
+            xc = F.pad(xc, (0, dw - d))
+        xc = xc.contiguous()
+        if xc.data_ptr() % 16:  # the copy engine reads 16-byte aligned rows
+            xc = xc.clone()
+        xr = _reversed_rows(xc, lengths)
+        launch("blstm_infer_cluster", xc.data_ptr(), xr.data_ptr(),
+               wxp.data_ptr(), whp.data_ptr(), bp.data_ptr(),
+               lengths.data_ptr(), out.data_ptr(), b, t, dw, h_dim, c, r,
+               int(resident), stream)
+        INFER_ROUTE_LAUNCHES["cluster"] += 1
+        blstm_infer.launches += 1
+        return out
     bf16 = wx.dtype == torch.bfloat16
     mma = bf16 and h_dim % 16 == 0
     dw = _round_up(d, 16) if mma else d
@@ -235,14 +418,13 @@ def blstm_infer(x: torch.Tensor, lengths: torch.Tensor, wx: torch.Tensor,
         wx = wx.clone(memory_format=torch.contiguous_format)
     wh, bias = wh.contiguous(), bias.contiguous()
     xc = x.to(wx.dtype).contiguous()
-    lengths = lengths.to(torch.int32).contiguous()
-    out = torch.empty((b, t, 2 * h_dim), dtype=wx.dtype, device=x.device)
     launch(
         "blstm_infer", xc.data_ptr(), wx.data_ptr(), wh.data_ptr(),
         bias.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         b, t, d, dw, h_dim, _rows_per_block(b, x.device), int(bf16),
-        int(mma), torch.cuda.current_stream(x.device).cuda_stream,
+        int(mma), stream,
     )
+    INFER_ROUTE_LAUNCHES["row_tiled"] += 1
     blstm_infer.launches += 1
     return out
 

@@ -34,12 +34,11 @@ come back in the compute dtype; ``dbias`` and ``dgx`` stay float32.
 from __future__ import annotations
 
 import contextlib
-import functools
 
 import torch
 
 from robust_e2e_gan_torch.utils.build import launch
-from robust_e2e_gan_torch.utils.impl import check, on_cuda
+from robust_e2e_gan_torch.utils.impl import check, device_limits, on_cuda
 
 MAX_HIDDEN = 1024  # one thread per hidden unit in a block
 
@@ -248,19 +247,13 @@ def _force_route(route: str):
         _forced_route = prev
 
 
-@functools.lru_cache(maxsize=None)
-def _device_limits(index: int):
-    props = torch.cuda.get_device_properties(index)
-    return props.multi_processor_count, props.shared_memory_per_block_optin
-
-
 def _resident(b: int, h: int, wh: torch.Tensor):
     """The resident plan of this layer on wh's card, or None for the loops
     of ``csrc/blstm_train.cu``."""
     if _forced_route == "loop":
         return None
     plan = resident_plan(b, h, wh.element_size(),
-                         *_device_limits(wh.device.index))
+                         *device_limits(wh.device.index))
     check(plan is not None or _forced_route is None,
           f"the resident frame loops do not fit B={b} H={h} {wh.dtype}")
     return plan

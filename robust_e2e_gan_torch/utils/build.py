@@ -95,6 +95,11 @@ SIGNATURES = {
     # x, wx, wh, bias, lengths, out, B, T, D, DW (wx rows), H,
     # rows_per_block, bf16, mma, stream
     "blstm_infer": [_P] * 6 + [_I] * 8 + [_P],
+    # x, x reversed per row, wx, wh, bias (packed), lengths, out, B, T,
+    # DW, H, C (cluster size), R (rows a group), W_x resident, stream
+    "blstm_infer_cluster": [_P] * 7 + [_I] * 7 + [_P],
+    # C (cluster size), out: clusters of C blocks the card runs at once
+    "blstm_infer_cluster_fit": [_I, _P],
 }
 
 

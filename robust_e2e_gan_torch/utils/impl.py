@@ -25,6 +25,8 @@ the unfused step (the attention wrapper, then the plain cell and readout).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 _KERNEL = ("auto", "fused", "tiled", "pallas")
@@ -72,3 +74,11 @@ def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
         raise ValueError(
             f"{name} is inference-only and its output carries no graph; "
             "call it under torch.no_grad() or torch.inference_mode()")
+
+
+@functools.lru_cache(maxsize=None)
+def device_limits(index: int):
+    """(SM count, shared memory a block may opt into) of CUDA device
+    ``index``: what the kernels' launch plans are computed from."""
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, props.shared_memory_per_block_optin

@@ -1,7 +1,9 @@
 """The port's inference BLSTM against the JAX package: the W_x-resident
 ``blstm_infer`` and the layer's kernel route against the Pallas
 ``blstm_infer`` (interpret mode) on both sides of its fit rule, the rule
-itself, the ``scan`` route against the JAX scan, and ``gate_storage``."""
+itself, the ``scan`` route against the JAX scan, and ``gate_storage``;
+and, without the card, the cluster route's plan, packing and reversed
+input."""
 
 import dataclasses
 
@@ -293,6 +295,122 @@ def test_gate_storage_reaches_the_configuration():
     served = decode_cli.with_serving_impls(ours, "auto")
     assert served.e2e.encoder.gate_storage == "f32"
     assert served.enhancer.gate_storage == "f32"
+
+
+# the flagship decode's four BLSTM layers (B=128: enhancer 0 and 1,
+# encoder 0 and 1) and the D-step's two enhancer layers (B=32, T=286):
+# (B, D, whether W_x's columns stay resident)
+CLUSTER_LAYERS = [(128, 257, True), (128, 512, False), (128, 2560, False),
+                  (128, 256, True), (32, 257, True), (32, 512, False)]
+H100 = dict(n_sm=132, smem_optin=232_448)
+
+
+@pytest.mark.parametrize("case", CLUSTER_LAYERS,
+                         ids=[f"B{c[0]}-D{c[1]}" for c in CLUSTER_LAYERS])
+def test_cluster_plan_fits_the_flagship_layers(case):
+    """Every flagship layer takes the cluster route on an H100: clusters of
+    8 blocks of 32 units; 32-row groups at B=128, where 16 clusters of
+    16-row groups would exceed the 15 the card runs at once, 16-row ones
+    at B=32; W_x resident where it fits (D=256, 257)."""
+    b, d, resident = case
+    plan = ops.cluster_plan(b, d, 256, 2, **H100, max_clusters=15)
+    assert plan is not None
+    c, r, f, res, smem = plan
+    assert (c, r, f, res) == (8, 32 if b == 128 else 16,
+                              4 if b == 128 else 8, resident)
+    assert smem == ops.cluster_smem(256, c, r, ops._round_up(d, 16), res)
+    assert smem <= H100["smem_optin"]
+    # without the card's count, the plan takes n_sm // C = 16 clusters
+    assert ops.cluster_plan(b, d, 256, 2, **H100)[1] == 16
+
+
+# (itemsize, H, shared memory a block may take)
+REFUSED = [
+    (2, 200, 232_448),  # bf16 H not a multiple of 16
+    (4, 256, 232_448),  # f32
+    (4, 64, 232_448),  # f32, small H
+    (2, 512, 232_448),  # bf16 H=512: 64 units a block at C=8
+    (2, 80, 232_448),  # no cluster size gives a multiple of 8 units <= 32
+    (2, 256, 100_000),  # the W_h slice's block over the budget
+]
+
+
+@pytest.mark.parametrize("case", REFUSED,
+                         ids=["H200", "f32", "f32-H64", "H512", "H80",
+                              "small-smem"])
+def test_cluster_plan_refuses(case):
+    itemsize, h, smem_optin = case
+    assert ops.cluster_plan(128, 257, h, itemsize, 132, smem_optin) is None
+
+
+def test_cluster_smem_is_the_hand_sum():
+    """One block at the flagship's enhancer layer 0 (H=256, C=8, R=32,
+    D=257 padded to 272, W_x resident), byte by byte."""
+    x_stages = 2 * 128 * 64 * 2  # two (pairs, 64 columns) bf16 boxes
+    wx_resident = 5 * 128 * 64 * 2  # ceil(272 / 64) slices of 128 columns
+    h_buffers = 2 * 8 * 32 * (32 + 8) * 2  # (2, C, R, n_u + 8) bf16
+    gx = 128 * 128 * 4  # (pairs, 4 n_u) float32
+    rest = 1024 + 32 * 4 + 7 * 8  # alignment, lengths, mbarriers
+    assert ops.cluster_smem(256, 8, 32, 272, True) == (
+        x_stages + wx_resident + h_buffers + gx + rest)
+    assert ops.cluster_smem(256, 8, 32, 272, False) == (
+        x_stages + 2 * 128 * 64 * 2 + h_buffers + gx + rest)
+
+
+@pytest.mark.parametrize("b, fit, rows, groups",
+                         [(1, 15, 16, 1), (17, 15, 16, 2), (112, 15, 16, 7),
+                          (113, 15, 32, 4), (150, 15, 32, 5),
+                          (150, 20, 16, 10)])
+def test_cluster_plan_row_groups(b, fit, rows, groups):
+    """B not a multiple of R gives ceil(B / R) groups (the last one padded
+    with rows the kernel reads as zeros); R doubles only where the 16-row
+    groups' 2 ceil(B / 16) clusters exceed those the card runs at once."""
+    plan = ops.cluster_plan(b, 257, 256, 2, **H100, max_clusters=fit)
+    assert plan[1] == rows and -(-b // plan[1]) == groups
+    assert plan[2] * plan[1] == ops.CLUSTER_PAIRS
+
+
+@pytest.mark.parametrize("h, c", [(256, 8), (64, 2), (48, 2)])
+def test_cluster_pack_orders_each_warps_gates(h, c):
+    """Block j's packed columns: 16 per group of 4 units, (i f) of each
+    unit, then (g o) of each unit, so lane t of an m16n8 tile pair holds
+    i, f, g, o of unit t; W_x and W_h transposed (block, column, k)."""
+    d, n_u = 5, h // c
+    wx = torch.arange(4 * h).float().expand(2, d, 4 * h) * 10 + torch.arange(
+        d).float()[None, :, None]
+    wh = torch.arange(4 * h).float().expand(2, h, 4 * h).contiguous()
+    bias = torch.arange(2 * 4 * h).float().view(2, 4 * h)
+    wxp, whp, bp = ops._cluster_pack(wx, wh, bias, 16, c)
+    assert wxp.shape == (2, c, 4 * n_u, 16) and whp.shape == (2, c, 4 * n_u, h)
+    for j in range(c):
+        for col in range(4 * n_u):
+            grp, w = divmod(col, 16)
+            unit = j * n_u + grp * 4 + (w % 8) // 2
+            gate = (w // 8) * 2 + w % 2
+            want = gate * h + unit
+            assert whp[1, j, col, 3] == want
+            assert bp[1, j * 4 * n_u + col] == 4 * h + want
+            assert wxp[0, j, col, 2] == want * 10 + 2
+    assert not wxp[..., d:].any()  # W_x's padded rows are zeros
+
+
+def test_reversed_rows_reverses_each_row_to_its_length():
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((3, 6, 16)).astype(np.float32))
+    lengths = torch.tensor([6, 2, 0])
+    got = ops._reversed_rows(x, lengths)
+    for b, n in enumerate(lengths.tolist()):
+        torch.testing.assert_close(got[b, :n], x[b, :n].flip(0), rtol=0,
+                                   atol=0)
+
+
+def test_force_infer_route_names_a_route():
+    with pytest.raises(ValueError, match="unknown route"):
+        with ops._force_infer_route("cuDNN"):
+            pass
+    with ops._force_infer_route("cluster"):
+        assert ops._forced_infer_route == "cluster"
+    assert ops._forced_infer_route is None
 
 
 @pytest.fixture(autouse=True)

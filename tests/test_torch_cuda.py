@@ -62,14 +62,16 @@ def _infer_inputs(gen, dev, b, t, d, h, dtype):
 @pytest.mark.parametrize("h", [32, 256, 512, 1024])
 @pytest.mark.parametrize("d", [10, 257, 2560])
 def test_blstm_infer_kernel_matches_plain(dev, dtype, h, d):
-    """The W_x-resident kernel: both projections (tensor cores in bf16 up
-    to H = 512 in 32- and 16-pair chunks, FMAs otherwise in 16- and 8-pair
-    chunks), ragged lengths with an empty row, pad frames exact zeros."""
+    """The row-tiled kernel (``csrc/blstm_infer.cu``): both projections
+    (tensor cores in bf16 up to H = 512 in 32- and 16-pair chunks, FMAs
+    otherwise in 16- and 8-pair chunks), ragged lengths with an empty row,
+    pad frames exact zeros."""
     gen = torch.Generator(device=dev).manual_seed(h + d)
     b, t = 5, 23
     x, wx, wh, bias = _infer_inputs(gen, dev, b, t, d, h, dtype)
     lengths = torch.tensor([t, 1, 0, 17, t - 1], dtype=torch.int32, device=dev)
-    got = blstm.blstm_infer(x, lengths, wx, wh, bias)
+    with blstm._force_infer_route("row_tiled"):
+        got = blstm.blstm_infer(x, lengths, wx, wh, bias)
     want = blstm.blstm_infer_plain(x, lengths, wx, wh, bias)
     torch.cuda.synchronize()
     assert got.dtype == dtype
@@ -79,19 +81,133 @@ def test_blstm_infer_kernel_matches_plain(dev, dtype, h, d):
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 def test_blstm_infer_kernel_four_rows_per_block(dev, dtype):
-    """More rows than two per block fit in one wave of SMs: four rows a
-    block, bf16 x given in float32."""
+    """More rows than two per block fit in one wave of SMs: the row-tiled
+    kernel with four rows a block, bf16 x given in float32."""
     gen = torch.Generator(device=dev).manual_seed(7)
     b, t, d, h = 150, 9, 257, 256
     x, wx, wh, bias = _infer_inputs(gen, dev, b, t, d, h, dtype)
     lengths = torch.randint(0, t + 1, (b,), generator=gen, device=dev,
                             dtype=torch.int32)
-    got = blstm.blstm_infer(x, lengths, wx, wh, bias)
+    with blstm._force_infer_route("row_tiled"):
+        got = blstm.blstm_infer(x, lengths, wx, wh, bias)
     want = blstm.blstm_infer_plain(x, lengths, wx, wh, bias)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype, want))
     pad = torch.arange(t, device=dev)[None] >= lengths[:, None]
     assert not got[pad].any()
+
+
+def _ragged(gen, dev, b, t):
+    """Lengths in [1, T], the first row full, the second (where B > 1)
+    empty."""
+    lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    lengths[0] = t
+    if b > 1:
+        lengths[1] = 0
+    return lengths
+
+
+def _on_route(route, x, lengths, wx, wh, bias):
+    """blstm_infer forced onto ``route``; checks that it launched there."""
+    before = dict(blstm.INFER_ROUTE_LAUNCHES)
+    with blstm._force_infer_route(route):
+        got = blstm.blstm_infer(x, lengths, wx, wh, bias)
+    after = dict(blstm.INFER_ROUTE_LAUNCHES)
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == route) for k in after}
+    return got
+
+
+@pytest.mark.parametrize("b", [1, 17, 128])
+@pytest.mark.parametrize("d", [10, 257, 2560])
+@pytest.mark.parametrize("h", [64, 256])
+def test_blstm_infer_cluster_matches_plain(dev, h, d, b):
+    """The cluster route (``csrc/blstm_infer_cluster.cu``; H=64 takes
+    clusters of 2 blocks, H=256 of 8; W_x resident at D=10 and 257,
+    streamed at 2,560) against the plain version in bf16: ragged lengths,
+    a zero-length row, pad frames exact zeros."""
+    gen = torch.Generator(device=dev).manual_seed(b + h + d)
+    t = 23
+    x, wx, wh, bias = _infer_inputs(gen, dev, b, t, d, h, torch.bfloat16)
+    lengths = _ragged(gen, dev, b, t)
+    got = _on_route("cluster", x, lengths, wx, wh, bias)
+    want = blstm.blstm_infer_plain(x, lengths, wx, wh, bias)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_tol(torch.bfloat16, want))
+    pad = torch.arange(t, device=dev)[None] >= lengths[:, None]
+    assert not got[pad].any()
+
+
+@pytest.mark.parametrize("b, t, d, h", [(5, 1, 257, 256), (150, 9, 257, 256),
+                                        (3, 40, 48, 32), (9, 30, 1024, 128)],
+                         ids=["T1", "R32", "C1", "C4-streamed"])
+def test_blstm_infer_cluster_shapes(dev, b, t, d, h):
+    """T = 1; B = 150, where 16-row groups would need more clusters than
+    the card holds at once and the plan takes 32 rows; H = 32 (one block a
+    cluster); H = 128 (four) with W_x streamed."""
+    gen = torch.Generator(device=dev).manual_seed(b * t)
+    x, wx, wh, bias = _infer_inputs(gen, dev, b, t, d, h, torch.bfloat16)
+    lengths = _ragged(gen, dev, b, t)
+    got = _on_route("cluster", x, lengths, wx, wh, bias)
+    want = blstm.blstm_infer_plain(x, lengths, wx, wh, bias)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_tol(torch.bfloat16, want))
+    pad = torch.arange(t, device=dev)[None] >= lengths[:, None]
+    assert not got[pad].any()
+
+
+def test_blstm_infer_cluster_is_deterministic_and_agrees(dev):
+    """Two runs of the cluster route are bit-identical, and the cluster
+    and row-tiled routes agree within the bf16 tolerance."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    b, t, d, h = 128, 50, 257, 256
+    x, wx, wh, bias = _infer_inputs(gen, dev, b, t, d, h, torch.bfloat16)
+    lengths = _ragged(gen, dev, b, t)
+    runs = [_on_route("cluster", x, lengths, wx, wh, bias) for _ in range(2)]
+    tiled = _on_route("row_tiled", x, lengths, wx, wh, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    torch.testing.assert_close(runs[0].float(), tiled.float(),
+                               **_tol(torch.bfloat16, tiled))
+
+
+def test_blstm_infer_cluster_refusals(dev):
+    """The plan sends f32 and bf16 H = 512 to the row-tiled route, and
+    forcing the cluster route there raises before any launch; a launch the
+    card refuses (W_x resident in more shared memory than a block has)
+    raises, never runs, and leaves no error for the next launch."""
+    from robust_e2e_gan_torch.utils.build import launch
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    lengths = torch.tensor([7, 3], dtype=torch.int32, device=dev)
+    for dtype, h in ((torch.float32, 256), (torch.bfloat16, 512)):
+        x, wx, wh, bias = _infer_inputs(gen, dev, 2, 7, 40, h, dtype)
+        assert blstm._cluster(2, 40, h, wh) is None
+        launches = dict(blstm.INFER_ROUTE_LAUNCHES)
+        with blstm._force_infer_route("cluster"), pytest.raises(ValueError):
+            blstm.blstm_infer(x, lengths, wx, wh, bias)
+        assert blstm.INFER_ROUTE_LAUNCHES == launches
+    b, t, dw, h, c = 2, 7, 16384, 256, 8
+    x = torch.zeros((b, t, dw), dtype=torch.bfloat16, device=dev)
+    wx = torch.zeros((2, c, 4 * h // c, dw), dtype=torch.bfloat16, device=dev)
+    wh = torch.zeros((2, c, 4 * h // c, h), dtype=torch.bfloat16, device=dev)
+    bias = torch.zeros((2, 4 * h), device=dev)
+    out = torch.empty((b, t, 2 * h), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(RuntimeError, match="blstm_infer_cluster"):
+        launch("blstm_infer_cluster", x.data_ptr(), x.data_ptr(),
+               wx.data_ptr(), wh.data_ptr(), bias.data_ptr(),
+               lengths.data_ptr(), out.data_ptr(), b, t, dw, h, c, 16, 1,
+               torch.cuda.current_stream(dev).cuda_stream)
+    x, wx, wh, bias = _infer_inputs(gen, dev, b, t, 40, h, torch.bfloat16)
+    got = _on_route("cluster", x, lengths, wx, wh, bias)
+    want = blstm.blstm_infer_plain(x, lengths, wx, wh, bias)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_tol(torch.bfloat16, want))
 
 
 def test_blstm_infer_refuses_autograd(dev):
