@@ -15,12 +15,16 @@ Phases, each of which exits non-zero on failure:
    8, ~694 STFT frames, ~174 encoder frames, vocab 52; the W_x-resident
    BLSTM at each of the flagship's four BLSTM layers on both of its
    routes, the cluster kernel and the row-tiled one, timed in bfloat16 in
-   turns with the gate-stream route and cuDNN's LSTM; the fused decoder
-   step at the flagship's decoder widths), in float32 with TF32 off and in
-   bfloat16, with the time of each; one BLSTM layer too wide for the
-   W_x-resident kernel, which must take the gate-stream one; then the
-   training
-   kernels, forward and every gradient, at the train shapes (B=32 ~2.9 s
+   turns with the gate-stream route and cuDNN's LSTM; the attention step
+   on both of its routes, one block per utterance (csrc/att_loc_utt.cu,
+   with its plan) and one per hypothesis (csrc/att_loc.cu), timed in turns
+   with the plain version with the host ahead of the device, and again at
+   B=16, where ops/att.py::utt_preferred picks the route by dtype; the
+   fused decoder step at the flagship's decoder widths), in float32 with
+   TF32 off and in bfloat16, with the time of each; one BLSTM layer too
+   wide for the W_x-resident kernel, which must take the gate-stream one;
+   then the training kernels, forward and every gradient, at the train
+   shapes (B=32 ~2.9 s
    utterances: 286 STFT frames, 72 encoder frames; the train CLI's model
    for blstm_train_gx; the BLSTM's frame loops on both routes, the
    resident one and the row-tiled one, held to the plain version, timed
@@ -39,12 +43,18 @@ Phases, each of which exits non-zero on failure:
    seed 0) through ``make_beam_searcher(..., use_enhancer=True)`` on 3
    batches of 128 utterances; checks the results, that every kernel
    launched (the BLSTM's cluster kernel once per layer and batch, its
-   row-tiled and gate-stream kernels never) and no plain version ran;
-   times it against the same path with every BLSTM layer on the row-tiled
-   route and on the gate-stream route, in turns, with one profiled batch
-   of each; then times the same path with the plain versions;
+   row-tiled and gate-stream kernels never; every attention step, 48 a
+   batch, on the per-utterance route) and no plain version ran; runs one
+   batch with the attention forced to the per-hypothesis route (its
+   launches are that kernel's); times the path against the same path with
+   every BLSTM layer on the row-tiled route, on the gate-stream route and
+   with the attention on the per-hypothesis route, in turns, with one
+   profiled batch of each; then times the same path with the plain
+   versions;
 5. slice parity: one batch of 16 at full width in float32 through the
-   kernel path and the plain path; best-hypothesis scores must agree;
+   kernel path, its attention forced to the per-utterance route (float32
+   at B=16 defaults to the per-hypothesis one), and the plain path;
+   best-hypothesis scores must agree;
 6. train step: the flagship in bfloat16 through ``make_joint_train_step``
    (D-step, then G-step; Adadelta) on B=32 utterances of 20-24 tokens:
    one warm-up and 5 timed steps on the kernel path, checking finite
@@ -64,10 +74,12 @@ Phases, each of which exits non-zero on failure:
    compute, without the enhancer, with RNNLM shallow fusion (an LM at the
    ``LMConfig`` defaults in float32, weights from seed 2, lm_weight 0.3)
    on 3 batches of 128 clean utterances; checks that the fused frontend,
-   the LM step and the four serving kernels launched and no plain version
-   ran; then times the same path with the plain versions;
-10. its slice parity: one batch of 16 in float32, kernel path against
-    plain path; best-hypothesis scores must agree;
+   the LM step and the four serving kernels launched (every attention step
+   on the per-utterance route) and no plain version ran; then times the
+   same path with the plain versions;
+10. its slice parity: one batch of 16 in float32, kernel path (attention
+    forced to the per-utterance route) against plain path; best-hypothesis
+    scores must agree;
 11. the clean-speech recipe through its entry points: ``train.cli --mode
     asr --fused-frontend`` and ``train.cli --mode lm`` (3 steps each, the
     LM resumed to a 4th) at the CLI's default model, then both runs
@@ -84,10 +96,13 @@ Phases, each of which exits non-zero on failure:
 13. the fused-step A/B: phase 4's traffic through the fused decoder step
     and the unfused one, in turns, with one profiled batch of each;
 14. the per-utterance CTC prefix kernel (``prefix_impl="pallas"``) on
-    phase 4's traffic, against the tiled prefix kernels in turns with one
-    profiled batch of each, then an f32 B=16 parity against them.
+    phase 4's traffic (every attention step on the per-utterance route),
+    against the tiled prefix kernels in turns with one profiled batch of
+    each, then an f32 B=16 parity against them.
 
-The line before the last is a JSON object of the kernels; the last line is
+The line before the last is a JSON object of the 16 kernels (the
+attention's two routes as ``att_loc_step`` and ``att_loc_step_hyp``, whose
+launches are phase 4's forced batch); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -189,10 +204,19 @@ KERNELS = {
         source="robust_e2e_gan_torch/csrc/blstm.cu",
         replaces="robust_e2e_gan_tpu/ops/blstm_pallas.py:332 "
                  "(gate-stream, pallas_call :455)"),
+    # att_loc_step's two routes (ops/att.py::utt_plan), counted by route
     "att_loc_step": dict(
         wrapper=att.att_loc_step, plain=att.att_loc_step_plain,
+        route="utt",
+        source="robust_e2e_gan_torch/csrc/att_loc_utt.cu",
+        replaces="robust_e2e_gan_tpu/ops/att_pallas.py:178 "
+                 "(pallas_call :251)"),
+    "att_loc_step_hyp": dict(
+        wrapper=att.att_loc_step, plain=att.att_loc_step_plain,
+        route="hyp",
         source="robust_e2e_gan_torch/csrc/att_loc.cu",
-        replaces="robust_e2e_gan_tpu/ops/att_pallas.py:178"),
+        replaces="robust_e2e_gan_tpu/ops/att_pallas.py:178 "
+                 "(pallas_call :251)"),
     "ctc_prefix_psi": dict(
         wrapper=ctc_prefix.prefix_psi,
         plain=ctc_prefix.prefix_psi_recursion_plain,
@@ -280,6 +304,10 @@ ROUTES = ("resident", "loop")
 # (csrc/blstm_infer_cluster.cu), chosen by ops/blstm.py::cluster_plan, and
 # the row-tiled kernel past it (csrc/blstm_infer.cu)
 INFER_ROUTES = ("cluster", "row_tiled")
+# att_loc_step's two routes: one block per utterance (csrc/att_loc_utt.cu),
+# chosen by ops/att.py::utt_plan, and one block per hypothesis past it
+# (csrc/att_loc.cu)
+ATT_ROUTES = ("utt", "hyp")
 
 
 class SmokeFailure(RuntimeError):
@@ -299,6 +327,8 @@ def reset_counts() -> None:
         blstm_train.ROUTE_LAUNCHES[route] = 0
     for route in INFER_ROUTES:
         blstm.INFER_ROUTE_LAUNCHES[route] = 0
+    for route in ATT_ROUTES:
+        att.ATT_ROUTE_LAUNCHES[route] = 0
 
 
 def launch_count(name: str) -> int:
@@ -306,8 +336,28 @@ def launch_count(name: str) -> int:
     count, or its route's where a wrapper launches two kernels."""
     k = KERNELS[name]
     if "route" in k:
-        return blstm.INFER_ROUTE_LAUNCHES[k["route"]]
+        routes = (att.ATT_ROUTE_LAUNCHES if k["route"] in ATT_ROUTES
+                  else blstm.INFER_ROUTE_LAUNCHES)
+        return routes[k["route"]]
     return k["wrapper"].launches
+
+
+def require_utt_attention(where: str, n: int) -> None:
+    """Every attention launch since the last reset, ``n`` of them, took
+    the per-utterance route."""
+    routes = dict(att.ATT_ROUTE_LAUNCHES)
+    print(f"  att_loc_step launches by route {routes}")
+    require(routes == {"utt": n, "hyp": 0},
+            f"{where}: not every attention step took the utt route: "
+            f"{routes}, expected {n}")
+
+
+def on_att_route(route, fn):
+    """``fn`` with every ``att_loc_step`` launch on ``route``."""
+    def run(*args):
+        with att._force_att_route(route):
+            return fn(*args)
+    return run
 
 
 def require_resident(where: str) -> None:
@@ -325,12 +375,17 @@ def counts(names):
             {n: KERNELS[n]["plain"].calls for n in KERNELS})
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, after one warm-up."""
+def cuda_ms(fn, reps: int, ahead: bool = False) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls, after one warm-up.
+    With ``ahead``, a sleep kernel (~50 ms) first holds the stream while
+    the host enqueues every call, so that calls whose host time exceeds
+    their device time are timed on the device alone."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if ahead:
+        torch.cuda._sleep(100_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -665,28 +720,51 @@ def kernel_parity(b: int, t_enh: int, t_enc: int, jcfg, dev) -> dict:
                     err, gx, wh, lengths, got, jcfg.enhancer.input_dim)
             print(f"    (B={b} valid frames {int(lengths.sum())})")
 
-    # attention step
+    # attention step: both routes, timed in turns with the plain version
+    sharp = acfg.sharpening
+    c, a = acfg.conv_channels, acfg.dim
     for dt in (f32, bf16):
-        args = att_inputs(gen, b, BEAM, t_enc, acfg.conv_channels, acfg.dim,
-                          e_dim, dt, dev)
-        got = att.att_loc_step(*args, acfg.sharpening)
-        want = att.att_loc_step_plain(*args, acfg.sharpening)
+        args = att_inputs(gen, b, BEAM, t_enc, c, a, e_dim, dt, dev)
+        want = att.att_loc_step_plain(*args, sharp)
         tol = (dict(rtol=1e-4, atol=1e-5) if dt == f32
                else dict(scale_atol=2e-2))
-        err, ok = compare(f"att_loc_step B={b} K={BEAM} T={t_enc} {dt}",
-                          got, want, **tol)
-        ok_all &= ok
+        errs = {}
+        for route in ATT_ROUTES:
+            got = on_att_route(route, att.att_loc_step)(*args, sharp)
+            errs[route], ok = compare(
+                f"att_loc_step {route} B={b} K={BEAM} T={t_enc} {dt}",
+                got, want, **tol)
+            ok_all &= ok
+        print(f"    utt plan (chunk frames, column splits, shared memory "
+              f"bytes) {att._utt(b, BEAM, t_enc, c, a, e_dim, args[2])}, "
+              f"{b} CTAs")
+        fns = [on_att_route(r, lambda: att.att_loc_step(*args, sharp))
+               for r in ATT_ROUTES]
+        # the host ahead: a call's host time (~50 us) is near its device
+        # time
+        ms = cuda_ms_in_turns(
+            fns + [lambda: att.att_loc_step_plain(*args, sharp)], 20,
+            ahead=True)
+        print(f"    {dt} ms in turns: utt {ms[0]:.4f}, hyp {ms[1]:.4f}, "
+              f"plain {ms[2]:.4f}; host time per call: utt "
+              f"{host_us(fns[0]):.1f} us, hyp {host_us(fns[1]):.1f} us")
         if dt == bf16:
-            sharp = acfg.sharpening
-            c, a = acfg.conv_channels, acfg.dim
             # per (b, k): location projection, energies, softmax, context
             flops = b * BEAM * (t_enc * (2 * c * a + 6 * a + 5)
                                 + 2 * t_enc * e_dim)
-            res["att_loc_step"] = entry(
-                "att_loc_step", err,
-                cuda_ms(lambda: att.att_loc_step(*args, sharp), 20),
-                cuda_ms(lambda: att.att_loc_step_plain(*args, sharp), 20),
-                flops, nbytes(args, got), dt)
+            for name, route, v in (("att_loc_step", "utt", ms[0]),
+                                   ("att_loc_step_hyp", "hyp", ms[1])):
+                res[name] = entry(name, errs[route], v, ms[2], flops,
+                                  nbytes(args, want), dt)
+        # the parity phases' B=16, where the route rule
+        # (ops/att.py::utt_preferred) decides by dtype
+        small = att_inputs(gen, 16, BEAM, t_enc, c, a, e_dim, dt, dev)
+        ms = cuda_ms_in_turns(
+            [on_att_route(r, lambda: att.att_loc_step(*small, sharp))
+             for r in ATT_ROUTES], 20, ahead=True)
+        print(f"    {dt} B=16 ms in turns: utt {ms[0]:.4f}, hyp {ms[1]:.4f}; "
+              f"default route "
+              f"{'utt' if att._utt(16, BEAM, t_enc, c, a, e_dim, small[2]) else 'hyp'}")
 
     # CTC prefix psi and state (float32 only, as in the JAX package)
     lpz, tok, last, lens, r_n, r_b = ctc_inputs(gen, b, BEAM, t_enc, VOCAB,
@@ -1078,12 +1156,12 @@ def frame_loop_split(tag, fn, gx, wh, lengths, dy, reps: int = 5):
               f"{fwd:.4f}, backward loop {bwd:.4f}, _dwh_kernel {dwh:.4f} ms")
 
 
-def cuda_ms_in_turns(fns, reps: int):
+def cuda_ms_in_turns(fns, reps: int, ahead: bool = False):
     """``cuda_ms`` of each of ``fns``, taken twice in turns (A, B, B, A)
     and averaged."""
     times = [[] for _ in fns]
     for i in list(range(len(fns))) + list(reversed(range(len(fns)))):
-        times[i].append(cuda_ms(fns[i], reps))
+        times[i].append(cuda_ms(fns[i], reps, ahead))
     return [mean(t) for t in times]
 
 
@@ -1342,6 +1420,14 @@ def main_path(b, n_batches, state, dev):
             f"not every BLSTM layer took the cluster route: {routes} for "
             f"{n_batches} x {n_layers} layers, "
             f"{blstm.blstm_recurrence.launches} gate-stream launches")
+    require_utt_attention("main path", n_batches * STEPS)
+    before = dict(att.ATT_ROUTE_LAUNCHES)
+    check_result(on_att_route("hyp", searcher)(*batches[0]), b)
+    hyp = {r: att.ATT_ROUTE_LAUNCHES[r] - before[r] for r in ATT_ROUTES}
+    print(f"  one batch with the attention forced to hyp: launches {hyp}")
+    require(hyp == {"utt": 0, "hyp": STEPS},
+            f"the forced hyp batch launched {hyp}")
+    launches["att_loc_step_hyp"] = hyp["hyp"]
 
     k_ms, k_enc, k_search = steady(batches, searcher, model, kcfg, bcfg)
     print(f"  kernel path: {b * 1e3 / k_ms:.2f} utt/s, {k_ms:.1f} ms/batch "
@@ -1353,7 +1439,8 @@ def main_path(b, n_batches, state, dev):
           f"route {rt_enc:.1f}")
     in_turns({"cluster BLSTM": searcher,
               "row-tiled BLSTM": on_infer_route("row_tiled", searcher),
-              "gate-stream BLSTM": gate_stream(searcher)}, batches, b)
+              "gate-stream BLSTM": gate_stream(searcher),
+              "hyp attention": on_att_route("hyp", searcher)}, batches, b)
 
     pcfg = with_impls(kcfg, "scan", "xla", "bfloat16")
     plain_model = load(pcfg, state, dev)
@@ -1393,8 +1480,13 @@ def slice_parity(state, dev):
         model = load(cfg, state, dev)
         search = make_beam_searcher(
             model, cfg.e2e, dataclasses.replace(bcfg, prefix_impl=prefix))
-        out[tag] = search(wav, lens)
+        reset_counts()
+        # float32 at B=16 defaults to the hyp route (utt_preferred): the
+        # slice holds the utt route
+        out[tag] = on_att_route("utt", search)(wav, lens)
         check_result(out[tag], 16)
+        if tag == "kernel":
+            require_utt_attention("the f32 slice", STEPS)
     k, p = out["kernel"], out["plain"]
     rel = ((k.scores - p.scores).abs() / p.scores.abs().clamp_min(1e-6)).max()
     same = sum(bool(torch.equal(a, c)) for a, c in zip(k.tokens, p.tokens))
@@ -1635,6 +1727,7 @@ def clean_path(b, n_batches, state, dev):
             f"a plain version ran on the clean path: {plain_calls}")
     require(launches["lm_step"] == n_batches * STEPS,
             f"LM steps {launches['lm_step']} != {n_batches} x {STEPS}")
+    require_utt_attention("clean path", n_batches * STEPS)
 
     k_ms, k_enc, k_search = steady(batches, searcher, model, kcfg, bcfg,
                                    False, lm)
@@ -1681,10 +1774,11 @@ def clean_slice_parity(state, dev):
             use_enhancer=False, lm=make_lm(lm_impl, dev))
         reset_counts()
         if tag == "kernel":
-            out[tag] = search(wav, lens)
+            out[tag] = on_att_route("utt", search)(wav, lens)
             launches, _ = counts(F32_CLEAN_SERVING)
             require(all(v > 0 for v in launches.values()),
                     f"a kernel never launched in the f32 slice: {launches}")
+            require_utt_attention("the f32 clean slice", STEPS)
         else:
             with plain_frontend():
                 out[tag] = search(wav, lens)
@@ -1759,7 +1853,8 @@ def clean_recipe(dev):
     check_result(res, 16)
     require(bool(((res.tokens >= -1) & (res.tokens < vocab)).all()),
             "decoded tokens outside the vocabulary")
-    launches, plain_calls = counts(CLEAN_SERVING)
+    # float32 at B=16: the attention takes the hyp route (utt_preferred)
+    launches, plain_calls = counts(CLEAN_SERVING + ("att_loc_step_hyp",))
     print(f"  restored ASR (step {step}) + LM (step {lm_latest['step']}) "
           f"decoded B=16, V={vocab}: launches {launches}")
     require(launches["fbank_fused"] > 0 and launches["lm_step"] > 0,
@@ -1903,7 +1998,7 @@ def in_turns(searchers, batches, b):
         wav, lens = batches[0]
         _, wall_ms = timed(lambda: searchers[tag](wav, lens))
         busy_ms, n_launch, _ = device_profile(
-            lambda: searchers[tag](wav, lens), 6)
+            lambda: searchers[tag](wav, lens), 8)
         print(f"  {tag}: {b * 1e3 / mean_ms:.2f} utt/s, "
               f"{mean_ms:.1f} ms/batch (mean of {len(ms[tag])} warm "
               f"batches, in turns); profiled batch: device kernels "
@@ -1935,6 +2030,7 @@ def utt_prefix_path(b, n_batches, state, dev):
             f"a kernel of the per-utterance path never launched: {launches}")
     require(KERNELS["ctc_prefix_psi"]["wrapper"].launches == 0,
             "the tiled psi kernel ran on the per-utterance path")
+    require_utt_attention("per-utterance prefix path", n_batches * STEPS)
     require(not any(plain_calls.values()),
             f"a plain version ran on the per-utterance path: {plain_calls}")
     in_turns(searchers, batches, b)

@@ -103,6 +103,9 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using rg::ldsm_x4;
+using rg::mma16816;
+using rg::smem_addr;
 
 constexpr int NT = 256;     // threads per block: 8 warps
 constexpr int PAIRS = 128;  // (row, frame) pairs of a chunk: R * F
@@ -122,28 +125,6 @@ size_t smem_bytes(int H, int C, int R, int DW, bool resident) {
                        2 * (size_t)C * R * (H / C + PAD);
   return 1024 + elems * sizeof(bf16) + PAIRS * N * sizeof(float) + (size_t)R * sizeof(int) +
          7 * sizeof(uint64_t);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 bfloat16 matrices from shared memory; lane l gives the address
-// of row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// d += a b for a 16x16 A (row-major fragments) and a 16x8 B.
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ unsigned cluster_rank() {

@@ -5,6 +5,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <cstdint>
+
 namespace rg {
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -31,6 +33,30 @@ __device__ __forceinline__ float logaddexp(float a, float b) {
 }
 
 constexpr float LOG_ZERO = -1e10f;
+
+// The shared-state-space address of a pointer into shared memory.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 bfloat16 matrices from shared memory; lane l gives the address
+// of row l % 8 of matrix l / 8.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// d += a b for a 16x16 A (row-major fragments) and a 16x8 B, bfloat16
+// operands, float32 accumulators (mma.sync m16n8k16).
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 // Lets Kernel take `bytes` of dynamic shared memory. The attribute is set
 // only past the 48 KB every kernel may take and only when it grows, once

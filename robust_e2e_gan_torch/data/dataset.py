@@ -7,8 +7,9 @@ Port of the ``.npy`` manifest path of ``robust_e2e_gan_tpu/data/dataset.py``:
 padded with ``ignore_id``, an optional padded final batch). Batches are
 read with numpy, the JAX package's own path when its native loader is not
 built. The Kaldi sources, speaker CMVN, the ``TableTokenizer`` of imported
-checkpoints and the prefetch thread are not ported yet (ROADMAP queue 1
-items 10 and 8).
+checkpoints and the prefetch thread are not ported yet (ROADMAP queue 1,
+Kaldi and precomputed-feature inputs; JAX msgpack checkpoints and
+TableTokenizer; Prefetcher).
 """
 
 from __future__ import annotations
@@ -60,13 +61,15 @@ class CharTokenizer:
 def load_tokenizer(path: str) -> CharTokenizer:
     """The tokenizer saved at ``path``. The id table of an imported
     reference checkpoint (``"kind": "table"``) raises: loading such
-    checkpoints is not ported yet (ROADMAP queue 1 item 8.1)."""
+    checkpoints is not ported yet (ROADMAP queue 1, JAX msgpack
+    checkpoints and TableTokenizer)."""
     with open(path) as f:
         d = json.load(f)
     if d.get("kind") == "table":
         raise NotImplementedError(
             "TableTokenizer (the id table of an imported reference "
-            "checkpoint) is not ported yet (ROADMAP queue 1 item 8.1)")
+            "checkpoint) is not ported yet (ROADMAP queue 1, JAX msgpack "
+            "checkpoints and TableTokenizer)")
     return CharTokenizer(d["chars"])
 
 

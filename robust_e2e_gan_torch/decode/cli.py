@@ -54,6 +54,8 @@ from robust_e2e_gan_torch.utils import checkpoint as ckpt_lib
 # data-source flags of the Kaldi and precomputed-feature inputs
 KALDI_FLAGS = ("noisy_scp", "text", "feats_scp", "utt2num_frames",
                "index_cache", "utt2spk", "cmvn_ark")
+# where the refusals of those inputs send the reader
+KALDI_ITEM = "ROADMAP queue 1, Kaldi and precomputed-feature inputs"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -62,7 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--manifest", help="jsonl manifest of .npy waveforms")
     for flag in KALDI_FLAGS:
         p.add_argument("--" + flag.replace("_", "-"),
-                       help="not ported yet (ROADMAP queue 1 item 10)")
+                       help=f"not ported yet ({KALDI_ITEM})")
     p.add_argument("--serving-impls", choices=("auto", "fused", "xla"),
                    default="auto",
                    help="serving kernel selection: 'auto' the BLSTM, "
@@ -117,16 +119,17 @@ def _refuse_unported(args) -> None:
     if given:
         raise NotImplementedError(
             f"the Kaldi and precomputed-feature sources ({', '.join(given)}) "
-            "are not ported yet (ROADMAP queue 1 item 10); use --manifest")
+            f"are not ported yet ({KALDI_ITEM}); use --manifest")
     if args.mesh_data > 1:
         raise NotImplementedError(
-            "--mesh-data: data-parallel serving is not ported yet (ROADMAP "
-            "queue 1 item 11)")
+            "--mesh-data: data-parallel serving is not ported yet "
+            "(ROADMAP queue 1, data parallel)")
     if args.pipelined in ("on", "chunked"):
         raise NotImplementedError(
             f"--pipelined {args.pipelined}: the staged schedule is not "
-            "ported yet (ROADMAP queue 1 item 13) and the chunked one is "
-            "not to be ported (ROADMAP 'Not to port')")
+            "ported yet (ROADMAP queue 1, the cross-batch staged "
+            "schedule) and the chunked one is not to be ported (ROADMAP "
+            "'Not to port')")
 
 
 def with_serving_impls(jcfg: JointConfig, serving_impls: str) -> JointConfig:
@@ -160,13 +163,13 @@ def load_experiment(ckpt_dir: str, which: str = "best",
     if input_kind != "wav":
         raise NotImplementedError(
             f"experiments on {input_kind!r} inputs are not ported yet "
-            "(ROADMAP queue 1 item 10)")
+            f"({KALDI_ITEM})")
     jcfg = with_serving_impls(
         cfg_lib.from_dict(JointConfig, saved["joint"]), serving_impls)
     if jcfg.e2e.frontend.cmvn in ("global", "speaker"):
         raise NotImplementedError(
             f"cmvn {jcfg.e2e.frontend.cmvn!r} needs Kaldi CMVN stats, not "
-            "ported yet (ROADMAP queue 1 item 10)")
+            f"ported yet ({KALDI_ITEM})")
     tok_path = os.path.join(ckpt_dir, "tokenizer.json")
     tok = load_tokenizer(tok_path) if os.path.exists(tok_path) else None
     tcfg = cfg_lib.from_dict(TrainConfig, saved["train"])

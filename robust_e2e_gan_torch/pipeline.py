@@ -8,10 +8,11 @@ entry points. With ``FrontendConfig.fused`` the enhancer-free paths with
 utterance CMVN take the fused frontend (``ops/fbank_fused.py``): the
 trainable form in ``asr_forward``, the inference kernel in
 ``encode_for_decode``. Speaker CMVN and the precomputed-feature inputs are
-not ported yet (ROADMAP queue 1 item 10). The discriminator lives outside
-this module, as in the JAX package. Parameters are float32 masters; ``dtype``
-is the compute dtype. Load weights with ``load_state_dict(convert.from_flax(...))``
-and move the model to its device once.
+not ported yet (ROADMAP queue 1, Kaldi and precomputed-feature inputs).
+The discriminator lives outside this module, as in the JAX package.
+Parameters are float32 masters; ``dtype`` is the compute dtype. Load
+weights with ``load_state_dict(convert.from_flax(...))`` and move the model
+to its device once.
 """
 
 from __future__ import annotations

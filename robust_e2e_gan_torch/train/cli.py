@@ -17,10 +17,12 @@ frontend kernel on the enhancer-free path (``--mode asr``).
 
 Only the synthetic task is ported as a data source: the corpus and
 precomputed-feature flags, global or speaker CMVN and ``--mesh-data``
-raise ``NotImplementedError`` naming their ROADMAP item. ``--remat``,
-``--scan-unroll`` and ``--gate-storage`` are XLA scheduling knobs,
-accepted and without effect; ``--prefetch-depth`` likewise (the loop is
-synchronous).
+raise ``NotImplementedError`` naming their ROADMAP item. ``--remat`` and
+``--scan-unroll`` are XLA scheduling knobs, accepted and without effect;
+``--prefetch-depth`` likewise (the loop is synchronous).
+``--gate-storage compute`` rounds the plain BLSTM frame loop's gate
+projections to the compute dtype (``--lstm-impl scan``), as the JAX scan
+does; the kernels ignore it.
 """
 
 from __future__ import annotations
@@ -49,6 +51,9 @@ CORPUS_FLAGS = ("train_manifest", "dev_manifest", "train_noisy_scp",
                 "train_clean_scp", "train_feats_scp", "train_text",
                 "index_cache", "utt2num_frames", "train_clean_feats_scp",
                 "cmvn_ark", "utt2spk")
+# where the refusals of the corpus and feature inputs send the reader
+KALDI_ITEM = "ROADMAP queue 1, Kaldi and precomputed-feature inputs"
+CORPUS_ITEMS = f"ROADMAP queue 1, train.cli on .npy manifests; {KALDI_ITEM}"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -59,7 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
     # data (only --synthetic is ported)
     for flag in CORPUS_FLAGS:
         p.add_argument("--" + flag.replace("_", "-"),
-                       help="not ported yet (ROADMAP queue 1 item 10)")
+                       help=f"not ported yet ({CORPUS_ITEMS})")
     p.add_argument("--feats-kind",
                    choices=("mel", "spectrogram", "log-spectrogram"),
                    default="mel")
@@ -243,15 +248,15 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             "the corpus and precomputed-feature data sources "
             f"({', '.join(given) or 'no --synthetic'}) are not ported yet "
-            "(ROADMAP queue 1 item 10); use --synthetic")
+            f"({CORPUS_ITEMS}); use --synthetic")
     if args.cmvn in ("global", "speaker"):
         raise NotImplementedError(
             f"--cmvn {args.cmvn} needs Kaldi CMVN stats, not ported yet "
-            "(ROADMAP queue 1 item 10)")
+            f"({KALDI_ITEM})")
     if args.mesh_data > 1:
         raise NotImplementedError(
-            "--mesh-data: data parallelism is not ported yet (ROADMAP queue "
-            "1 item 11)")
+            "--mesh-data: data parallelism is not ported yet "
+            "(ROADMAP queue 1, data parallel)")
 
 
 def main(argv: Optional[list] = None) -> None:

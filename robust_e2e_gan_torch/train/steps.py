@@ -37,7 +37,8 @@ def _check_input_kind(input_kind: str) -> None:
     if input_kind != "wav":
         raise NotImplementedError(
             f"input_kind {input_kind!r}: the precomputed feats/spectrogram "
-            "inputs are not ported yet (ROADMAP queue 1 item 10)")
+            "inputs are not ported yet (ROADMAP queue 1, Kaldi and "
+            "precomputed-feature inputs)")
 
 
 class Optimizer:

@@ -43,6 +43,9 @@ SIGNATURES = {
     # feat, enc_proj, enc, dec, wloc, g, mask, ctx, att,
     # B, K, T, C, A, E, sharpening, bf16, stream
     "att_loc_step": [_P] * 9 + [_I] * 6 + [_F, _I, _P],
+    # the same pointers, B, K, T, C, A, E, chunk frames, column splits,
+    # shared-memory bytes, sharpening, bf16, stream
+    "att_loc_utt": [_P] * 9 + [_I] * 9 + [_F, _I, _P],
     # lpz, last_tok, lengths, r_n, r_b, psi, B, K, T, V, stream
     "ctc_prefix_psi": [_P] * 6 + [_I] * 4 + [_P],
     # lpz, tok, last_tok, lengths, r_n, r_b, rn_out, rb_out,

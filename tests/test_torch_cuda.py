@@ -220,8 +220,31 @@ def test_blstm_infer_refuses_autograd(dev):
     assert blstm.blstm_infer.launches == launches
 
 
+def _att_args(gen, dev, b, k, t, c, a, e, dtype, lens):
+    """att_loc_step's arguments at its tests' scales, mask from lens."""
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    mask = (torch.arange(t, device=dev)[None]
+            < torch.tensor(lens, device=dev)[:, None]).to(dtype)
+    return (rnd(b, k, t, c, scale=0.1), rnd(b, t, a), rnd(b, t, e),
+            rnd(b, k, a), rnd(c, a), rnd(a, scale=0.3), mask)
+
+
+def _att_on_route(route, *args):
+    """att_loc_step forced onto ``route``; checks that it launched there."""
+    before = dict(att.ATT_ROUTE_LAUNCHES)
+    with att._force_att_route(route):
+        got = att.att_loc_step(*args, 2.0)
+    after = dict(att.ATT_ROUTE_LAUNCHES)
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == route) for k in after}
+    return got
+
+
+@pytest.mark.parametrize("route", ["utt", "hyp"])
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-def test_att_kernel_matches_plain(dev, dtype):
+def test_att_kernel_matches_plain(dev, dtype, route):
     gen = torch.Generator(device=dev).manual_seed(0)
     b, k, t, c, a, e = 3, 4, 37, 10, 64, 48
 
@@ -232,15 +255,109 @@ def test_att_kernel_matches_plain(dev, dtype):
             < torch.tensor([[t], [5], [0]], device=dev)).to(dtype)
     args = (rnd(b, k, t, c, scale=0.1), rnd(b, t, a), rnd(b, t, e),
             rnd(b, k, a), rnd(c, a), rnd(a, scale=0.3), mask)
-    got = att.att_loc_step(*args, 2.0)
+    got = _att_on_route(route, *args)
     want = att.att_loc_step_plain(*args, 2.0)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, **_tol(dtype, w))
     assert not got[1][1, :, 5:].any()
     with pytest.raises(ValueError):  # more conv channels than a warp keeps
-        att.att_loc_step(rnd(b, k, t, 40), *args[1:4], rnd(40, a), *args[5:],
-                         2.0)
+        with att._force_att_route(route):
+            att.att_loc_step(rnd(b, k, t, 40), *args[1:4], rnd(40, a),
+                             *args[5:], 2.0)
+
+
+# (B, K, T, C, A, E): the JAX toy widths, the flagship decode, K at the
+# route's limit, C = 32 with T one frame past a chunk, T ~700, A and E
+# odd, K and C at their limits together
+UTT_SHAPES = [(1, 1, 1, 1, 24, 48), (17, 8, 37, 10, 24, 48),
+              (128, 8, 174, 10, 256, 256), (17, 16, 174, 10, 256, 256),
+              (3, 8, 65, 32, 256, 256), (2, 8, 700, 10, 256, 256),
+              (5, 4, 37, 1, 23, 47), (128, 16, 37, 32, 24, 48)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", UTT_SHAPES,
+                         ids=["x".join(map(str, s)) for s in UTT_SHAPES])
+def test_att_utt_matches_plain(dev, dtype, shape):
+    """The per-utterance route (``csrc/att_loc_utt.cu``) against the plain
+    version: ragged masks with the last row empty (where B > 1), pad
+    frames exact zeros."""
+    b, k, t, c, a, e = shape
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    lens = torch.randint(1, t + 1, (b,), generator=gen, device=dev).tolist()
+    lens[0] = t
+    if b > 1:
+        lens[-1] = 0
+    args = _att_args(gen, dev, b, k, t, c, a, e, dtype, lens)
+    got = _att_on_route("utt", *args)
+    want = att.att_loc_step_plain(*args, 2.0)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **_tol(dtype, w))
+    pad = torch.arange(t, device=dev)[None] >= torch.tensor(lens, device=dev)[:, None]
+    assert not got[1].permute(0, 2, 1)[pad].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_att_utt_zero_length_row(dev, dtype):
+    """A row whose mask is all zeros: its att and ctx are exact zeros."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    args = _att_args(gen, dev, 3, 8, 174, 10, 256, 256, dtype, [174, 0, 9])
+    ctx, alig = _att_on_route("utt", *args)
+    torch.cuda.synchronize()
+    assert not alig[1].any() and not ctx[1].any()
+    assert ctx[0].abs().sum() > 0 and ctx[2].abs().sum() > 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_att_utt_is_deterministic_and_agrees(dev, dtype):
+    """Two runs of the per-utterance route are bit-identical, and the two
+    routes agree within the tolerance of each against the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    lens = torch.randint(87, 175, (128,), generator=gen, device=dev).tolist()
+    args = _att_args(gen, dev, 128, 8, 174, 10, 256, 256, dtype, lens)
+    runs = [_att_on_route("utt", *args) for _ in range(2)]
+    hyp = _att_on_route("hyp", *args)
+    torch.cuda.synchronize()
+    for r0, r1, h in zip(*runs, hyp):
+        assert torch.equal(r0, r1)
+        torch.testing.assert_close(r0, h, **_tol(dtype, h))
+
+
+def test_att_utt_refusals(dev):
+    """Forcing the per-utterance route past its plan raises before any
+    launch; a launch whose plan disagrees with the kernel's layout raises,
+    never runs, and leaves no error for the next launch."""
+    from robust_e2e_gan_torch.utils.build import launch
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for shape, dtype in (((1, 16, 700, 32, 256, 256), torch.float32),
+                         ((1, 17, 20, 10, 24, 48), torch.bfloat16)):
+        b, k, t, c, a, e = shape
+        assert att.utt_plan(*shape, 4 if dtype == torch.float32 else 2,
+                            att.device_limits(dev.index or 0)[1]) is None
+        args = _att_args(gen, dev, b, k, t, c, a, e, dtype, [t])
+        launches = dict(att.ATT_ROUTE_LAUNCHES)
+        with att._force_att_route("utt"), pytest.raises(ValueError):
+            att.att_loc_step(*args, 2.0)
+        assert att.ATT_ROUTE_LAUNCHES == launches
+    b, k, t, c, a, e = 2, 8, 174, 10, 256, 256
+    args = _att_args(gen, dev, b, k, t, c, a, e, torch.bfloat16, [t, 9])
+    chunk, splits, smem = att.utt_plan(b, k, t, c, a, e, 2, 232_448)
+    mask = args[-1].float()
+    ctx = torch.empty((b, k, e), device=dev)
+    alig = torch.empty((b, k, t), device=dev)
+    with pytest.raises(RuntimeError, match="att_loc_utt"):
+        launch("att_loc_utt", *(x.data_ptr() for x in args[:6]),
+               mask.data_ptr(), ctx.data_ptr(), alig.data_ptr(), b, k, t, c,
+               a, e, chunk, splits, smem + 16, 2.0, 1,
+               torch.cuda.current_stream(dev).cuda_stream)
+    got = _att_on_route("utt", *args)
+    want = att.att_loc_step_plain(*args, 2.0)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **_tol(torch.bfloat16, w))
 
 
 def test_ctc_prefix_kernels_match_plain(dev):

@@ -178,7 +178,8 @@ def test_precomputed_feature_experiment_raises(exp, tmp_path):
         saved = json.load(f)
     with open(tmp_path / "config.json", "w") as f:
         json.dump({**saved, "input_kind": "feats"}, f)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError,
+                       match="Kaldi and precomputed-feature inputs"):
         cli.load_experiment(str(tmp_path), device="cpu")
 
 

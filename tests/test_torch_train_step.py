@@ -190,5 +190,6 @@ def test_input_kinds_not_ported_raise():
                  lambda: steps.make_eval_step(input_kind="spec"),
                  lambda: steps.make_joint_train_step(_jcfg(),
                                                      input_kind="spec")):
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        with pytest.raises(NotImplementedError,
+                           match="Kaldi and precomputed-feature inputs"):
             make()
