@@ -20,7 +20,11 @@ Phases, each of which exits non-zero on failure:
    with its plan) and one per hypothesis (csrc/att_loc.cu), timed in turns
    with the plain version with the host ahead of the device, and again at
    B=16, where ops/att.py::utt_preferred picks the route by dtype; the
-   fused decoder step at the flagship's decoder widths), in float32 with
+   CTC prefix psi, state and beam-step state (prefix_state_step) on both
+   of their routes, one block per utterance and one thread per lane
+   (csrc/ctc_prefix.cu, with their plans), timed in turns with the host
+   ahead, at B=128 and B=16; the fused decoder step at the flagship's
+   decoder widths), in float32 with
    TF32 off and in bfloat16, with the time of each; one BLSTM layer too
    wide for the W_x-resident kernel, which must take the gate-stream one;
    then the training kernels, forward and every gradient, at the train
@@ -44,17 +48,20 @@ Phases, each of which exits non-zero on failure:
    batches of 128 utterances; checks the results, that every kernel
    launched (the BLSTM's cluster kernel once per layer and batch, its
    row-tiled and gate-stream kernels never; every attention step, 48 a
-   batch, on the per-utterance route) and no plain version ran; runs one
-   batch with the attention forced to the per-hypothesis route (its
-   launches are that kernel's); times the path against the same path with
-   every BLSTM layer on the row-tiled route, on the gate-stream route and
-   with the attention on the per-hypothesis route, in turns, with one
-   profiled batch of each; then times the same path with the plain
-   versions;
+   batch, and every CTC psi and state launch, 48 each a batch, on the
+   per-utterance route) and no plain version ran; runs one batch with the
+   attention forced to the per-hypothesis route and one with the CTC
+   prefix forced to the lane route (their launches are those kernels');
+   times the path against the same path with every BLSTM layer on the
+   row-tiled route, on the gate-stream route, with the attention on the
+   per-hypothesis route and with the CTC prefix on the lane route, in
+   turns, with one profiled batch of each; profiles one search on each
+   CTC prefix route (its prefix rows and launches a beam step); then
+   times the same path with the plain versions;
 5. slice parity: one batch of 16 at full width in float32 through the
    kernel path, its attention forced to the per-utterance route (float32
-   at B=16 defaults to the per-hypothesis one), and the plain path;
-   best-hypothesis scores must agree;
+   at B=16 defaults to the per-hypothesis one) and its CTC prefix on it,
+   and the plain path; best-hypothesis scores must agree;
 6. train step: the flagship in bfloat16 through ``make_joint_train_step``
    (D-step, then G-step; Adadelta) on B=32 utterances of 20-24 tokens:
    one warm-up and 5 timed steps on the kernel path, checking finite
@@ -78,8 +85,8 @@ Phases, each of which exits non-zero on failure:
    on the per-utterance route) and no plain version ran; then times the
    same path with the plain versions;
 10. its slice parity: one batch of 16 in float32, kernel path (attention
-    forced to the per-utterance route) against plain path; best-hypothesis
-    scores must agree;
+    forced to the per-utterance route, the CTC prefix on it) against plain
+    path; best-hypothesis scores must agree;
 11. the clean-speech recipe through its entry points: ``train.cli --mode
     asr --fused-frontend`` and ``train.cli --mode lm`` (3 steps each, the
     LM resumed to a 4th) at the CLI's default model, then both runs
@@ -96,13 +103,15 @@ Phases, each of which exits non-zero on failure:
 13. the fused-step A/B: phase 4's traffic through the fused decoder step
     and the unfused one, in turns, with one profiled batch of each;
 14. the per-utterance CTC prefix kernel (``prefix_impl="pallas"``) on
-    phase 4's traffic (every attention step on the per-utterance route),
-    against the tiled prefix kernels in turns with one profiled batch of
-    each, then an f32 B=16 parity against them.
+    phase 4's traffic (every attention step and state launch on the
+    per-utterance route), against the tiled prefix kernels in turns with
+    one profiled batch of each, then an f32 B=16 parity against them.
 
-The line before the last is a JSON object of the 16 kernels (the
-attention's two routes as ``att_loc_step`` and ``att_loc_step_hyp``, whose
-launches are phase 4's forced batch); the last line is
+The line before the last is a JSON object of the 18 kernels (the
+attention's two routes as ``att_loc_step`` and ``att_loc_step_hyp``, the
+CTC prefix kernels' as ``ctc_prefix_psi_utt``/``ctc_prefix_state_utt``
+and ``ctc_prefix_psi``/``ctc_prefix_state``; the second of each pair has
+phase 4's forced batch's launches); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -217,15 +226,34 @@ KERNELS = {
         source="robust_e2e_gan_torch/csrc/att_loc.cu",
         replaces="robust_e2e_gan_tpu/ops/att_pallas.py:178 "
                  "(pallas_call :251)"),
+    # the CTC prefix kernels' two routes each (ops/ctc_prefix.py::psi_plan,
+    # state_plan), counted by kernel and route; ctc_prefix_state_utt's
+    # wrapper on the path is prefix_state_step, with the searcher's gathers
+    # and selects in the kernel
+    "ctc_prefix_psi_utt": dict(
+        wrapper=ctc_prefix.prefix_psi,
+        plain=ctc_prefix.prefix_psi_recursion_plain, prefix=("psi", "utt"),
+        source="robust_e2e_gan_torch/csrc/ctc_prefix.cu",
+        replaces="robust_e2e_gan_tpu/ops/ctc_prefix_tiled.py:116 "
+                 "(pallas_call :179)"),
     "ctc_prefix_psi": dict(
         wrapper=ctc_prefix.prefix_psi,
-        plain=ctc_prefix.prefix_psi_recursion_plain,
+        plain=ctc_prefix.prefix_psi_recursion_plain, prefix=("psi", "lane"),
         source="robust_e2e_gan_torch/csrc/ctc_prefix.cu",
-        replaces="robust_e2e_gan_tpu/ops/ctc_prefix_tiled.py:116"),
+        replaces="robust_e2e_gan_tpu/ops/ctc_prefix_tiled.py:116 "
+                 "(pallas_call :179)"),
+    "ctc_prefix_state_utt": dict(
+        wrapper=ctc_prefix.prefix_state_step,
+        plain=ctc_prefix.prefix_state_plain, prefix=("state", "utt"),
+        source="robust_e2e_gan_torch/csrc/ctc_prefix.cu",
+        replaces="robust_e2e_gan_tpu/ops/ctc_prefix_tiled.py:237 "
+                 "(pallas_call :274)"),
     "ctc_prefix_state": dict(
         wrapper=ctc_prefix.prefix_state, plain=ctc_prefix.prefix_state_plain,
+        prefix=("state", "lane"),
         source="robust_e2e_gan_torch/csrc/ctc_prefix.cu",
-        replaces="robust_e2e_gan_tpu/ops/ctc_prefix_tiled.py:237"),
+        replaces="robust_e2e_gan_tpu/ops/ctc_prefix_tiled.py:237 "
+                 "(pallas_call :274)"),
     "blstm_train": dict(
         wrapper=blstm_train.blstm_train, plain=blstm_train.blstm_train_plain,
         source="robust_e2e_gan_torch/csrc/blstm_train_resident.cu",
@@ -267,8 +295,8 @@ KERNELS = {
         source="robust_e2e_gan_torch/csrc/ctc_prefix_utt.cu",
         replaces="robust_e2e_gan_tpu/ops/ctc_prefix_pallas.py:110"),
 }
-SERVING = ("blstm_infer", "att_loc_step", "ctc_prefix_psi",
-           "ctc_prefix_state")
+SERVING = ("blstm_infer", "att_loc_step", "ctc_prefix_psi_utt",
+           "ctc_prefix_state_utt")
 # the clean-speech serving path: no enhancer, fused frontend, LM fusion
 CLEAN_SERVING = ("fbank_fused", "lm_step") + SERVING
 # the same in float32, whose BLSTM layers take the row-tiled kernel
@@ -276,14 +304,14 @@ F32_CLEAN_SERVING = (("fbank_fused", "lm_step", "blstm_infer_row_tiled")
                      + SERVING[1:])
 # the decode CLI with --serving-impls fused: the fused step replaces the
 # attention kernel
-FUSED_SERVING = ("blstm_infer", "att_dec_step", "ctc_prefix_psi",
-                 "ctc_prefix_state")
+FUSED_SERVING = ("blstm_infer", "att_dec_step", "ctc_prefix_psi_utt",
+                 "ctc_prefix_state_utt")
 # the decode CLI's model is float32, whose BLSTM layers the cluster plan
 # leaves to the row-tiled kernel
 CLI_SERVING = ("blstm_infer_row_tiled",) + FUSED_SERVING[1:]
 # the per-utterance prefix search
 UTT_SERVING = ("blstm_infer", "att_loc_step", "ctc_prefix_utt",
-               "ctc_prefix_state")
+               "ctc_prefix_state_utt")
 LM_WEIGHT = 0.3
 # peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W): a
 # bound takes the rate of its operands' type, the tensor cores' for
@@ -308,6 +336,13 @@ INFER_ROUTES = ("cluster", "row_tiled")
 # chosen by ops/att.py::utt_plan, and one block per hypothesis past it
 # (csrc/att_loc.cu)
 ATT_ROUTES = ("utt", "hyp")
+# the CTC prefix kernels' two routes: one block per utterance, chosen by
+# ops/ctc_prefix.py::psi_plan and state_plan, and one thread per lane past
+# them (both csrc/ctc_prefix.cu)
+PREFIX_ROUTES = ("utt", "lane")
+# their kernels' names in a profile: utt psi and state, lane psi and state
+PREFIX_KERNELS = ("psi_lse_kernel", "state_utt_kernel", "::psi_kernel",
+                  "::state_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -329,12 +364,18 @@ def reset_counts() -> None:
         blstm.INFER_ROUTE_LAUNCHES[route] = 0
     for route in ATT_ROUTES:
         att.ATT_ROUTE_LAUNCHES[route] = 0
+    for kind in ctc_prefix.PREFIX_ROUTE_LAUNCHES.values():
+        for route in PREFIX_ROUTES:
+            kind[route] = 0
 
 
 def launch_count(name: str) -> int:
     """Launches of kernel ``name`` since the last reset: its wrapper's
     count, or its route's where a wrapper launches two kernels."""
     k = KERNELS[name]
+    if "prefix" in k:
+        kind, route = k["prefix"]
+        return ctc_prefix.PREFIX_ROUTE_LAUNCHES[kind][route]
     if "route" in k:
         routes = (att.ATT_ROUTE_LAUNCHES if k["route"] in ATT_ROUTES
                   else blstm.INFER_ROUTE_LAUNCHES)
@@ -350,6 +391,29 @@ def require_utt_attention(where: str, n: int) -> None:
     require(routes == {"utt": n, "hyp": 0},
             f"{where}: not every attention step took the utt route: "
             f"{routes}, expected {n}")
+
+
+def prefix_routes() -> dict:
+    return {n: dict(r) for n, r in ctc_prefix.PREFIX_ROUTE_LAUNCHES.items()}
+
+
+def require_utt_prefix(where: str, n_psi: int, n_state: int) -> None:
+    """Every CTC prefix launch since the last reset took the per-utterance
+    route: ``n_psi`` psi and ``n_state`` state launches."""
+    routes = prefix_routes()
+    print(f"  CTC prefix launches by kernel and route {routes}")
+    require(routes == {"psi": {"utt": n_psi, "lane": 0},
+                       "state": {"utt": n_state, "lane": 0}},
+            f"{where}: not every CTC prefix launch took the utt route: "
+            f"{routes}, expected {n_psi} psi and {n_state} state")
+
+
+def on_prefix_route(route, fn):
+    """``fn`` with every psi and state launch on ``route``."""
+    def run(*args):
+        with ctc_prefix._force_prefix_route(route):
+            return fn(*args)
+    return run
 
 
 def on_att_route(route, fn):
@@ -545,6 +609,73 @@ def ctc_inputs(gen, b, k, t, v, dev):
                         dtype=torch.int32)
     tok[:, 0] = last[:, 0]  # repeated tokens take the r_b branch
     return lpz, tok, last, lens, r_n, r_b
+
+
+def prefix_parity(gen, b, t, dev):
+    """Phase 3's CTC prefix kernels at B utterances, beam 8, T frames, V=52:
+    psi, the state and the state step of a beam step (parents at random,
+    a quarter of the lanes appending nothing) on both routes against their
+    plain versions, then timed in turns with the host ahead (a call's host
+    time is near its device time). Returns (JSON rows, all agree)."""
+    lpz, tok, last, lens, r_n, r_b = ctc_inputs(gen, b, BEAM, t, VOCAB, dev)
+    k_idx = torch.randint(0, BEAM, (b, BEAM), generator=gen, device=dev)
+    append = torch.rand((b, BEAM), generator=gen, device=dev) < 0.75
+    step_tok = tok.clone()
+    step_tok[:, 1] = ctc_prefix.gather_beam(last, k_idx)[:, 1]
+    fns = {
+        "psi": (lambda: [ctc_prefix.prefix_psi(lpz, last, lens, r_n, r_b, 0,
+                                               1)],
+                lambda: [ctc_prefix.prefix_psi_plain(lpz, last, lens, r_n,
+                                                     r_b, 0, 1)]),
+        "state": (lambda: ctc_prefix.prefix_state(lpz, tok, last, lens, r_n,
+                                                  r_b, 0),
+                  lambda: ctc_prefix.prefix_state_plain(lpz, tok, last, lens,
+                                                        r_n, r_b, 0)),
+        "state step": (lambda: ctc_prefix.prefix_state_step(
+            lpz, k_idx, step_tok, append, last, lens, r_n, r_b, 0),
+            lambda: ctc_prefix.prefix_state_step_plain(
+                lpz, k_idx, step_tok, append, last, lens, r_n, r_b, 0)),
+    }
+    errs, ok_all = {}, True
+    for name, (kernel, plain) in fns.items():
+        want = plain()
+        for route in PREFIX_ROUTES:
+            errs[name, route], ok = compare(
+                f"ctc_prefix {name} {route} B={b} K={BEAM} T={t} V={VOCAB}",
+                on_prefix_route(route, kernel)(), want, atol=1e-3)
+            ok_all &= ok
+    print(f"    plans at B={b}: psi (frame splits, chunk frames) "
+          f"{ctc_prefix._psi_plan_on(dev.index or 0, BEAM, t, VOCAB)}, "
+          f"state chunk frames "
+          f"{ctc_prefix._state_plan_on(dev.index or 0, BEAM, t, VOCAB)}; "
+          f"{b} CTAs each")
+    runs = [on_prefix_route(r, fns[n][0]) for n in fns for r in PREFIX_ROUTES]
+    ms = dict(zip([(n, r) for n in fns for r in PREFIX_ROUTES],
+                  cuda_ms_in_turns(runs, 20, ahead=True)))
+    host = {key: host_us(fn) for key, fn in zip(ms, runs)}
+    for name in fns:
+        print(f"    B={b} {name} ms in turns: utt {ms[name, 'utt']:.4f}, lane "
+              f"{ms[name, 'lane']:.4f}; host time per call: utt "
+              f"{host[name, 'utt']:.1f} us, lane {host[name, 'lane']:.1f} us")
+    psi_moved = nbytes(lpz, last, lens, r_n, r_b, fns["psi"][0]())
+    state_moved = nbytes(lpz, tok, last, lens, r_n, r_b, fns["state"][0]())
+    plain_ms = {n: cuda_ms(fns[n][1], 5) for n in ("psi", "state")}
+    rows = {}
+    # one log-space update (~8 operations) per (b, k, v, frame) for psi,
+    # two per (b, k, frame) for the state
+    for name, kind, route in (("ctc_prefix_psi_utt", "psi", "utt"),
+                              ("ctc_prefix_psi", "psi", "lane"),
+                              ("ctc_prefix_state_utt", "state", "utt"),
+                              ("ctc_prefix_state", "state", "lane")):
+        flops = (8 * b * BEAM * VOCAB * t if kind == "psi"
+                 else 16 * b * BEAM * t)
+        moved = psi_moved if kind == "psi" else state_moved
+        err = errs[kind, route]
+        if kind == "state":
+            err = max(err, errs["state step", route])
+        rows[name] = entry(name, err, ms[kind, route], plain_ms[kind], flops,
+                           moved, lpz.dtype)
+    return rows, ok_all
 
 
 def blstm_row(err, gx, wh, lengths, out, d_in) -> dict:
@@ -767,38 +898,16 @@ def kernel_parity(b: int, t_enh: int, t_enc: int, jcfg, dev) -> dict:
               f"{'utt' if att._utt(16, BEAM, t_enc, c, a, e_dim, small[2]) else 'hyp'}")
 
     # CTC prefix psi and state (float32 only, as in the JAX package)
+    for bb in (b, 16):
+        rows, ok = prefix_parity(gen, bb, t_enc, dev)
+        ok_all &= ok
+        if bb == b:
+            res.update(rows)
     lpz, tok, last, lens, r_n, r_b = ctc_inputs(gen, b, BEAM, t_enc, VOCAB,
                                                 dev)
 
-    def psi_kernel():
-        return ctc_prefix.prefix_psi(lpz, last, lens, r_n, r_b, 0, 1)
-
     def psi_plain():
         return ctc_prefix.prefix_psi_plain(lpz, last, lens, r_n, r_b, 0, 1)
-
-    err, ok = compare(f"ctc_prefix_psi B={b} K={BEAM} T={t_enc} V={VOCAB}",
-                      [psi_kernel()], [psi_plain()], atol=1e-3)
-    ok_all &= ok
-    # one log-space update (~8 operations) per (b, k, v, frame)
-    res["ctc_prefix_psi"] = entry(
-        "ctc_prefix_psi", err, cuda_ms(psi_kernel, 20), cuda_ms(psi_plain, 5),
-        8 * b * BEAM * VOCAB * t_enc,
-        nbytes(lpz, last, lens, r_n, r_b, psi_kernel()), lpz.dtype)
-
-    def state_kernel():
-        return ctc_prefix.prefix_state(lpz, tok, last, lens, r_n, r_b, 0)
-
-    def state_plain():
-        return ctc_prefix.prefix_state_plain(lpz, tok, last, lens, r_n, r_b, 0)
-
-    err, ok = compare(f"ctc_prefix_state B={b} K={BEAM} T={t_enc}",
-                      state_kernel(), state_plain(), atol=1e-3)
-    ok_all &= ok
-    # two log-space updates per (b, k, frame)
-    res["ctc_prefix_state"] = entry(
-        "ctc_prefix_state", err, cuda_ms(state_kernel, 20),
-        cuda_ms(state_plain, 5), 16 * b * BEAM * t_enc,
-        nbytes(lpz, tok, last, lens, r_n, r_b, state_kernel()), lpz.dtype)
 
     # the per-utterance psi kernel: the same function, eos and blank
     # columns included
@@ -812,8 +921,8 @@ def kernel_parity(b: int, t_enh: int, t_enc: int, jcfg, dev) -> dict:
         "ctc_prefix_utt", err, cuda_ms(utt_kernel, 20), cuda_ms(psi_plain, 5),
         8 * b * BEAM * VOCAB * t_enc,
         nbytes(lpz, last, lens, r_n, r_b, utt_kernel()), lpz.dtype)
-    print(f"    host time per call: ctc_prefix_psi {host_us(psi_kernel):.1f} "
-          f"us, ctc_prefix_utt {host_us(utt_kernel):.1f} us")
+    print(f"    host time per call: ctc_prefix_utt {host_us(utt_kernel):.1f} "
+          "us")
 
     # the fused decoder step at the flagship's decoder widths
     emb_dim = jcfg.e2e.decoder.embed_dim
@@ -1421,6 +1530,7 @@ def main_path(b, n_batches, state, dev):
             f"{n_batches} x {n_layers} layers, "
             f"{blstm.blstm_recurrence.launches} gate-stream launches")
     require_utt_attention("main path", n_batches * STEPS)
+    require_utt_prefix("main path", n_batches * STEPS, n_batches * STEPS)
     before = dict(att.ATT_ROUTE_LAUNCHES)
     check_result(on_att_route("hyp", searcher)(*batches[0]), b)
     hyp = {r: att.ATT_ROUTE_LAUNCHES[r] - before[r] for r in ATT_ROUTES}
@@ -1428,6 +1538,16 @@ def main_path(b, n_batches, state, dev):
     require(hyp == {"utt": 0, "hyp": STEPS},
             f"the forced hyp batch launched {hyp}")
     launches["att_loc_step_hyp"] = hyp["hyp"]
+    before = prefix_routes()
+    check_result(on_prefix_route("lane", searcher)(*batches[0]), b)
+    lane = {n: {r: v - before[n][r] for r, v in routes.items()}
+            for n, routes in prefix_routes().items()}
+    print(f"  one batch with the CTC prefix forced to lane: launches {lane}")
+    require(lane == {"psi": {"utt": 0, "lane": STEPS},
+                     "state": {"utt": 0, "lane": STEPS}},
+            f"the forced lane batch launched {lane}")
+    launches["ctc_prefix_psi"] = lane["psi"]["lane"]
+    launches["ctc_prefix_state"] = lane["state"]["lane"]
 
     k_ms, k_enc, k_search = steady(batches, searcher, model, kcfg, bcfg)
     print(f"  kernel path: {b * 1e3 / k_ms:.2f} utt/s, {k_ms:.1f} ms/batch "
@@ -1440,7 +1560,15 @@ def main_path(b, n_batches, state, dev):
     in_turns({"cluster BLSTM": searcher,
               "row-tiled BLSTM": on_infer_route("row_tiled", searcher),
               "gate-stream BLSTM": gate_stream(searcher),
-              "hyp attention": on_att_route("hyp", searcher)}, batches, b)
+              "hyp attention": on_att_route("hyp", searcher),
+              "lane CTC prefix": on_prefix_route("lane", searcher)},
+             batches, b)
+    # launches a beam step and the CTC prefix rows of one profiled search,
+    # with the searcher's work around the state call folded into the "utt"
+    # kernels and without (the "lane" route)
+    for route in PREFIX_ROUTES:
+        on_prefix_route(route, search_profile)(model, kcfg, bcfg,
+                                               *batches[0], route)
 
     pcfg = with_impls(kcfg, "scan", "xla", "bfloat16")
     plain_model = load(pcfg, state, dev)
@@ -1452,6 +1580,25 @@ def main_path(b, n_batches, state, dev):
     print(f"  plain path: {b * 1e3 / p_ms:.2f} utt/s, {p_ms:.1f} ms/batch "
           f"(encode {p_enc:.1f} ms + search {p_search:.1f} ms)")
     return launches, k_ms
+
+
+def search_profile(model, jcfg, bcfg, wav, lens, tag):
+    """One warm search from the encoder's outputs under the profiler: its
+    device rows of the CTC prefix kernels and its launches a beam step."""
+    with torch.inference_mode():
+        hs, hmask, hlens, ctc_logits, enc_proj = model.encode_for_decode(
+            wav, lens, True)
+
+        def run():
+            return beam_search_from_encoder(
+                model.decoder_step, model.decoder_initial_carry, hs, hmask,
+                hlens, enc_proj, ctc_logits, jcfg.e2e, bcfg)
+
+        run()
+        print(f"  {tag} CTC prefix, one profiled search:")
+        busy_ms, n_launch, _ = device_profile(run, 0, pick=PREFIX_KERNELS)
+    print(f"    search: {n_launch} launches, {n_launch / STEPS:.1f} a beam "
+          f"step over {STEPS} steps; device kernels {busy_ms:.1f} ms")
 
 
 def gate_stream(search):
@@ -1487,6 +1634,7 @@ def slice_parity(state, dev):
         check_result(out[tag], 16)
         if tag == "kernel":
             require_utt_attention("the f32 slice", STEPS)
+            require_utt_prefix("the f32 slice", STEPS, STEPS)
     k, p = out["kernel"], out["plain"]
     rel = ((k.scores - p.scores).abs() / p.scores.abs().clamp_min(1e-6)).max()
     same = sum(bool(torch.equal(a, c)) for a, c in zip(k.tokens, p.tokens))
@@ -1531,10 +1679,11 @@ def check_metrics(metrics):
     require(not bad, f"non-finite train metrics {bad}")
 
 
-def device_profile(fn, top: int):
+def device_profile(fn, top: int, pick=()):
     """Run fn once under torch.profiler; print its ``top`` device rows by
-    kernel and return (device ms summed over kernels, launches, profiled
-    wall ms). One stream, so the kernels' sum is the device's busy time."""
+    kernel, and the others whose name holds one of ``pick``, and return
+    (device ms summed over kernels, launches, profiled wall ms). One
+    stream, so the kernels' sum is the device's busy time."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1547,9 +1696,10 @@ def device_profile(fn, top: int):
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     rows.sort(key=lambda e: -e.self_device_time_total)
-    for e in rows[:top]:
-        print(f"    {e.self_device_time_total / 1e3:9.2f} ms "
-              f"{e.count:6d}x  {e.key[:90]}")
+    for i, e in enumerate(rows):
+        if i < top or any(p in e.key for p in pick):
+            print(f"    {e.self_device_time_total / 1e3:9.2f} ms "
+                  f"{e.count:6d}x  {e.key[:90]}")
     return (sum(e.self_device_time_total for e in rows) / 1e3,
             sum(e.count for e in rows), wall_ms)
 
@@ -1779,6 +1929,7 @@ def clean_slice_parity(state, dev):
             require(all(v > 0 for v in launches.values()),
                     f"a kernel never launched in the f32 slice: {launches}")
             require_utt_attention("the f32 clean slice", STEPS)
+            require_utt_prefix("the f32 clean slice", STEPS, STEPS)
         else:
             with plain_frontend():
                 out[tag] = search(wav, lens)
@@ -2029,8 +2180,9 @@ def utt_prefix_path(b, n_batches, state, dev):
     require(all(v > 0 for v in launches.values()),
             f"a kernel of the per-utterance path never launched: {launches}")
     require(KERNELS["ctc_prefix_psi"]["wrapper"].launches == 0,
-            "the tiled psi kernel ran on the per-utterance path")
+            "the tiled psi wrapper ran on the per-utterance path")
     require_utt_attention("per-utterance prefix path", n_batches * STEPS)
+    require_utt_prefix("per-utterance prefix path", 0, n_batches * STEPS)
     require(not any(plain_calls.values()),
             f"a plain version ran on the per-utterance path: {plain_calls}")
     in_turns(searchers, batches, b)
@@ -2038,8 +2190,10 @@ def utt_prefix_path(b, n_batches, state, dev):
     wav, lens = batch_tensors(16, 100, dev)
     cfg = with_impls(flagship_config(VOCAB), "auto", "auto", "float32")
     model = load(cfg, state, dev)
+    reset_counts()
     out = {p: make_beam_searcher(model, cfg.e2e, dataclasses.replace(
         bcfg, prefix_impl=p))(wav, lens) for p in ("pallas", "tiled")}
+    require_utt_prefix("the f32 pallas and tiled slices", STEPS, 2 * STEPS)
     u, t = out["pallas"], out["tiled"]
     check_result(u, 16)
     rel = ((u.scores - t.scores).abs() / t.scores.abs().clamp_min(1e-6)).max()

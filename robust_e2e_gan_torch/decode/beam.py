@@ -12,12 +12,13 @@ With ``early_exit=False`` the loop runs ``max_steps`` steps and the host
 never waits for the device inside it; ``early_exit=True`` reads
 ``finished.all()`` on the host once per step. RNNLM shallow fusion adds
 ``lm_weight * log p_LM`` to every candidate when an LM is given and
-``lm_weight`` is not 0. The CTC prefix scores take the tiled kernels
-(``prefix_impl`` "auto" or "tiled"), the per-utterance psi kernel with the
-tiled state kernel ("pallas": the state kernel computes the
-``prefix_state_for_token`` that JAX pairs with it), or the plain versions
-("twopass"). The scan and parallel prefix forms and the pipelined
-searchers are not ported.
+``lm_weight`` is not 0. The CTC prefix scores take the kernels of
+``ops/ctc_prefix.py``: ``prefix_psi`` (``prefix_impl`` "auto" or "tiled")
+or the per-utterance ``prefix_psi_utt`` ("pallas"), and in every kernel
+mode ``prefix_state_step``, which computes the ``prefix_state_for_token``
+that JAX pairs with both, with the gathers by parent and the selects
+around it; "twopass" runs the plain versions. The scan and parallel
+prefix forms and the pipelined searchers are not ported.
 """
 
 from __future__ import annotations
@@ -28,11 +29,12 @@ import torch
 
 from robust_e2e_gan_torch.config import BeamSearchConfig, E2EConfig
 from robust_e2e_gan_torch.ops.ctc_prefix import (
+    gather_beam,
     prefix_psi,
     prefix_psi_plain,
     prefix_psi_utt,
-    prefix_state,
-    prefix_state_plain,
+    prefix_state_step,
+    prefix_state_step_plain,
 )
 from robust_e2e_gan_torch.utils.impl import kernel_enabled
 
@@ -48,18 +50,12 @@ class BeamResult(NamedTuple):
     beam_scores: torch.Tensor  # (B, K)
 
 
-def _gather_beam(x: torch.Tensor, k_idx: torch.Tensor) -> torch.Tensor:
-    """Rows of x (B, K, ...) picked by k_idx (B, K)."""
-    idx = k_idx.view(k_idx.shape + (1,) * (x.dim() - 2))
-    return torch.gather(x, 1, idx.expand(k_idx.shape + x.shape[2:]))
-
-
 def _permute_carry(x: torch.Tensor, k_idx: torch.Tensor) -> torch.Tensor:
     """Reorder a decoder-carry leaf by the surviving parents: (B*K, ...)
     lanes, or (layers, B*K, D) stacked LSTM state."""
     b, k = k_idx.shape
     if x.shape[0] == b * k:
-        return _gather_beam(x.reshape((b, k) + x.shape[1:]), k_idx).reshape(
+        return gather_beam(x.reshape((b, k) + x.shape[1:]), k_idx).reshape(
             x.shape)
     xs = x.reshape(x.shape[0], b, k, x.shape[-1])
     idx = k_idx[None, :, :, None].expand(xs.shape)
@@ -94,11 +90,11 @@ def beam_search_from_encoder(
             f"prefix_impl={bcfg.prefix_impl!r} is not ported; use auto, "
             "tiled, pallas (the kernels) or twopass (the plain version)")
     if bcfg.prefix_impl == "pallas":
-        psi_fn, state_fn = prefix_psi_utt, prefix_state
+        psi_fn, state_fn = prefix_psi_utt, prefix_state_step
     elif kernel_enabled(bcfg.prefix_impl):
-        psi_fn, state_fn = prefix_psi, prefix_state
+        psi_fn, state_fn = prefix_psi, prefix_state_step
     else:
-        psi_fn, state_fn = prefix_psi_plain, prefix_state_plain
+        psi_fn, state_fn = prefix_psi_plain, prefix_state_step_plain
 
     dev = enc.device
     b, t, _ = enc.shape
@@ -192,11 +188,12 @@ def beam_search_from_encoder(
         k_idx = torch.div(top_idx, v, rounding_mode="floor")
         tok = (top_idx % v).to(torch.int32)
 
-        tokens = _gather_beam(tokens, k_idx)
-        lengths = _gather_beam(lengths, k_idx)
-        fin_old = _gather_beam(finished, k_idx)
-        psi_old = _gather_beam(psi_g, k_idx)
-        psi_sel = torch.gather(_gather_beam(psi, k_idx), 2,
+        tokens = gather_beam(tokens, k_idx)
+        prev_lengths = lengths
+        lengths = gather_beam(lengths, k_idx)
+        fin_old = gather_beam(finished, k_idx)
+        psi_old = gather_beam(psi_g, k_idx)
+        psi_sel = torch.gather(gather_beam(psi, k_idx), 2,
                                tok.long()[..., None])[..., 0]
 
         append = ~fin_old & (tok != eos)
@@ -216,14 +213,10 @@ def beam_search_from_encoder(
             stall = torch.where(any_ended & below, stall + 1, 0)
             ended_best = torch.maximum(ended_best, ended_now)
 
-        # CTC forward state of the selected extensions
-        rn_par = _gather_beam(r_n, k_idx)
-        rb_par = _gather_beam(r_b, k_idx)
-        rn_sel, rb_sel = state_fn(
-            lpz, tok, _gather_beam(last_tok, k_idx),
-            lengths - append.to(torch.int32), rn_par, rb_par, blank)
-        r_n = torch.where(append[..., None], rn_sel, rn_par)
-        r_b = torch.where(append[..., None], rb_sel, rb_par)
+        # CTC forward state of the survivors: the selected extensions, and
+        # the parents' rows where nothing was appended
+        r_n, r_b = state_fn(lpz, k_idx, tok, append, last_tok, prev_lengths,
+                            r_n, r_b, blank)
 
         dec_carry = tuple(_permute_carry(x, k_idx) for x in new_dec_carry)
         if use_lm:

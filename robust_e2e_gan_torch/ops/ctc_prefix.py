@@ -3,15 +3,21 @@
 Counterparts of ``robust_e2e_gan_tpu/ops/ctc_prefix_tiled.py``
 (``prefix_psi_tiled``, ``prefix_state_tiled``) and of
 ``ops/ctc_prefix_pallas.py::prefix_scores_psi_pallas`` (``prefix_psi_utt``),
-same contracts. The plain versions are the JAX package's twopass forms,
+same contracts, and ``prefix_state_step``: the state of a beam step's
+survivors with the searcher's gathers and selects around it. The plain
+versions are the JAX package's twopass forms,
 ``decode/beam.py::batched_prefix_psi`` and ``prefix_state_for_token``,
 with the frame loop written out. The kernels are ``csrc/ctc_prefix.cu``
-and ``csrc/ctc_prefix_utt.cu``. Everything is float32.
+(psi and state on two routes each: "utt", one block per utterance, where
+``psi_plan``/``state_plan`` fit, and "lane", one thread per lane, past
+them) and ``csrc/ctc_prefix_utt.cu``. Everything is float32.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -20,11 +26,18 @@ from robust_e2e_gan_torch.utils.impl import (
     SMEM_LIMIT,
     check,
     check_no_grad,
+    device_limits,
     on_cuda,
 )
 
 LOG_ZERO = -1e10
 UTT_THREADS = 1024  # one thread per (k, v) lane in ctc_prefix_utt's block
+
+
+def gather_beam(x: torch.Tensor, k_idx: torch.Tensor) -> torch.Tensor:
+    """Rows of x (B, K, ...) picked by k_idx (B, K)."""
+    idx = k_idx.view(k_idx.shape + (1,) * (x.dim() - 2))
+    return torch.gather(x, 1, idx.expand(k_idx.shape + x.shape[2:]))
 
 
 def _phi_prev(r_n, r_b, is_last, lengths):
@@ -110,6 +123,125 @@ def prefix_state_plain(lpz, tok, last_tok, lengths, r_n, r_b,
 prefix_state_plain.calls = 0
 
 
+def prefix_state_step_plain(lpz, k_idx, tok, append, last_tok, lengths, r_n,
+                            r_b, blank: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(r_n, r_b) (B, K, T) after a beam step's pruning: the searcher's
+    sequence. Row k is parent ``k_idx[:, k]``'s (``r_n``, ``r_b``,
+    ``last_tok``, ``lengths`` describe the parents before the step)
+    extended by ``tok`` where ``append``, else the parent's unchanged."""
+    rn_par, rb_par = gather_beam(r_n, k_idx), gather_beam(r_b, k_idx)
+    rn_sel, rb_sel = prefix_state_plain(
+        lpz, tok, gather_beam(last_tok, k_idx), gather_beam(lengths, k_idx),
+        rn_par, rb_par, blank)
+    sel = append[..., None]
+    return torch.where(sel, rn_sel, rn_par), torch.where(sel, rb_sel, rb_par)
+
+
+# --------------------------------------------------------------------------
+# which kernels run psi and the state: one block per utterance (route
+# "utt", csrc/ctc_prefix.cu) where the plans fit, else one thread per lane
+# (route "lane", the same file); a rule computed before the launch
+# --------------------------------------------------------------------------
+
+PSI_MAX_THREADS = 1024  # a block's threads: K x V lanes x S frame splits
+PSI_MAX_SPLITS = 8
+PSI_CHUNKS = (256, 128, 64, 32)  # frames of lpz staged at a time, tried in turn
+STATE_MAX_K = 32  # hypotheses the chain's one warp carries
+STATE_CHUNKS = (64, 32, 16, 8)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def psi_smem(k: int, v: int, splits: int, chunk: int) -> int:
+    """Shared bytes of the "utt" psi kernel: a chunk's lpz rows (F, V) and
+    two phi tables (K, F), then the (max, sum) pairs of K x V x S
+    threads."""
+    return 4 * max(chunk * (v + 2 * k), 2 * k * v * splits)
+
+
+def psi_plan(k: int, t: int, v: int,
+             smem_optin: int) -> Optional[Tuple[int, int]]:
+    """(frame splits S, chunk frames F) of the "utt" psi kernel at K
+    hypotheses, T frames and V columns, or None past it. Each of the K x V
+    lanes sums every S-th frame in one thread, S as large as 1,024
+    threads allow (at most ``PSI_MAX_SPLITS``); F is the largest of
+    ``PSI_CHUNKS`` (cut to T rounded up to 32) whose ``psi_smem`` fits in
+    ``smem_optin`` bytes."""
+    lanes = k * v
+    if lanes > PSI_MAX_THREADS:
+        return None
+    splits = min(PSI_MAX_SPLITS, PSI_MAX_THREADS // lanes)
+    for chunk in PSI_CHUNKS:
+        chunk = min(chunk, _round_up(t, 32))
+        if psi_smem(k, v, splits, chunk) <= smem_optin:
+            return splits, chunk
+    return None
+
+
+def state_smem(k: int, v: int, chunk: int) -> int:
+    """Shared bytes of the "utt" state kernel: two buffers of a chunk's
+    lpz rows (F, V) and the extensions' phi, r_n and r_b (K, F) each."""
+    return 8 * chunk * (v + 3 * k)
+
+
+def state_plan(k: int, t: int, v: int, smem_optin: int) -> Optional[int]:
+    """Chunk frames F of the "utt" state kernel at K hypotheses, T frames
+    and V columns, or None past it: K <= ``STATE_MAX_K``, and F the
+    largest of ``STATE_CHUNKS`` (cut to T rounded up to 8) whose
+    ``state_smem`` fits in ``smem_optin`` bytes."""
+    if k > STATE_MAX_K:
+        return None
+    for chunk in STATE_CHUNKS:
+        chunk = min(chunk, _round_up(t, 8))
+        if state_smem(k, v, chunk) <= smem_optin:
+            return chunk
+    return None
+
+
+# launches of the psi and the state kernels by route
+PREFIX_ROUTE_LAUNCHES = {"psi": {"utt": 0, "lane": 0},
+                         "state": {"utt": 0, "lane": 0}}
+_forced_prefix_route = None
+
+
+@contextlib.contextmanager
+def _force_prefix_route(route: str):
+    """Run every psi and state launch inside the block on one route ("utt"
+    or "lane"): the tests and ``chip_smoke.py`` hold both to the plain
+    versions. Forcing "utt" where a plan does not fit raises."""
+    global _forced_prefix_route
+    check(route in ("utt", "lane"), f"unknown route {route!r}")
+    prev, _forced_prefix_route = _forced_prefix_route, route
+    try:
+        yield
+    finally:
+        _forced_prefix_route = prev
+
+
+def _route(plan, what: str):
+    """``plan`` for the "utt" kernel, or None for the "lane" one: past the
+    plan, or where "lane" is forced. A forced "utt" that does not fit
+    raises."""
+    if _forced_prefix_route == "lane":
+        return None
+    check(plan is not None or _forced_prefix_route is None,
+          f"the utt route does not fit {what}")
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _psi_plan_on(index: int, k: int, t: int, v: int):
+    return psi_plan(k, t, v, device_limits(index)[1])
+
+
+@functools.lru_cache(maxsize=None)
+def _state_plan_on(index: int, k: int, t: int, v: int):
+    return state_plan(k, t, v, device_limits(index)[1])
+
+
 def _check_common(lpz, r_n, r_b, ints):
     b, t, v = lpz.shape
     k = r_n.shape[1]
@@ -127,25 +259,37 @@ def prefix_psi(lpz, last_tok, lengths, r_n, r_b, blank: int,
                eos: int) -> torch.Tensor:
     """Kernel wrapper, same contract as ``prefix_psi_plain``.
 
-    CPU tensors run the plain version; CUDA tensors launch
-    ``csrc/ctc_prefix.cu::ctc_prefix_psi`` or raise.
+    CPU tensors run the plain version; CUDA tensors launch the kernel of
+    the shapes' route (``psi_plan``; ``PREFIX_ROUTE_LAUNCHES["psi"]``
+    counts them) or raise.
     """
     check_no_grad("prefix_psi", lpz, r_n, r_b)
     if not on_cuda(lpz, last_tok, lengths, r_n, r_b):
         return prefix_psi_plain(lpz, last_tok, lengths, r_n, r_b, blank, eos)
     b, k, t, v = _check_common(lpz, r_n, r_b,
                                {"last_tok": last_tok, "lengths": lengths})
+    check(0 <= blank < v and 0 <= eos < v,
+          f"blank={blank} or eos={eos} outside [0, {v})")
+    plan = _route(_psi_plan_on(lpz.device.index, k, t, v),
+                  f"psi K={k} T={t} V={v}")
     lpz, r_n, r_b = lpz.contiguous(), r_n.contiguous(), r_b.contiguous()
     last_tok = last_tok.to(torch.int32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     psi = torch.empty((b, k, v), dtype=torch.float32, device=lpz.device)
-    launch(
-        "ctc_prefix_psi", lpz.data_ptr(), last_tok.data_ptr(),
-        lengths.data_ptr(), r_n.data_ptr(), r_b.data_ptr(), psi.data_ptr(),
-        b, k, t, v, torch.cuda.current_stream(lpz.device).cuda_stream,
-    )
+    ptrs = (lpz.data_ptr(), last_tok.data_ptr(), lengths.data_ptr(),
+            r_n.data_ptr(), r_b.data_ptr(), psi.data_ptr())
+    stream = torch.cuda.current_stream(lpz.device).cuda_stream
+    if plan is not None:  # eos and blank columns set in the kernel
+        launch("ctc_prefix_psi_utt", *ptrs, b, k, t, v, blank, eos, *plan,
+               stream)
+        route = "utt"
+    else:
+        launch("ctc_prefix_psi", *ptrs, b, k, t, v, stream)
+        route = "lane"
+        psi = _patch_psi(psi, r_n, r_b, blank, eos)
+    PREFIX_ROUTE_LAUNCHES["psi"][route] += 1
     prefix_psi.launches += 1
-    return _patch_psi(psi, r_n, r_b, blank, eos)
+    return psi
 
 
 prefix_psi.launches = 0
@@ -189,33 +333,91 @@ def prefix_psi_utt(lpz, last_tok, lengths, r_n, r_b, blank: int,
 prefix_psi_utt.launches = 0
 
 
-def prefix_state(lpz, tok, last_tok, lengths, r_n, r_b,
-                 blank: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel wrapper, same contract as ``prefix_state_plain`` (``tok``
-    must lie in [0, V)).
-
-    CPU tensors run the plain version; CUDA tensors launch
-    ``csrc/ctc_prefix.cu::ctc_prefix_state`` or raise.
-    """
-    check_no_grad("prefix_state", lpz, r_n, r_b)
-    if not on_cuda(lpz, tok, last_tok, lengths, r_n, r_b):
-        return prefix_state_plain(lpz, tok, last_tok, lengths, r_n, r_b, blank)
+def _state(lpz, tok, last_tok, lengths, r_n, r_b, blank: int, k_idx=None,
+           append=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the state kernel of the shapes' route on CUDA tensors: the
+    contract of ``prefix_state_plain`` with ``k_idx``/``append`` None, that
+    of ``prefix_state_step_plain`` with them."""
     b, k, t, v = _check_common(
         lpz, r_n, r_b, {"tok": tok, "last_tok": last_tok, "lengths": lengths})
     check(0 <= blank < v, f"blank={blank} outside [0, {v})")
+    if k_idx is not None:
+        check(tuple(k_idx.shape) == (b, k) and tuple(append.shape) == (b, k),
+              f"k_idx {tuple(k_idx.shape)}, append {tuple(append.shape)}")
+    chunk = _route(_state_plan_on(lpz.device.index, k, t, v),
+                   f"the state K={k} T={t} V={v}")
+    if chunk is None and k_idx is not None:
+        # the lane kernel between the plain version's gathers and selects
+        rn_par, rb_par = gather_beam(r_n, k_idx), gather_beam(r_b, k_idx)
+        rn_sel, rb_sel = _state(lpz, tok, gather_beam(last_tok, k_idx),
+                                gather_beam(lengths, k_idx), rn_par, rb_par,
+                                blank)
+        sel = append[..., None]
+        return (torch.where(sel, rn_sel, rn_par),
+                torch.where(sel, rb_sel, rb_par))
     lpz, r_n, r_b = lpz.contiguous(), r_n.contiguous(), r_b.contiguous()
     tok, last_tok, lengths = (x.to(torch.int32).contiguous()
                               for x in (tok, last_tok, lengths))
     rn_out = torch.empty((b, k, t), dtype=torch.float32, device=lpz.device)
     rb_out = torch.empty_like(rn_out)
-    launch(
-        "ctc_prefix_state", lpz.data_ptr(), tok.data_ptr(),
-        last_tok.data_ptr(), lengths.data_ptr(), r_n.data_ptr(),
-        r_b.data_ptr(), rn_out.data_ptr(), rb_out.data_ptr(), b, k, t, v,
-        blank, torch.cuda.current_stream(lpz.device).cuda_stream,
-    )
-    prefix_state.launches += 1
+    outs = (rn_out.data_ptr(), rb_out.data_ptr(), b, k, t, v, blank)
+    stream = torch.cuda.current_stream(lpz.device).cuda_stream
+    if chunk is None:
+        launch("ctc_prefix_state", lpz.data_ptr(), tok.data_ptr(),
+               last_tok.data_ptr(), lengths.data_ptr(), r_n.data_ptr(),
+               r_b.data_ptr(), *outs, stream)
+        PREFIX_ROUTE_LAUNCHES["state"]["lane"] += 1
+        return rn_out, rb_out
+    if k_idx is not None:
+        k_idx = k_idx.to(torch.int64).contiguous()
+        append = append.to(torch.bool).contiguous()
+    launch("ctc_prefix_state_utt", lpz.data_ptr(),
+           0 if k_idx is None else k_idx.data_ptr(), tok.data_ptr(),
+           0 if append is None else append.data_ptr(), last_tok.data_ptr(),
+           lengths.data_ptr(), r_n.data_ptr(), r_b.data_ptr(), *outs, chunk,
+           stream)
+    PREFIX_ROUTE_LAUNCHES["state"]["utt"] += 1
     return rn_out, rb_out
 
 
+def prefix_state(lpz, tok, last_tok, lengths, r_n, r_b,
+                 blank: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel wrapper, same contract as ``prefix_state_plain`` (``tok``
+    must lie in [0, V)).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel of
+    the shapes' route (``state_plan``; ``PREFIX_ROUTE_LAUNCHES["state"]``
+    counts them) or raise.
+    """
+    check_no_grad("prefix_state", lpz, r_n, r_b)
+    if not on_cuda(lpz, tok, last_tok, lengths, r_n, r_b):
+        return prefix_state_plain(lpz, tok, last_tok, lengths, r_n, r_b, blank)
+    out = _state(lpz, tok, last_tok, lengths, r_n, r_b, blank)
+    prefix_state.launches += 1
+    return out
+
+
 prefix_state.launches = 0
+
+
+def prefix_state_step(lpz, k_idx, tok, append, last_tok, lengths, r_n, r_b,
+                      blank: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel wrapper, same contract as ``prefix_state_step_plain``
+    (``tok`` in [0, V), ``k_idx`` in [0, K)); fresh output rows.
+
+    CPU tensors run the plain version; CUDA tensors launch the state
+    kernel of the shapes' route (on "utt" it reads the parents by
+    ``k_idx`` and copies the rows where ``append`` is false itself; on
+    "lane" the plain version's gathers and selects run around it) or
+    raise.
+    """
+    check_no_grad("prefix_state_step", lpz, r_n, r_b)
+    if not on_cuda(lpz, k_idx, tok, append, last_tok, lengths, r_n, r_b):
+        return prefix_state_step_plain(lpz, k_idx, tok, append, last_tok,
+                                       lengths, r_n, r_b, blank)
+    out = _state(lpz, tok, last_tok, lengths, r_n, r_b, blank, k_idx, append)
+    prefix_state_step.launches += 1
+    return out
+
+
+prefix_state_step.launches = 0

@@ -51,6 +51,12 @@ SIGNATURES = {
     # lpz, tok, last_tok, lengths, r_n, r_b, rn_out, rb_out,
     # B, K, T, V, blank, stream
     "ctc_prefix_state": [_P] * 8 + [_I] * 5 + [_P],
+    # lpz, last_tok, lengths, r_n, r_b, psi, B, K, T, V, blank, eos,
+    # frame splits, chunk frames, stream
+    "ctc_prefix_psi_utt": [_P] * 6 + [_I] * 8 + [_P],
+    # lpz, k_idx (or null), tok, append (or null), last_tok, lengths, r_n,
+    # r_b, rn_out, rb_out, B, K, T, V, blank, chunk frames, stream
+    "ctc_prefix_state_utt": [_P] * 10 + [_I] * 6 + [_P],
     # gx, wh, lengths, out, y_ext, c_ext, B, T, H, rows_per_block, bf16,
     # stream
     "blstm_train_fwd": [_P] * 6 + [_I] * 5 + [_P],

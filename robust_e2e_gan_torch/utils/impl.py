@@ -15,8 +15,9 @@ of the tensors instead, inside each kernel's wrapper:
   version directly, on any device.
 
 ``BeamSearchConfig.prefix_impl`` takes "pallas" as a kernel value: the
-per-utterance prefix kernel (``ops/ctc_prefix.py::prefix_psi_utt``), where
-"auto" and "tiled" take the tiled one. ``DecoderConfig.step_impl`` has a
+JAX per-utterance kernel's psi (``ops/ctc_prefix.py::prefix_psi_utt``),
+where "auto" and "tiled" take ``prefix_psi``; every kernel value takes
+``prefix_state_step``. ``DecoderConfig.step_impl`` has a
 rule of its own, the JAX package's: only "fused" selects the fused
 decoder step (``ops/att_dec.py``), and only with one decoder layer, the
 location attention and a kernel ``score_impl``; "auto" and "xla" select

@@ -1,6 +1,10 @@
 """The port's CTC prefix scoring against the JAX package: the twopass XLA
 forms (``batched_prefix_psi``, ``prefix_state_for_token``), the tiled
-Pallas kernels and the per-utterance psi kernel (interpret mode)."""
+Pallas kernels and the per-utterance psi kernel (interpret mode); the
+state of a beam step's survivors (``prefix_state_step``) and the twopass
+searcher; the CUDA route plans as integer arithmetic."""
+
+import dataclasses
 
 import pytest
 
@@ -11,9 +15,13 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from robust_e2e_gan_tpu import config as jax_config  # noqa: E402
 from robust_e2e_gan_tpu.decode.beam import (  # noqa: E402
     batched_prefix_psi,
     prefix_state_for_token,
+)
+from robust_e2e_gan_tpu.decode.beam import (  # noqa: E402
+    beam_search_from_encoder as jax_beam_search_from_encoder,
 )
 from robust_e2e_gan_tpu.ops.ctc_prefix_pallas import (  # noqa: E402
     prefix_scores_psi_pallas,
@@ -22,6 +30,9 @@ from robust_e2e_gan_tpu.ops.ctc_prefix_tiled import (  # noqa: E402
     prefix_psi_tiled,
     prefix_state_tiled,
 )
+from robust_e2e_gan_torch.config import BeamSearchConfig  # noqa: E402
+from robust_e2e_gan_torch.configs import tiny_config  # noqa: E402
+from robust_e2e_gan_torch.decode.beam import beam_search_from_encoder  # noqa: E402
 from robust_e2e_gan_torch.ops import ctc_prefix as ops  # noqa: E402
 
 BLANK, EOS = 0, 1
@@ -56,7 +67,7 @@ def _state(seed, b=2, k=3, t=13, v=7):
         last = np.where(grow, tok, last)
         lens = lens + grow
     tok = rng.integers(2, v, (b, k)).astype(np.int32)
-    tok[1, 2] = last[1, 2]  # a repeated token
+    tok[1, -1] = last[1, -1]  # a repeated token
     return dict(lpz=lpz, last=last, lens=lens.astype(np.int32),
                 r_n=r_n.astype(np.float32), r_b=r_b.astype(np.float32), tok=tok)
 
@@ -133,3 +144,162 @@ def test_psi_utt_matches_jax_per_utterance_kernel(seed):
     # the same float32 log-space sums, in the same frame order
     np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-4)
     assert (got[..., BLANK] == -1e10).all()
+
+
+def _take(x, k_idx):
+    """Rows of x (B, K, ...) picked by k_idx (B, K), in numpy."""
+    idx = k_idx.reshape(k_idx.shape + (1,) * (x.ndim - 2))
+    return np.take_along_axis(x, idx, axis=1)
+
+
+@pytest.mark.parametrize("seed,k", [(0, 3), (1, 3), (2, 1)])
+def test_state_step_matches_jax_gather_tiled_kernel_select(seed, k):
+    """``prefix_state_step`` (on the CPU, its plain version) against the
+    JAX searcher's sequence around the tiled state kernel (interpret
+    mode): parents gathered by k_idx, the kernel, the parents' rows kept
+    where nothing is appended. Lanes with append false, a repeated token
+    and an empty parent prefix; K=1."""
+    s = _state(seed, k=k)
+    rng = np.random.default_rng(10 + seed)
+    b = s["lpz"].shape[0]
+    k_idx = rng.integers(0, k, (b, k))
+    append = rng.random((b, k)) < 0.6
+    append[0, 0], append[1, -1] = False, True
+    s["lens"][1, k_idx[1, -1]] = 0  # an empty parent that is extended
+    tok = s["tok"]
+    tok[0, -1] = _take(s["last"], k_idx)[0, -1]  # a repeated token
+    rn_par, rb_par = _take(s["r_n"], k_idx), _take(s["r_b"], k_idx)
+    rn_sel, rb_sel = prefix_state_tiled(
+        jnp.asarray(s["lpz"]), jnp.asarray(tok),
+        jnp.asarray(_take(s["last"], k_idx)),
+        jnp.asarray(_take(s["lens"], k_idx)), jnp.asarray(rn_par),
+        jnp.asarray(rb_par), BLANK, interpret=True)
+    want = (np.where(append[..., None], np.asarray(rn_sel), rn_par),
+            np.where(append[..., None], np.asarray(rb_sel), rb_par))
+    t_ = {n: torch.from_numpy(np.ascontiguousarray(a)) for n, a in s.items()}
+    args = (t_["lpz"], torch.from_numpy(k_idx), t_["tok"],
+            torch.from_numpy(append), t_["last"], t_["lens"], t_["r_n"],
+            t_["r_b"], BLANK)
+    before = (ops.prefix_state_step.launches, ops.prefix_state_plain.calls)
+    for fn in (ops.prefix_state_step_plain, ops.prefix_state_step):
+        got = fn(*args)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=ATOL)
+    assert (ops.prefix_state_step.launches,
+            ops.prefix_state_plain.calls) == (before[0], before[1] + 2)
+    # rows with nothing appended are their parents' exactly
+    np.testing.assert_array_equal(got[0].numpy()[~append], rn_par[~append])
+
+
+def _toy_decoder(v, seed):
+    """A decoder step of the searchers' signature from numpy weights:
+    carry c (N, V), c' = tanh(c U + W[tokens]), logits 3 c'; one function
+    for each framework."""
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((v, v)).astype(np.float32)
+    u = (rng.standard_normal((v, v)) / np.sqrt(v)).astype(np.float32)
+
+    def jax_step(carry, tokens, enc, enc_proj, enc_mask):
+        c = jnp.tanh(carry[0] @ jnp.asarray(u) + jnp.asarray(w)[tokens])
+        return (c,), (3.0 * c, jnp.zeros((c.shape[0], enc.shape[1])))
+
+    def torch_step(carry, tokens, enc, enc_proj, enc_mask):
+        c = torch.tanh(carry[0] @ torch.from_numpy(u)
+                       + torch.from_numpy(w)[tokens.long()])
+        return (c,), (3.0 * c, torch.zeros((c.shape[0], enc.shape[1])))
+
+    return ((jax_step, lambda n, mask: (jnp.zeros((n, v)),)),
+            (torch_step, lambda n, mask: (torch.zeros((n, v)),)))
+
+
+@pytest.mark.parametrize("prefix_impl", ["twopass", "auto"])
+def test_twopass_searcher_matches_jax(prefix_impl):
+    """The searcher's CTC prefix path (``prefix_state_step`` after the
+    pruning) against the JAX searcher over one toy decoder and random CTC
+    logits with ragged lengths: token-exact, scores to float32 ulps. On
+    the CPU "auto" runs the wrappers' plain versions, as JAX's "auto"
+    runs twopass."""
+    b, t, v = 3, 20, 12
+    ecfg = tiny_config(v).e2e
+    bcfg = BeamSearchConfig(beam_size=3, ctc_weight=0.5, max_steps=8,
+                            early_exit=False, prefix_impl=prefix_impl)
+    rng = np.random.default_rng(5)
+    ctc_logits = (2 * rng.standard_normal((b, t, v))).astype(np.float32)
+    hlens = np.array([t, 13, 6], np.int32)
+    mask = (np.arange(t)[None] < hlens[:, None]).astype(np.float32)
+    enc = np.zeros((b, t, 4), np.float32)
+    (jstep, jinit), (tstep, tinit) = _toy_decoder(v, 6)
+
+    def jax_cfg(cfg):
+        return jax_config.from_dict(getattr(jax_config, type(cfg).__name__),
+                                    dataclasses.asdict(cfg))
+
+    want = jax_beam_search_from_encoder(
+        jstep, jinit, jnp.asarray(enc), jnp.asarray(mask), jnp.asarray(hlens),
+        jnp.asarray(enc), jnp.asarray(ctc_logits), jax_cfg(ecfg),
+        jax_cfg(bcfg))
+    calls = ops.prefix_state_plain.calls
+    got = beam_search_from_encoder(
+        tstep, tinit, torch.from_numpy(enc), torch.from_numpy(mask),
+        torch.from_numpy(hlens), torch.from_numpy(enc),
+        torch.from_numpy(ctc_logits), ecfg, bcfg)
+    assert ops.prefix_state_plain.calls == calls + bcfg.max_steps
+    np.testing.assert_array_equal(got.beam_tokens.numpy(),
+                                  np.asarray(want.beam_tokens))
+    np.testing.assert_array_equal(got.beam_lengths.numpy(),
+                                  np.asarray(want.beam_lengths))
+    np.testing.assert_allclose(got.beam_scores.numpy(),
+                               np.asarray(want.beam_scores), rtol=1e-4,
+                               atol=1e-4)
+
+
+SMEM = 232_448  # bytes of shared memory one H100 block may opt into
+
+
+def test_prefix_route_plans():
+    """The "utt" plans as integer arithmetic: the decode shape, small and
+    long shapes, and the shapes past each plan."""
+    # the flagship decode: 416 psi lanes in 2 frame splits, one 192-frame
+    # chunk; the state in 64-frame chunks (two buffers, 38,912 bytes)
+    assert ops.psi_plan(8, 174, 52, SMEM) == (2, 192)
+    assert ops.psi_smem(8, 52, 2, 192) == 4 * 192 * (52 + 16)
+    assert ops.state_plan(8, 174, 52, SMEM) == 64
+    assert ops.state_smem(8, 52, 64) == 38_912
+    # K=1, V=9: 8 splits; T=1: the chunks cut to 32 and 8 frames; a long T
+    # streams 256-frame psi chunks
+    assert ops.psi_plan(1, 29, 9, SMEM) == (8, 32)
+    assert ops.psi_plan(8, 1, 9, SMEM) == (8, 32)
+    assert ops.state_plan(1, 1, 9, SMEM) == 8
+    assert ops.psi_plan(4, 700, 9, SMEM) == (8, 256)
+    assert ops.state_plan(16, 700, 52, SMEM) == 64
+    # the partial pairs outgrow a small chunk's tables
+    assert ops.psi_smem(16, 8, 8, 32) == 8 * 16 * 8 * 8
+    # past the plans: more lanes than a block's threads, more hypotheses
+    # than the chain's warp, lpz chunks wider than shared memory
+    assert ops.psi_plan(40, 9, 30, SMEM) is None
+    assert ops.state_plan(33, 9, 30, SMEM) is None
+    assert ops.state_plan(32, 9, 30, SMEM) == 16
+    assert ops.psi_plan(1, 174, 1000, SMEM) == (1, 32)
+    assert ops.psi_plan(1, 174, 1000, 49_152) is None
+    assert ops.state_plan(8, 174, 5000, SMEM) is None
+
+
+def test_force_prefix_route():
+    """``_force_prefix_route``: an unknown route raises; a forced "utt"
+    that does not fit raises; "lane" takes the lane kernel whatever the
+    plan; the default takes the plan where it fits; the route in force
+    comes back after the block."""
+    with pytest.raises(ValueError, match="unknown route"):
+        with ops._force_prefix_route("tiled"):
+            pass
+    assert ops._route(64, "the state") == 64
+    assert ops._route(None, "the state") is None
+    with ops._force_prefix_route("utt"):
+        assert ops._route((2, 192), "psi") == (2, 192)
+        with pytest.raises(ValueError, match="utt route does not fit"):
+            ops._route(None, "psi")
+        with ops._force_prefix_route("lane"):
+            assert ops._route((2, 192), "psi") is None
+        with pytest.raises(ValueError, match="utt route does not fit"):
+            ops._route(None, "the state")
+    assert ops._forced_prefix_route is None

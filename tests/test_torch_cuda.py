@@ -384,6 +384,155 @@ def test_ctc_prefix_kernels_match_plain(dev):
         last, lens = tok, lens + 1
 
 
+# (B, K, T, V, blank, eos): the flagship decode and B=1; K=1 and K=16;
+# V=9 and V=52; T=1; T one frame past the state's 64-frame chunk; T of
+# several state chunks with blank and eos at other ids; T of several psi
+# chunks (256 frames)
+PREFIX_SHAPES = [(128, 8, 174, 52, 0, 1), (1, 8, 174, 52, 0, 1),
+                 (3, 1, 29, 9, 0, 1), (5, 16, 65, 52, 0, 1),
+                 (2, 8, 1, 9, 0, 1), (4, 8, 130, 52, 51, 3),
+                 (2, 4, 700, 9, 8, 2)]
+
+
+def _prefix_lpz(gen, dev, b, t, v, blank):
+    """Masked CTC log-probs: ragged lengths, and a row with one valid
+    frame, whose extensions' psi terms past t=0 all lie at or below
+    LOG_ZERO."""
+    lpz = torch.log_softmax(
+        3 * torch.randn((b, t, v), generator=gen, device=dev), -1)
+    hl = torch.randint(1, t + 1, (b,), generator=gen, device=dev)
+    hl[0] = t
+    if b > 1:
+        hl[-1] = 1
+    pad = torch.full((v,), ctc_prefix.LOG_ZERO, device=dev)
+    pad[blank] = 0.0
+    valid = torch.arange(t, device=dev)[None] < hl[:, None]
+    return torch.where(valid[..., None], lpz, pad).contiguous()
+
+
+def _on_prefix_route(route, kind, fn, *args):
+    """``fn`` with the psi and state kernels forced onto ``route``; checks
+    that it launched ``kind``'s kernel once, there."""
+    before = {n: dict(r) for n, r in ctc_prefix.PREFIX_ROUTE_LAUNCHES.items()}
+    with ctc_prefix._force_prefix_route(route):
+        got = fn(*args)
+    after = ctc_prefix.PREFIX_ROUTE_LAUNCHES
+    assert {n: {r: after[n][r] - before[n][r] for r in after[n]}
+            for n in after} == {
+        n: {r: int(n == kind and r == route) for r in after[n]}
+        for n in after}
+    return got
+
+
+@pytest.mark.parametrize("route", ["utt", "lane"])
+@pytest.mark.parametrize("shape", PREFIX_SHAPES,
+                         ids=["x".join(map(str, s)) for s in PREFIX_SHAPES])
+def test_ctc_prefix_routes_match_plain(dev, route, shape):
+    """psi, the contract-level state and ``prefix_state_step`` on one
+    route against their plain versions over three chained beam steps:
+    empty prefixes first, then repeated tokens and lanes with nothing
+    appended, parents picked at random."""
+    b, k, t, v, blank, eos = shape
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    lpz = _prefix_lpz(gen, dev, b, t, v, blank)
+    r_b = torch.cumsum(lpz[:, :, blank], 1)[:, None].expand(b, k, t)
+    r_b = r_b.contiguous()
+    r_n = torch.full((b, k, t), ctc_prefix.LOG_ZERO, device=dev)
+    last = torch.full((b, k), eos, dtype=torch.int32, device=dev)
+    lens = torch.zeros((b, k), dtype=torch.int32, device=dev)
+    for step in range(3):
+        psi = _on_prefix_route(route, "psi", ctc_prefix.prefix_psi, lpz,
+                               last, lens, r_n, r_b, blank, eos)
+        want = ctc_prefix.prefix_psi_plain(lpz, last, lens, r_n, r_b, blank,
+                                           eos)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(psi, want, rtol=0, atol=1e-3)
+        k_idx = torch.randint(0, k, (b, k), generator=gen, device=dev)
+        tok = torch.randint(0, v, (b, k), generator=gen, device=dev,
+                            dtype=torch.int32)
+        last_par = ctc_prefix.gather_beam(last, k_idx)
+        tok[:, 0] = last_par[:, 0]  # a repeated token (or sos at step 0)
+        append = torch.rand((b, k), generator=gen, device=dev) < 0.7
+        append[:, 0] = True
+        args = (lpz, k_idx, tok, append, last, lens, r_n, r_b, blank)
+        got = _on_prefix_route(route, "state", ctc_prefix.prefix_state_step,
+                               *args)
+        want = ctc_prefix.prefix_state_step_plain(*args)
+        par = (lpz, tok, last_par, ctc_prefix.gather_beam(lens, k_idx),
+               ctc_prefix.gather_beam(r_n, k_idx),
+               ctc_prefix.gather_beam(r_b, k_idx), blank)
+        got_c = _on_prefix_route(route, "state", ctc_prefix.prefix_state,
+                                 *par)
+        want_c = ctc_prefix.prefix_state_plain(*par)
+        torch.cuda.synchronize()
+        for g, w in zip(got + got_c, want + want_c):
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-3)
+        r_n, r_b = got
+        last = torch.where(append, tok, last_par)
+        lens = ctc_prefix.gather_beam(lens, k_idx) + append.to(torch.int32)
+
+
+def test_ctc_prefix_psi_utt_is_deterministic(dev):
+    """Two runs of the psi reduction are bit-identical, and the two routes
+    agree within the tolerance of each against the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    b, k, t, v = 128, 8, 174, 52
+    lpz = _prefix_lpz(gen, dev, b, t, v, 0)
+    r_b = torch.cumsum(lpz[:, :, 0], 1)[:, None].expand(b, k, t).contiguous()
+    r_n = torch.full((b, k, t), ctc_prefix.LOG_ZERO, device=dev)
+    last = torch.randint(2, v, (b, k), generator=gen, device=dev,
+                         dtype=torch.int32)
+    lens = torch.ones((b, k), dtype=torch.int32, device=dev)
+    lens[:, 0] = 0
+    r_n, r_b = ctc_prefix.prefix_state_plain(lpz, last, last * 0 + 1,
+                                             lens * 0, r_n, r_b, 0)
+    args = (lpz, last, lens, r_n, r_b, 0, 1)
+    runs = [_on_prefix_route("utt", "psi", ctc_prefix.prefix_psi, *args)
+            for _ in range(2)]
+    lane = _on_prefix_route("lane", "psi", ctc_prefix.prefix_psi, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    torch.testing.assert_close(runs[0], lane, rtol=0, atol=2e-3)
+
+
+def test_ctc_prefix_utt_refusals(dev):
+    """Forcing the "utt" route past its plans raises before any launch
+    (K > 32 for the state, K x V > 1,024 for psi), the default takes the
+    "lane" route there, and a launch the kernel refuses raises and leaves
+    no error for the next launch."""
+    from robust_e2e_gan_torch.utils.build import launch
+
+    b, k, t, v = 2, 40, 9, 30
+    lpz = torch.log_softmax(torch.randn((b, t, v), device=dev), -1)
+    ints = torch.zeros((b, k), dtype=torch.int32, device=dev)
+    rows = torch.zeros((b, k, t), device=dev)
+    before = {n: dict(r) for n, r in ctc_prefix.PREFIX_ROUTE_LAUNCHES.items()}
+    with ctc_prefix._force_prefix_route("utt"):
+        with pytest.raises(ValueError, match="utt route"):
+            ctc_prefix.prefix_psi(lpz, ints, ints, rows, rows, 0, 1)
+        with pytest.raises(ValueError, match="utt route"):
+            ctc_prefix.prefix_state(lpz, ints, ints, ints, rows, rows, 0)
+    assert ctc_prefix.PREFIX_ROUTE_LAUNCHES == before
+    _on_prefix_route("lane", "psi", ctc_prefix.prefix_psi, lpz, ints, ints,
+                     rows, rows, 0, 1)
+    ctc_prefix.prefix_state(lpz, ints + 1, ints, ints, rows, rows, 0)
+    assert ctc_prefix.PREFIX_ROUTE_LAUNCHES["state"]["lane"] == (
+        before["state"]["lane"] + 1)
+    out = torch.empty((b, k, t), device=dev)
+    with pytest.raises(RuntimeError, match="ctc_prefix_state_utt"):
+        launch("ctc_prefix_state_utt", lpz.data_ptr(), 0, ints.data_ptr(), 0,
+               ints.data_ptr(), ints.data_ptr(), rows.data_ptr(),
+               rows.data_ptr(), out.data_ptr(), out.data_ptr(), b, k, t, v, 0,
+               64, torch.cuda.current_stream(dev).cuda_stream)
+    small = (lpz, ints[:, :8] + 2, ints[:, :8], ints[:, :8], rows[:, :8],
+             rows[:, :8], 0)
+    got = _on_prefix_route("utt", "state", ctc_prefix.prefix_state, *small)
+    want = ctc_prefix.prefix_state_plain(*small)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-3)
+
+
 def _train_inputs(gen, dev, b, t, d, h, dtype):
     x = torch.randn((b, t, d), generator=gen, device=dev)
     wx = (torch.randn((2, d, 4 * h), generator=gen, device=dev)

@@ -258,6 +258,9 @@ def test_inference_wrappers_refuse_autograd():
             leaf(b, t, v), ints, ints, leaf(b, k, t), leaf(b, k, t), 0, 1),
         "prefix_state": lambda: ctc_prefix.prefix_state(
             leaf(b, t, v), ints, ints, ints, leaf(b, k, t), leaf(b, k, t), 0),
+        "prefix_state_step": lambda: ctc_prefix.prefix_state_step(
+            leaf(b, t, v), ints.long() * 0, ints, ints > 0, ints, ints,
+            leaf(b, k, t), leaf(b, k, t), 0),
         "fbank_fused": lambda: fbank_fused.fbank_fused(
             leaf(b, 800), FrontendConfig(n_mels=8)),
         "lm_step": lambda: lm_step.lm_step(
