@@ -23,8 +23,13 @@ Phases, each of which exits non-zero on failure:
    CTC prefix psi, state and beam-step state (prefix_state_step) on both
    of their routes, one block per utterance and one thread per lane
    (csrc/ctc_prefix.cu, with their plans), timed in turns with the host
-   ahead, at B=128 and B=16; the fused decoder step at the flagship's
-   decoder widths), in float32 with
+   ahead, at B=128 and B=16; the fused decoder step on both of its
+   routes, the attention an utterance a block then the cell over all
+   lanes on a co-resident grid (csrc/att_dec_utt.cu, with its plan) and
+   one block per utterance for the whole step (csrc/att_dec.cu), at the
+   flagship's decoder widths at B=128 and B=16 and at the decode CLI's
+   float32 model, timed in turns with the attention step alone and the
+   plain version, the host ahead), in float32 with
    TF32 off and in bfloat16, with the time of each; one BLSTM layer too
    wide for the W_x-resident kernel, which must take the gate-stream one;
    then the training kernels, forward and every gradient, at the train
@@ -95,23 +100,29 @@ Phases, each of which exits non-zero on failure:
 12. the serving entry point: ``decode.cli`` on phase 7's experiment (the
     CLI's default model, float32) over a manifest of 128 .npy utterances
     of its task, one batch, beam 8, 48 steps without early exit:
-    ``--serving-impls fused`` must launch the fused decoder step 48 times
-    beside the BLSTM (float32: the row-tiled kernel) and prefix kernels
-    with no plain version;
+    ``--serving-impls fused`` must launch the fused decoder step 48 times,
+    every one on its per-utterance route, beside the BLSTM (float32: the
+    row-tiled kernel) and prefix kernels with no plain version;
     ``--serving-impls xla`` on the same inputs must agree on the best
     scores;
 13. the fused-step A/B: phase 4's traffic through the fused decoder step
-    and the unfused one, in turns, with one profiled batch of each;
+    (every launch on its per-utterance route), the unfused one and the
+    fused one forced to its per-hypothesis route (one batch, whose
+    launches that kernel's are), in turns, with one profiled batch of
+    each (its decoder-step rows) and one profiled search of each (its
+    launches a beam step);
 14. the per-utterance CTC prefix kernel (``prefix_impl="pallas"``) on
     phase 4's traffic (every attention step and state launch on the
     per-utterance route), against the tiled prefix kernels in turns with
     one profiled batch of each, then an f32 B=16 parity against them.
 
-The line before the last is a JSON object of the 18 kernels (the
+The line before the last is a JSON object of the 19 kernels (the
 attention's two routes as ``att_loc_step`` and ``att_loc_step_hyp``, the
 CTC prefix kernels' as ``ctc_prefix_psi_utt``/``ctc_prefix_state_utt``
-and ``ctc_prefix_psi``/``ctc_prefix_state``; the second of each pair has
-phase 4's forced batch's launches); the last line is
+and ``ctc_prefix_psi``/``ctc_prefix_state``, the second of each pair
+with phase 4's forced batch's launches; the fused step's as
+``att_dec_step``, with phase 12's launches, and ``att_dec_step_hyp``,
+with phase 13's forced batch's); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -134,7 +145,10 @@ import torch.nn.functional as F
 from robust_e2e_gan_torch import config as config_lib
 from robust_e2e_gan_torch import pipeline
 from robust_e2e_gan_torch.config import (
+    AttentionConfig,
     BeamSearchConfig,
+    DecoderConfig,
+    EncoderConfig,
     JointConfig,
     LMConfig,
     TrainConfig,
@@ -285,10 +299,19 @@ KERNELS = {
         wrapper=lm_step.lm_step, plain=lm_step.lm_step_plain,
         source="robust_e2e_gan_torch/csrc/lm_step.cu",
         replaces="robust_e2e_gan_tpu/ops/lm_step_pallas.py:104"),
+    # att_dec_step's two routes (ops/att_dec.py::utt_plan), counted by route
     "att_dec_step": dict(
         wrapper=att_dec.att_dec_step, plain=att_dec.att_dec_step_plain,
+        dec_route="utt",
+        source="robust_e2e_gan_torch/csrc/att_dec_utt.cu",
+        replaces="robust_e2e_gan_tpu/ops/att_pallas.py:416 "
+                 "(pallas_call :530)"),
+    "att_dec_step_hyp": dict(
+        wrapper=att_dec.att_dec_step, plain=att_dec.att_dec_step_plain,
+        dec_route="hyp",
         source="robust_e2e_gan_torch/csrc/att_dec.cu",
-        replaces="robust_e2e_gan_tpu/ops/att_pallas.py:416"),
+        replaces="robust_e2e_gan_tpu/ops/att_pallas.py:416 "
+                 "(pallas_call :530)"),
     "ctc_prefix_utt": dict(
         wrapper=ctc_prefix.prefix_psi_utt,
         plain=ctc_prefix.prefix_psi_recursion_plain,
@@ -336,6 +359,11 @@ INFER_ROUTES = ("cluster", "row_tiled")
 # chosen by ops/att.py::utt_plan, and one block per hypothesis past it
 # (csrc/att_loc.cu)
 ATT_ROUTES = ("utt", "hyp")
+# att_dec_step's two routes: the attention an utterance a block, then the
+# cell over all lanes on a co-resident grid (csrc/att_dec_utt.cu) wherever
+# ops/att_dec.py::utt_plan fits, and one block an utterance for the whole
+# step past it (csrc/att_dec.cu)
+DEC_ROUTES = ("utt", "hyp")
 # the CTC prefix kernels' two routes: one block per utterance, chosen by
 # ops/ctc_prefix.py::psi_plan and state_plan, and one thread per lane past
 # them (both csrc/ctc_prefix.cu)
@@ -364,6 +392,8 @@ def reset_counts() -> None:
         blstm.INFER_ROUTE_LAUNCHES[route] = 0
     for route in ATT_ROUTES:
         att.ATT_ROUTE_LAUNCHES[route] = 0
+    for route in DEC_ROUTES:
+        att_dec.DEC_ROUTE_LAUNCHES[route] = 0
     for kind in ctc_prefix.PREFIX_ROUTE_LAUNCHES.values():
         for route in PREFIX_ROUTES:
             kind[route] = 0
@@ -376,6 +406,8 @@ def launch_count(name: str) -> int:
     if "prefix" in k:
         kind, route = k["prefix"]
         return ctc_prefix.PREFIX_ROUTE_LAUNCHES[kind][route]
+    if "dec_route" in k:
+        return att_dec.DEC_ROUTE_LAUNCHES[k["dec_route"]]
     if "route" in k:
         routes = (att.ATT_ROUTE_LAUNCHES if k["route"] in ATT_ROUTES
                   else blstm.INFER_ROUTE_LAUNCHES)
@@ -422,6 +454,24 @@ def on_att_route(route, fn):
         with att._force_att_route(route):
             return fn(*args)
     return run
+
+
+def on_dec_route(route, fn):
+    """``fn`` with every ``att_dec_step`` launch on ``route``."""
+    def run(*args):
+        with att_dec._force_dec_route(route):
+            return fn(*args)
+    return run
+
+
+def require_utt_dec(where: str, n: int) -> None:
+    """Every fused decoder step since the last reset, ``n`` of them, took
+    route "utt"."""
+    routes = dict(att_dec.DEC_ROUTE_LAUNCHES)
+    print(f"  att_dec_step launches by route {routes}")
+    require(routes == {"utt": n, "hyp": 0},
+            f"{where}: not every fused decoder step took the utt route: "
+            f"{routes}, expected {n}")
 
 
 def require_resident(where: str) -> None:
@@ -924,40 +974,77 @@ def kernel_parity(b: int, t_enh: int, t_enc: int, jcfg, dev) -> dict:
     print(f"    host time per call: ctc_prefix_utt {host_us(utt_kernel):.1f} "
           "us")
 
-    # the fused decoder step at the flagship's decoder widths
+    rows, ok = dec_step_parity(gen, b, t_enc, jcfg, dev)
+    res.update(rows)
+    ok_all &= ok
+    require(ok_all, "a kernel disagrees with its plain version")
+    return res
+
+
+def dec_step_parity(gen, b, t_enc, jcfg, dev):
+    """The fused decoder step on both routes against its plain version,
+    timed in turns: (the kernels line's rows, all agreed)."""
+    acfg = jcfg.e2e.attention
+    e_dim = jcfg.e2e.encoder.proj_dim
+    f32, bf16 = torch.float32, torch.bfloat16
+    res, ok_all = {}, True
+    # the flagship's decoder widths at B=128 and B=16, and the decode
+    # CLI's f32 model (A = E = EMB = H = 512, V = 12) at its task's longest
+    # utterance; timed in turns with att_loc_step alone (the attention that
+    # the fused step adds the cell to, on its default route) and the plain
+    # version, the host ahead
     emb_dim = jcfg.e2e.decoder.embed_dim
     h_dec = jcfg.e2e.decoder.hidden_dim
-    for dt in (f32, bf16):
-        args = dec_step_inputs(gen, b, BEAM, t_enc, acfg, e_dim, emb_dim,
-                               h_dec, VOCAB, dt, dev)
-        got = att_dec.att_dec_step(*args)
+    cli = DecoderConfig()  # the train and decode CLIs' defaults
+    t_cli = subsampled_frames(num_frames(SyntheticConfig().max_samples,
+                                         jcfg.e2e.frontend))
+    cases = [("flagship", bb, dt, t_enc, acfg, e_dim, emb_dim, h_dec, VOCAB)
+             for bb in (b, 16) for dt in (f32, bf16)]
+    cases.append(("CLI", b, f32, t_cli, AttentionConfig(),
+                  EncoderConfig().proj_dim, cli.embed_dim, cli.hidden_dim,
+                  SyntheticConfig().vocab_size))
+    for tag, bb, dt, t, dcfg, e, embd, h, v in cases:
+        args = dec_step_inputs(gen, bb, BEAM, t, dcfg, e, embd, h, v, dt,
+                               dev)
         want = att_dec.att_dec_step_plain(*args)
         tol = (dict(rtol=1e-4, atol=1e-5) if dt == f32
                else dict(scale_atol=2e-2))
-        err, ok = compare(f"att_dec_step B={b} K={BEAM} T={t_enc} "
-                          f"EMB={emb_dim} H={h_dec} V={VOCAB} {dt}",
-                          got, want, **tol)
-        ok_all &= ok
-        if dt == bf16:
-            c, a = acfg.conv_channels, acfg.dim
-            n = b * BEAM
+        errs = {}
+        for route in DEC_ROUTES:
+            got = on_dec_route(route, att_dec.att_dec_step)(*args)
+            errs[route], ok = compare(
+                f"att_dec_step {route} {tag} B={bb} K={BEAM} T={t} "
+                f"A={dcfg.dim} E={e} EMB={embd} H={h} V={v} {dt}", got,
+                want, **tol)
+            ok_all &= ok
+        plan = att_dec._utt(bb, BEAM, t, dcfg.conv_channels, dcfg.dim, e,
+                            embd, h, v, args[2])
+        print(f"    utt plan (chunk frames, column splits, readout columns, "
+              f"grid, shared memory bytes) {plan}")
+        fns = [on_dec_route(r, lambda: att_dec.att_dec_step(*args))
+               for r in DEC_ROUTES]
+        ms = cuda_ms_in_turns(
+            fns + [lambda: att.att_loc_step(*args[:8]),
+                   lambda: att_dec.att_dec_step_plain(*args)], 20,
+            ahead=True)
+        print(f"    {tag} B={bb} {dt} ms in turns: utt {ms[0]:.4f}, hyp "
+              f"{ms[1]:.4f}, att_loc_step alone {ms[2]:.4f}, plain "
+              f"{ms[3]:.4f}; host time per call: utt {host_us(fns[0]):.1f} "
+              f"us, hyp {host_us(fns[1]):.1f} us")
+        if tag == "flagship" and bb == b and dt == bf16:
+            c, a = dcfg.conv_channels, dcfg.dim
+            n = bb * BEAM
             # the attention as att_loc_step, then per lane the gate products
             # over [emb | ctx | z], the readout over [z | ctx] and ~10
             # operations per unit for the cell
-            flops = (n * (t_enc * (2 * c * a + 6 * a + 5) + 2 * t_enc * e_dim)
-                     + n * (2 * (emb_dim + e_dim + h_dec) * 4 * h_dec
-                            + 2 * (h_dec + e_dim) * VOCAB + 10 * h_dec))
-            res["att_dec_step"] = entry(
-                "att_dec_step", err,
-                cuda_ms(lambda: att_dec.att_dec_step(*args), 20),
-                cuda_ms(lambda: att_dec.att_dec_step_plain(*args), 20),
-                flops, nbytes(args[:7], args[8:], got), dt)
-            print("    host time per call: att_dec_step "
-                  f"{host_us(lambda: att_dec.att_dec_step(*args)):.1f} us, "
-                  "att_loc_step "
-                  f"{host_us(lambda: att.att_loc_step(*args[:8])):.1f} us")
-    require(ok_all, "a kernel disagrees with its plain version")
-    return res
+            flops = (n * (t * (2 * c * a + 6 * a + 5) + 2 * t * e)
+                     + n * (2 * (embd + e + h) * 4 * h
+                            + 2 * (h + e) * v + 10 * h))
+            for name, route, m in (("att_dec_step", "utt", ms[0]),
+                                   ("att_dec_step_hyp", "hyp", ms[1])):
+                res[name] = entry(name, errs[route], m, ms[3], flops,
+                                  nbytes(args[:7], args[8:], want), dt)
+    return res, ok_all
 
 
 def dec_step_inputs(gen, b, k, t, acfg, e, emb_dim, h, v, dtype, dev):
@@ -1568,7 +1655,8 @@ def main_path(b, n_batches, state, dev):
     # kernels and without (the "lane" route)
     for route in PREFIX_ROUTES:
         on_prefix_route(route, search_profile)(model, kcfg, bcfg,
-                                               *batches[0], route)
+                                               *batches[0],
+                                               f"{route} CTC prefix")
 
     pcfg = with_impls(kcfg, "scan", "xla", "bfloat16")
     plain_model = load(pcfg, state, dev)
@@ -1582,9 +1670,10 @@ def main_path(b, n_batches, state, dev):
     return launches, k_ms
 
 
-def search_profile(model, jcfg, bcfg, wav, lens, tag):
+def search_profile(model, jcfg, bcfg, wav, lens, tag, pick=PREFIX_KERNELS):
     """One warm search from the encoder's outputs under the profiler: its
-    device rows of the CTC prefix kernels and its launches a beam step."""
+    device rows of the kernels whose names hold one of ``pick`` (the CTC
+    prefix kernels) and its launches a beam step."""
     with torch.inference_mode():
         hs, hmask, hlens, ctc_logits, enc_proj = model.encode_for_decode(
             wav, lens, True)
@@ -1595,8 +1684,8 @@ def search_profile(model, jcfg, bcfg, wav, lens, tag):
                 hlens, enc_proj, ctc_logits, jcfg.e2e, bcfg)
 
         run()
-        print(f"  {tag} CTC prefix, one profiled search:")
-        busy_ms, n_launch, _ = device_profile(run, 0, pick=PREFIX_KERNELS)
+        print(f"  {tag}, one profiled search:")
+        busy_ms, n_launch, _ = device_profile(run, 0, pick=pick)
     print(f"    search: {n_launch} launches, {n_launch / STEPS:.1f} a beam "
           f"step over {STEPS} steps; device kernels {busy_ms:.1f} ms")
 
@@ -2074,8 +2163,13 @@ def decode_cli_path(ckpt, work):
     launches, plain_calls = runs["fused"]
     path = {n: launches[n] for n in CLI_SERVING}
     print(f"  fused launches {path}  plain calls {plain_calls}")
-    require(path["att_dec_step"] == STEPS,
-            f"att_dec_step launched {path['att_dec_step']} times, not {STEPS}")
+    print(f"  fused step launches by route: utt {path['att_dec_step']}, hyp "
+          f"{launches['att_dec_step_hyp']}")
+    require(path["att_dec_step"] == STEPS
+            and launches["att_dec_step_hyp"] == 0,
+            f"att_dec_step launched {path['att_dec_step']} times on route "
+            f"utt and {launches['att_dec_step_hyp']} on hyp, not {STEPS} "
+            f"on utt")
     require(all(v > 0 for v in path.values()),
             f"a kernel of the fused path never launched: {path}")
     require(launches["att_loc_step"] == 0,
@@ -2106,17 +2200,19 @@ def with_step_impl(jcfg, step_impl):
 
 
 def fused_step_ab(b, n_batches, state, dev, phase4_ms):
-    """Phase 13: phase 4's traffic with the fused decoder step, against the
-    unfused step in turns (unfused, fused, fused, unfused), and one
-    profiled warm batch of each."""
+    """Phase 13: phase 4's traffic with the fused decoder step (every launch
+    on route "utt"), against the unfused step and the fused step on route
+    "hyp" in turns (A, B, C, C, B, A), one profiled warm batch of each
+    with its decoder-step rows, and one profiled search of each: its
+    launches a beam step."""
     bcfg = BeamSearchConfig(beam_size=BEAM, ctc_weight=0.3, max_steps=STEPS,
                             early_exit=False)
     base = with_impls(flagship_config(VOCAB), "auto", "auto", "bfloat16")
-    searchers = {}
+    searchers, models = {}, {}
     for tag, step_impl in (("unfused step", "auto"), ("fused step", "fused")):
         cfg = with_step_impl(base, step_impl)
-        searchers[tag] = make_beam_searcher(load(cfg, state, dev), cfg.e2e,
-                                            bcfg)
+        models[tag] = (load(cfg, state, dev), cfg)
+        searchers[tag] = make_beam_searcher(models[tag][0], cfg.e2e, bcfg)
     batches = [batch_tensors(b, seed, dev) for seed in range(n_batches)]
     reset_counts()
     for wav, lens in batches:
@@ -2125,20 +2221,42 @@ def fused_step_ab(b, n_batches, state, dev, phase4_ms):
     print(f"  fused step, first pass: launches {launches}")
     require(launches["att_dec_step"] == n_batches * STEPS,
             f"att_dec_step launched {launches['att_dec_step']} times")
+    require_utt_dec("phase 13", n_batches * STEPS)
     require(KERNELS["att_loc_step"]["wrapper"].launches == 0,
             "the fused step ran beside the attention kernel")
     require(not any(plain_calls.values()),
             f"a plain version ran with the fused step: {plain_calls}")
-    in_turns(searchers, batches, b)
+    before = dict(att_dec.DEC_ROUTE_LAUNCHES)
+    check_result(on_dec_route("hyp", searchers["fused step"])(*batches[0]),
+                 b)
+    hyp = {r: att_dec.DEC_ROUTE_LAUNCHES[r] - before[r] for r in DEC_ROUTES}
+    print(f"  one batch with the fused step forced to hyp: launches {hyp}")
+    require(hyp == {"utt": 0, "hyp": STEPS},
+            f"the forced hyp batch launched {hyp}")
+    launches["att_dec_step_hyp"] = hyp["hyp"]
+    searchers["fused step, hyp route"] = on_dec_route(
+        "hyp", searchers["fused step"])
+    # the decoder-step rows: the fused step's two kernels, the unfused
+    # step's attention
+    step_rows = ("att_dec_utt_kernel", "att_dec_kernel", "att_utt_kernel")
+    in_turns(searchers, batches, b, pick=step_rows)
     print(f"  (phase 4's kernel path: {b * 1e3 / phase4_ms:.2f} utt/s, "
           f"{phase4_ms:.1f} ms/batch)")
+    for tag, route in (("unfused step", "utt"), ("fused step", "utt"),
+                       ("fused step", "hyp")):
+        model, cfg = models[tag]
+        on_dec_route(route, search_profile)(
+            model, cfg, bcfg, *batches[0],
+            tag if tag == "unfused step" else f"{tag}, {route} route",
+            step_rows)
     return launches
 
 
-def in_turns(searchers, batches, b):
+def in_turns(searchers, batches, b, pick=()):
     """Warm ms per batch of the searchers timed in turns (A, B, B, A, or
     A, B, C, C, B, A, over the batches), and one profiled warm batch of
-    each: its device time, busy share and launches."""
+    each: its device time, busy share and launches, and its device rows of
+    the kernels whose names hold one of ``pick``."""
     tags = list(searchers)
     ms = {tag: [] for tag in tags}
     for tag in tags + tags[::-1]:
@@ -2149,7 +2267,7 @@ def in_turns(searchers, batches, b):
         wav, lens = batches[0]
         _, wall_ms = timed(lambda: searchers[tag](wav, lens))
         busy_ms, n_launch, _ = device_profile(
-            lambda: searchers[tag](wav, lens), 8)
+            lambda: searchers[tag](wav, lens), 8, pick=pick)
         print(f"  {tag}: {b * 1e3 / mean_ms:.2f} utt/s, "
               f"{mean_ms:.1f} ms/batch (mean of {len(ms[tag])} warm "
               f"batches, in turns); profiled batch: device kernels "
@@ -2315,7 +2433,7 @@ def later_phases(state, state_d, dev, work, phase4_ms) -> dict:
 
     # 13. the fused-step A/B
     print("fused decoder step A/B (phase 4's traffic, bfloat16):")
-    fused_step_ab(BATCH, N_BATCHES, state, dev, phase4_ms)
+    fused_launches = fused_step_ab(BATCH, N_BATCHES, state, dev, phase4_ms)
 
     # 14. the per-utterance prefix search
     print("per-utterance CTC prefix search (phase 4's traffic, "
@@ -2326,6 +2444,7 @@ def later_phases(state, state_d, dev, work, phase4_ms) -> dict:
             "fbank_fused": clean_launches["fbank_fused"],
             "lm_step": clean_launches["lm_step"],
             "att_dec_step": dec_launches["att_dec_step"],
+            "att_dec_step_hyp": fused_launches["att_dec_step_hyp"],
             "blstm_infer_row_tiled": dec_launches["blstm_infer_row_tiled"],
             "ctc_prefix_utt": utt_launches["ctc_prefix_utt"]}
 

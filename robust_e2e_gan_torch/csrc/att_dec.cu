@@ -14,12 +14,20 @@
 // rounded for the recurrent product and the readout. The context, gates and
 // cell intermediates never touch device memory.
 //
-// What bounds it on Hopper: at the flagship's decode shapes (B = 128, K = 8,
-// T = 174, A = E = EMB = H = 256, V = 52) the attention reads enc_proj and
-// enc once per utterance from L2, and the cell needs ~0.8 GFLOP against
-// ~1.5-3 MB of weights, so the card's arithmetic rate bounds the work far
-// below one launch's cost; in practice every block re-reads the weights
-// from L2 and the hypotheses' attention runs one after another.
+// This is route "hyp" of ops/att_dec.py::att_dec_step: csrc/att_dec_utt.cu
+// (route "utt") runs every shape its plan fits, and this kernel the others
+// (K > 16, C > 32, H not a multiple of 8).
+//
+// What bounds it on Hopper, as measured (PERF.md, row 5; NVIDIA H100 80GB
+// HBM3): 0.464 ms a launch at the flagship's decode shapes (B = 128, K = 8,
+// T = 174, A = E = EMB = H = 256, V = 52, bfloat16), 0.556 ms at the decode
+// CLI's float32 model (A = E = EMB = H = 512, V = 12, T = 30), against
+// ~0.08 ms for the attention alone. A block runs its K hypotheses'
+// attention one after another, each re-reading enc_proj and enc and
+// running the location projection on the CUDA cores, and then every one
+// of the B blocks reads all of Wx and Wh from L2 (1.5 MB in bfloat16 at
+// the flagship, 12.6 MB in the CLI's float32) for its K lanes, one FMA per
+// weight and lane.
 //
 // Design: a block owns one utterance's K lanes, as the TPU kernel batches
 // over BB*K lanes, so each weight row it reads serves all of them. It runs

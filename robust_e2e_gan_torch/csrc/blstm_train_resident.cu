@@ -68,36 +68,6 @@ constexpr int RD = 8;    // rows per lane in the dh product
 constexpr int RK = 4;    // columns per lane in the dh product
 constexpr int LINE = 32;  // ints between the two directions' counters
 
-__device__ __forceinline__ float ld_cg(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ float ld_cg(const __nv_bfloat16* p) {
-  return __bfloat162float(
-      __ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
-}
-
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-// The block's writes of this step are done (the CTA barrier orders them
-// before thread 0's release); thread 0 counts the block in.
-__device__ __forceinline__ void grid_arrive(unsigned* count) {
-  __syncthreads();
-  if (threadIdx.x == 0)
-    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(count) : "memory");
-}
-
-// Wait until `target` arrivals have been counted: thread 0 acquires, the
-// CTA barrier orders the block's later reads after it.
-__device__ __forceinline__ void grid_wait(const unsigned* count, unsigned target) {
-  if (threadIdx.x == 0) {
-    while (ld_acquire(count) < target) {
-    }
-  }
-  __syncthreads();
-}
-
 // Dynamic shared memory of one block (ops/blstm_train.py::resident_smem
 // computes the same size).
 template <typename W>
@@ -261,7 +231,7 @@ __device__ void stage_rows(float* h, const W* y_ext, const int* len, int s, int 
         if constexpr (VEC == 4) {
           if (s < l) v[j] = ld4_cg(p);
         } else {
-          if (s < l) v[j].x = ld_cg(p);
+          if (s < l) v[j].x = rg::ld_cg(p);
         }
       }
 #pragma unroll
@@ -397,7 +367,7 @@ __device__ void dh_sums(float* dh, const float* prev, int B, int H, int NU, int 
 #pragma unroll
       for (int j = 0; j < RU; ++j) {
         const int q = q0 + j * tpi;
-        v[j] = on && q < P ? ld_cg(pr + q * stride) : 0.f;
+        v[j] = on && q < P ? rg::ld_cg(pr + q * stride) : 0.f;
       }
 #pragma unroll
       for (int j = 0; j < RU; ++j) acc += v[j];
@@ -487,7 +457,7 @@ fwd_resident(const float* __restrict__ gx,     // (B, T, 2, 4H)
       prefetch_gx(sm.gate + ((s + 1) & 1) * B * C, gx, sm.len, s + 1, z, B, T, H, NU, u0);
       cp_async_commit();
     }
-    if (s > 0) grid_wait(count + z * LINE, (unsigned)s * P);
+    if (s > 0) rg::grid_wait(count + z * LINE, (unsigned)s * P);
     stage_h(sm.h, y_ext, sm.len, s, z, B, T, H, s == 0);
     if (ahead)
       cp_async_wait<1>();  // this step's gx
@@ -510,7 +480,7 @@ fwd_resident(const float* __restrict__ gx,     // (B, T, 2, 4H)
       y_ext[row] = rg::from_f<W>(hn);
       c_ext[row] = cn;
     }
-    grid_arrive(count + z * LINE);
+    rg::grid_arrive(count + z * LINE);
   }
 
   // pad frames of the block's units: zero outputs; every residual row no
@@ -581,7 +551,7 @@ bwd_resident(const float* __restrict__ gx,      // (B, T, 2, 4H)
     gate_product(sm.hb + (s & 1) * B * H, sm.w, gate, B, H, C);
     const bool first = s == steps - 1;
     if (!first) {
-      grid_wait(count + z * LINE, (unsigned)(steps - 1 - s) * P);
+      rg::grid_wait(count + z * LINE, (unsigned)(steps - 1 - s) * P);
       // step s + 1 wrote the other parity
       dh_sums(sm.dh, part + (size_t)(z * 2 + ((s + 1) & 1)) * slab, B, H, NU, P, u0);
     }
@@ -625,7 +595,7 @@ bwd_resident(const float* __restrict__ gx,      // (B, T, 2, 4H)
     __syncthreads();
     dh_product(sm.dg, sm.w, part + (size_t)(z * 2 + (s & 1)) * slab + (size_t)p * B * H, B, H,
                C);
-    grid_arrive(count + z * LINE);
+    rg::grid_arrive(count + z * LINE);
   }
 
   // pad frames of the block's units: zero dgates

@@ -48,6 +48,16 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p
                : "memory");
 }
 
+// The same with .trans: lane l addresses row l % 8 of matrix l / 8 of a
+// matrix stored row by row, and receives its transpose's fragment (the B
+// operand of mma16816 from a k-major, n-contiguous tile).
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
 // d += a b for a 16x16 A (row-major fragments) and a 16x8 B, bfloat16
 // operands, float32 accumulators (mma.sync m16n8k16).
 __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -56,6 +66,44 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Loads that bypass L1 (cached in L2 only): for data that other blocks of
+// the same launch wrote before a grid barrier.
+__device__ __forceinline__ float ld_cg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float ld_cg(const __nv_bfloat16* p) {
+  return __bfloat162float(
+      __ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// A grid barrier on a generation counter, for a co-resident grid (a
+// cooperative launch): every block arrives once per barrier, and a block
+// waits until the counter reaches the barrier's target. The counter only
+// grows; the wait compares modulo 2^32, so a counter that is never reset
+// serves launch after launch when each launch is given its starting value.
+//
+// The block's writes before the barrier are done (the CTA barrier orders
+// them before thread 0's release); thread 0 counts the block in.
+__device__ __forceinline__ void grid_arrive(unsigned* count) {
+  __syncthreads();
+  if (threadIdx.x == 0)
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(count) : "memory");
+}
+
+// Wait until the counter has reached `target`: thread 0 acquires, the CTA
+// barrier orders the block's later reads after it.
+__device__ __forceinline__ void grid_wait(const unsigned* count, unsigned target) {
+  if (threadIdx.x == 0) {
+    while ((int)(ld_acquire(count) - target) < 0) {
+    }
+  }
+  __syncthreads();
 }
 
 // Lets Kernel take `bytes` of dynamic shared memory. The attribute is set

@@ -35,6 +35,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
 _L = ctypes.c_longlong
 # C entry points: name -> argtypes (every function returns cudaError_t)
 SIGNATURES = {
@@ -99,6 +100,11 @@ SIGNATURES = {
     # bout, z_in, c_in, logits, att, z_out, c_out, B, K, T, C, A, E, V, EMB,
     # H, sharpening, bf16, stream
     "att_dec_step": [_P] * 20 + [_I] * 9 + [_F, _I, _P],
+    # the same 20 pointers, xin and zq scratch, the barrier counter, B, K,
+    # T, C, A, E, V, EMB, H, chunk frames, column splits, readout columns
+    # a chunk, grid, shared-memory bytes, the counter's value, sharpening,
+    # bf16, stream
+    "att_dec_utt": [_P] * 23 + [_I] * 14 + [_U, _F, _I, _P],
     # lpz, last_tok, lengths, r_n, r_b, psi, B, K, T, V, blank, eos, stream
     "ctc_prefix_utt": [_P] * 6 + [_I] * 6 + [_P],
     # x, wx, wh, bias, lengths, out, B, T, D, DW (wx rows), H,

@@ -1041,6 +1041,134 @@ def test_att_dec_kernel_matches_plain(dev, dtype, k, h):
             rnd(b, big, h, dt=f32), rnd(b, big, h, dt=f32))
 
 
+def _dec_args(gen, dev, b, k, t, c, a, e, embd, h, v, dtype, lens):
+    """att_dec_step's arguments at its tests' scales, mask from lens."""
+    f32 = torch.float32
+
+    def rnd(*shape, scale=1.0, dt=dtype):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dt)
+
+    return (*_att_args(gen, dev, b, k, t, c, a, e, dtype, lens), 2.0,
+            torch.randint(0, v, (b, k), generator=gen, device=dev),
+            rnd(v, embd), rnd(embd + e, 4 * h, scale=(embd + e) ** -0.5),
+            rnd(h, 4 * h, scale=h ** -0.5), rnd(4 * h, scale=0.3, dt=f32),
+            rnd(h + e, v, scale=(h + e) ** -0.5), rnd(v, scale=0.3, dt=f32),
+            rnd(b, k, h, scale=0.5, dt=f32), rnd(b, k, h, scale=0.5, dt=f32))
+
+
+def _dec_on_route(route, *args):
+    """att_dec_step forced onto ``route``; checks that it launched there."""
+    from robust_e2e_gan_torch.ops import att_dec
+
+    before = dict(att_dec.DEC_ROUTE_LAUNCHES)
+    with att_dec._force_dec_route(route):
+        got = att_dec.att_dec_step(*args)
+    after = dict(att_dec.DEC_ROUTE_LAUNCHES)
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == route) for k in after}
+    return got
+
+
+# (B, K, T, C, A, E, EMB, H, V): one utterance; more utterances than the
+# grid's blocks (132 on an H100) with K = 3 and H = 40, not a multiple of
+# the 32-unit tile; K = 1 and V = 300, past one readout chunk of threads;
+# K = 16 with V = 300; the flagship's widths
+DEC_SHAPES = [(1, 8, 37, 10, 64, 48, 40, 64, 9),
+              (150, 3, 29, 10, 64, 48, 40, 40, 9),
+              (5, 1, 37, 10, 64, 48, 40, 64, 300),
+              (4, 16, 50, 10, 64, 48, 40, 256, 300),
+              (3, 8, 174, 10, 256, 256, 256, 256, 52)]
+
+
+@pytest.mark.parametrize("route", ["utt", "hyp"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", DEC_SHAPES,
+                         ids=["x".join(map(str, s)) for s in DEC_SHAPES])
+def test_att_dec_routes_match_plain(dev, shape, dtype, route):
+    """Both routes of the fused decoder step against the plain version:
+    ragged masks with the last row empty (where B > 1), whose att is exact
+    zeros, and pad frames exact zeros."""
+    from robust_e2e_gan_torch.ops import att_dec
+
+    b, k, t, c, a, e, embd, h, v = shape
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    lens = torch.randint(1, t + 1, (b,), generator=gen, device=dev).tolist()
+    lens[0] = t
+    if b > 1:
+        lens[-1] = 0
+    args = _dec_args(gen, dev, b, k, t, c, a, e, embd, h, v, dtype, lens)
+    got = _dec_on_route(route, *args)
+    want = att_dec.att_dec_step_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        torch.testing.assert_close(g, w, **_tol(dtype, w))
+    pad = torch.arange(t, device=dev)[None] >= torch.tensor(lens, device=dev)[:, None]
+    assert not got[1].permute(0, 2, 1)[pad].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_att_dec_utt_is_deterministic_and_agrees(dev, dtype):
+    """Two runs of route "utt" at the flagship's decode shape are
+    bit-identical, and the two routes agree within the tolerance of each
+    against the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    lens = torch.randint(87, 175, (128,), generator=gen, device=dev).tolist()
+    args = _dec_args(gen, dev, 128, 8, 174, 10, 256, 256, 256, 256, 52, dtype,
+                     lens)
+    runs = [_dec_on_route("utt", *args) for _ in range(2)]
+    hyp = _dec_on_route("hyp", *args)
+    torch.cuda.synchronize()
+    for r0, r1, hh in zip(*runs, hyp):
+        assert torch.equal(r0, r1)
+        torch.testing.assert_close(r0, hh, **_tol(dtype, hh))
+
+
+def test_att_dec_utt_refusals(dev):
+    """Forcing route "utt" past its plan (K = 17, H not a multiple of 8)
+    raises before any launch; a launch whose shared-memory bytes disagree
+    with the kernel's layout, or whose grid cannot be co-resident, raises,
+    never runs, and leaves no error for the next launch."""
+    from robust_e2e_gan_torch.ops import att_dec
+    from robust_e2e_gan_torch.utils.build import launch
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    for k, h in ((17, 64), (8, 20)):
+        args = _dec_args(gen, dev, 2, k, 20, 10, 64, 48, 40, h, 9,
+                         torch.bfloat16, [20, 7])
+        routes = dict(att_dec.DEC_ROUTE_LAUNCHES)
+        with att_dec._force_dec_route("utt"), pytest.raises(ValueError):
+            att_dec.att_dec_step(*args)
+        assert att_dec.DEC_ROUTE_LAUNCHES == routes
+    b, k, t, c, a, e, embd, h, v = 2, 8, 174, 10, 256, 256, 256, 256, 52
+    args = _dec_args(gen, dev, b, k, t, c, a, e, embd, h, v, torch.bfloat16,
+                     [t, 9])
+    chunk, splits, vc, grid, smem = att_dec.utt_plan(
+        b, k, t, c, a, e, embd, h, v, 2, *att.device_limits(dev.index or 0))
+    ins = ([x.contiguous() for x in args[:6]] + [args[6].float(), args[8].int()]
+           + list(args[9:]))
+    outs = [torch.empty(s, device=dev) for s in
+            ((b, k, v), (b, k, t), (b, k, h), (b, k, h))]
+    xin = torch.empty((b * k, att_dec.utt_row_width(embd, e, h, 2)),
+                      dtype=torch.bfloat16, device=dev)
+    zq = torch.empty((b * k, h), dtype=torch.bfloat16, device=dev)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for bad_grid, bad_smem in ((grid, smem + 16), (100_000, smem)):
+        with pytest.raises(RuntimeError, match="att_dec_utt"):
+            launch("att_dec_utt", *(x.data_ptr() for x in ins),
+                   *(x.data_ptr() for x in outs), xin.data_ptr(),
+                   zq.data_ptr(), count.data_ptr(), b, k, t, c, a, e, v, embd,
+                   h, chunk, splits, vc, bad_grid, bad_smem, 0, 2.0, 1, stream)
+    torch.cuda.synchronize()
+    assert count.item() == 0
+    got = _dec_on_route("utt", *args)
+    want = att_dec.att_dec_step_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **_tol(torch.bfloat16, w))
+
+
 def test_ctc_prefix_utt_kernel_matches_plain(dev):
     """The per-utterance psi kernel, eos and blank columns included, over
     three steps of parents; K*V past a block's threads raises."""
