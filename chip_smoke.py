@@ -45,7 +45,11 @@ Phases, each of which exits non-zero on failure:
    alone); then the clean-speech kernels: the fused frontend
    at decode and train shapes, its backward at train shapes, and the RNNLM
    step at N=1024 lanes (float32 and bfloat16, 1 and 2 layers, and the
-   CLI's E=H=512). Each kernel's entry also holds the least time the card
+   CLI's E=H=512) on both of its routes, the gate product over all lanes
+   in tiles on a co-resident grid (csrc/lm_step_tile.cu, with its plan;
+   two runs bit-identical) and 8 lanes a block (csrc/lm_step.cu), timed in
+   turns with the plain version with the host ahead, with each route's
+   host time per call. Each kernel's entry also holds the least time the card
    could take for the same work (``bound_ms``) and, where one PyTorch call
    computes the same function, that call's time (``library_ms``);
 4. main path: the flagship model in bfloat16 compute (random weights from
@@ -87,11 +91,15 @@ Phases, each of which exits non-zero on failure:
    ``LMConfig`` defaults in float32, weights from seed 2, lm_weight 0.3)
    on 3 batches of 128 clean utterances; checks that the fused frontend,
    the LM step and the four serving kernels launched (every attention step
-   on the per-utterance route) and no plain version ran; then times the
-   same path with the plain versions;
+   on the per-utterance route, every LM step on its tile route) and no
+   plain version ran; runs one batch with the LM forced to its lane route
+   (its launches are that kernel's); profiles one warm batch on each LM
+   route (the LM step's row); then times the same path with the plain
+   versions;
 10. its slice parity: one batch of 16 in float32, kernel path (attention
-    forced to the per-utterance route, the CTC prefix on it) against plain
-    path; best-hypothesis scores must agree;
+    forced to the per-utterance route, the CTC prefix and the LM step on
+    their default routes, "utt" and "tile") against plain path;
+    best-hypothesis scores must agree;
 11. the clean-speech recipe through its entry points: ``train.cli --mode
     asr --fused-frontend`` and ``train.cli --mode lm`` (3 steps each, the
     LM resumed to a 4th) at the CLI's default model, then both runs
@@ -116,13 +124,15 @@ Phases, each of which exits non-zero on failure:
     per-utterance route), against the tiled prefix kernels in turns with
     one profiled batch of each, then an f32 B=16 parity against them.
 
-The line before the last is a JSON object of the 19 kernels (the
+The line before the last is a JSON object of the 20 kernels (the
 attention's two routes as ``att_loc_step`` and ``att_loc_step_hyp``, the
 CTC prefix kernels' as ``ctc_prefix_psi_utt``/``ctc_prefix_state_utt``
 and ``ctc_prefix_psi``/``ctc_prefix_state``, the second of each pair
 with phase 4's forced batch's launches; the fused step's as
 ``att_dec_step``, with phase 12's launches, and ``att_dec_step_hyp``,
-with phase 13's forced batch's); the last line is
+with phase 13's forced batch's; the LM step's as ``lm_step``, with phase
+9's launches, and ``lm_step_lane``, with phase 9's forced batch's); the
+last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -295,10 +305,19 @@ KERNELS = {
         plain=fbank_fused.fbank_fused_bwd_plain,
         source="robust_e2e_gan_torch/csrc/fbank.cu",
         replaces="robust_e2e_gan_tpu/ops/fbank_pallas.py:448"),
+    # lm_step's two routes (ops/lm_step.py::tile_plan), counted by route
     "lm_step": dict(
         wrapper=lm_step.lm_step, plain=lm_step.lm_step_plain,
+        lm_route="tile",
+        source="robust_e2e_gan_torch/csrc/lm_step_tile.cu",
+        replaces="robust_e2e_gan_tpu/ops/lm_step_pallas.py:104 "
+                 "(pallas_call :180)"),
+    "lm_step_lane": dict(
+        wrapper=lm_step.lm_step, plain=lm_step.lm_step_plain,
+        lm_route="lane",
         source="robust_e2e_gan_torch/csrc/lm_step.cu",
-        replaces="robust_e2e_gan_tpu/ops/lm_step_pallas.py:104"),
+        replaces="robust_e2e_gan_tpu/ops/lm_step_pallas.py:104 "
+                 "(pallas_call :180)"),
     # att_dec_step's two routes (ops/att_dec.py::utt_plan), counted by route
     "att_dec_step": dict(
         wrapper=att_dec.att_dec_step, plain=att_dec.att_dec_step_plain,
@@ -364,6 +383,12 @@ ATT_ROUTES = ("utt", "hyp")
 # ops/att_dec.py::utt_plan fits, and one block an utterance for the whole
 # step past it (csrc/att_dec.cu)
 DEC_ROUTES = ("utt", "hyp")
+# lm_step's two routes: the gate product over all lanes in tiles on a
+# co-resident grid (csrc/lm_step_tile.cu) wherever ops/lm_step.py::tile_plan
+# fits, and 8 lanes a block through the whole step past it (csrc/lm_step.cu)
+LM_ROUTES = ("tile", "lane")
+# their kernels' names in a profile
+LM_KERNELS = ("lm_step_tile_kernel", "lm_step_kernel")
 # the CTC prefix kernels' two routes: one block per utterance, chosen by
 # ops/ctc_prefix.py::psi_plan and state_plan, and one thread per lane past
 # them (both csrc/ctc_prefix.cu)
@@ -394,6 +419,8 @@ def reset_counts() -> None:
         att.ATT_ROUTE_LAUNCHES[route] = 0
     for route in DEC_ROUTES:
         att_dec.DEC_ROUTE_LAUNCHES[route] = 0
+    for route in LM_ROUTES:
+        lm_step.LM_ROUTE_LAUNCHES[route] = 0
     for kind in ctc_prefix.PREFIX_ROUTE_LAUNCHES.values():
         for route in PREFIX_ROUTES:
             kind[route] = 0
@@ -408,6 +435,8 @@ def launch_count(name: str) -> int:
         return ctc_prefix.PREFIX_ROUTE_LAUNCHES[kind][route]
     if "dec_route" in k:
         return att_dec.DEC_ROUTE_LAUNCHES[k["dec_route"]]
+    if "lm_route" in k:
+        return lm_step.LM_ROUTE_LAUNCHES[k["lm_route"]]
     if "route" in k:
         routes = (att.ATT_ROUTE_LAUNCHES if k["route"] in ATT_ROUTES
                   else blstm.INFER_ROUTE_LAUNCHES)
@@ -462,6 +491,23 @@ def on_dec_route(route, fn):
         with att_dec._force_dec_route(route):
             return fn(*args)
     return run
+
+
+def on_lm_route(route, fn):
+    """``fn`` with every ``lm_step`` launch on ``route``."""
+    def run(*args):
+        with lm_step._force_lm_route(route):
+            return fn(*args)
+    return run
+
+
+def require_lm_route(where: str, route: str, n: int) -> None:
+    """Every LM step since the last reset, ``n`` of them, took ``route``."""
+    routes = dict(lm_step.LM_ROUTE_LAUNCHES)
+    print(f"  lm_step launches by route {routes}")
+    require(routes == {r: n * (r == route) for r in LM_ROUTES},
+            f"{where}: not every LM step took the {route} route: {routes}, "
+            f"expected {n}")
 
 
 def require_utt_dec(where: str, n: int) -> None:
@@ -1476,7 +1522,8 @@ def clean_kernel_parity(jcfg, dev):
         + 2 * wav.numel(), nbytes(wav, n_valid, g, dwav, bases), wav.dtype)
     bwd_launches = fbank_fused.fbank_fused_bwd.launches
 
-    # the RNNLM step over the B*K = 1024 lanes of a beam step
+    # the RNNLM step over the B*K = 1024 lanes of a beam step, on both
+    # routes, each held to the plain version; "tile" run twice
     f32, bf16 = torch.float32, torch.bfloat16
     n = BATCH * BEAM
     for tag, layers, e, h, v, dt in (
@@ -1485,26 +1532,40 @@ def clean_kernel_parity(jcfg, dev):
             ("2 layers float32", 2, 128, 256, VOCAB, f32),
             ("train CLI E=H=512 float32", 1, 512, 512, 12, f32)):
         args = lm_inputs(gen, n, v, e, h, layers, dev)
-        got = lm_step.lm_step(*args, dtype=dt)
+        fns = {r: on_lm_route(r, lambda: lm_step.lm_step(*args, dtype=dt))
+               for r in LM_ROUTES}
         want = lm_step.lm_step_plain(*args, dtype=dt)
         tol = (dict(rtol=1e-4, atol=1e-5) if dt == f32
                else dict(scale_atol=2e-2))
-        err, ok = compare(f"lm_step {tag} N={n} V={v} E={e} H={h} "
-                          f"L={layers}", got, want, **tol)
-        ok_all &= ok
+        shape = f"N={n} V={v} E={e} H={h} L={layers}"
+        errs = {}
+        for route, fn in fns.items():
+            got = fn()
+            errs[route], ok = compare(f"lm_step {route} {tag} {shape}", got,
+                                      want, **tol)
+            ok_all &= ok
+        runs = [fns["tile"]() for _ in range(2)]
+        same = all(bool(torch.equal(a, b)) for a, b in zip(*runs))
+        print(f"    tile route rerun bit-identical: {same}")
+        ok_all &= same
+        # in turns (tile, lane, plain, plain, lane, tile), the host ahead
+        ms = cuda_ms_in_turns(
+            [fns["tile"], fns["lane"],
+             lambda: lm_step.lm_step_plain(*args, dtype=dt)], 50, ahead=True)
+        print(f"    in turns, host ahead: tile {ms[0]:.4f} ms, lane "
+              f"{ms[1]:.4f} ms, plain {ms[2]:.4f} ms; host time per call: "
+              f"tile {host_us(fns['tile']):.1f} us, lane "
+              f"{host_us(fns['lane']):.1f} us")
         if tag == "LMConfig() float32":
             # per lane: 2 * (E + L * H + (L - 1) * H) * 4H for the gates,
             # 2 * H * V for the readout, ~10 per unit for the cells
-            res["lm_step"] = entry(
-                "lm_step", err,
-                cuda_ms(lambda: lm_step.lm_step(*args, dtype=f32), 50),
-                cuda_ms(lambda: lm_step.lm_step_plain(*args, dtype=f32), 50),
-                n * (2 * (e + (2 * layers - 1) * h) * 4 * h + 2 * h * v
-                     + 10 * layers * h),
-                nbytes(args, got), f32)
-            print("    host time per call: lm_step "
-                  f"{host_us(lambda: lm_step.lm_step(*args, dtype=f32)):.1f}"
-                  " us")
+            flops = n * (2 * (e + (2 * layers - 1) * h) * 4 * h + 2 * h * v
+                         + 10 * layers * h)
+            moved = nbytes(args, want)
+            for name, route, t in (("lm_step", "tile", ms[0]),
+                                   ("lm_step_lane", "lane", ms[1])):
+                res[name] = entry(name, errs[route], t, ms[2], flops, moved,
+                                  f32)
     require(ok_all, "a clean-speech kernel disagrees with its plain version")
     return res, bwd_launches
 
@@ -1966,21 +2027,34 @@ def clean_path(b, n_batches, state, dev):
             f"a plain version ran on the clean path: {plain_calls}")
     require(launches["lm_step"] == n_batches * STEPS,
             f"LM steps {launches['lm_step']} != {n_batches} x {STEPS}")
+    require_lm_route("clean path", "tile", n_batches * STEPS)
     require_utt_attention("clean path", n_batches * STEPS)
+    before = dict(lm_step.LM_ROUTE_LAUNCHES)
+    check_result(on_lm_route("lane", searcher)(*batches[0]), b)
+    lane = {r: lm_step.LM_ROUTE_LAUNCHES[r] - before[r] for r in LM_ROUTES}
+    print(f"  one batch with the LM forced to lane: launches {lane}")
+    require(lane == {"tile": 0, "lane": STEPS},
+            f"the forced lane batch launched {lane}")
+    launches["lm_step_lane"] = lane["lane"]
 
     k_ms, k_enc, k_search = steady(batches, searcher, model, kcfg, bcfg,
                                    False, lm)
     print(f"  kernel path: {b * 1e3 / k_ms:.2f} utt/s, {k_ms:.1f} ms/batch "
           f"(encode {k_enc:.1f} ms + search {k_search:.1f} ms when timed "
           f"apart; means over {n_batches} warm batches)")
-    # device time by kernel over one warm batch, and the device's busy
-    # share of that batch's unprofiled wall time
+    # device time by kernel over one warm batch on each LM route, with the
+    # LM step's row, and the device's busy share of that batch's
+    # unprofiled wall time
     wav, lens = batches[0]
-    _, wall_ms = timed(lambda: searcher(wav, lens))
-    busy_ms, launches_p, _ = device_profile(lambda: searcher(wav, lens), 12)
-    print(f"  profile of one warm batch: device kernels {busy_ms:.1f} ms of "
-          f"an unprofiled {wall_ms:.1f} ms batch (busy share "
-          f"{busy_ms / wall_ms:.3f}), {launches_p} launches")
+    for route in LM_ROUTES:
+        search = on_lm_route(route, searcher)
+        _, wall_ms = timed(lambda: search(wav, lens))
+        print(f"  LM on route {route}, one profiled warm batch:")
+        busy_ms, launches_p, _ = device_profile(lambda: search(wav, lens), 12,
+                                                pick=LM_KERNELS)
+        print(f"  profile of one warm batch: device kernels {busy_ms:.1f} ms "
+              f"of an unprofiled {wall_ms:.1f} ms batch (busy share "
+              f"{busy_ms / wall_ms:.3f}), {launches_p} launches")
 
     pcfg = clean_cfg("scan", "xla", "bfloat16")
     plain_model, plain_lm = load(pcfg, state, dev), make_lm("xla", dev)
@@ -2019,6 +2093,7 @@ def clean_slice_parity(state, dev):
                     f"a kernel never launched in the f32 slice: {launches}")
             require_utt_attention("the f32 clean slice", STEPS)
             require_utt_prefix("the f32 clean slice", STEPS, STEPS)
+            require_lm_route("the f32 clean slice", "tile", STEPS)
         else:
             with plain_frontend():
                 out[tag] = search(wav, lens)
@@ -2443,6 +2518,7 @@ def later_phases(state, state_d, dev, work, phase4_ms) -> dict:
     return {"blstm_train_gx": cli_launches["blstm_train_gx"],
             "fbank_fused": clean_launches["fbank_fused"],
             "lm_step": clean_launches["lm_step"],
+            "lm_step_lane": clean_launches["lm_step_lane"],
             "att_dec_step": dec_launches["att_dec_step"],
             "att_dec_step_hyp": fused_launches["att_dec_step_hyp"],
             "blstm_infer_row_tiled": dec_launches["blstm_infer_row_tiled"],

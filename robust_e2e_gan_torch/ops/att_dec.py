@@ -37,9 +37,11 @@ from robust_e2e_gan_torch.ops.att import MAX_CHANNELS, location_attention
 from robust_e2e_gan_torch.utils.build import launch
 from robust_e2e_gan_torch.utils.impl import (
     SMEM_LIMIT,
+    aligned16,
     check,
     check_no_grad,
     device_limits,
+    grid_barrier,
     on_cuda,
 )
 
@@ -238,25 +240,6 @@ def _utt(b, k, t, c, a, e, embd, h, v, x: torch.Tensor) -> Optional[tuple]:
     return plan
 
 
-# the "utt" route's grid-barrier counters, by (card, stream): the counter
-# and its value after the last launch, which adds 2 x grid to it
-_BARRIERS = {}
-
-
-def _barrier(dev: torch.device, stream: int) -> list:
-    key = (dev.index, stream)
-    if key not in _BARRIERS:
-        _BARRIERS[key] = [torch.zeros(1, dtype=torch.int32, device=dev), 0]
-    return _BARRIERS[key]
-
-
-def _aligned16(x: torch.Tensor) -> torch.Tensor:
-    """x, or a copy of it where its data is not 16-byte aligned (the "utt"
-    route copies enc_proj, the cell's weights and Wout in 16-byte
-    pieces)."""
-    return x if x.data_ptr() % 16 == 0 else x.clone()
-
-
 def att_dec_step(feat, enc_proj, enc, dec, wloc, g, mask, sharpening: float,
                  tok, emb_table, cell_wx, cell_wh, cell_bias, out_w, out_b,
                  z_prev, c_prev) -> Step:
@@ -324,12 +307,12 @@ def att_dec_step(feat, enc_proj, enc, dec, wloc, g, mask, sharpening: float,
     if plan is not None:
         chunk, splits, vc, grid, smem = plan
         for i in (1, 9, 10, 12):  # enc_proj, cell_wx, cell_wh, out_w
-            ins[i] = _aligned16(ins[i])
+            ins[i] = aligned16(ins[i])
         # the lanes' rows (B K, Dp) then T(z') (B K, H), both 16-byte
         # aligned (Dp is a multiple of 32)
         rows = b * k * utt_row_width(embd, e, h, enc.element_size())
         scratch = torch.empty(rows + b * k * h, dtype=dt, device=dev)
-        barrier = _barrier(dev, stream)
+        barrier = grid_barrier(dev, stream)
         launch("att_dec_utt", *(x.data_ptr() for x in ins), *outs,
                scratch.data_ptr(),
                scratch.data_ptr() + rows * scratch.element_size(),

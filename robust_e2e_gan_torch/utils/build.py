@@ -96,6 +96,10 @@ SIGNATURES = {
     # tok, emb, wx0, wxs, whs, bias, wout, bout, h_in, c_in, h_out, c_out,
     # logits, N, V, E, H, L, bf16, stream
     "lm_step": [_P] * 13 + [_I] * 6 + [_P],
+    # the same 13 pointers, the scratch, the barrier counter, N, V, E, H,
+    # L, rows a chunk, chunks in flight, grid, shared-memory bytes, the
+    # counter's value, bf16, stream
+    "lm_step_tile": [_P] * 15 + [_I] * 9 + [_U, _I, _P],
     # feat, enc_proj, enc, dec, wloc, g, mask, tok, emb, wx, wh, bias, wout,
     # bout, z_in, c_in, logits, att, z_out, c_out, B, K, T, C, A, E, V, EMB,
     # H, sharpening, bf16, stream

@@ -83,3 +83,26 @@ def device_limits(index: int):
     ``index``: what the kernels' launch plans are computed from."""
     props = torch.cuda.get_device_properties(index)
     return props.multi_processor_count, props.shared_memory_per_block_optin
+
+
+# the grid-barrier counters of the cooperative kernels (csrc/common.cuh's
+# grid_arrive and grid_wait), by (card, stream): the counter and its value
+# after the last launch. The counter is never reset: a launch is given its
+# value and adds its own arrivals to it, so the kernels of one stream share
+# one counter.
+_BARRIERS = {}
+
+
+def grid_barrier(dev: torch.device, stream: int) -> list:
+    """[counter tensor, its value after the last launch] of ``stream`` on
+    card ``dev``; a launch passes the value and adds its arrivals to it."""
+    key = (dev.index, stream)
+    if key not in _BARRIERS:
+        _BARRIERS[key] = [torch.zeros(1, dtype=torch.int32, device=dev), 0]
+    return _BARRIERS[key]
+
+
+def aligned16(x: torch.Tensor) -> torch.Tensor:
+    """x, or a copy of it where its data is not 16-byte aligned: for the
+    kernels that copy their inputs in 16-byte pieces."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()

@@ -971,34 +971,126 @@ def test_fbank_fused_kernels_match_plain(dev):
                                atol=1e-4)
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("layers,n,h,e,v", [(1, 9, 24, 16, 200),
-                                             (2, 1024, 256, 128, 52),
-                                             (1, 33, 512, 512, 12)])
-def test_lm_step_kernel_matches_plain(dev, dtype, layers, n, h, e, v):
-    from robust_e2e_gan_torch.ops import lm_step as ls
-
-    gen = torch.Generator(device=dev).manual_seed(h)
-
+def _lm_args(gen, dev, layers, n, h, e, v):
+    """lm_step's arguments at its tests' scales."""
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
     tok = torch.randint(0, v, (n,), generator=gen, device=dev)
-    args = (tok, rnd(v, e),
+    return (tok, rnd(v, e),
             [rnd(e if i == 0 else h, 4 * h, scale=e ** -0.5)
              for i in range(layers)],
             [rnd(h, 4 * h, scale=h ** -0.5) for _ in range(layers)],
             [rnd(4 * h, scale=0.3) for _ in range(layers)],
             rnd(h, v, scale=h ** -0.5), rnd(v, scale=0.3),
             rnd(layers, n, h, scale=0.5), rnd(layers, n, h, scale=0.5))
-    launches = ls.lm_step.launches
-    got = ls.lm_step(*args, dtype=dtype)
+
+
+def _lm_on_route(route, *args, dtype):
+    """lm_step forced onto ``route``; checks that it launched there once."""
+    from robust_e2e_gan_torch.ops import lm_step as ls
+
+    launches, before = ls.lm_step.launches, dict(ls.LM_ROUTE_LAUNCHES)
+    with ls._force_lm_route(route):
+        got = ls.lm_step(*args, dtype=dtype)
+    assert ls.lm_step.launches == launches + 1
+    assert {k: ls.LM_ROUTE_LAUNCHES[k] - before[k] for k in before} == {
+        k: int(k == route) for k in before}
+    return got
+
+
+@pytest.mark.parametrize("route", ["tile", "lane"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("layers,n,h,e,v", [(1, 9, 24, 16, 200),
+                                             (2, 1024, 256, 128, 52),
+                                             (1, 33, 512, 512, 12)])
+def test_lm_step_kernel_matches_plain(dev, dtype, layers, n, h, e, v, route):
+    """Both routes of the LM step against the plain version, launches
+    counted by route: N not a multiple of the tile route's 64 lanes and H
+    not a multiple of its 32 units (its padding), two layers (a grid
+    barrier a layer) and the decode CLI's E = H = 512 (more tiles than
+    blocks)."""
+    from robust_e2e_gan_torch.ops import lm_step as ls
+
+    gen = torch.Generator(device=dev).manual_seed(h)
+    args = _lm_args(gen, dev, layers, n, h, e, v)
+    got = _lm_on_route(route, *args, dtype=dtype)
     want = ls.lm_step_plain(*args, dtype=dtype)
     torch.cuda.synchronize()
-    assert ls.lm_step.launches == launches + 1
     for g, w in zip(got, want):
         assert g.dtype == torch.float32
         torch.testing.assert_close(g, w, **_tol(dtype, w))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("layers", [1, 2])
+def test_lm_step_tile_is_deterministic_and_agrees(dev, dtype, layers):
+    """At the clean decode's LM (N = 1,024, E = 128, H = 256, V = 52) the
+    "tile" route is the default, two runs of it are bit-identical, and it
+    agrees with the "lane" route within each one's tolerance against the
+    plain version."""
+    from robust_e2e_gan_torch.ops import lm_step as ls
+
+    gen = torch.Generator(device=dev).manual_seed(17 + layers)
+    args = _lm_args(gen, dev, layers, 1024, 256, 128, 52)
+    before = dict(ls.LM_ROUTE_LAUNCHES)
+    runs = [ls.lm_step(*args, dtype=dtype) for _ in range(2)]
+    assert ls.LM_ROUTE_LAUNCHES["tile"] == before["tile"] + 2
+    assert ls.LM_ROUTE_LAUNCHES["lane"] == before["lane"]
+    lane = _lm_on_route("lane", *args, dtype=dtype)
+    torch.cuda.synchronize()
+    for r0, r1, ln in zip(*runs, lane):
+        assert torch.equal(r0, r1)
+        torch.testing.assert_close(r0, ln, **_tol(dtype, ln))
+
+
+def test_lm_step_tile_refusals(dev):
+    """Forcing route "tile" past its plan (E not whole 16-byte pieces in
+    bfloat16, a Wout beyond shared memory) raises before any launch, and
+    the unforced call takes route "lane"; a launch whose shared-memory
+    bytes disagree with the kernel's layout, or whose grid cannot be
+    co-resident, raises, never runs, and leaves no error for the next
+    launch."""
+    from robust_e2e_gan_torch.ops import lm_step as ls
+    from robust_e2e_gan_torch.utils.build import launch
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for e, v, dtype in ((20, 52, torch.bfloat16),
+                        (128, 5000, torch.float32)):
+        args = _lm_args(gen, dev, 1, 70, 256, e, v)
+        routes = dict(ls.LM_ROUTE_LAUNCHES)
+        with ls._force_lm_route("tile"), pytest.raises(ValueError,
+                                                       match="tile route"):
+            ls.lm_step(*args, dtype=dtype)
+        assert ls.LM_ROUTE_LAUNCHES == routes
+        got = ls.lm_step(*args, dtype=dtype)
+        assert ls.LM_ROUTE_LAUNCHES["lane"] == routes["lane"] + 1
+        want = ls.lm_step_plain(*args, dtype=dtype)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **_tol(dtype, w))
+    n, v, e, h = 1024, 52, 128, 256
+    args = _lm_args(gen, dev, 1, n, h, e, v)
+    kc, stages, grid, smem = ls.tile_plan(
+        n, v, e, h, 1, 4, *att.device_limits(dev.index or 0))
+    ins = [args[0].int(), args[1], args[2][0], args[2][0], args[3][0],
+           args[4][0], args[5], args[6], args[7], args[8]]
+    outs = [torch.empty_like(args[7]), torch.empty_like(args[8]),
+            torch.empty((n, v), device=dev)]
+    scratch = torch.empty((1, n, h), device=dev)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for bad_grid, bad_smem in ((grid, smem + 16), (100_000, smem)):
+        with pytest.raises(RuntimeError, match="lm_step_tile"):
+            launch("lm_step_tile", *(x.data_ptr() for x in ins),
+                   *(x.data_ptr() for x in outs), scratch.data_ptr(),
+                   count.data_ptr(), n, v, e, h, 1, kc, stages, bad_grid,
+                   bad_smem, 0, 0, stream)
+    assert int(count) == 0
+    got = _lm_on_route("tile", *args, dtype=torch.float32)
+    want = ls.lm_step_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **_tol(torch.float32, w))
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
