@@ -37,9 +37,14 @@ Phases, each of which exits non-zero on failure:
    utterances: 286 STFT frames, 72 encoder frames; the train CLI's model
    for blstm_train_gx; the BLSTM's frame loops on both routes, the
    resident one and the row-tiled one, held to the plain version, timed
-   in turns and split by the profiler into frame loops, gemm.cu and the
-   rest, and blstm_train_gx's layer from x at D=2560 timed in turns with
-   cuDNN's LSTM; the whole CTC loss and its gradient, float32 and
+   in turns and split by the profiler into frame loops, gemm.cu's
+   products, its column sums and the rest, and blstm_train_gx's layer
+   from x at D=2560 timed in turns with cuDNN's LSTM; each product of
+   gemm.cu (the projection, dx, dW_x, dW_h of the flagship's enhancer
+   and encoder layer 0 in bfloat16, the train CLI's float32 dW_h) on the
+   tensor-core kernel against the plain version, timed in turns with the
+   SIMT kernel beside the plain version and torch.matmul on the same
+   operands; the whole CTC loss and its gradient, float32 and
    bfloat16 logits, timed in turns with F.ctc_loss, with a profiler split
    of its device time against its wall time, and the bare alpha recursion
    alone); then the clean-speech kernels: the fused frontend
@@ -76,9 +81,10 @@ Phases, each of which exits non-zero on failure:
    one warm-up and 5 timed steps on the kernel path, checking finite
    metrics, that every kernel of the path launched (the CTC loss twice a
    G-step, forward and backward; every BLSTM layer's frame loops on the
-   resident route, the D-step's inference BLSTM on the cluster route) and
-   no plain version ran, and a profile of one warm
-   step; then the same on the plain path;
+   resident route and every product on gemm.cu's tensor-core kernel, the
+   D-step's inference BLSTM on the cluster route) and no plain version
+   ran, and a profile of one warm step (with gemm.cu's rows and
+   launches); then the same on the plain path;
 7. entry point: ``train.cli --mode joint --synthetic`` at the CLI's
    default model (float32, B=16) for 3 steps into a temporary checkpoint
    dir, then a resume for 1 more; the encoder's first layer takes
@@ -124,7 +130,8 @@ Phases, each of which exits non-zero on failure:
     per-utterance route), against the tiled prefix kernels in turns with
     one profiled batch of each, then an f32 B=16 parity against them.
 
-The line before the last is a JSON object of the 20 kernels (the
+The line before the last is a JSON object of the 21 kernels (``gemm``
+the products of one row-6 call, with phase 6's launches; the
 attention's two routes as ``att_loc_step`` and ``att_loc_step_hyp``, the
 CTC prefix kernels' as ``ctc_prefix_psi_utt``/``ctc_prefix_state_utt``
 and ``ctc_prefix_psi``/``ctc_prefix_state``, the second of each pair
@@ -204,6 +211,7 @@ from robust_e2e_gan_torch.train import steps as train_steps
 from robust_e2e_gan_torch.train.lm import load_lm
 from robust_e2e_gan_torch.utils import checkpoint as ckpt_lib
 from robust_e2e_gan_torch.utils.build import build
+from robust_e2e_gan_torch.utils.impl import device_limits
 
 VOCAB = 52
 BATCH = 128
@@ -287,6 +295,15 @@ KERNELS = {
         plain=blstm_train.blstm_train_gx_plain,
         source="robust_e2e_gan_torch/csrc/blstm_train_resident.cu",
         replaces="robust_e2e_gan_tpu/ops/blstm_train_pallas.py:1050"),
+    # the training BLSTM's products (rows 6 and 7): one tensor-core launch
+    # a product for both directions; the SIMT route (gemm_simt_kernel) runs
+    # only where phase 3 forces it
+    "gemm": dict(
+        wrapper=blstm_train.gemm, plain=blstm_train.gemm_plain,
+        source="robust_e2e_gan_torch/csrc/gemm.cu",
+        replaces="robust_e2e_gan_tpu/ops/blstm_train_pallas.py:150-158, "
+                 ":296-308, :346-359, :902-907 (inside pallas_call :489, "
+                 ":565, :930, :972)"),
     "ctc_nll": dict(
         wrapper=ctc.ctc_nll, plain=ctc.ctc_nll_plain,
         source="robust_e2e_gan_torch/csrc/ctc_alpha.cu",
@@ -363,8 +380,16 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 HBM_BYTES = 3.35e12
 # the kernels of the train step: the D-step's no-grad generator forward
 # takes the inference BLSTM kernel; the G-step's CTC loss is ctc_nll, one
-# forward and one backward launch (ctc_alpha runs on no path)
-TRAINING = ("blstm_train", "ctc_nll", "blstm_infer")
+# forward and one backward launch (ctc_alpha runs on no path); the BLSTM
+# layers' products are gemm's
+TRAINING = ("blstm_train", "ctc_nll", "blstm_infer", "gemm")
+# csrc/gemm.cu's kernels in a profile: the tensor-core product, the SIMT
+# one (run only where forced), the column sum of dbias
+GEMM_KERNELS = ("gemm_tc_kernel", "gemm_simt_kernel", "colsum_kernel")
+# the bound of a float32 product of gemm.cu: its 3xTF32 runs three tf32
+# passes on the tensor cores, whose tf32 peak is 495 TFLOP/s (H100 SXM,
+# NVIDIA's data sheet, dense, at 700 W)
+TF32X3_FLOPS = 495e12 / 3
 # the training BLSTM's two frame-loop routes: W_h resident across a
 # co-resident grid (csrc/blstm_train_resident.cu), chosen by
 # ops/blstm_train.py::resident_plan, and the row-tiled loops past it
@@ -413,6 +438,8 @@ def reset_counts() -> None:
         k["plain"].calls = 0
     for route in ROUTES:
         blstm_train.ROUTE_LAUNCHES[route] = 0
+    for route in blstm_train.GEMM_ROUTE_LAUNCHES:
+        blstm_train.GEMM_ROUTE_LAUNCHES[route] = 0
     for route in INFER_ROUTES:
         blstm.INFER_ROUTE_LAUNCHES[route] = 0
     for route in ATT_ROUTES:
@@ -1330,6 +1357,114 @@ def train_kernel_parity(jcfg, t_enh, t_enc, dev) -> dict:
     return res, alpha_launches
 
 
+def on_gemm_route(route, fn):
+    """fn with every product of gemm.cu forced onto ``route``."""
+    def run():
+        with blstm_train._force_gemm_route(route):
+            return fn()
+    return run
+
+
+def gemm_products(jcfg, t_enh, t_enc, dev) -> dict:
+    """Phase 3: each product of csrc/gemm.cu at the flagship's enhancer
+    layer 0 and encoder layer 0 (B=32, bfloat16) and the train CLI's
+    float32 dW_h (B=16, T=72, H=512), through the wrappers the layer runs:
+    the tensor-core kernel against the plain version (reruns bit-identical
+    where K is split), timed in turns with the SIMT route, beside the plain
+    version, torch.matmul on the same operands in the compute type
+    (``library_ms``, timed, used nowhere) and the bound. The kernel line's
+    ``gemm`` entry is the products of one row-6 call: enhancer layer 0,
+    forward and every gradient (the projection twice, dx, dW_x, dW_h)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    enc = jcfg.e2e.encoder
+    d_enc = subsampled_frames(enc.input_dim) * enc.vgg_channels[-1]
+    layers = (("enhancer0", TRAIN_BATCH, t_enh, jcfg.enhancer.input_dim,
+               jcfg.enhancer.hidden_dim, bf16, ("proj", "dx", "dwx", "dwh")),
+              ("encoder0", TRAIN_BATCH, t_enc, d_enc, enc.hidden_dim, bf16,
+               ("proj", "dx", "dwx", "dwh")),
+              ("cli", 16, t_enc, 8, 512, f32, ("dwh",)))
+    row6 = dict(err=0.0, ms=0.0, plain=0.0, lib=0.0, flops=0, moved=0)
+    ok_all = True
+    n_sm, smem = device_limits(torch.cuda.current_device())
+    for tag, b, t, d, h, dt, prods in layers:
+        xc = torch.randn((b, t, d), generator=gen, device=dev).to(dt)
+        wx = (torch.randn((2, d, 4 * h), generator=gen, device=dev)
+              / d ** 0.5).to(dt)
+        bias = torch.randn((2, 4 * h), generator=gen, device=dev) * 0.3
+        dg = torch.randn((b, t, 2, 4 * h), generator=gen, device=dev) * 0.1
+        y_ext = torch.randn((2, b, t + 1, h), generator=gen,
+                            device=dev).to(dt)
+        rnd = dt == bf16
+        # torch.matmul's operands in the compute type, laid out outside the
+        # timed call
+        x2, dgc = xc.reshape(b * t, d), dg.to(dt).reshape(b * t, 8 * h)
+        wx_t = wx.transpose(1, 2).reshape(8 * h, d)
+        h_prev = torch.stack([y_ext[0, :, :t], y_ext[1, :, 1:]]).reshape(
+            2, b * t, h).transpose(1, 2)
+        dg_z = dgc.reshape(b * t, 2, 4 * h).transpose(0, 1).contiguous()
+        out_bytes = 4 * 2 * 4 * h
+        table = {  # (product, batch, M, N, K, bytes read and written, lib)
+            "proj": (lambda p: blstm_train._projection_kernel(xc, wx, bias,
+                                                              p),
+                     2, b * t, 4 * h, d,
+                     nbytes(xc, wx, bias) + b * t * out_bytes,
+                     lambda: torch.matmul(x2, wx)),
+            "dx": (lambda p: blstm_train._dx_kernel(dg, wx, rnd, p),
+                   1, b * t, d, 8 * h, nbytes(dg, wx) + 4 * b * t * d,
+                   lambda: torch.matmul(dgc, wx_t)),
+            "dwx": (lambda p: blstm_train._dwx_kernel(xc, dg, rnd, p),
+                    2, d, 4 * h, b * t, nbytes(xc, dg) + d * out_bytes,
+                    lambda: torch.matmul(x2.t(), dgc)),
+            "dwh": (lambda p: blstm_train._dwh_kernel(y_ext, dg, b, t, h, p),
+                    2, h, 4 * h, b * t, nbytes(y_ext, dg) + h * out_bytes,
+                    lambda: torch.matmul(h_prev, dg_z)),
+        }
+        for name in prods:
+            run, batch, m, n, k, moved, lib = table[name]
+            plan = blstm_train.gemm_plan(m, n, k, xc.element_size(), n_sm,
+                                         smem, batch=batch)
+            got = run(None)
+            want = run(blstm_train.gemm_plain)
+            err, ok = compare(f"gemm {tag} {name} batch={batch} M={m} N={n} "
+                              f"K={k} {dt} ({plan.splits} k slices)", [got],
+                              [want], scale_atol=1e-4)
+            ok_all &= ok
+            if plan.splits > 1:
+                same = torch.equal(got, run(None))
+                print(f"  gemm {tag} {name}: rerun "
+                      f"{'bit-identical' if same else 'DIFFERS'}")
+                ok_all &= same
+            tc, simt = cuda_ms_in_turns(
+                [lambda: run(None), on_gemm_route("simt", lambda: run(None))],
+                5, ahead=True)
+            plain = cuda_ms(lambda: run(blstm_train.gemm_plain), 3)
+            lib_ms = cuda_ms(lib, 10, ahead=True)
+            flops = 2 * batch * m * n * k
+            rate = TF32X3_FLOPS if dt == f32 else PEAK_FLOPS[bf16]
+            bound = max(flops / rate, moved / HBM_BYTES) * 1e3
+            print(f"    gemm {tag} {name}: tensor-core {tc:.4f} ms "
+                  f"({flops / tc / 1e9:.1f} TFLOP/s, {bound / tc:.1%} of the "
+                  f"bound), SIMT {simt:.4f}, plain {plain:.4f}, torch.matmul "
+                  f"{lib_ms:.4f}, bound {bound:.4f} ms"
+                  f"{' (3 tf32 passes at 495 TFLOP/s)' if dt == f32 else ''}")
+            if tag == "enhancer0":
+                times = 2 if name == "proj" else 1  # again in the backward
+                row6["err"] = max(row6["err"], err)
+                row6["ms"] += times * tc
+                row6["plain"] += times * plain
+                row6["lib"] += times * lib_ms
+                row6["flops"] += times * flops
+                row6["moved"] += times * moved
+    require(ok_all, "a product of gemm.cu disagrees with its plain version "
+            "or with itself")
+    print(f"    gemm per row-6 call (enhancer layer 0, the projection twice, "
+          f"dx, dW_x, dW_h): {row6['ms']:.4f} ms")
+    return {"gemm": entry("gemm", row6["err"], row6["ms"], row6["plain"],
+                          row6["flops"], row6["moved"], bf16, row6["lib"])}
+
+
 def on_route(route, fn):
     """fn with every BLSTM layer's frame loops forced onto ``route``."""
     def run():
@@ -1355,9 +1490,10 @@ def is_frame_loop(key: str) -> bool:
 def frame_loop_split(tag, fn, gx, wh, lengths, dy, reps: int = 5):
     """Per route: one torch.profiler window over ``reps`` calls of fn (a
     BLSTM layer forward and every gradient), its device time split into
-    the frame loops, csrc/gemm.cu (for blstm_train_gx only the dW_h
-    product) and the rest; then the forward loop, the backward loop and the
-    dW_h product (``_dwh_kernel``) alone with CUDA events."""
+    the frame loops, csrc/gemm.cu's products (gemm_tc_kernel; for
+    blstm_train_gx only the dW_h product), its column sums and the rest;
+    then the forward loop, the backward loop and the dW_h product
+    (``_dwh_kernel``) alone with CUDA events."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
     b, t = gx.shape[:2]
@@ -1379,8 +1515,9 @@ def frame_loop_split(tag, fn, gx, wh, lengths, dy, reps: int = 5):
                            if pick(e.key)) / 1e3 / reps
 
             loops = ms_of(is_frame_loop)
-            gemm = ms_of(lambda k: "gemm_kernel" in k)
-            other = ms_of(lambda k: True) - loops - gemm
+            gemm = ms_of(lambda k: any(g in k for g in GEMM_KERNELS[:2]))
+            colsum = ms_of(lambda k: GEMM_KERNELS[2] in k)
+            other = ms_of(lambda k: True) - loops - gemm - colsum
             with torch.no_grad():
                 _, y_ext, c_ext = blstm_train._recurrence_fwd_kernel(
                     gx, wh, lengths)
@@ -1393,8 +1530,9 @@ def frame_loop_split(tag, fn, gx, wh, lengths, dy, reps: int = 5):
                 dwh = cuda_ms(lambda: blstm_train._dwh_kernel(
                     y_ext, dg, b, t, h), reps)
         print(f"    {tag} {route} split per call ({reps} calls): frame "
-              f"loops {loops:.4f} ms, gemm.cu {gemm:.4f} ms, other "
-              f"{other:.4f} ms of device time; alone: forward loop "
+              f"loops {loops:.4f} ms, gemm.cu products {gemm:.4f} ms, "
+              f"column sums {colsum:.4f} ms, other {other:.4f} ms of device "
+              f"time; alone: forward loop "
               f"{fwd:.4f}, backward loop {bwd:.4f}, _dwh_kernel {dwh:.4f} ms")
 
 
@@ -1829,11 +1967,12 @@ def check_metrics(metrics):
     require(not bad, f"non-finite train metrics {bad}")
 
 
-def device_profile(fn, top: int, pick=()):
+def device_profile(fn, top: int, pick=(), rows_out=None):
     """Run fn once under torch.profiler; print its ``top`` device rows by
     kernel, and the others whose name holds one of ``pick``, and return
-    (device ms summed over kernels, launches, profiled wall ms). One
-    stream, so the kernels' sum is the device's busy time."""
+    (device ms summed over kernels, launches, profiled wall ms); with
+    ``rows_out``, append every row's (name, device ms, launches) to it.
+    One stream, so the kernels' sum is the device's busy time."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1846,6 +1985,9 @@ def device_profile(fn, top: int, pick=()):
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     rows.sort(key=lambda e: -e.self_device_time_total)
+    if rows_out is not None:
+        rows_out.extend((e.key, e.self_device_time_total / 1e3, e.count)
+                        for e in rows)
     for i, e in enumerate(rows):
         if i < top or any(p in e.key for p in pick):
             print(f"    {e.self_device_time_total / 1e3:9.2f} ms "
@@ -1855,13 +1997,24 @@ def device_profile(fn, top: int, pick=()):
 
 
 def profile_step(step, state, batch):
-    """Device time by kernel over one warm step, and the device's busy
-    share of the step's wall time."""
+    """Device time by kernel over one warm step, the device's busy share of
+    the step's wall time, and csrc/gemm.cu's rows: (ms, launches) by
+    kernel of GEMM_KERNELS."""
+    rows = []
     busy_ms, launches, wall_ms = device_profile(lambda: step(state, batch),
-                                                15)
+                                                15, pick=GEMM_KERNELS,
+                                                rows_out=rows)
     print(f"  profile of one warm step: wall {wall_ms:.1f} ms (profiled), "
           f"device kernels {busy_ms:.1f} ms, busy share "
           f"{busy_ms / wall_ms:.3f}, {launches} launches")
+    gemm = {g: (sum(ms for key, ms, _ in rows if g in key),
+                sum(n for key, _, n in rows if g in key))
+            for g in GEMM_KERNELS}
+    (tc_ms, tc_n), (_, simt_n), (cs_ms, cs_n) = gemm.values()
+    print(f"  gemm.cu rows of the step: products {tc_ms:.2f} ms in {tc_n} "
+          f"launches, column sums {cs_ms:.2f} ms in {cs_n}; SIMT launches "
+          f"{simt_n}")
+    return gemm
 
 
 def train_path(state_g, state_d, dev):
@@ -1906,8 +2059,17 @@ def train_path(state_g, state_d, dev):
             require(routes["cluster"] > 0 and routes["row_tiled"] == 0,
                     f"phase 6: the D-step's BLSTM layers did not all take "
                     f"the cluster route: {routes}")
+            gemm_routes = dict(blstm_train.GEMM_ROUTE_LAUNCHES)
+            print(f"  gemm launches by route {gemm_routes}")
+            require(gemm_routes["simt"] == 0
+                    and gemm_routes["tc"] == launches["gemm"] > 0,
+                    f"phase 6: not every product took the tensor-core "
+                    f"kernel: {gemm_routes}")
             result = launches
-            profile_step(step, state, batch)
+            rows = profile_step(step, state, batch)
+            require(rows["gemm_tc_kernel"][1] > 0
+                    and rows["gemm_simt_kernel"][1] == 0,
+                    f"phase 6: the profiled step's gemm.cu rows {rows}")
     return result
 
 
@@ -2434,6 +2596,8 @@ def main() -> int:
     train_timings, alpha_launches = train_kernel_parity(
         jcfg, t_train, subsampled_frames(t_train), dev)
     timings.update(train_timings)
+    timings.update(gemm_products(jcfg, t_train, subsampled_frames(t_train),
+                                 dev))
     clean_timings, bwd_launches = clean_kernel_parity(jcfg, dev)
     timings.update(clean_timings)
 
@@ -2451,7 +2615,7 @@ def main() -> int:
     print("train step (flagship, bfloat16 compute, joint D/G, Adadelta):")
     train_launches = train_path(state, state_d, dev)
     launches.update({n: train_launches[n] for n in ("blstm_train",
-                                                     "ctc_nll")})
+                                                     "ctc_nll", "gemm")})
     # no path runs the backward of the fused frontend or the bare alpha
     # recursion, and only a layer past the fit rule takes the gate-stream
     # BLSTM: phase 3's launches

@@ -144,48 +144,8 @@ __host__ __device__ inline Layout lm_layout(int H, int V, int isz) {
   return L;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(rg::smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 __device__ __forceinline__ void zero16(void* dst) {
   *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-}
-
-// x rounded to tf32 (10 mantissa bits; to nearest, ties away), as the bits
-// of a float32: what cvt.rna.tf32.f32 gives for a finite x, computed on the
-// bits by two integer operations, which issue at four times the rate of
-// the conversion unit (a float32 chunk's operands take ~32 k roundings an
-// SM)
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
-// x = hi + lo + O(2^-22 |x|), both tf32
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-// d += a b for a 16x8 A (row-major fragments) and an 8x8 B, tf32 operands,
-// float32 accumulators (mma.sync m16n8k8)
-__device__ __forceinline__ void mma1688(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                        uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // One chunk of a tile's products: warp (wm, wn) adds the chunk's KC rows of
@@ -227,32 +187,32 @@ __device__ __forceinline__ void chunk_products(float (&acc)[MT][4][4], const T* 
         rg::ldsm_x4(r, reinterpret_cast<const bf16*>(
                            as + ((wm * MT + mt) * 16 + lane % 16) * AS + ks * 8 + (lane / 16) * 4));
 #pragma unroll
-        for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(r[i]), ah[mt][i], al[mt][i]);
+        for (int i = 0; i < 4; ++i) rg::split_tf32(__uint_as_float(r[i]), ah[mt][i], al[mt][i]);
       }
       // B: b0 row t, b1 row t + 4, column g
       uint32_t bh[4][2], bl[4][2];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float* wp = ws + (ks * 8 + tq) * WS + wn * 32 + j * 8 + gq;
-        split_tf32(wp[0], bh[j][0], bl[j][0]);
-        split_tf32(wp[4 * WS], bh[j][1], bl[j][1]);
+        rg::split_tf32(wp[0], bh[j][0], bl[j][0]);
+        rg::split_tf32(wp[4 * WS], bh[j][1], bl[j][1]);
       }
       // lo hi, hi lo, then hi hi: each a pass over the eight accumulators,
       // so that an accumulator's three products are eight apart
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma1688(acc[mt][j], al[mt], bh[j][0], bh[j][1]);
+        for (int mt = 0; mt < MT; ++mt) rg::mma1688(acc[mt][j], al[mt], bh[j][0], bh[j][1]);
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma1688(acc[mt][j], ah[mt], bl[j][0], bl[j][1]);
+        for (int mt = 0; mt < MT; ++mt) rg::mma1688(acc[mt][j], ah[mt], bl[j][0], bl[j][1]);
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma1688(acc[mt][j], ah[mt], bh[j][0], bh[j][1]);
+        for (int mt = 0; mt < MT; ++mt) rg::mma1688(acc[mt][j], ah[mt], bh[j][0], bh[j][1]);
       }
     }
   }
@@ -329,9 +289,9 @@ lm_step_tile_kernel(const int* __restrict__ tok,      // (N,)
           if (xrow[q] == nullptr || k >= D) {
             zero16(dst);
           } else if (k < DX) {
-            cp_async16(dst, xrow[q] + k);
+            rg::cp_async16(dst, xrow[q] + k);
           } else if constexpr (!kB16<T>) {
-            cp_async16(dst, hrow[q] + (k - DX));
+            rg::cp_async16(dst, hrow[q] + (k - DX));
           } else {  // T(h_in): eight floats rounded to one 16-byte piece
             const float4* src = reinterpret_cast<const float4*>(hrow[q] + (k - DX));
             const float4 f0 = __ldg(src), f1 = __ldg(src + 1);
@@ -354,7 +314,7 @@ lm_step_tile_kernel(const int* __restrict__ tok,      // (N,)
           T* dst = w_s(buf) + kr * WS + gt * TU + p * P;
           const T* src = r < DX ? wx + (size_t)r * G : wh + (size_t)(r - DX) * G;
           if (r < D && u < H)
-            cp_async16(dst, src + gt * H + u);
+            rg::cp_async16(dst, src + gt * H + u);
           else
             zero16(dst);
         }
@@ -368,18 +328,18 @@ lm_step_tile_kernel(const int* __restrict__ tok,      // (N,)
       // NS - 1 chunks ahead; a commit group an iteration, empty past nk
       for (int c0 = 0; c0 < NS - 1; ++c0) {
         if (c0 < nk) load(c0, c0);
-        cp_async_commit();
+        rg::cp_async_commit();
       }
       for (int kc = 0; kc < nk; ++kc) {
-        cp_async_wait<NS - 2>();
+        rg::cp_async_wait<NS - 2>();
         __syncthreads();  // chunk kc has landed; chunk kc - 1's buffer is free
         LM_PHASE(0)
         if (kc + NS - 1 < nk) load(kc + NS - 1, (kc + NS - 1) % NS);
-        cp_async_commit();
+        rg::cp_async_commit();
         chunk_products<T>(acc, a_s(kc % NS), w_s(kc % NS), wm, wn, lane);
         LM_PHASE(1)
       }
-      cp_async_wait<0>();
+      rg::cp_async_wait<0>();
       __syncthreads();  // every chunk is read: the buffers are free
       // the sums into the gates tile: rows 16 (MT wm + mt) + g (+ 8),
       // columns 32 wn + 8 j + 2 t (+ 1)

@@ -6,9 +6,11 @@ Counterparts of ``robust_e2e_gan_tpu/ops/blstm_train_pallas.py``:
 * ``blstm_train(x, lengths, wx, wh, bias)`` (TPU ``blstm_train``, the
   W_x-resident variant): the input projection ``x @ W_x + bias``, its
   gradients ``dx``, ``dW_x``, ``dbias`` and ``dW_h`` are products of
-  ``csrc/gemm.cu``; the frame loops are ``csrc/blstm_train_resident.cu``
-  where ``resident_plan`` fits, else ``csrc/blstm_train.cu``. Nothing
-  goes through ``torch.matmul``.
+  ``csrc/gemm.cu`` (``gemm``: tensor-core tiles, split-K where
+  ``gemm_plan`` finds too few tiles for the SMs, one launch a product for
+  both directions; ``colsum`` for ``dbias``); the frame loops are
+  ``csrc/blstm_train_resident.cu`` where ``resident_plan`` fits, else
+  ``csrc/blstm_train.cu``. Nothing goes through ``torch.matmul``.
 * ``blstm_train_gx(gx, wh, lengths)`` (TPU ``blstm_train_gx``): the input
   projection stays outside, a differentiable product
   (``models/rnn.py::input_projection``), as the JAX gate-stream variant
@@ -34,6 +36,7 @@ come back in the compute dtype; ``dbias`` and ``dgx`` stay float32.
 from __future__ import annotations
 
 import contextlib
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -279,6 +282,184 @@ def _is_bf16(t: torch.Tensor) -> int:
     return int(t.dtype == torch.bfloat16)
 
 
+# --------------------------------------------------------------------------
+# the products: csrc/gemm.cu's tensor-core kernel, its plan and copy widths,
+# and its plain version
+# --------------------------------------------------------------------------
+
+GEMM_TILE = (128, 128, 32)  # output rows, columns and k a chunk (BM, BN, BK)
+# by compute itemsize (2: bfloat16; 4: float32 as 3xTF32): chunks in flight
+# and the bytes of one operand's stage, the larger of its [mn][k] and
+# [k][mn] layouts (in tf32 a hi and a lo tile); Cfg of csrc/gemm.cu
+GEMM_STAGES = {2: 4, 4: 2}
+GEMM_TILE_BYTES = {2: 128 * 40 * 2, 4: 2 * 128 * 36 * 4}
+# blocks a multiprocessor runs at once (the kernel's launch bounds: two in
+# bfloat16, one in tf32)
+GEMM_BLOCKS_PER_SM = {2: 2, 4: 1}
+GEMM_MIN_SLICE = 8  # chunks a k slice at least
+
+
+class GemmPlan(NamedTuple):
+    tile: Tuple[int, int, int]  # (BM, BN, BK)
+    splits: int  # k slices
+    slice_chunks: int  # chunks of BK a slice
+    workspace: int  # bytes of float32 partial tiles (0 without split-K)
+    smem: int  # dynamic shared memory of a block
+
+
+def gemm_plan(m: int, n: int, k: int, itemsize: int, n_sm: int,
+              smem_per_block: int, batch: int = 1) -> Optional[GemmPlan]:
+    """The launch plan of ``csrc/gemm.cu``'s tensor-core kernel for
+    ``batch`` products of (m, k) x (k, n) in the compute type of
+    ``itemsize`` bytes, or None where it does not fit the card.
+
+    Integer arithmetic. One block an output tile of 128 x 128. Where the
+    tiles of all batches fill at most half of the blocks the card runs at
+    once (``n_sm`` x ``GEMM_BLOCKS_PER_SM``), K is split into S slices of
+    whole 32-k chunks, S the most that keep every block in that one wave
+    (so tiles x S >= n_sm wherever K allows), at least
+    ``GEMM_MIN_SLICE`` chunks a slice and none empty; the slices' float32
+    partial tiles take ``tiles x S x 128 x 128 x 4`` bytes of workspace.
+    The ring of ``GEMM_STAGES`` stages must fit ``smem_per_block``.
+    """
+    if itemsize not in GEMM_STAGES or min(m, n, k) < 0 or batch < 1:
+        return None
+    bm, bn, bk = GEMM_TILE
+    smem = GEMM_STAGES[itemsize] * 2 * GEMM_TILE_BYTES[itemsize]
+    if smem > smem_per_block:
+        return None
+    tiles = batch * -(-m // bm) * -(-n // bn)
+    chunks = -(-k // bk)
+    slots = n_sm * GEMM_BLOCKS_PER_SM[itemsize]
+    splits = 1
+    if 0 < tiles <= slots // 2:
+        splits = max(1, min(slots // tiles, chunks // GEMM_MIN_SLICE))
+    per = max(1, -(-chunks // splits))
+    splits = max(1, -(-chunks // per))
+    workspace = tiles * splits * bm * bn * 4 if splits > 1 else 0
+    return GemmPlan((bm, bn, bk), splits, per, workspace, smem)
+
+
+# copy modes of csrc/gemm.cu (enum Mode) by (itemsize, elements a copy)
+_COPY_MODES = {(4, 4): 0, (4, 1): 1, (2, 8): 2, (2, 2): 3, (2, 1): 4}
+
+
+def copy_mode(ptr: int, itemsize: int, mn: int, k: int, ki: int,
+              s_batch: int, s_mn: int, s_k1: int, s_k0: int):
+    """(k-contiguous staging, copy mode) of one operand of ``gemm``: its
+    tiles are staged with their rows along k where k has stride 1 (or
+    neither k nor m/n has), else along m (A) or n (B). A copy takes 16
+    bytes, or 4, or one element: the widest whose pieces start on a
+    multiple of their size (the base pointer and every stride but the
+    contiguous one's a multiple of the piece) and never cross the edge of
+    the contiguous axis or of a k // ki segment. ``csrc/gemm.cu``'s
+    ``mode_fits`` checks the same before the launch."""
+    kcol = s_k0 == 1 or s_mn != 1
+    if kcol:
+        contiguous, rest = s_k0 == 1, (s_batch, s_mn, s_k1, ki, k)
+    else:
+        contiguous, rest = True, (s_batch, s_k1, s_k0, mn)
+    for vec in (16 // itemsize, 4 // itemsize):
+        if (vec > 1 and contiguous and ptr % (vec * itemsize) == 0
+                and all(x % vec == 0 for x in rest)):
+            return kcol, _COPY_MODES[itemsize, vec]
+    return kcol, _COPY_MODES[itemsize, 1]
+
+
+def _operand_view(x: torch.Tensor, batch: int, rows: int, k: int, ki: int,
+                  s_batch: int, s_rows: int, s_k1: int, s_k0: int):
+    """x read as (batch, rows, k) through element strides, k split as
+    (k // ki, k % ki)."""
+    q, r = divmod(k, ki)
+    base = x.storage_offset()
+    parts = []
+    if q:
+        parts.append(torch.as_strided(x, (batch, rows, q, ki),
+                                      (s_batch, s_rows, s_k1, s_k0), base)
+                     .reshape(batch, rows, q * ki))
+    if r:
+        parts.append(torch.as_strided(x, (batch, rows, r),
+                                      (s_batch, s_rows, s_k0),
+                                      base + q * s_k1))
+    if not parts:
+        return x.new_zeros((batch, rows, 0))
+    return torch.cat(parts, -1) if len(parts) > 1 else parts[0]
+
+
+@contextlib.contextmanager
+def _full_f32():
+    """float32 products in float32, not TF32, inside the block."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def gemm_plain(a, b, c, bias=None, *, batch, m, n, k, a_strides, b_strides,
+               c_strides, ki=None, bias_stride=0, round_bf16=False,
+               accumulate=False) -> None:
+    """Plain version of ``gemm`` on any device: the strided views, the
+    bfloat16 rounding, one float32 product (TF32 off), then the bias and
+    the write or the add into c."""
+    gemm_plain.calls += 1
+    ki = k if ki is None else ki
+    sa_b, sa_m, sa_k1, sa_k0 = a_strides
+    sb_b, sb_k1, sb_k0, sb_n = b_strides
+    av = _operand_view(a, batch, m, k, ki, sa_b, sa_m, sa_k1, sa_k0).float()
+    bv = _operand_view(b, batch, n, k, ki, sb_b, sb_n, sb_k1,
+                       sb_k0).float().transpose(1, 2)
+    if round_bf16:
+        av, bv = av.bfloat16().float(), bv.bfloat16().float()
+    with _full_f32():
+        out = torch.matmul(av, bv)
+    if bias is not None:
+        out = out + torch.as_strided(bias, (batch, 1, n), (bias_stride, 0, 1),
+                                     bias.storage_offset())
+    cv = torch.as_strided(c, (batch, m, n), c_strides, c.storage_offset())
+    if accumulate:
+        cv.add_(out)
+    else:
+        cv.copy_(out)
+
+
+gemm_plain.calls = 0
+
+# launches of the products by route: "tc" the tensor-core kernel, "simt"
+# the SIMT kernel it replaced, run only where forced
+GEMM_ROUTE_LAUNCHES = {"tc": 0, "simt": 0}
+_forced_gemm_route = None
+
+
+@contextlib.contextmanager
+def _force_gemm_route(route: str):
+    """Run every product on one route ("tc" or "simt") inside the block:
+    the tests and ``chip_smoke.py`` time and hold the SIMT kernel against
+    the tensor-core one. Forcing "tc" where its plan does not fit raises."""
+    global _forced_gemm_route
+    check(route in GEMM_ROUTE_LAUNCHES, f"unknown gemm route {route!r}")
+    prev, _forced_gemm_route = _forced_gemm_route, route
+    try:
+        yield
+    finally:
+        _forced_gemm_route = prev
+
+
+# split-K tickets by (card, stream): one int32 a tile, zero between
+# launches (the last block of a tile resets its ticket)
+_TICKETS = {}
+
+
+def _tickets(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _TICKETS[key] = t
+    return t
+
+
 def gemm(a, b, c, bias=None, *, batch, m, n, k, a_strides, b_strides,
          c_strides, ki=None, bias_stride=0, round_bf16=False,
          accumulate=False) -> None:
@@ -289,13 +470,60 @@ def gemm(a, b, c, bias=None, *, batch, m, n, k, a_strides, b_strides,
     m, n); the reduction index k splits as (k // ki, k % ki), so a sum
     over (row, frame) pairs of a padded layout is one product.
     ``round_bf16`` rounds both operands to bfloat16 as they are loaded.
+    The compute type is bfloat16 (tensor cores, ``mma.sync`` m16n8k16)
+    where ``round_bf16`` is set or both operands are bfloat16, else float32
+    as 3xTF32. CPU tensors run ``gemm_plain``; CUDA tensors launch the
+    tensor-core kernel with ``gemm_plan``'s split of K, or raise.
     """
+    if not on_cuda(a, b, c):
+        gemm_plain(a, b, c, bias, batch=batch, m=m, n=n, k=k,
+                   a_strides=a_strides, b_strides=b_strides,
+                   c_strides=c_strides, ki=ki, bias_stride=bias_stride,
+                   round_bf16=round_bf16, accumulate=accumulate)
+        return
     ki = k if ki is None else ki
-    launch("gemm", a.data_ptr(), b.data_ptr(), c.data_ptr(),
-           0 if bias is None else bias.data_ptr(), batch, m, n, k, ki,
-           *a_strides, *b_strides, *c_strides, bias_stride,
-           _is_bf16(a), _is_bf16(b), int(round_bf16), int(accumulate),
-           _stream(c))
+    check(c.dtype == torch.float32, f"gemm writes float32, not {c.dtype}")
+    check(bias is None or bias.dtype == torch.float32,
+          "gemm's bias must be float32")
+    for x in (a, b):
+        check(x.dtype in (torch.float32, torch.bfloat16),
+              f"gemm operand dtype {x.dtype}")
+    bias_ptr = 0 if bias is None else bias.data_ptr()
+    if _forced_gemm_route == "simt":
+        GEMM_ROUTE_LAUNCHES["simt"] += 1
+        launch("gemm_simt", a.data_ptr(), b.data_ptr(), c.data_ptr(),
+               bias_ptr, batch, m, n, k, ki, *a_strides, *b_strides,
+               *c_strides, bias_stride, _is_bf16(a), _is_bf16(b),
+               int(round_bf16), int(accumulate), _stream(c))
+        return
+    tf32 = not (round_bf16 or (_is_bf16(a) and _is_bf16(b)))
+    plan = gemm_plan(m, n, k, 4 if tf32 else 2,
+                     *device_limits(c.device.index), batch=batch)
+    check(plan is not None, f"gemm's plan does not fit batch={batch} M={m} "
+          f"N={n} K={k} on this card")
+    sa_b, sa_m, sa_k1, sa_k0 = a_strides
+    sb_b, sb_k1, sb_k0, sb_n = b_strides
+    a_kcol, mode_a = copy_mode(a.data_ptr(), a.element_size(), m, k, ki,
+                               sa_b, sa_m, sa_k1, sa_k0)
+    b_kcol, mode_b = copy_mode(b.data_ptr(), b.element_size(), n, k, ki,
+                               sb_b, sb_n, sb_k1, sb_k0)
+    ws = tickets = None
+    if plan.splits > 1:
+        bm, bn, _ = plan.tile
+        ws = torch.empty(plan.workspace // 4, device=c.device)
+        tickets = _tickets(c.device, _stream(c),
+                           batch * -(-m // bm) * -(-n // bn))
+    gemm.launches += 1
+    GEMM_ROUTE_LAUNCHES["tc"] += 1
+    launch("gemm", a.data_ptr(), b.data_ptr(), c.data_ptr(), bias_ptr,
+           0 if ws is None else ws.data_ptr(),
+           0 if tickets is None else tickets.data_ptr(), batch, m, n, k, ki,
+           *a_strides, *b_strides, *c_strides, bias_stride, mode_a,
+           int(a_kcol), mode_b, int(b_kcol), int(tf32), int(accumulate),
+           plan.splits, plan.slice_chunks, plan.smem, _stream(c))
+
+
+gemm.launches = 0
 
 
 def colsum(x: torch.Tensor, out: torch.Tensor, m: int, n: int) -> None:
@@ -358,28 +586,62 @@ def _recurrence_bwd_kernel(gx, wh, lengths, y_ext, c_ext, dy):
     return dgates
 
 
-def _projection_kernel(xc, wx, bias):
-    """gx (B, T, 2, 4H) f32 with gx[:, :, z] = x @ wx[z] + bias[z]."""
+def _projection_kernel(xc, wx, bias, product=None):
+    """gx (B, T, 2, 4H) f32 with gx[:, :, z] = x @ wx[z] + bias[z]: one
+    product for both directions (z the batch index). ``product`` is
+    ``gemm`` unless given (its plain version, to time or test the same
+    product); so for the three below."""
     b, t, d = xc.shape
     four_h = wx.shape[-1]
     gx = torch.empty((b, t, 2, four_h), device=xc.device)
-    for z in (0, 1):
-        gemm(xc, wx[z], gx[:, :, z], bias[z], batch=1, m=b * t, n=four_h,
-             k=d, a_strides=(0, d, 0, 1), b_strides=(0, 0, four_h, 1),
-             c_strides=(0, 2 * four_h, 1))
+    (product or gemm)(
+        xc, wx, gx, bias, batch=2, m=b * t, n=four_h, k=d,
+        a_strides=(0, d, 0, 1), b_strides=(d * four_h, 0, four_h, 1),
+        c_strides=(four_h, 2 * four_h, 1), bias_stride=four_h)
     return gx
 
 
-def _dwh_kernel(y_ext, dgates, b, t, h):
-    """dW_h[z] = sum over (row, frame) of y_ext[z, row, frame + 1 - z]^T
-    dgates[row, frame, z] (a zero row sits on the other side)."""
+def _dx_kernel(dg, wx, rnd, product=None):
+    """dx (B, T, D) f32 = sum over z of dgates[:, :, z] @ wx[z]^T: one
+    product over both directions' gates, K = 8H split as (z, gate) by
+    KI = 4H."""
+    b, t, _, four_h = dg.shape
+    d = wx.shape[1]
+    dx = torch.empty((b, t, d), device=dg.device)
+    (product or gemm)(
+        dg, wx, dx, batch=1, m=b * t, n=d, k=2 * four_h, ki=four_h,
+        a_strides=(0, 2 * four_h, four_h, 1),
+        b_strides=(0, d * four_h, 1, four_h), c_strides=(0, d, 1),
+        round_bf16=rnd)
+    return dx
+
+
+def _dwx_kernel(xc, dg, rnd, product=None):
+    """dW_x (2, D, 4H) f32, dW_x[z] = x^T @ dgates[:, :, z]: one product
+    for both directions."""
+    b, t, d = xc.shape
+    four_h = dg.shape[-1]
+    dwx = torch.empty((2, d, four_h), device=xc.device)
+    (product or gemm)(
+        xc, dg, dwx, batch=2, m=d, n=four_h, k=b * t,
+        a_strides=(0, 1, 0, d), b_strides=(four_h, 0, 2 * four_h, 1),
+        c_strides=(d * four_h, four_h, 1), round_bf16=rnd)
+    return dwx
+
+
+def _dwh_kernel(y_ext, dgates, b, t, h, product=None):
+    """dW_h[z] = sum over (row, frame) of y_ext[z, row, frame + z]^T
+    dgates[row, frame, z] (a zero row sits on the other side): one product
+    for both directions, z the batch index, k = (row, frame) split by
+    KI = T over the padded rows of T + 1."""
     dwh = torch.empty((2, h, 4 * h), device=dgates.device)
-    for z in (0, 1):
-        # h_prev rows: forward 0..T-1, backward 1..T
-        gemm(y_ext[z, :, z:], dgates[:, :, z], dwh[z], batch=1, m=h, n=4 * h,
-             k=b * t, ki=t, a_strides=(0, 1, (t + 1) * h, h),
-             b_strides=(0, t * 8 * h, 8 * h, 1), c_strides=(0, 4 * h, 1),
-             round_bf16=y_ext.dtype == torch.bfloat16)
+    # h_prev rows: forward 0..T-1, backward 1..T (batch stride + H)
+    (product or gemm)(
+        y_ext, dgates, dwh, batch=2, m=h, n=4 * h, k=b * t, ki=t,
+        a_strides=(b * (t + 1) * h + h, 1, (t + 1) * h, h),
+        b_strides=(4 * h, t * 8 * h, 8 * h, 1),
+        c_strides=(h * 4 * h, 4 * h, 1),
+        round_bf16=y_ext.dtype == torch.bfloat16)
     return dwh
 
 
@@ -429,17 +691,8 @@ class _BLSTMTrain(torch.autograd.Function):
             gx = _projection_kernel(xc, wx, bias)  # recomputed, not stored
             dg = _recurrence_bwd_kernel(gx, wh, lengths, y_ext, c_ext, dy)
             rnd = cd == torch.bfloat16
-            dx = torch.empty((b, t, d), device=xc.device)
-            for z in (0, 1):  # dx = sum_z dgates[z] @ wx[z]^T
-                gemm(dg[:, :, z], wx[z], dx, batch=1, m=b * t, n=d, k=4 * h,
-                     a_strides=(0, 8 * h, 0, 1), b_strides=(0, 0, 1, 4 * h),
-                     c_strides=(0, d, 1), round_bf16=rnd, accumulate=z == 1)
-            dwx = torch.empty((2, d, 4 * h), device=xc.device)
-            for z in (0, 1):  # dwx[z] = x^T @ dgates[z]
-                gemm(xc, dg[:, :, z], dwx[z], batch=1, m=d, n=4 * h,
-                     k=b * t, a_strides=(0, 1, 0, d),
-                     b_strides=(0, 0, 8 * h, 1), c_strides=(0, 4 * h, 1),
-                     round_bf16=rnd)
+            dx = _dx_kernel(dg, wx, rnd)
+            dwx = _dwx_kernel(xc, dg, rnd)
             dwh = _dwh_kernel(y_ext, dg, b, t, h)
             dbias = torch.empty((2 * 4 * h,), device=xc.device)
             colsum(dg, dbias, b * t, 8 * h)

@@ -69,10 +69,15 @@ SIGNATURES = {
     # gx, wh, lengths, y_ext, c_ext, dy, dgates, part, count, B, T, H, n_u,
     # bf16, stream
     "blstm_train_resident_bwd": [_P] * 9 + [_I] * 5 + [_P],
-    # A, B, C, bias, batch, M, N, K, KI, 12 element strides (A: batch, m,
-    # k outer, k inner; B: batch, k outer, k inner, n; C: batch, m, n;
-    # bias: batch), a_bf16, b_bf16, round_bf16, accumulate, stream
-    "gemm": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_I] * 4 + [_P],
+    # A, B, C, bias, workspace, tickets, batch, M, N, K, KI, 12 element
+    # strides (A: batch, m, k outer, k inner; B: batch, k outer, k inner,
+    # n; C: batch, m, n; bias: batch), A's copy mode and k-contiguous
+    # staging, B's, tf32, accumulate, k slices, chunks a slice,
+    # shared-memory bytes, stream
+    "gemm": [_P] * 6 + [_I] * 5 + [_L] * 12 + [_I] * 9 + [_P],
+    # the SIMT kernel: A, B, C, bias, batch, M, N, K, KI, the 12 strides,
+    # a_bf16, b_bf16, round_bf16, accumulate, stream
+    "gemm_simt": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_I] * 4 + [_P],
     # X, out, M, N, stream
     "colsum": [_P, _P, _I, _I, _P],
     # emit, alpha0, skip, pos, lens, hist (or null), afin, B, T, U, stream

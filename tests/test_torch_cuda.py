@@ -705,6 +705,211 @@ def test_blstm_train_resident_refusals(dev):
     torch.testing.assert_close(got, want, **_tol(torch.float32, want))
 
 
+# the products of the training BLSTM (csrc/gemm.cu): each layout of the
+# layer against the plain version, at the flagship's enhancer layer 0
+# (B=32, T=286, D=257, H=256) and encoder layer 0 (T=72, D=2560), and at a
+# ragged small one (B=5, T=9, D=257, H=8)
+GEMM_LAYERS = {"enhancer0": (32, 286, 257, 256),
+               "encoder0": (32, 72, 2560, 256), "ragged": (5, 9, 257, 8)}
+GEMM_LAYOUTS = ["proj", "dx", "dwx", "dwh"]
+
+
+def _gemm_operands(gen, dev, b, t, d, h, dtype):
+    xc = torch.randn((b, t, d), generator=gen, device=dev).to(dtype)
+    wx = (torch.randn((2, d, 4 * h), generator=gen, device=dev)
+          / d ** 0.5).to(dtype)
+    bias = torch.randn((2, 4 * h), generator=gen, device=dev)
+    dg = torch.randn((b, t, 2, 4 * h), generator=gen, device=dev)
+    y_ext = torch.randn((2, b, t + 1, h), generator=gen, device=dev).to(dtype)
+    return xc, wx, bias, dg, y_ext
+
+
+def _gemm_product(layout, xc, wx, bias, dg, y_ext, product=None):
+    """One product of the layer through the wrapper that launches it (or
+    with ``product``, e.g. the plain version)."""
+    from robust_e2e_gan_torch.ops import blstm_train as bt
+
+    b, t, _ = xc.shape
+    rnd = wx.dtype == torch.bfloat16
+    if layout == "proj":
+        return bt._projection_kernel(xc, wx, bias, product)
+    if layout == "dx":
+        return bt._dx_kernel(dg, wx, rnd, product)
+    if layout == "dwx":
+        return bt._dwx_kernel(xc, dg, rnd, product)
+    return bt._dwh_kernel(y_ext, dg, b, t, y_ext.shape[-1], product)
+
+
+def _gemm_tol(want):
+    # float32 sums in another order (bf16 products are exact in float32,
+    # 3xTF32 keeps ~21 bits of each operand)
+    return dict(rtol=1e-4, atol=1e-4 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("layer", list(GEMM_LAYERS))
+@pytest.mark.parametrize("layout", GEMM_LAYOUTS)
+def test_gemm_layouts_match_plain(dev, layout, layer, dtype):
+    """Each product of the layer on the tensor-core kernel (one launch for
+    both directions) against gemm_plain on the same inputs."""
+    from robust_e2e_gan_torch.ops import blstm_train as bt
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    args = _gemm_operands(gen, dev, *GEMM_LAYERS[layer], dtype)
+    before = dict(bt.GEMM_ROUTE_LAUNCHES)
+    got = _gemm_product(layout, *args)
+    assert bt.GEMM_ROUTE_LAUNCHES["tc"] == before["tc"] + 1
+    assert bt.GEMM_ROUTE_LAUNCHES["simt"] == before["simt"]
+    want = _gemm_product(layout, *args, product=bt.gemm_plain)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **_gemm_tol(want))
+
+
+# (dtype, D, offset in elements of x's first element, A's copy mode)
+COPY_CASES = [(torch.bfloat16, 256, 0, 2), (torch.bfloat16, 258, 0, 3),
+              (torch.bfloat16, 257, 0, 4), (torch.bfloat16, 256, 1, 4),
+              (torch.bfloat16, 256, 2, 3), (torch.float32, 256, 0, 0),
+              (torch.float32, 257, 0, 1), (torch.float32, 256, 2, 1)]
+
+
+@pytest.mark.parametrize("dtype, d, offset, mode", COPY_CASES,
+                         ids=["bf16_16B", "bf16_4B", "bf16_d257",
+                              "bf16_odd_base", "bf16_4B_base", "f32_16B",
+                              "f32_d257", "f32_8B_base"])
+def test_gemm_copy_widths(dev, dtype, d, offset, mode):
+    """Every copy width of the kernel (16-byte pieces, 4-byte ones, single
+    elements, bfloat16 and float32) on A of the projection and of dW_x
+    (its x^T), from rows and base pointers aligned to 16, 4 or 2 bytes,
+    against gemm_plain."""
+    from robust_e2e_gan_torch.ops import blstm_train as bt
+
+    gen = torch.Generator(device=dev).manual_seed(d + offset)
+    b, t, h = 6, 37, 64
+    store = torch.randn(b * t * d + offset, generator=gen, device=dev)
+    xc = store.to(dtype)[offset:].view(b, t, d)
+    wx = (torch.randn((2, d, 4 * h), generator=gen, device=dev)
+          / d ** 0.5).to(dtype)
+    dg = torch.randn((b, t, 2, 4 * h), generator=gen, device=dev)
+    isz = xc.element_size()
+    assert bt.copy_mode(xc.data_ptr(), isz, b * t, d, d, 0, d, 0, 1) == (
+        True, mode)
+    products = {  # x @ wx[z] (+ bias), and x^T @ dgates[:, :, z]
+        "proj": (wx, dict(m=b * t, k=d, a_strides=(0, d, 0, 1),
+                          b_strides=(d * 4 * h, 0, 4 * h, 1))),
+        "dwx": (dg, dict(m=d, k=b * t, a_strides=(0, 1, 0, d),
+                         b_strides=(4 * h, 0, 8 * h, 1),
+                         round_bf16=dtype == torch.bfloat16))}
+    for other, args in products.values():
+        got = torch.empty((2, args["m"], 4 * h), device=dev)
+        want = torch.empty_like(got)
+        args.update(batch=2, n=4 * h, c_strides=(args["m"] * 4 * h, 4 * h, 1))
+        bt.gemm(xc, other, got, **args)
+        bt.gemm_plain(xc, other, want, **args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **_gemm_tol(want))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_gemm_split_k_is_deterministic(dev, dtype):
+    """dW_h of the flagship's enhancer layer 0 takes 8 k slices in
+    bfloat16, 4 in float32: three runs are bit-identical (partials summed
+    in slice order, no float atomics), and the tickets are back at
+    zero."""
+    from robust_e2e_gan_torch.ops import blstm_train as bt
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, t, d, h = GEMM_LAYERS["enhancer0"]
+    _, _, _, dg, y_ext = _gemm_operands(gen, dev, b, t, d, h, dtype)
+    plan = bt.gemm_plan(h, 4 * h, b * t, y_ext.element_size(),
+                        *bt.device_limits(dev.index or 0), batch=2)
+    assert plan.splits > 1
+    runs = [bt._dwh_kernel(y_ext, dg, b, t, h) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+    assert all(int(t_.abs().sum()) == 0 for t_ in bt._TICKETS.values())
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_gemm_simt_route_agrees(dev, dtype):
+    """The SIMT kernel, forced, against the tensor-core kernel on each
+    product of a layer; its launches are counted apart."""
+    from robust_e2e_gan_torch.ops import blstm_train as bt
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    args = _gemm_operands(gen, dev, 8, 45, 257, 64, dtype)
+    for layout in GEMM_LAYOUTS:
+        tc = _gemm_product(layout, *args)
+        n, before = bt.gemm.launches, dict(bt.GEMM_ROUTE_LAUNCHES)
+        with bt._force_gemm_route("simt"):
+            simt = _gemm_product(layout, *args)
+        assert bt.gemm.launches == n
+        assert bt.GEMM_ROUTE_LAUNCHES["simt"] == before["simt"] + 1
+        torch.cuda.synchronize()
+        torch.testing.assert_close(tc, simt, **_gemm_tol(simt))
+
+
+def test_blstm_train_products_take_the_tc_kernel(dev):
+    """Forward and backward of blstm_train run five products (the
+    projection, again in the backward, dx, dW_x, dW_h), blstm_train_gx's
+    backward one (dW_h): one tensor-core launch each for both directions,
+    none on the SIMT route."""
+    from robust_e2e_gan_torch.ops import blstm_train as bt
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x, wx, wh, bias, lengths, dy = _train_inputs(gen, dev, 5, 23, 70, 32,
+                                                 torch.bfloat16)
+    before = dict(bt.GEMM_ROUTE_LAUNCHES)
+    _grads(lambda x_, wx_, wh_, b_: bt.blstm_train(x_, lengths, wx_, wh_, b_),
+           [x, wx, wh, bias], dy)
+    assert bt.GEMM_ROUTE_LAUNCHES == {"tc": before["tc"] + 5,
+                                      "simt": before["simt"]}
+    gx = torch.randn((5, 23, 2, 4 * 32), generator=gen, device=dev)
+    _grads(lambda g_, wh_: bt.blstm_train_gx(g_, wh_, lengths), [gx, wh], dy)
+    assert bt.GEMM_ROUTE_LAUNCHES == {"tc": before["tc"] + 6,
+                                      "simt": before["simt"]}
+
+
+def test_gemm_refusals(dev):
+    """A copy mode the pointer or strides do not allow, a plan with an
+    empty slice or without its workspace, and too little shared memory are
+    refused at the launch and raise; an unknown route raises; the next
+    launch runs."""
+    from robust_e2e_gan_torch.ops import blstm_train as bt
+    from robust_e2e_gan_torch.utils.build import launch
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    a = torch.randn((64, 257), generator=gen, device=dev).to(torch.bfloat16)
+    b = torch.randn((257, 128), generator=gen, device=dev).to(torch.bfloat16)
+    c = torch.empty((64, 128), device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = torch.empty(4 * 128 * 128, device=dev)
+    tickets = torch.zeros(4, dtype=torch.int32, device=dev)
+
+    def run(mode_a=4, splits=1, per=9, smem=81_920, buffers=True):
+        launch("gemm", a.data_ptr(), b.data_ptr(), c.data_ptr(), 0,
+               ws.data_ptr() if buffers else 0,
+               tickets.data_ptr() if buffers else 0, 1, 64, 128, 257, 257,
+               0, 257, 0, 1, 0, 0, 128, 1, 0, 128, 1, 0, mode_a, 1, 2, 0, 0,
+               0, splits, per, smem, stream)
+
+    # 257 k: 9 chunks; 3 slices of 5 leave one empty, 2 of 4 miss one
+    for bad in (dict(mode_a=2), dict(mode_a=3), dict(splits=3, per=5),
+                dict(splits=2, per=4), dict(smem=40_000),
+                dict(splits=2, per=5, buffers=False)):
+        with pytest.raises(RuntimeError, match="gemm"):
+            run(**bad)
+    with pytest.raises(ValueError):
+        with bt._force_gemm_route("wgmma"):
+            pass
+    run(splits=2, per=5)
+    torch.cuda.synchronize()
+    want = torch.empty_like(c)
+    bt.gemm_plain(a, b, want, batch=1, m=64, n=128, k=257,
+                  a_strides=(0, 257, 0, 1), b_strides=(0, 0, 128, 1),
+                  c_strides=(0, 128, 1))
+    torch.testing.assert_close(c, want, **_gemm_tol(want))
+
+
 @pytest.mark.parametrize("s", [1, 9])
 def test_ctc_alpha_kernel_matches_plain(dev, s):
     """The bare recursion (the JAX kernel's contract, on no path): final
