@@ -48,7 +48,10 @@ Phases, each of which exits non-zero on failure:
    bfloat16 logits, timed in turns with F.ctc_loss, with a profiler split
    of its device time against its wall time, and the bare alpha recursion
    alone); then the clean-speech kernels: the fused frontend
-   at decode and train shapes, its backward at train shapes, and the RNNLM
+   at decode and train shapes on both of its routes, the DFT on the tensor
+   cores in 3xTF32 (logmel_tc_kernel, with its plan; two runs
+   bit-identical) and in float32 FMAs (logmel_kernel), timed in turns with
+   the plain version, its backward at train shapes, and the RNNLM
    step at N=1024 lanes (float32 and bfloat16, 1 and 2 layers, and the
    CLI's E=H=512) on both of its routes, the gate product over all lanes
    in tiles on a co-resident grid (csrc/lm_step_tile.cu, with its plan;
@@ -96,8 +99,9 @@ Phases, each of which exits non-zero on failure:
    compute, without the enhancer, with RNNLM shallow fusion (an LM at the
    ``LMConfig`` defaults in float32, weights from seed 2, lm_weight 0.3)
    on 3 batches of 128 clean utterances; checks that the fused frontend,
-   the LM step and the four serving kernels launched (every attention step
-   on the per-utterance route, every LM step on its tile route) and no
+   the LM step and the four serving kernels launched (every fused-frontend
+   launch on its tensor-core route, every attention step on the
+   per-utterance route, every LM step on its tile route) and no
    plain version ran; runs one batch with the LM forced to its lane route
    (its launches are that kernel's); profiles one warm batch on each LM
    route (the LM step's row); then times the same path with the plain
@@ -138,8 +142,9 @@ and ``ctc_prefix_psi``/``ctc_prefix_state``, the second of each pair
 with phase 4's forced batch's launches; the fused step's as
 ``att_dec_step``, with phase 12's launches, and ``att_dec_step_hyp``,
 with phase 13's forced batch's; the LM step's as ``lm_step``, with phase
-9's launches, and ``lm_step_lane``, with phase 9's forced batch's); the
-last line is
+9's launches, and ``lm_step_lane``, with phase 9's forced batch's;
+``fbank_fused`` the fused frontend's tensor-core route, with phase 9's
+launches); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -313,8 +318,12 @@ KERNELS = {
         wrapper=ctc.ctc_alpha, plain=ctc.ctc_alpha_fwd_plain,
         source="robust_e2e_gan_torch/csrc/ctc_alpha.cu",
         replaces="robust_e2e_gan_tpu/ops/ctc_pallas.py:296"),
+    # the fused frontend's route "tc" (logmel_tc_kernel, ops/fbank_fused.py::
+    # fbank_plan), counted by route; route "simt" (logmel_kernel) runs only
+    # where phase 3 forces it
     "fbank_fused": dict(
         wrapper=fbank_fused.fbank_fused, plain=fbank_fused.fbank_fused_plain,
+        fbank_route="tc",
         source="robust_e2e_gan_torch/csrc/fbank.cu",
         replaces="robust_e2e_gan_tpu/ops/fbank_pallas.py:147"),
     "fbank_fused_bwd": dict(
@@ -414,6 +423,12 @@ DEC_ROUTES = ("utt", "hyp")
 LM_ROUTES = ("tile", "lane")
 # their kernels' names in a profile
 LM_KERNELS = ("lm_step_tile_kernel", "lm_step_kernel")
+# the fused frontend's forward routes: the DFT on the tensor cores in
+# 3xTF32 wherever ops/fbank_fused.py::fbank_plan fits, and float32 FMAs a
+# thread a bin past it (both csrc/fbank.cu)
+FBANK_ROUTES = ("tc", "simt")
+# the frontend's kernels in a profile: either route's log-mel and CMVN
+FRONTEND_KERNELS = ("logmel_tc_kernel", "logmel_kernel", "cmvn_kernel")
 # the CTC prefix kernels' two routes: one block per utterance, chosen by
 # ops/ctc_prefix.py::psi_plan and state_plan, and one thread per lane past
 # them (both csrc/ctc_prefix.cu)
@@ -448,6 +463,8 @@ def reset_counts() -> None:
         att_dec.DEC_ROUTE_LAUNCHES[route] = 0
     for route in LM_ROUTES:
         lm_step.LM_ROUTE_LAUNCHES[route] = 0
+    for route in FBANK_ROUTES:
+        fbank_fused.FBANK_ROUTE_LAUNCHES[route] = 0
     for kind in ctc_prefix.PREFIX_ROUTE_LAUNCHES.values():
         for route in PREFIX_ROUTES:
             kind[route] = 0
@@ -464,6 +481,8 @@ def launch_count(name: str) -> int:
         return att_dec.DEC_ROUTE_LAUNCHES[k["dec_route"]]
     if "lm_route" in k:
         return lm_step.LM_ROUTE_LAUNCHES[k["lm_route"]]
+    if "fbank_route" in k:
+        return fbank_fused.FBANK_ROUTE_LAUNCHES[k["fbank_route"]]
     if "route" in k:
         routes = (att.ATT_ROUTE_LAUNCHES if k["route"] in ATT_ROUTES
                   else blstm.INFER_ROUTE_LAUNCHES)
@@ -518,6 +537,24 @@ def on_dec_route(route, fn):
         with att_dec._force_dec_route(route):
             return fn(*args)
     return run
+
+
+def on_fbank_route(route, fn):
+    """``fn`` with every fused-frontend launch on ``route``."""
+    def run(*args):
+        with fbank_fused._force_fbank_route(route):
+            return fn(*args)
+    return run
+
+
+def require_tc_frontend(where: str, n: int) -> None:
+    """Every fused-frontend launch since the last reset, ``n`` of them,
+    took route "tc"."""
+    routes = dict(fbank_fused.FBANK_ROUTE_LAUNCHES)
+    print(f"  fbank_fused launches by route {routes}")
+    require(routes == {"tc": n, "simt": 0},
+            f"{where}: not every fused-frontend launch took the tc route: "
+            f"{routes}, expected {n}")
 
 
 def on_lm_route(route, fn):
@@ -1615,25 +1652,46 @@ def clean_kernel_parity(jcfg, dev):
         data = make_batch(b, synth, np.random.default_rng(3))
         wav = torch.from_numpy(data["noisy_wav"]).to(dev)
         lens = torch.from_numpy(data["wav_lengths"]).to(dev)
-        got = fbank_fused.fbank_fused(wav, fcfg, lens)
+        fns = {r: on_fbank_route(r, lambda: fbank_fused.fbank_fused(
+            wav, fcfg, lens)) for r in FBANK_ROUTES}
         want = fbank_fused.fbank_fused_plain(wav, fcfg, lens)
         n_valid = fbank_fused.valid_frames(wav, fcfg, lens)
         frames = int(n_valid.sum())
-        # float32 DFT and mel sums in another order: ~1e-6 of O(1) features
-        err, ok = compare(f"fbank_fused {tag} B={b} N={wav.shape[1]} "
-                          f"T={got[0].shape[1]} (valid frames {frames})",
-                          got, want, rtol=1e-4, atol=1e-4)
-        ok_all &= ok
+        plan = fbank_fused.fbank_plan(fcfg, b, wav.shape[1],
+                                      *device_limits(0), wav.data_ptr())
+        print(f"  fbank_fused {tag}: tc plan {plan}")
+        require(plan is not None, f"the tc route does not fit {tag} shapes")
+        errs = {}
+        for route, fn in fns.items():
+            got = fn()
+            # float32 DFT and mel sums in another order (route "tc": the
+            # products in 3xTF32): ~1e-5 of O(1) features
+            errs[route], ok = compare(
+                f"fbank_fused {route} {tag} B={b} N={wav.shape[1]} "
+                f"T={got[0].shape[1]} (valid frames {frames})", got, want,
+                rtol=1e-4, atol=1e-4)
+            ok_all &= ok
+        same = torch.equal(fns["tc"]()[0], fns["tc"]()[0])
+        print(f"    tc route rerun bit-identical: {same}")
+        ok_all &= same
+        # in turns (tc, simt, plain, plain, simt, tc)
+        ms = cuda_ms_in_turns(
+            [fns["tc"], fns["simt"],
+             lambda: fbank_fused.fbank_fused_plain(wav, fcfg, lens)], 10)
+        print(f"    in turns: tc {ms[0]:.4f} ms, simt {ms[1]:.4f} ms, plain "
+              f"{ms[2]:.4f} ms")
+        # per valid frame: the windowed DFT (two bases, 2 * L * F each),
+        # power, mel (2 * F * M), log and CMVN
+        flops = frames * (4 * l_ * f_ + 3 * f_ + 2 * f_ * m_ + 6 * m_)
+        # the products as route "tc" runs them: three tf32 passes over the
+        # band it computes (plan.nbins bins), at the tensor cores' peak
+        tc_ms = frames * 4 * l_ * plan.nbins / TF32X3_FLOPS * 1e3
+        print(f"    3xTF32 bound of the DFT over {plan.nbins} bins: "
+              f"{tc_ms:.4f} ms (three tf32 passes at 495 TFLOP/s)")
         if tag == "decode":
-            # per valid frame: the windowed DFT (two bases, 2 * L * F
-            # each), power, mel (2 * F * M), log and CMVN
             res["fbank_fused"] = entry(
-                "fbank_fused", err,
-                cuda_ms(lambda: fbank_fused.fbank_fused(wav, fcfg, lens), 10),
-                cuda_ms(lambda: fbank_fused.fbank_fused_plain(wav, fcfg,
-                                                              lens), 5),
-                frames * (4 * l_ * f_ + 3 * f_ + 2 * f_ * m_ + 6 * m_),
-                nbytes(wav, lens, got, bases), wav.dtype)
+                "fbank_fused", errs["tc"], ms[0], ms[2], flops,
+                nbytes(wav, lens, want, bases), wav.dtype)
 
     # the backward at the train shapes, for a fixed random cotangent
     g = torch.randn(got[0].shape, generator=gen, device=dev)
@@ -2191,6 +2249,7 @@ def clean_path(b, n_batches, state, dev):
             f"LM steps {launches['lm_step']} != {n_batches} x {STEPS}")
     require_lm_route("clean path", "tile", n_batches * STEPS)
     require_utt_attention("clean path", n_batches * STEPS)
+    require_tc_frontend("clean path", n_batches)
     before = dict(lm_step.LM_ROUTE_LAUNCHES)
     check_result(on_lm_route("lane", searcher)(*batches[0]), b)
     lane = {r: lm_step.LM_ROUTE_LAUNCHES[r] - before[r] for r in LM_ROUTES}
@@ -2212,8 +2271,8 @@ def clean_path(b, n_batches, state, dev):
         search = on_lm_route(route, searcher)
         _, wall_ms = timed(lambda: search(wav, lens))
         print(f"  LM on route {route}, one profiled warm batch:")
-        busy_ms, launches_p, _ = device_profile(lambda: search(wav, lens), 12,
-                                                pick=LM_KERNELS)
+        busy_ms, launches_p, _ = device_profile(
+            lambda: search(wav, lens), 12, pick=LM_KERNELS + FRONTEND_KERNELS)
         print(f"  profile of one warm batch: device kernels {busy_ms:.1f} ms "
               f"of an unprofiled {wall_ms:.1f} ms batch (busy share "
               f"{busy_ms / wall_ms:.3f}), {launches_p} launches")
@@ -2289,6 +2348,7 @@ def clean_recipe(dev):
         # 3 training steps and 3 one-batch dev evals, all through the kernel
         require(asr_launches["fbank_fused"] == 6,
                 f"fused frontend launches {asr_launches['fbank_fused']} != 6")
+        require_tc_frontend("--mode asr --fused-frontend", 6)
         require(all(v > 0 for v in asr_launches.values()),
                 f"a kernel never launched in --mode asr: {asr_launches}")
         # (the teacher-forced decoder's attention is plain PyTorch, as the

@@ -1,40 +1,88 @@
 // Fused log-mel frontend: framing -> windowed DFT -> power -> mel -> log ->
 // masked two-pass utterance CMVN, and its backward to the waveform.
 //
-// Replaces robust_e2e_gan_tpu/ops/fbank_pallas.py::fbank_fused (forward)
-// and the backward kernel of ::fbank_fused_trainable. DC removal,
-// pre-emphasis and the window are folded into the DFT bases on the host
-// (ops/fbank_fused.py::combined_bases), as on the TPU. The TPU kernel
-// stacks three row-shifted copies of the waveform because Mosaic needs
-// 8-aligned sublane slices; here a block reads frame t straight from
-// wav[b, t * shift : t * shift + L].
+// Replaces robust_e2e_gan_tpu/ops/fbank_pallas.py::fbank_fused (forward,
+// pallas_call :214, body :97-144) and the backward kernel of
+// ::fbank_fused_trainable. DC removal, pre-emphasis and the window are
+// folded into the DFT bases on the host (ops/fbank_fused.py::
+// combined_bases), as on the TPU. The TPU kernel stacks three row-shifted
+// copies of the waveform because Mosaic needs 8-aligned sublane slices;
+// here a block reads frame t straight from wav[b, t * shift : t * shift + L].
 //
 // What bounds it on Hopper: operations. At the decode's shapes (B = 128
 // utterances of 111,360 samples, 694 frames each, L = 400, 257 bins, 80
-// mels) the DFT alone is ~36 GFLOP of float32 FMAs against ~85 MB of
-// waveform and features: ~0.6 ms at the CUDA cores' float32 rate, ~25 us
-// of memory traffic. All products are true float32 (the JAX kernel pins
-// them to Precision.HIGHEST), so no TF32 or bf16 tensor-core path.
+// mels) the DFT alone is ~36 GFLOP against ~85 MB of waveform and
+// features: ~0.55 ms at the CUDA cores' float32 rate, ~0.22 ms as three
+// tf32 passes at the tensor cores' 495 TFLOP/s, ~25 us of memory traffic.
+// The JAX kernel pins its products to Precision.HIGHEST; 3xTF32 keeps
+// float32 accuracy (each operand x split into hi = tf32(x) and lo =
+// tf32(x - hi), lo hi + hi lo + hi hi summed in float32). As measured
+// (PERF.md, row 10; tools/fbank_phases.py; NVIDIA H100 80GB HBM3), route
+// "tc" takes ~0.82 ms there, ~85% of a block's cycles in the DFT at ~2.1 k
+// cycles a k8 step an SM: mma.sync m16n8k8 tf32 with each step's sums
+// added apart reaches ~1.5 k on registers alone (half the tf32 peak),
+// ~1.7 k with the B operand's splits; the loads and waits take the rest.
 //
-// Design: a block per (utterance, tile of TT frames) fills the card. It
-// copies its frames into shared memory transposed ([l][t], rows padded to
-// TS floats so each frame position is one aligned float4 of 4 frames);
-// thread f owns DFT bin f and keeps the TT frames' real and imaginary sums
-// in registers, reading the folded bases from global memory (822 KB, they
-// stay in L2) once per TT frames, two rows ahead of their use. Power goes
-// back to shared memory, where a thread per (mel bin, 16 frames) takes the
-// mel products (16 independent sums per filterbank element read), the log
-// and the length mask.
+// The forward has two routes (ops/fbank_fused.py::fbank_plan picks "tc"
+// wherever it fits, every flagship configuration; "simt" runs past it or
+// where forced):
+//
+// "tc", logmel_tc_kernel: the DFT as an implicit GEMM on the tensor cores.
+// A block takes (utterance, tile of TM = 64 or 32 frames); a tile wholly
+// past the utterance's valid frames writes zeros and skips the DFT, and an
+// m16 row tile past them skips its products. The block's waveform span,
+// (TM - 1) * shift + L samples, is staged once by cp.async (16-byte pieces,
+// or 4-byte ones where N % 4 != 0 or the base is not 16-byte aligned) with
+// a 4-float skew every frame shift (sample p at p + 4 * (p / shift)), so
+// the 8 frame rows an ldmatrix phase reads start in 8 different bank
+// groups (rows 164 floats apart instead of 160), then split once into tf32
+// hi and lo spans. Frame r's k-th sample is the A operand's (r, k)
+// element; A fragments come by ldmatrix on 32-bit elements. The B operand
+// is the band of bins the filterbank touches (1..255 at n_fft = 512),
+// cos and sin interleaved bin by bin and padded with zero bins to a
+// multiple of 32: each warp owns 32 bins (64 columns, 8 n8 tiles), so a
+// C fragment's column pair is one bin's (re, im) and the power forms in
+// registers. The host packs the bases in fragment order once per
+// configuration and card (ops/fbank_fused.py::pack_bases); each warp
+// streams its columns from L2 by cp.async into a ring of its own, 4 k8
+// steps in flight, each lane copying and reading only its own 64 bytes a
+// step (no block barrier in the loop), loads the next step's pieces under
+// this step's products and splits them in registers (host halves would
+// double the bases' L2 traffic, ~0.82 MB a block, and the ring's loads,
+// and ran slower). Each k8 step's three products are summed apart and
+// added to the running sums by a float32 add: the tensor cores' own
+// float32 sums round toward zero. Power goes to shared memory, bin by bin;
+// each mel filter, a warp's (a lane a frame), sums only its nonzero bins
+// in ascending order (bands found on the host), which equals the dense
+// ascending chain bit for bit given the same power (fmaf(p, 0, acc) ==
+// acc); then the log floor, zeros for frames at or past n_valid.
+//
+// "simt", logmel_kernel: a block per (utterance, tile of TT frames) copies
+// its frames transposed into shared memory; thread f owns DFT bin f (all
+// 257) and keeps the TT frames' real and imaginary sums in registers,
+// reading the folded bases from L2 two rows ahead, in float32 FMAs; the
+// mel is the dense product over every bin.
+//
 // Blocks run in no order, so CMVN's per-utterance mean and variance are a
 // second, small kernel (one block per utterance, column sums in a fixed
-// order). The backward recomputes the spectra tile by tile (no re/im
-// residuals in device memory), applies the CMVN, log and mel chain rule,
-// and writes each frame's gradient (B, T, L); a last kernel overlap-adds
-// them to the waveform as a gather (each sample sums the <= 3 frames that
-// cover it), so the result is deterministic. Tiling the bases in shared
-// memory and 3xTF32 tensor-core products are later work.
+// order). The backward recomputes the masked log-mel through the forward's
+// route, then the spectra tile by tile in dframes_kernel (float32 FMAs, no
+// re/im residuals in device memory), applies the CMVN, log and mel chain
+// rule, and writes each frame's gradient (B, T, L); a last kernel
+// overlap-adds them to the waveform as a gather (each sample sums the <= 3
+// frames that cover it), so the result is deterministic.
 
 #include "common.cuh"
+
+// clock64() marks for robust_e2e_gan_torch/tools/fbank_phases.py, which
+// defines them; empty in the library build.
+#ifndef FB_PHASE_BEGIN
+#define FB_PHASE_BEGIN
+#define FB_PHASE(n)
+#define FB_PHASE_END
+#define FB_CMVN_BEGIN
+#define FB_CMVN_END
+#endif
 
 namespace {
 
@@ -114,11 +162,14 @@ logmel_kernel(const float* __restrict__ wav, const int* __restrict__ n_valid,
   const int nt = min_i(TT, T - t0);
   const int nv = min_i(n_valid[b], T);
   const int f = threadIdx.x;
+  FB_PHASE_BEGIN
   load_frames(wav + (size_t)b * N, smem, t0, nt, L, shift);
   __syncthreads();
+  FB_PHASE(0)
   float re[TT], im[TT];
   if (f < F) dft(smem, mcos, msin, L, F, f, re, im);
   __syncthreads();  // the frames are read: the tile becomes the power
+  FB_PHASE(1)
   float* P = smem;  // (TT, F)
   if (f < F) {
 #pragma unroll
@@ -129,6 +180,7 @@ logmel_kernel(const float* __restrict__ wav, const int* __restrict__ n_valid,
     }
   }
   __syncthreads();
+  FB_PHASE(2)
   for (int i = threadIdx.x; i < (TT / TG) * M; i += blockDim.x) {
     const int tb = i / M * TG, m = i % M;
     float mel[TG];
@@ -140,6 +192,247 @@ logmel_kernel(const float* __restrict__ wav, const int* __restrict__ n_valid,
         out[((size_t)b * T + tg) * M + m] = tg < nv ? logf(fmaxf(mel[j], log_floor)) : 0.f;
     }
   }
+  FB_PHASE(3)
+  FB_PHASE_END
+}
+
+// ---------------------------------------------------------------------------
+// route "tc": the DFT as an implicit GEMM on the tensor cores, in 3xTF32
+// ---------------------------------------------------------------------------
+
+constexpr int TC_WARP_BINS = 32;             // bins a warp owns: 64 columns (re, im)
+constexpr int TC_NT = 2 * TC_WARP_BINS / 8;  // its n8 tiles
+constexpr int TC_MAX_WARPS = 8;
+constexpr int TC_STAGES = 4;                 // k8 steps of the bases in flight a warp
+constexpr int TC_STEP = 32 * 2 * TC_NT;      // floats of a warp's bases a k8 step, 16 a lane
+constexpr int TC_SKEW = 4;                   // floats inserted every frame shift in the span
+constexpr int TC_PPAD = 8;                   // the power tile's bin rows are TM + 8 floats apart
+
+// floats of one staged span of TM frames (hi or lo), a multiple of 4
+__host__ __device__ __forceinline__ int tc_span_words(int tm, int L, int shift) {
+  const int span = (tm - 1) * shift + L;
+  return (span + TC_SKEW * ((span - 1) / shift) + 3) / 4 * 4;
+}
+
+// the hi and lo spans, later the (F', TM + 8) power tile
+__host__ __device__ __forceinline__ int tc_region(int tm, int L, int shift, int nbins) {
+  return max(2 * tc_span_words(tm, L, shift), nbins * (tm + TC_PPAD));
+}
+
+// bytes of shared memory of a "tc" block: the region, then the warps'
+// rings of bases, later the (TM, M + 1) mel tile (ops/fbank_fused.py::
+// tc_smem)
+int tc_smem_bytes(int tm, int L, int shift, int nbins, int M) {
+  const int ring = nbins / TC_WARP_BINS * TC_STAGES * TC_STEP;
+  return 4 * (tc_region(tm, L, shift, nbins) + max(ring, tm * (M + 1)));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(rg::smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// span[p + TC_SKEW * (p / shift)] = src[p] for p < span (src[p] exists for
+// p < avail, zeros past it): 16-byte pieces where copy16 (base 16-byte
+// aligned, N and shift multiples of 4, so no piece crosses avail or a
+// shift), else 4-byte ones
+__device__ __forceinline__ void stage_span(float* dst, const float* __restrict__ src, int span,
+                                           int avail, int shift, int copy16) {
+  if (copy16) {
+    for (int p = 4 * threadIdx.x; p < span; p += 4 * blockDim.x) {
+      float* d = dst + p + TC_SKEW * (p / shift);
+      if (p < avail)
+        rg::cp_async16(d, src + p);
+      else
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int p = threadIdx.x; p < span; p += blockDim.x) {
+      float* d = dst + p + TC_SKEW * (p / shift);
+      if (p < avail)
+        cp_async4(d, src + p);
+      else
+        *d = 0.f;
+    }
+  }
+}
+
+// one k8 step of a warp's bases into its ring slot: lane l copies (and
+// later reads) the four 16-byte pieces q * 32 + l, its own fragments
+__device__ __forceinline__ void copy_step(float* slot, const float4* __restrict__ src, int lane) {
+#pragma unroll
+  for (int q = 0; q < TC_NT / 2; ++q)
+    rg::cp_async16(slot + (q * 32 + lane) * 4, src + q * 32 + lane);
+}
+
+// masked log-mel of TM = 16 MT frames per block (route "tc"): out (B, T, M),
+// pad frames 0. bases: the packed (L / 8, warps, 4, 32, 4) fragments of the
+// interleaved band (ops/fbank_fused.py::pack_bases); bands (3, M): each
+// filter's first bin (relative to the band's), its length and the offset of
+// its weights in bw
+template <int MT>
+__global__ void __launch_bounds__(TC_MAX_WARPS * 32, 1)
+logmel_tc_kernel(const float* __restrict__ wav, const int* __restrict__ n_valid,
+                 const float4* __restrict__ bases, const int* __restrict__ bands,
+                 const float* __restrict__ bw, float* __restrict__ out, int N, int T, int L,
+                 int shift, int M, int nbins, int copy16, float log_floor, int use_power) {
+  constexpr int TM = 16 * MT;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int b = blockIdx.y, t0 = blockIdx.x * TM;
+  const int nv = min_i(n_valid[b], T);
+  const int rows = min_i(TM, T - t0);
+  float* outb = out + ((size_t)b * T + t0) * M;
+  if (t0 >= nv) {  // wholly past the valid frames: zeros, no DFT
+    for (int i = threadIdx.x; i < rows * M; i += blockDim.x) outb[i] = 0.f;
+    return;
+  }
+  FB_PHASE_BEGIN
+  const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int sw = tc_span_words(TM, L, shift);
+  const int region = tc_region(TM, L, shift, nbins);
+  float* a_hi = smem;
+  float* a_lo = smem + sw;
+  float* ring = smem + region + warp * TC_STAGES * TC_STEP;
+  const int steps = L / 8;
+  const float4* wb = bases + (size_t)warp * (TC_STEP / 4);
+  const size_t step_stride = (size_t)warps * (TC_STEP / 4);
+
+  // the span, then the first TC_STAGES steps of the bases behind it
+  stage_span(a_hi, wav + (size_t)b * N + (size_t)t0 * shift, (TM - 1) * shift + L,
+             N - t0 * shift, shift, copy16);
+  rg::cp_async_commit();
+#pragma unroll
+  for (int s = 0; s < TC_STAGES; ++s) {
+    if (s < steps) copy_step(ring + s * TC_STEP, wb + s * step_stride, lane);
+    rg::cp_async_commit();
+  }
+  rg::cp_async_wait<TC_STAGES>();
+  __syncthreads();
+  for (int i = threadIdx.x; i < sw; i += blockDim.x) {
+    uint32_t h, l;
+    rg::split_tf32(a_hi[i], h, l);
+    a_hi[i] = __uint_as_float(h);
+    a_lo[i] = __uint_as_float(l);
+  }
+  __syncthreads();
+  FB_PHASE(0)
+
+  // the products: re and im of the warp's 32 bins for the tile's frames
+  const int live = min_i(MT, (nv - t0 + 15) / 16);  // m16 tiles holding a valid frame
+  const int rs = shift + TC_SKEW;                   // frame r's row starts at r * rs
+  // ldmatrix rows: lanes 0-15 frames 0-15 of an m16 tile at k, 16-31 at k + 4
+  const float* a_row = a_hi + (lane % 16) * rs + (lane / 16) * 4;
+  // lane's pieces of step s's bases: (b0, b1) of n8 tiles 2j and 2j + 1 in
+  // piece j, where b0 is row (k) t and b1 row t + 4 of column (n) g
+  const float4* own = reinterpret_cast<const float4*>(ring) + lane;
+  uint32_t bh[TC_NT][2], bl[TC_NT][2];
+  float4 v[TC_NT / 2];
+  auto split_bases = [&]() {
+#pragma unroll
+    for (int j = 0; j < TC_NT / 2; ++j) {
+      rg::split_tf32(v[j].x, bh[2 * j][0], bl[2 * j][0]);
+      rg::split_tf32(v[j].y, bh[2 * j][1], bl[2 * j][1]);
+      rg::split_tf32(v[j].z, bh[2 * j + 1][0], bl[2 * j + 1][0]);
+      rg::split_tf32(v[j].w, bh[2 * j + 1][1], bl[2 * j + 1][1]);
+    }
+  };
+  rg::cp_async_wait<TC_STAGES - 1>();
+#pragma unroll
+  for (int j = 0; j < TC_NT / 2; ++j) v[j] = own[j * 32];
+  split_bases();
+  float acc[MT][TC_NT][4] = {};
+  int kpos = 0, k = 0, seg_end = shift;  // span column of k = 8 s: k + TC_SKEW * (k / shift)
+  for (int s = 0; s < steps; ++s) {
+    // step s + 1's pieces load under step s's products (a stale slot after
+    // the last step, unused); step s + TC_STAGES goes into step s's slot,
+    // whose pieces this lane alone read, into registers, a step ago
+    rg::cp_async_wait<TC_STAGES - 2>();
+    const float4* next = own + ((s + 1) % TC_STAGES) * (TC_STEP / 4);
+#pragma unroll
+    for (int j = 0; j < TC_NT / 2; ++j) v[j] = next[j * 32];
+    if (s + TC_STAGES < steps)
+      copy_step(ring + (s % TC_STAGES) * TC_STEP, wb + (s + TC_STAGES) * step_stride, lane);
+    rg::cp_async_commit();
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      if (mt < live) {
+        // ldmatrix on 32-bit elements gives the tf32 fragment (a0: row g,
+        // col t; a1: row g + 8; a2, a3: col t + 4)
+        uint32_t ah[4], al[4];
+        const float* p = a_row + mt * 16 * rs + kpos;
+        rg::ldsm_x4(ah, reinterpret_cast<const __nv_bfloat16*>(p));
+        rg::ldsm_x4(al, reinterpret_cast<const __nv_bfloat16*>(p + sw));
+        // lo hi, hi lo, then hi hi into this k8 step's own sums, added to
+        // the running sums by a float32 add (the tensor cores' float32
+        // sums round toward zero)
+        float d[TC_NT][4] = {};
+#pragma unroll
+        for (int nt = 0; nt < TC_NT; ++nt) rg::mma1688(d[nt], al, bh[nt][0], bh[nt][1]);
+#pragma unroll
+        for (int nt = 0; nt < TC_NT; ++nt) rg::mma1688(d[nt], ah, bl[nt][0], bl[nt][1]);
+#pragma unroll
+        for (int nt = 0; nt < TC_NT; ++nt) rg::mma1688(d[nt], ah, bh[nt][0], bh[nt][1]);
+#pragma unroll
+        for (int nt = 0; nt < TC_NT; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] += d[nt][e];
+        }
+      }
+    }
+    split_bases();
+    k += 8;  // shift % 8 == 0: a k8 step never straddles a shift
+    if (k == seg_end) seg_end += shift, kpos += TC_SKEW;
+    kpos += 8;
+  }
+  __syncthreads();  // every warp is done with the spans: they become the power
+  FB_PHASE(1)
+
+  // power, bin by bin (c0, c1: frame g's re and im of the tile's bin; c2,
+  // c3: frame g + 8's); the rows TM + 8 floats apart, so a warp's stores
+  // (8 frames x 4 bins) hit 32 banks
+  float* P = smem;
+  const int ps = TM + TC_PPAD;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < TC_NT; ++nt) {
+      float p0 = acc[mt][nt][0] * acc[mt][nt][0] + acc[mt][nt][1] * acc[mt][nt][1];
+      float p1 = acc[mt][nt][2] * acc[mt][nt][2] + acc[mt][nt][3] * acc[mt][nt][3];
+      if (!use_power) p0 = sqrtf(fmaxf(p0, 0.f)), p1 = sqrtf(fmaxf(p1, 0.f));
+      float* col = P + (warp * TC_WARP_BINS + nt * 4 + t) * ps + mt * 16 + g;
+      col[0] = p0;
+      col[8] = p1;
+    }
+  }
+  __syncthreads();
+  // the mel: a warp a filter (its band in ascending bin order, the same
+  // weight for every lane), a lane a frame (and the frame 32 on)
+  float* mel = smem + region;  // (TM, M + 1) over the rings, whose copies are all done
+  const int mls = M + 1;
+  for (int m = warp; m < M; m += warps) {
+    const int len = __ldg(bands + M + m);
+    const float* pc = P + __ldg(bands + m) * ps + lane;
+    const float* w = bw + __ldg(bands + 2 * M + m);
+    float sum[TM / 32] = {};
+#pragma unroll 4
+    for (int j = 0; j < len; ++j) {
+      const float wj = __ldg(w + j);
+#pragma unroll
+      for (int i = 0; i < TM / 32; ++i) sum[i] = fmaf(pc[j * ps + 32 * i], wj, sum[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < TM / 32; ++i) mel[(lane + 32 * i) * mls + m] = sum[i];
+  }
+  __syncthreads();
+  FB_PHASE(2)
+  for (int i = threadIdx.x; i < rows * M; i += blockDim.x) {
+    const int r = i / M;
+    outb[i] = t0 + r < nv ? logf(fmaxf(mel[i + r], log_floor)) : 0.f;
+  }
+  FB_PHASE(3)
+  FB_PHASE_END
 }
 
 // block-wide column sums: S slices of the frames per mel column, added in
@@ -158,6 +451,7 @@ __device__ __forceinline__ float column_total(float part, float* red, int m, int
 __global__ void cmvn_kernel(float* __restrict__ x, const int* __restrict__ n_valid, int T,
                             int M, int S, int norm_var, float eps) {
   extern __shared__ float red[];  // (S, M)
+  FB_CMVN_BEGIN
   const int b = blockIdx.x, m = threadIdx.x % M, s = threadIdx.x / M;
   const int nv = min_i(n_valid[b], T);
   const float denom = fmaxf((float)nv, 1.f);
@@ -175,6 +469,7 @@ __global__ void cmvn_kernel(float* __restrict__ x, const int* __restrict__ n_val
     scale = rsqrtf(column_total(part, red, m, s, M, S) / denom + eps);
   }
   for (int t = s; t < nv; t += S) xb[(size_t)t * M] = (xb[(size_t)t * M] - mean) * scale;
+  FB_CMVN_END
 }
 
 // CMVN backward: dfeats from the recomputed masked log-mel and the
@@ -340,25 +635,61 @@ int block_for(int n) { return (n + 31) / 32 * 32; }
 
 int slices_for(int M) { return max(1, min(8, 1024 / M)); }
 
+// The masked log-mel (B, T, M) before CMVN: route "tc" where tm > 0 (the
+// plan of ops/fbank_fused.py::fbank_plan: tm frames a block, nbins padded
+// bins, shared bytes), else route "simt"
+cudaError_t logmel(const float* wav, const int* nv, const float* mcos, const float* msin,
+                   const float* fb, const float4* bases, const int* bands, const float* bw,
+                   float* x, int B, int N, int T, int L, int shift, int F, int M, int tm,
+                   int nbins, int copy16, int smem, float log_floor, int use_power,
+                   cudaStream_t s) {
+  if (tm == 0) {
+    if (F > MAX_THREADS) return cudaErrorInvalidValue;
+    const size_t bytes = (size_t)max(L * TS, TT * F) * sizeof(float);
+    const cudaError_t err = rg::reserve_smem<logmel_kernel>(bytes);
+    if (err != cudaSuccess) return err;
+    logmel_kernel<<<dim3((T + TT - 1) / TT, B), block_for(F), bytes, s>>>(
+        wav, nv, mcos, msin, fb, x, N, T, L, shift, F, M, log_floor, use_power);
+    return cudaGetLastError();
+  }
+  const int warps = nbins / TC_WARP_BINS;
+  if ((tm != 32 && tm != 64) || nbins % TC_WARP_BINS || warps < 1 || warps > TC_MAX_WARPS ||
+      L % 8 || shift % 8 || shift < 8 || smem < tc_smem_bytes(tm, L, shift, nbins, M) ||
+      (copy16 && (reinterpret_cast<uintptr_t>(wav) % 16 || N % 4)))
+    return cudaErrorInvalidValue;
+  const dim3 grid((T + tm - 1) / tm, B);
+  cudaError_t err;
+  if (tm == 64) {
+    if ((err = rg::reserve_smem<logmel_tc_kernel<4>>(smem)) != cudaSuccess) return err;
+    logmel_tc_kernel<4><<<grid, warps * 32, smem, s>>>(wav, nv, bases, bands, bw, x, N, T, L,
+                                                       shift, M, nbins, copy16, log_floor,
+                                                       use_power);
+  } else {
+    if ((err = rg::reserve_smem<logmel_tc_kernel<2>>(smem)) != cudaSuccess) return err;
+    logmel_tc_kernel<2><<<grid, warps * 32, smem, s>>>(wav, nv, bases, bands, bw, x, N, T, L,
+                                                       shift, M, nbins, copy16, log_floor,
+                                                       use_power);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int fbank_fwd(const void* wav, const void* n_valid, const void* mcos,
-                         const void* msin, const void* fb, void* out, int B, int N, int T,
-                         int L, int shift, int F, int M, float log_floor, int use_power,
-                         int norm_var, float eps, void* stream) {
-  if (B < 1 || T < 1 || F > MAX_THREADS || M > 1024 || L < 1) return (int)cudaErrorInvalidValue;
+                         const void* msin, const void* fb, const void* bases, const void* bands,
+                         const void* bw, void* out, int B, int N, int T, int L, int shift, int F,
+                         int M, int tm, int nbins, int copy16, int smem, float log_floor,
+                         int use_power, int norm_var, float eps, void* stream) {
+  if (B < 1 || T < 1 || M > 1024 || L < 1) return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)max(L * TS, TT * F) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      logmel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const auto* nv = static_cast<const int*>(n_valid);
   auto* x = static_cast<float*>(out);
-  logmel_kernel<<<dim3((T + TT - 1) / TT, B), block_for(F), smem, s>>>(
+  cudaError_t err = logmel(
       static_cast<const float*>(wav), nv, static_cast<const float*>(mcos),
-      static_cast<const float*>(msin), static_cast<const float*>(fb), x, N, T, L, shift, F, M,
-      log_floor, use_power);
-  err = cudaGetLastError();
+      static_cast<const float*>(msin), static_cast<const float*>(fb),
+      static_cast<const float4*>(bases), static_cast<const int*>(bands),
+      static_cast<const float*>(bw), x, B, N, T, L, shift, F, M, tm, nbins, copy16, smem,
+      log_floor, use_power, s);
   if (err != cudaSuccess) return (int)err;
   const int S = slices_for(M);
   cmvn_kernel<<<B, S * M, S * M * sizeof(float), s>>>(x, nv, T, M, S, norm_var, eps);
@@ -366,11 +697,12 @@ extern "C" int fbank_fwd(const void* wav, const void* n_valid, const void* mcos,
 }
 
 extern "C" int fbank_bwd(const void* wav, const void* n_valid, const void* mcos,
-                         const void* msin, const void* fb, const void* mcos_t,
-                         const void* msin_t, const void* fb_t, const void* g, void* feats,
-                         void* dfeats, void* dframes, void* dwav, int B, int N, int T, int L,
-                         int shift, int F, int M, float log_floor, int norm_var, float eps,
-                         void* stream) {
+                         const void* msin, const void* fb, const void* bases, const void* bands,
+                         const void* bw, const void* mcos_t, const void* msin_t,
+                         const void* fb_t, const void* g, void* feats, void* dfeats,
+                         void* dframes, void* dwav, int B, int N, int T, int L, int shift, int F,
+                         int M, int tm, int nbins, int copy16, int smem, float log_floor,
+                         int norm_var, float eps, void* stream) {
   if (B < 1 || T < 1 || F > MAX_THREADS || M > 1024 || L > MAX_THREADS || L < 1)
     return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
@@ -384,14 +716,11 @@ extern "C" int fbank_bwd(const void* wav, const void* n_valid, const void* mcos,
   auto* dfr = static_cast<float*>(dframes);
   const dim3 tiles((T + TT - 1) / TT, B);
 
-  // the forward's masked log-mel (before CMVN), recomputed
-  const size_t smem_fwd = (size_t)max(L * TS, TT * F) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      logmel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_fwd);
+  // the forward's masked log-mel (before CMVN), recomputed by its route
+  cudaError_t err = logmel(w, nv, mc, ms, f, static_cast<const float4*>(bases),
+                           static_cast<const int*>(bands), static_cast<const float*>(bw), x, B,
+                           N, T, L, shift, F, M, tm, nbins, copy16, smem, log_floor, 1, s);
   if (err != cudaSuccess) return (int)err;
-  logmel_kernel<<<tiles, block_for(F), smem_fwd, s>>>(w, nv, mc, ms, f, x, N, T, L, shift, F,
-                                                      M, log_floor, 1);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const int S = slices_for(M);
   cmvn_bwd_kernel<<<B, S * M, S * M * sizeof(float), s>>>(
@@ -400,8 +729,7 @@ extern "C" int fbank_bwd(const void* wav, const void* n_valid, const void* mcos,
 
   const size_t smem_bwd =
       (size_t)(max(L, 2 * F) * TS + TT * F + M * TS) * sizeof(float);
-  err = cudaFuncSetAttribute(dframes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_bwd);
+  err = rg::reserve_smem<dframes_kernel>(smem_bwd);
   if (err != cudaSuccess) return (int)err;
   dframes_kernel<<<tiles, block_for(max(L, F)), smem_bwd, s>>>(
       w, mc, ms, f, static_cast<const float*>(mcos_t), static_cast<const float*>(msin_t),

@@ -14,12 +14,21 @@ JAX kernel folds them. The plain versions compute the same folded-bases
 formulation with PyTorch products; they differ from the split chain of
 ``ops/fbank.py`` by the folding order only. All products are float32:
 TF32 off (PyTorch's default for matmuls).
+
+The forward kernel has two routes. "tc" (``logmel_tc_kernel``) runs the
+DFT on the tensor cores in 3xTF32 over the band of bins the filterbank
+touches and sums each mel filter over its nonzero bins alone; it runs
+wherever ``fbank_plan`` fits, every flagship configuration. "simt"
+(``logmel_kernel``, float32 FMAs, a thread a bin) runs past the plan, or
+inside ``_force_fbank_route("simt")``. ``FBANK_ROUTE_LAUNCHES`` counts the
+forward launches by route.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,13 +41,26 @@ from robust_e2e_gan_torch.utils.impl import (
     SMEM_LIMIT,
     check,
     check_no_grad,
+    device_limits,
     on_cuda,
 )
 
-# DFT bins (and, in the backward, frame samples) one block covers, a
-# thread each (csrc/fbank.cu)
+# route "simt": DFT bins (and, in the backward, frame samples) one block
+# covers, a thread each (csrc/fbank.cu)
 MAX_THREADS = 512
 TT, TS = 32, 36  # frames per block and the stride of their transposed tile
+
+# route "tc" (csrc/fbank.cu's TC_* constants): bins a warp owns, warps a
+# block, k8 steps of the bases in flight a warp, floats of a warp's bases a
+# k8 step, the span's skew every frame shift, the padding of the power
+# tile's bin rows; the frame tiles the plan chooses from, the larger first
+TC_WARP_BINS = 32
+TC_MAX_WARPS = 8
+TC_STAGES = 4
+TC_STEP = 32 * 2 * (2 * TC_WARP_BINS // 8)
+TC_SKEW = 4
+TC_PPAD = 8
+TC_TILES = (64, 32)
 
 
 def combined_bases(cfg: FrontendConfig) -> Tuple[np.ndarray, ...]:
@@ -72,6 +94,123 @@ def device_bases(cfg: FrontendConfig, device: torch.device
     m_cos, m_sin, fb = (torch.from_numpy(x) for x in combined_bases(cfg))
     return tuple(x.contiguous().to(device)
                  for x in (m_cos, m_sin, fb, m_cos.t(), m_sin.t(), fb.t()))
+
+
+class MelBands(NamedTuple):
+    """Each mel filter's nonzero band of ``fb`` (n_freqs, n_mels): bins
+    ``first`` ... ``first + n_bins - 1`` hold every nonzero weight; filter
+    m's weights ``weights[off[m] : off[m] + length[m]]`` sit on bins
+    ``first + lo[m]`` onward (``length[m]`` 0 for an empty filter)."""
+    first: int
+    n_bins: int
+    lo: np.ndarray
+    length: np.ndarray
+    off: np.ndarray
+    weights: np.ndarray
+
+
+@functools.lru_cache(maxsize=8)
+def mel_bands(cfg: FrontendConfig) -> MelBands:
+    """The filterbank's bands: summing filter m over ``length[m]`` bins in
+    ascending order equals the dense product's ascending chain over every
+    bin bit for bit (the bins left out carry a zero weight, and fmaf(p, 0,
+    acc) == acc for a finite p)."""
+    fb = fbank_ref.mel_filterbank(cfg).astype(np.float32)
+    nz = [np.flatnonzero(fb[:, m]) for m in range(fb.shape[1])]
+    used = [x for x in nz if x.size]
+    first = min((int(x[0]) for x in used), default=0)
+    last = max((int(x[-1]) for x in used), default=0)
+    lo = np.array([x[0] - first if x.size else 0 for x in nz], np.int32)
+    length = np.array([x[-1] - x[0] + 1 if x.size else 0 for x in nz],
+                      np.int32)
+    off = np.concatenate([[0], np.cumsum(length)[:-1]]).astype(np.int32)
+    # one trailing zero, so that the array is never empty
+    weights = np.concatenate(
+        [fb[first + a:first + a + n, m]
+         for m, (a, n) in enumerate(zip(lo, length))] + [np.zeros(1)]
+    ).astype(np.float32)
+    return MelBands(first, last - first + 1, lo, length, off, weights)
+
+
+def pack_bases(m_cos: np.ndarray, m_sin: np.ndarray, bands: MelBands,
+               nbins: int) -> np.ndarray:
+    """The "tc" route's B operand in the order its lanes read it.
+
+    Columns 2j and 2j + 1 of the (L, 2 nbins) matrix are M_cos and M_sin of
+    bin ``bands.first + j`` for j < ``bands.n_bins``, zeros past it. Warp w
+    owns columns 64 w ... 64 w + 63 (8 n8 tiles); at k8 step s, lane 4 g +
+    t holds B[8 s + t + 4 h][64 w + 8 nt + g] of its tiles nt (h = 0, 1:
+    the fragment's b0 and b1) as four 16-byte pieces q = nt // 2, each
+    (nt = 2 q, h 0 / 1, nt = 2 q + 1, h 0 / 1). Returns float32 (L / 8,
+    warps, 4, 32, 4), flattened."""
+    length = m_cos.shape[0]
+    lo, n = bands.first, bands.n_bins
+    bm = np.zeros((length, 2 * nbins), np.float32)
+    bm[:, 0:2 * n:2] = m_cos[:, lo:lo + n]
+    bm[:, 1:2 * n:2] = m_sin[:, lo:lo + n]
+    # k = 8 s + 4 h + t, column = 64 w + 8 (2 q + i) + g
+    x = bm.reshape(length // 8, 2, 4, nbins // TC_WARP_BINS, 4, 2, 8)
+    # (s, h, t, w, q, i, g) -> (s, w, q, g, t, i, h)
+    return np.ascontiguousarray(x.transpose(0, 3, 4, 6, 2, 5, 1)).reshape(-1)
+
+
+class FbankPlan(NamedTuple):
+    """Route "tc"'s launch: frames a block, bins computed (the band padded
+    to whole warps: blocks of nbins / 32 warps), shared bytes, and whether
+    the waveform is copied in 16-byte pieces (else 4-byte ones)."""
+    tm: int
+    nbins: int
+    smem: int
+    copy16: bool
+
+
+def padded_bins(cfg: FrontendConfig) -> int:
+    """Bins route "tc" computes: the filterbank's band, padded with zero
+    bins to whole warps (1..255 -> 256 at n_fft = 512)."""
+    return -(-mel_bands(cfg).n_bins // TC_WARP_BINS) * TC_WARP_BINS
+
+
+def tc_smem(tm: int, length: int, shift: int, nbins: int, n_mels: int
+            ) -> int:
+    """Shared bytes of a "tc" block (csrc/fbank.cu::tc_smem_bytes): the
+    tf32 hi and lo spans of its tm frames, with a skew every shift (later
+    the (nbins, tm + 8) power tile), then the warps' rings of bases (later
+    the (tm, n_mels + 1) mel tile)."""
+    span = (tm - 1) * shift + length
+    words = -(-(span + TC_SKEW * ((span - 1) // shift)) // 4) * 4
+    region = max(2 * words, nbins * (tm + TC_PPAD))
+    ring = nbins // TC_WARP_BINS * TC_STAGES * TC_STEP
+    return 4 * (region + max(ring, tm * (n_mels + 1)))
+
+
+def fbank_plan(cfg: FrontendConfig, b: int, n: int, n_sm: int,
+               smem_optin: int, ptr: int = 0) -> Optional[FbankPlan]:
+    """Route "tc"'s plan for b utterances of n samples at ``ptr``, or None
+    for route "simt": integer arithmetic.
+
+    It refuses a frame shift or length that is not a multiple of 8 (a k8
+    step must not straddle a shift, and the 4-float skew must give rows an
+    odd number of 16-byte units apart), a band wider than 8 warps' 256
+    bins, and blocks past ``smem_optin``. Of the frame tiles, it takes the
+    one with the least ``waves x tm`` (waves of one block an SM over
+    ``n_sm`` SMs), the larger on a tie (half the bases' L2 traffic)."""
+    t = fbank_ref.num_frames(n, cfg)
+    length, shift = cfg.frame_length, cfg.frame_shift
+    if min(b, t, n_sm) < 1 or shift % 8 or length % 8:
+        return None
+    nbins = padded_bins(cfg)
+    if nbins > TC_WARP_BINS * TC_MAX_WARPS:
+        return None
+    best = None
+    for tm in TC_TILES:
+        smem = tc_smem(tm, length, shift, nbins, cfg.n_mels)
+        if smem > smem_optin:
+            continue
+        cost = -(-b * -(-t // tm) // n_sm) * tm
+        if best is None or cost < best[0]:
+            best = (cost, FbankPlan(tm, nbins, smem,
+                                    n % 4 == 0 and ptr % 16 == 0))
+    return None if best is None else best[1]
 
 
 def _check_cfg(cfg: FrontendConfig) -> None:
@@ -208,42 +347,118 @@ fbank_fused_bwd_plain.calls = 0
 # ---------------------------------------------------------------------------
 
 
-def _check_kernel_inputs(wav, cfg, backward: bool):
-    """The kernels' limits: a thread per DFT bin (and, in the backward, per
-    frame sample) in one block, and the blocks' shared memory."""
+# forward launches by route: "tc" the tensor-core kernel, "simt" the one it
+# replaced, run past the plan or where forced
+FBANK_ROUTE_LAUNCHES = {"tc": 0, "simt": 0}
+_forced_fbank_route = None
+
+
+@contextlib.contextmanager
+def _force_fbank_route(route: str):
+    """Run every forward launch (and the backward's recompute of the
+    log-mel) inside the block on one route ("tc" or "simt"): the tests and
+    ``chip_smoke.py`` hold both to the plain version and time them. Forcing
+    "tc" where its plan does not fit raises."""
+    global _forced_fbank_route
+    check(route in FBANK_ROUTE_LAUNCHES, f"unknown fbank route {route!r}")
+    prev, _forced_fbank_route = _forced_fbank_route, route
+    try:
+        yield
+    finally:
+        _forced_fbank_route = prev
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_on(index: int, cfg: FrontendConfig, b: int, n: int, ptr16: int):
+    """The "tc" plan of these shapes on card ``index``, for a waveform at
+    ``ptr16`` bytes past a 16-byte boundary."""
+    return fbank_plan(cfg, b, n, *device_limits(index), ptr=ptr16)
+
+
+def _route_plan(wav: torch.Tensor, cfg: FrontendConfig):
+    """The "tc" plan of wav on its card, or None for route "simt": past the
+    plan, or where "simt" is forced."""
+    if _forced_fbank_route == "simt":
+        return None
+    b, n = wav.shape
+    plan = _plan_on(wav.device.index or 0, cfg, b, n, wav.data_ptr() % 16)
+    check(plan is not None or _forced_fbank_route is None,
+          f"the tc route does not fit B={b} N={n} frame_length="
+          f"{cfg.frame_length} frame_shift={cfg.frame_shift} "
+          f"n_fft={cfg.n_fft} n_mels={cfg.n_mels}")
+    return plan
+
+
+@functools.lru_cache(maxsize=8)
+def tc_bases(cfg: FrontendConfig, device: torch.device
+             ) -> Tuple[torch.Tensor, ...]:
+    """Route "tc"'s packed bases, bands ((3, n_mels) int32: each filter's
+    lo, length and off) and weights on ``device``, built once per
+    (configuration, card)."""
+    m_cos, m_sin, _ = combined_bases(cfg)
+    bands = mel_bands(cfg)
+    arrays = (pack_bases(m_cos, m_sin, bands, padded_bins(cfg)),
+              np.stack([bands.lo, bands.length, bands.off]), bands.weights)
+    return tuple(torch.from_numpy(x).to(device) for x in arrays)
+
+
+def _logmel_args(wav, cfg, plan) -> list:
+    """(pointers, route arguments) of csrc/fbank.cu's log-mel launch: the
+    pointers M_cos, M_sin, fb, and the packed bases, bands and weights
+    (null on route "simt"); the arguments tm (0 on "simt"), nbins, copy16
+    and shared bytes."""
+    m_cos, m_sin, fb = device_bases(cfg, wav.device)[:3]
+    if plan is None:
+        return [m_cos.data_ptr(), m_sin.data_ptr(), fb.data_ptr(), None,
+                None, None], [0, 0, 0, 0]
+    packed, bands, weights = tc_bases(cfg, wav.device)
+    return ([m_cos.data_ptr(), m_sin.data_ptr(), fb.data_ptr(),
+             packed.data_ptr(), bands.data_ptr(), weights.data_ptr()],
+            [plan.tm, plan.nbins, int(plan.copy16), plan.smem])
+
+
+def _check_kernel_inputs(wav, cfg, backward: bool, plan):
+    """The kernels' limits: route "simt"'s thread per DFT bin in one block
+    and its shared memory (route "tc" has ``fbank_plan``'s), and the
+    backward's thread per bin and per frame sample."""
     check(wav.dtype == torch.float32 and wav.dim() == 2,
           f"wav must be (B, N) float32, got {tuple(wav.shape)} {wav.dtype}")
-    per_thread = (max(cfg.n_freqs, cfg.frame_length) if backward
-                  else cfg.n_freqs)
-    check(per_thread <= MAX_THREADS,
-          f"n_fft // 2 + 1 = {cfg.n_freqs}"
-          f"{f' and frame_length = {cfg.frame_length}' if backward else ''} "
-          f"must be <= {MAX_THREADS} (one thread each in a block)")
+    check(cfg.n_mels <= 1024, f"n_mels={cfg.n_mels} > 1024")
     if backward:
+        check(max(cfg.n_freqs, cfg.frame_length) <= MAX_THREADS,
+              f"n_fft // 2 + 1 = {cfg.n_freqs} and frame_length = "
+              f"{cfg.frame_length} must be <= {MAX_THREADS} (one thread "
+              "each in a block)")
         smem = 4 * (max(cfg.frame_length, 2 * cfg.n_freqs) * TS
                     + TT * cfg.n_freqs + cfg.n_mels * TS)
-    else:
+        check(smem <= SMEM_LIMIT, f"a backward block needs {smem} bytes of "
+              f"shared memory, more than {SMEM_LIMIT}")
+    if plan is None:
+        check(cfg.n_freqs <= MAX_THREADS,
+              f"n_fft // 2 + 1 = {cfg.n_freqs} must be <= {MAX_THREADS} "
+              "(one thread each in a block)")
         smem = 4 * max(cfg.frame_length * TS, TT * cfg.n_freqs)
-    check(smem <= SMEM_LIMIT, f"a block needs {smem} bytes of shared memory, "
-          f"more than {SMEM_LIMIT}")
-    check(cfg.n_mels <= 1024, f"n_mels={cfg.n_mels} > 1024")
+        check(smem <= SMEM_LIMIT, f"a block needs {smem} bytes of shared "
+              f"memory, more than {SMEM_LIMIT}")
 
 
 def _forward_kernel(wav, n_valid, cfg, norm_var, eps):
-    _check_kernel_inputs(wav, cfg, backward=False)
+    wav = wav.contiguous()
+    plan = _route_plan(wav, cfg)
+    _check_kernel_inputs(wav, cfg, False, plan)
     b, n = wav.shape
     t = fbank_ref.num_frames(n, cfg)
-    m_cos, m_sin, fb = device_bases(cfg, wav.device)[:3]
-    wav = wav.contiguous()
+    bases, route = _logmel_args(wav, cfg, plan)
     n_valid = n_valid.to(torch.int32).contiguous()
     out = torch.empty((b, t, cfg.n_mels), dtype=torch.float32,
                       device=wav.device)
-    launch("fbank_fwd", wav.data_ptr(), n_valid.data_ptr(), m_cos.data_ptr(),
-           m_sin.data_ptr(), fb.data_ptr(), out.data_ptr(), b, n, t,
-           cfg.frame_length, cfg.frame_shift, cfg.n_freqs, cfg.n_mels,
-           cfg.log_floor, int(cfg.use_power), int(norm_var), eps,
+    launch("fbank_fwd", wav.data_ptr(), n_valid.data_ptr(), *bases,
+           out.data_ptr(), b, n, t, cfg.frame_length, cfg.frame_shift,
+           cfg.n_freqs, cfg.n_mels, *route, cfg.log_floor,
+           int(cfg.use_power), int(norm_var), eps,
            torch.cuda.current_stream(wav.device).cuda_stream)
     fbank_fused.launches += 1
+    FBANK_ROUTE_LAUNCHES["simt" if plan is None else "tc"] += 1
     return out
 
 
@@ -284,12 +499,14 @@ def fbank_fused_bwd(wav: torch.Tensor, n_valid: torch.Tensor,
     _check_backward_cfg(cfg)
     if not on_cuda(wav, n_valid, g):
         return fbank_fused_bwd_plain(wav, n_valid, g, cfg, norm_var, eps)
-    _check_kernel_inputs(wav, cfg, backward=True)
+    wav = wav.contiguous()
+    plan = _route_plan(wav, cfg)
+    _check_kernel_inputs(wav, cfg, True, plan)
     b, n = wav.shape
     t = fbank_ref.num_frames(n, cfg)
     check(g.shape == (b, t, cfg.n_mels), f"g shape {tuple(g.shape)}")
-    bases = device_bases(cfg, wav.device)
-    wav = wav.contiguous()
+    bases, route = _logmel_args(wav, cfg, plan)
+    transposed = device_bases(cfg, wav.device)[3:]
     n_valid = n_valid.to(torch.int32).contiguous()
     g = g.float().contiguous()
     feats = torch.empty_like(g)
@@ -297,12 +514,12 @@ def fbank_fused_bwd(wav: torch.Tensor, n_valid: torch.Tensor,
     dframes = torch.empty((b, t, cfg.frame_length), dtype=torch.float32,
                           device=wav.device)
     dwav = torch.empty_like(wav)
-    launch("fbank_bwd", wav.data_ptr(), n_valid.data_ptr(),
-           *(x.data_ptr() for x in bases), g.data_ptr(), feats.data_ptr(),
-           dfeats.data_ptr(), dframes.data_ptr(), dwav.data_ptr(), b, n, t,
-           cfg.frame_length, cfg.frame_shift, cfg.n_freqs, cfg.n_mels,
-           cfg.log_floor, int(norm_var), eps,
-           torch.cuda.current_stream(wav.device).cuda_stream)
+    launch("fbank_bwd", wav.data_ptr(), n_valid.data_ptr(), *bases,
+           *(x.data_ptr() for x in transposed), g.data_ptr(),
+           feats.data_ptr(), dfeats.data_ptr(), dframes.data_ptr(),
+           dwav.data_ptr(), b, n, t, cfg.frame_length, cfg.frame_shift,
+           cfg.n_freqs, cfg.n_mels, *route, cfg.log_floor, int(norm_var),
+           eps, torch.cuda.current_stream(wav.device).cuda_stream)
     fbank_fused_bwd.launches += 1
     return dwav
 

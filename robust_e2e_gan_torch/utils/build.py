@@ -91,13 +91,16 @@ SIGNATURES = {
     # dlogits, dnll_stride, B, T, V, U, blank, log_input, bf16, idx64,
     # stream
     "ctc_nll_bwd": [_P] * 9 + [_I] * 9 + [_P],
-    # wav, n_valid, mcos, msin, fb, out, B, N, T, L, shift, F, M,
-    # log_floor, use_power, norm_var, eps, stream
-    "fbank_fwd": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _F, _P],
-    # wav, n_valid, mcos, msin, fb, mcos_t, msin_t, fb_t, g, feats, dfeats,
-    # dframes, dwav, B, N, T, L, shift, F, M, log_floor, norm_var, eps,
-    # stream
-    "fbank_bwd": [_P] * 13 + [_I] * 7 + [_F, _I, _F, _P],
+    # wav, n_valid, mcos, msin, fb, the "tc" route's packed bases, bands
+    # and weights (null on "simt"), out, B, N, T, L, shift, F, M, the route
+    # (tm frames a block, 0 for "simt"; nbins, copy16, shared-memory
+    # bytes), log_floor, use_power, norm_var, eps, stream
+    "fbank_fwd": [_P] * 9 + [_I] * 11 + [_F, _I, _I, _F, _P],
+    # wav, n_valid, mcos, msin, fb, packed bases, bands, weights, mcos_t,
+    # msin_t, fb_t, g, feats, dfeats, dframes, dwav, B, N, T, L, shift, F,
+    # M, the forward's route (tm, nbins, copy16, shared bytes), log_floor,
+    # norm_var, eps, stream
+    "fbank_bwd": [_P] * 16 + [_I] * 11 + [_F, _I, _F, _P],
     # tok, emb, wx0, wxs, whs, bias, wout, bout, h_in, c_in, h_out, c_out,
     # logits, N, V, E, H, L, bf16, stream
     "lm_step": [_P] * 13 + [_I] * 6 + [_P],

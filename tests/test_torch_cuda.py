@@ -1176,6 +1176,170 @@ def test_fbank_fused_kernels_match_plain(dev):
                                atol=1e-4)
 
 
+def _fbank_batch(dev, b, n, lens, seed=0, offset=0):
+    """(B, N) waveform at ``offset`` floats past a 16-byte aligned base (a
+    contiguous view), and its lengths as a tensor."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    flat = torch.randn((b * n + offset,), generator=gen, device=dev)
+    wav = flat[offset:].view(b, n)
+    if not torch.is_tensor(lens):
+        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return wav, lens
+
+
+def _fbank_routes(ff, wav, cfg, lens, norm_var=True):
+    """The forward on auto, forced "tc" and forced "simt", with the route
+    launches each took."""
+    out = {}
+    for route in ("auto", "tc", "simt"):
+        before = dict(ff.FBANK_ROUTE_LAUNCHES)
+        if route == "auto":
+            got = ff.fbank_fused(wav, cfg, lens, norm_var)
+        else:
+            with ff._force_fbank_route(route):
+                got = ff.fbank_fused(wav, cfg, lens, norm_var)
+        took = {k: ff.FBANK_ROUTE_LAUNCHES[k] - before[k] for k in before}
+        out[route] = (got, took)
+    torch.cuda.synchronize()
+    return out
+
+
+FBANK_EDGES = {  # B, N, wav_lengths, changes to the flagship frontend
+    "ragged": (4, 16_000, [16_000, 9_000, 4_321, 12_345], {}),
+    "empty_utterance": (3, 16_000, [16_000, 300, 7_000], {}),
+    "one_frame": (2, 559, [559, 400], {}),
+    "n_mod4_1": (3, 16_001, [16_001, 8_001, 401], {}),
+    "n_mod4_2": (2, 16_002, [16_002, 10_002], {}),
+    "n_mod4_3": (2, 16_003, [16_003, 9_003], {}),
+    "magnitude": (3, 16_000, [16_000, 9_000, 5_000], {"use_power": False}),
+    "mels_40": (3, 16_000, [16_000, 9_000, 5_000], {"n_mels": 40}),
+    "band_128": (3, 16_000, [16_000, 9_000, 5_000],
+                 {"f_min": 4000.0, "n_mels": 24}),
+}
+
+
+@pytest.mark.parametrize("norm_var", [True, False], ids=["cmvn", "mean_only"])
+@pytest.mark.parametrize("case", list(FBANK_EDGES))
+def test_fbank_tc_route_matches_plain_and_simt(dev, case, norm_var):
+    """Route "tc" (auto) against the plain version and route "simt" at
+    rtol/atol 1e-4: ragged lengths, an utterance shorter than a frame
+    (n_valid 0), T = 1, N % 4 in {1, 2, 3} (4-byte copies), magnitude
+    spectra, 40 mels, a band of 128 bins (4 warps); pad frames exact
+    zeros."""
+    import dataclasses
+
+    from robust_e2e_gan_torch.config import FrontendConfig
+    from robust_e2e_gan_torch.ops import fbank_fused as ff
+
+    b, n, lens, changes = FBANK_EDGES[case]
+    cfg = dataclasses.replace(FrontendConfig(), **changes)
+    wav, lens = _fbank_batch(dev, b, n, lens)
+    plan = ff.fbank_plan(cfg, b, n, *ff.device_limits(0), wav.data_ptr())
+    assert plan is not None and plan.copy16 == (n % 4 == 0)
+    runs = _fbank_routes(ff, wav, cfg, lens, norm_var)
+    want, want_mask = ff.fbank_fused_plain(wav, cfg, lens, norm_var)
+    assert runs["auto"][1] == {"tc": 1, "simt": 0}
+    assert runs["tc"][1] == {"tc": 1, "simt": 0}
+    assert runs["simt"][1] == {"tc": 0, "simt": 1}
+    for route in ("auto", "simt"):
+        got, mask = runs[route][0]
+        torch.testing.assert_close(mask, want_mask, rtol=0, atol=0)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        assert not got[mask == 0].any()
+    torch.testing.assert_close(runs["auto"][0][0], runs["simt"][0][0],
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_fbank_tc_unaligned_waveform(dev):
+    """A waveform 4 bytes past a 16-byte boundary takes 4-byte copies."""
+    from robust_e2e_gan_torch.config import FrontendConfig
+    from robust_e2e_gan_torch.ops import fbank_fused as ff
+
+    cfg = FrontendConfig()
+    wav, lens = _fbank_batch(dev, 3, 16_000, [16_000, 9_000, 401], offset=1)
+    assert wav.data_ptr() % 16 == 4 and wav.is_contiguous()
+    plan = ff.fbank_plan(cfg, 3, 16_000, *ff.device_limits(0), wav.data_ptr())
+    assert not plan.copy16
+    runs = _fbank_routes(ff, wav, cfg, lens)
+    want, _ = ff.fbank_fused_plain(wav, cfg, lens)
+    torch.testing.assert_close(runs["auto"][0][0], want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(128, 111_360), (32, 46_080)],
+                         ids=["decode", "train"])
+def test_fbank_auto_takes_tc_at_flagship_shapes(dev, shape):
+    """At the decode's and the train step's shapes auto takes route "tc"
+    (64- and 32-frame tiles), held to the plain version at rtol/atol 1e-4,
+    and a rerun is bit-identical."""
+    from robust_e2e_gan_torch.config import FrontendConfig
+    from robust_e2e_gan_torch.ops import fbank_fused as ff
+
+    cfg = FrontendConfig()
+    b, n = shape
+    gen = torch.Generator(device=dev).manual_seed(b)
+    lens = torch.randint(n // 2, n + 1, (b,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    lens[0] = n
+    wav, lens = _fbank_batch(dev, b, n, lens)
+    plan = ff.fbank_plan(cfg, b, n, *ff.device_limits(0), wav.data_ptr())
+    assert plan.tm == (64 if b == 128 else 32)
+    before = dict(ff.FBANK_ROUTE_LAUNCHES)
+    got, mask = ff.fbank_fused(wav, cfg, lens)
+    again, _ = ff.fbank_fused(wav, cfg, lens)
+    torch.cuda.synchronize()
+    assert ff.FBANK_ROUTE_LAUNCHES == {"tc": before["tc"] + 2,
+                                       "simt": before["simt"]}
+    assert torch.equal(got, again)
+    want, _ = ff.fbank_fused_plain(wav, cfg, lens)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert not got[mask == 0].any()
+
+
+@pytest.mark.parametrize("route", ["tc", "simt"])
+def test_fbank_bwd_recompute_on_each_route(dev, route):
+    """The backward's dwav with its log-mel recomputed on each route,
+    against the plain version at 1e-4 of max|plain|."""
+    from robust_e2e_gan_torch.config import FrontendConfig
+    from robust_e2e_gan_torch.ops import fbank_fused as ff
+
+    cfg = FrontendConfig()
+    wav, lens = _fbank_batch(dev, 4, 16_000, [16_000, 9_000, 300, 12_001])
+    n_valid = ff.valid_frames(wav, cfg, lens)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    g = torch.randn((4, n_valid.max().item(), cfg.n_mels), generator=gen,
+                    device=dev)
+    with ff._force_fbank_route(route):
+        d_got = ff.fbank_fused_bwd(wav, n_valid, g, cfg)
+    d_want = ff.fbank_fused_bwd_plain(wav, n_valid, g, cfg)
+    torch.cuda.synchronize()
+    scale = d_want.abs().max().item()
+    torch.testing.assert_close(d_got / scale, d_want / scale, rtol=1e-4,
+                               atol=1e-4)
+    assert not d_got[1, 9000:].any() and not d_got[2].any()
+
+
+def test_fbank_forced_tc_past_the_plan_raises(dev):
+    """A frame shift off a multiple of 8 is past the plan: auto takes
+    "simt", a forced "tc" raises before any launch."""
+    import dataclasses
+
+    from robust_e2e_gan_torch.config import FrontendConfig
+    from robust_e2e_gan_torch.ops import fbank_fused as ff
+
+    cfg = dataclasses.replace(FrontendConfig(), frame_shift=164)
+    wav, lens = _fbank_batch(dev, 2, 16_000, [16_000, 8_000])
+    before = dict(ff.FBANK_ROUTE_LAUNCHES)
+    got, _ = ff.fbank_fused(wav, cfg, lens)
+    assert ff.FBANK_ROUTE_LAUNCHES == {"tc": before["tc"],
+                                       "simt": before["simt"] + 1}
+    want, _ = ff.fbank_fused_plain(wav, cfg, lens)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    with ff._force_fbank_route("tc"), pytest.raises(ValueError,
+                                                    match="does not fit"):
+        ff.fbank_fused(wav, cfg, lens)
+    assert ff.FBANK_ROUTE_LAUNCHES["tc"] == before["tc"]
+
+
 def _lm_args(gen, dev, layers, n, h, e, v):
     """lm_step's arguments at its tests' scales."""
     def rnd(*shape, scale=1.0):
