@@ -326,6 +326,9 @@ KERNELS = {
         fbank_route="tc",
         source="robust_e2e_gan_torch/csrc/fbank.cu",
         replaces="robust_e2e_gan_tpu/ops/fbank_pallas.py:147"),
+    # the backward with its frame pass on route "tc" (dframes_tc_kernel,
+    # ops/fbank_fused.py::fbank_bwd_plan), counted by route; route "simt"
+    # (dframes_kernel) runs only where phase 3 forces it
     "fbank_fused_bwd": dict(
         wrapper=fbank_fused.fbank_fused_bwd,
         plain=fbank_fused.fbank_fused_bwd_plain,
@@ -425,7 +428,8 @@ LM_ROUTES = ("tile", "lane")
 LM_KERNELS = ("lm_step_tile_kernel", "lm_step_kernel")
 # the fused frontend's forward routes: the DFT on the tensor cores in
 # 3xTF32 wherever ops/fbank_fused.py::fbank_plan fits, and float32 FMAs a
-# thread a bin past it (both csrc/fbank.cu)
+# thread a bin past it (both csrc/fbank.cu); the backward's frame pass has
+# routes of the same names (ops/fbank_fused.py::fbank_bwd_plan)
 FBANK_ROUTES = ("tc", "simt")
 # the frontend's kernels in a profile: either route's log-mel and CMVN
 FRONTEND_KERNELS = ("logmel_tc_kernel", "logmel_kernel", "cmvn_kernel")
@@ -465,6 +469,7 @@ def reset_counts() -> None:
         lm_step.LM_ROUTE_LAUNCHES[route] = 0
     for route in FBANK_ROUTES:
         fbank_fused.FBANK_ROUTE_LAUNCHES[route] = 0
+        fbank_fused.FBANK_BWD_ROUTE_LAUNCHES[route] = 0
     for kind in ctc_prefix.PREFIX_ROUTE_LAUNCHES.values():
         for route in PREFIX_ROUTES:
             kind[route] = 0
@@ -543,6 +548,15 @@ def on_fbank_route(route, fn):
     """``fn`` with every fused-frontend launch on ``route``."""
     def run(*args):
         with fbank_fused._force_fbank_route(route):
+            return fn(*args)
+    return run
+
+
+def on_fbank_bwd_route(route, fn):
+    """``fn`` with every fused-frontend backward's frame pass on
+    ``route``."""
+    def run(*args):
+        with fbank_fused._force_fbank_bwd_route(route):
             return fn(*args)
     return run
 
@@ -1674,12 +1688,14 @@ def clean_kernel_parity(jcfg, dev):
         same = torch.equal(fns["tc"]()[0], fns["tc"]()[0])
         print(f"    tc route rerun bit-identical: {same}")
         ok_all &= same
-        # in turns (tc, simt, plain, plain, simt, tc)
+        # in turns (tc, simt, plain, plain, simt, tc), the host ahead (at
+        # the train shape a call's host time reaches its device time)
         ms = cuda_ms_in_turns(
             [fns["tc"], fns["simt"],
-             lambda: fbank_fused.fbank_fused_plain(wav, fcfg, lens)], 10)
-        print(f"    in turns: tc {ms[0]:.4f} ms, simt {ms[1]:.4f} ms, plain "
-              f"{ms[2]:.4f} ms")
+             lambda: fbank_fused.fbank_fused_plain(wav, fcfg, lens)], 10,
+            ahead=True)
+        print(f"    in turns, host ahead: tc {ms[0]:.4f} ms, simt "
+              f"{ms[1]:.4f} ms, plain {ms[2]:.4f} ms")
         # per valid frame: the windowed DFT (two bases, 2 * L * F each),
         # power, mel (2 * F * M), log and CMVN
         flops = frames * (4 * l_ * f_ + 3 * f_ + 2 * f_ * m_ + 6 * m_)
@@ -1693,30 +1709,57 @@ def clean_kernel_parity(jcfg, dev):
                 "fbank_fused", errs["tc"], ms[0], ms[2], flops,
                 nbytes(wav, lens, want, bases), wav.dtype)
 
-    # the backward at the train shapes, for a fixed random cotangent
+    # the backward at the train shapes, for a fixed random cotangent, its
+    # frame pass on both routes (the recompute on "tc"), each held to the
+    # plain version; "tc" run twice
     g = torch.randn(got[0].shape, generator=gen, device=dev)
-
-    def bwd_kernel():
-        return fbank_fused.fbank_fused_bwd(wav, n_valid, g, fcfg)
+    bplan = fbank_fused.fbank_bwd_plan(fcfg, *wav.shape, *device_limits(0),
+                                       wav.data_ptr())
+    print(f"  fbank_fused_bwd train: frame-pass tc plan {bplan}")
+    require(bplan is not None,
+            "the backward's tc route does not fit the train shapes")
+    bwds = {r: on_fbank_bwd_route(r, lambda: fbank_fused.fbank_fused_bwd(
+        wav, n_valid, g, fcfg)) for r in FBANK_ROUTES}
 
     def bwd_plain():
         return fbank_fused.fbank_fused_bwd_plain(wav, n_valid, g, fcfg)
 
     fbank_fused.fbank_fused_bwd.launches = 0
-    dwav = bwd_kernel()
-    err, ok = compare(f"fbank_fused_bwd train B={wav.shape[0]} "
-                      f"N={wav.shape[1]} dwav", [dwav], [bwd_plain()],
-                      scale_atol=1e-4)
-    ok_all &= ok
+    for route in FBANK_ROUTES:
+        fbank_fused.FBANK_BWD_ROUTE_LAUNCHES[route] = 0
+    want = bwd_plain()
+    errs = {}
+    for route, fn in bwds.items():
+        dwav = fn()
+        errs[route], ok = compare(
+            f"fbank_fused_bwd {route} train B={wav.shape[0]} "
+            f"N={wav.shape[1]} dwav", [dwav], [want], scale_atol=1e-4)
+        ok_all &= ok
+    same = torch.equal(bwds["tc"](), bwds["tc"]())
+    print(f"    tc route rerun bit-identical: {same}")
+    ok_all &= same
+    routes = dict(fbank_fused.FBANK_BWD_ROUTE_LAUNCHES)
+    print(f"    fbank_fused_bwd launches by frame-pass route {routes}")
+    ok_all &= routes == {"tc": 3, "simt": 1}
+    # in turns (tc, simt, plain, plain, simt, tc), the host ahead
+    ms = cuda_ms_in_turns([bwds["tc"], bwds["simt"], bwd_plain], 10,
+                          ahead=True)
+    print(f"    in turns, host ahead: tc {ms[0]:.4f} ms, simt {ms[1]:.4f} "
+          f"ms, plain {ms[2]:.4f} ms")
+    # the products as route "tc" runs them: the recompute's DFT and the
+    # transposed one, each 4 * L * nbins a valid frame over the band, in
+    # three tf32 passes at the tensor cores' peak
+    tc_ms = frames * 2 * 4 * l_ * bplan.nbins / TF32X3_FLOPS * 1e3
+    print(f"    3xTF32 bound of its two DFTs over {bplan.nbins} bins: "
+          f"{tc_ms:.4f} ms (three tf32 passes at 495 TFLOP/s)")
     # per valid frame: the forward again, CMVN, log and mel transposes
     # (2 * F * M), the power's chain rule, the transposed DFT (2 * 2 * L * F);
     # the overlap-add (2 per sample)
     res["fbank_fused_bwd"] = entry(
-        "fbank_fused_bwd", err, cuda_ms(bwd_kernel, 10),
-        cuda_ms(bwd_plain, 5),
+        "fbank_fused_bwd", errs["tc"], ms[0], ms[2],
         frames * (8 * l_ * f_ + 10 * f_ + 4 * f_ * m_ + 12 * m_)
         + 2 * wav.numel(), nbytes(wav, n_valid, g, dwav, bases), wav.dtype)
-    bwd_launches = fbank_fused.fbank_fused_bwd.launches
+    bwd_launches = fbank_fused.FBANK_BWD_ROUTE_LAUNCHES["tc"]
 
     # the RNNLM step over the B*K = 1024 lanes of a beam step, on both
     # routes, each held to the plain version; "tile" run twice

@@ -65,12 +65,51 @@
 //
 // Blocks run in no order, so CMVN's per-utterance mean and variance are a
 // second, small kernel (one block per utterance, column sums in a fixed
-// order). The backward recomputes the masked log-mel through the forward's
-// route, then the spectra tile by tile in dframes_kernel (float32 FMAs, no
-// re/im residuals in device memory), applies the CMVN, log and mel chain
-// rule, and writes each frame's gradient (B, T, L); a last kernel
-// overlap-adds them to the waveform as a gather (each sample sums the <= 3
-// frames that cover it), so the result is deterministic.
+// order).
+//
+// The backward (replaces fbank_pallas.py::_fbank_fused_bwd_impl, body
+// _bwd_kernel :228, pallas_call :404) is four launches: the masked log-mel
+// recomputed through the forward's route; cmvn_bwd_kernel, the CMVN's
+// transpose; the frame pass, which chains log -> mel -> power -> DFT
+// transposed and writes each frame's gradient (B, T, L); and
+// overlap_add_kernel, a gather (each sample sums the <= 3 frames that cover
+// it, in order), so the result is deterministic. The frame pass has two
+// routes (ops/fbank_fused.py::fbank_bwd_plan picks "tc" wherever it fits,
+// every flagship configuration; "simt" runs past it or where forced):
+//
+// "tc", dframes_tc_kernel: the recompute on route "tc" also writes each
+// valid frame's band spectra (the C fragments, re and im interleaved bin by
+// bin: 2 KB a frame) and its mel before the log, so the frame pass
+// computes no DFT. A block takes (utterance, tile of 32 frames): dmel =
+// dfeats / mel above the log floor; dpower, each bin summing the few
+// filters that touch it in ascending order (bands found on the host,
+// mel_tbands); A = [dre | dim] = 2 [re | im] dpower, split into tf32 hi/lo
+// rows 2 nbins + 4 floats apart (ldmatrix rows conflict-free); then
+// dframes (32 x L) = A (32 x 2 nbins) @ B, B the forward's interleaved band
+// transposed (2 nbins x L; fb is zero outside the band, so dpower, dre and
+// dim are exactly 0 there and the band's product is the full one), in
+// 3xTF32 mma.sync m16n8k8 with each k8 step's sums added apart. B is packed
+// on the host in fragment order (pack_bases_t) and streamed per warp into
+// its own cp.async ring, each lane copying and reading its own 16-byte
+// pieces (two tiles' fragments each). The L / 8 = 50 n8 tiles of dframes
+// go 7, 7, 6, ... 6 to the 8 warps (the 7-tile warps on two different SM
+// sub-partitions: 13 or 12 tiles on each sub-partition's tensor core),
+// every warp over both m16 tiles, so each B element read feeds two
+// products, each pass over all of a warp's tiles before the next, so a
+// tile's three dependent products are far apart. Each lane keeps its 8
+// bins' filters and weights in registers, loaded under the copies. As
+// measured (PERF.md, row 9; tools/fbank_phases.py; NVIDIA H100 80GB HBM3)
+// at the train step's shape: ~0.134 ms, 85% of a block's cycles in the
+// products at ~1.09 k cycles a k8 step against a 734-cycle register-only
+// ceiling of this mma.sync pattern; 276 live blocks at one an SM take
+// three waves. Where a bin's mel sits within float32's error of the log
+// floor (clean speech's near-silent frames), which side of the floor it
+// falls on decides dmel (0 or dfeats / mel), so there the gradient can
+// differ from a float32 chain's by that bin's whole term (PERF.md).
+//
+// "simt", dframes_kernel: recomputes the spectra tile by tile (float32
+// FMAs, no residuals), the dense mel and its transpose, and the transposed
+// DFT as float32 FMAs, a thread a frame sample.
 
 #include "common.cuh"
 
@@ -82,6 +121,11 @@
 #define FB_PHASE_END
 #define FB_CMVN_BEGIN
 #define FB_CMVN_END
+#endif
+#ifndef FB_BWD_BEGIN
+#define FB_BWD_BEGIN
+#define FB_BWD_PHASE(n)
+#define FB_BWD_END
 #endif
 
 namespace {
@@ -269,13 +313,16 @@ __device__ __forceinline__ void copy_step(float* slot, const float4* __restrict_
 // pad frames 0. bases: the packed (L / 8, warps, 4, 32, 4) fragments of the
 // interleaved band (ops/fbank_fused.py::pack_bases); bands (3, M): each
 // filter's first bin (relative to the band's), its length and the offset of
-// its weights in bw
+// its weights in bw. For the backward's frame pass (res not null), each
+// valid frame's band spectra go to res (B, T, 2 nbins; re, im interleaved
+// bin by bin) and its mel before the log to melr (B, T, M)
 template <int MT>
 __global__ void __launch_bounds__(TC_MAX_WARPS * 32, 1)
 logmel_tc_kernel(const float* __restrict__ wav, const int* __restrict__ n_valid,
                  const float4* __restrict__ bases, const int* __restrict__ bands,
-                 const float* __restrict__ bw, float* __restrict__ out, int N, int T, int L,
-                 int shift, int M, int nbins, int copy16, float log_floor, int use_power) {
+                 const float* __restrict__ bw, float* __restrict__ out, float* __restrict__ res,
+                 float* __restrict__ melr, int N, int T, int L, int shift, int M, int nbins,
+                 int copy16, float log_floor, int use_power) {
   constexpr int TM = 16 * MT;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -385,6 +432,22 @@ logmel_tc_kernel(const float* __restrict__ wav, const int* __restrict__ n_valid,
     if (k == seg_end) seg_end += shift, kpos += TC_SKEW;
     kpos += 8;
   }
+  const int g = lane / 4, t = lane % 4;
+  if (res) {  // the valid frames' spectra: 8 rows x 32 bytes a store
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = mt * 16 + h * 8 + g;
+        if (t0 + r >= nv) continue;
+        float2* row = reinterpret_cast<float2*>(res + ((size_t)b * T + t0 + r) * 2 * nbins);
+#pragma unroll
+        for (int nt = 0; nt < TC_NT; ++nt)
+          row[warp * TC_NT * 4 + nt * 4 + t] =
+              make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+      }
+    }
+  }
   __syncthreads();  // every warp is done with the spans: they become the power
   FB_PHASE(1)
 
@@ -393,7 +456,6 @@ logmel_tc_kernel(const float* __restrict__ wav, const int* __restrict__ n_valid,
   // (8 frames x 4 bins) hit 32 banks
   float* P = smem;
   const int ps = TM + TC_PPAD;
-  const int g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
@@ -430,6 +492,7 @@ logmel_tc_kernel(const float* __restrict__ wav, const int* __restrict__ n_valid,
   for (int i = threadIdx.x; i < rows * M; i += blockDim.x) {
     const int r = i / M;
     outb[i] = t0 + r < nv ? logf(fmaxf(mel[i + r], log_floor)) : 0.f;
+    if (melr && t0 + r < nv) melr[((size_t)b * T + t0) * M + i] = mel[i + r];
   }
   FB_PHASE(3)
   FB_PHASE_END
@@ -617,6 +680,245 @@ dframes_kernel(const float* __restrict__ wav, const float* __restrict__ mcos,
   }
 }
 
+// ---------------------------------------------------------------------------
+// the frame pass's route "tc": the transposed DFT as a 3xTF32 implicit GEMM
+// ---------------------------------------------------------------------------
+
+constexpr int DT_TM = 32;      // frames a block: two m16 tiles
+constexpr int DT_WARPS = 8;
+constexpr int DT_NT = 7;       // n8 tiles of the frame's L samples a warp, at most
+constexpr int DT_NP = (DT_NT + 1) / 2;  // 16-byte pieces of B a lane a k8 step: two tiles each
+constexpr int DT_STAGES = 4;   // k8 steps of B in flight a warp
+constexpr int DT_APAD = 4;     // A's rows are 2 nbins + 4 floats apart
+constexpr int DT_BINS = 256;   // band bins at most (TC_MAX_WARPS * TC_WARP_BINS)
+
+// bytes of shared memory of a "tc" frame-pass block (ops/fbank_fused.py::
+// tc_bwd_smem): A's tf32 hi and lo rows, the mel (later dmel) and dfeats
+// tiles (DT_TM, M), the warps' rings of B
+int dt_smem_bytes(int nbins, int M) {
+  return 4 * (2 * DT_TM * (2 * nbins + DT_APAD) + 2 * DT_TM * M +
+              DT_WARPS * DT_STAGES * DT_NP * 128);
+}
+
+// dst[i] = src[i] for i < n: 16-byte pieces where both are 16-byte aligned
+// and n % 4 == 0, else 4-byte ones
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src, int n) {
+  if (n % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
+    for (int i = 4 * threadIdx.x; i < n; i += 4 * blockDim.x) rg::cp_async16(dst + i, src + i);
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) cp_async4(dst + i, src + i);
+  }
+}
+
+// per tile of DT_TM frames, from the recompute's residuals: res (B, T,
+// 2 nbins) the band spectra, melr (B, T, M) the mel, both of the valid
+// frames; dfeats (B, T, M). bases_t: the packed (2 nbins / 8, pieces, 32)
+// 16-byte pieces of the transposed band, warp by warp, each two n8 tiles'
+// fragments (b0, b1) (ops/fbank_fused.py::pack_bases_t); tbands (2, nbins)
+// and tw (2, nbins): the (at most two) filters each band bin sums, in
+// ascending order, and their weights (a zero weight where it sums fewer).
+// Writes dframes (B, T, L)
+__global__ void __launch_bounds__(DT_WARPS * 32, 1)
+dframes_tc_kernel(const float* __restrict__ res, const float* __restrict__ melr,
+                  const float* __restrict__ dfeats, const int* __restrict__ n_valid,
+                  const float4* __restrict__ bases_t, const int* __restrict__ tbands,
+                  const float* __restrict__ tw, float* __restrict__ dframes, int T, int L,
+                  int M, int nbins, float log_floor) {
+  constexpr int RQ = DT_TM / DT_WARPS;  // frames a warp in the A operand's build
+  constexpr int JQ = DT_BINS / 32;      // band bins a lane there
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int b = blockIdx.y, t0 = blockIdx.x * DT_TM;
+  const int nv = min_i(n_valid[b], T);
+  const int rows = min_i(DT_TM, T - t0);
+  float* outb = dframes + ((size_t)b * T + t0) * L;
+  if (t0 >= nv) {  // wholly past the valid frames: zeros, no products
+    for (int i = threadIdx.x; i < rows * L; i += blockDim.x) outb[i] = 0.f;
+    return;
+  }
+  FB_BWD_BEGIN
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int valid = min_i(rows, nv - t0);
+  const int K = 2 * nbins, as = K + DT_APAD;
+  float* a_hi = smem;                    // (DT_TM, as)
+  float* a_lo = a_hi + DT_TM * as;
+  float* dm = a_lo + DT_TM * as;         // (DT_TM, M): the mel, then dmel
+  float* df = dm + DT_TM * M;            // (DT_TM, M): dfeats
+  float* ring = df + DT_TM * M + warp * DT_STAGES * DT_NP * 128;
+  // the warp's n8 tiles of dframes' columns, n0 ... n0 + cnt - 1, in
+  // pieces p0 ... p0 + pieces - 1 of the np a step
+  const int ntiles = L / 8, base = ntiles / DT_WARPS, extra = ntiles % DT_WARPS;
+  const int cnt = base + (warp < extra), n0 = warp * base + min_i(warp, extra);
+  const int pieces = (cnt + 1) / 2;
+  int p0 = 0, np = 0;
+  for (int w = 0; w < DT_WARPS; ++w) {
+    const int c = (base + (w < extra) + 1) / 2;
+    p0 += w < warp ? c : 0;
+    np += c;
+  }
+  const int steps = K / 8;
+  const float4* wb = bases_t + (size_t)p0 * 32 + lane;
+  const size_t step_stride = (size_t)np * 32;
+  auto copy_step = [&](int slot, int s) {
+#pragma unroll
+    for (int q = 0; q < DT_NP; ++q)
+      if (q < pieces)
+        rg::cp_async16(ring + (slot * DT_NP + q) * 128 + 4 * lane, wb + s * step_stride + q * 32);
+  };
+
+  // the valid frames' mel and dfeats, then their spectra into A's hi rows
+  // (zeros past them), then the first DT_STAGES steps of B behind them
+  stage_rows(dm, melr + ((size_t)b * T + t0) * M, valid * M);
+  stage_rows(df, dfeats + ((size_t)b * T + t0) * M, valid * M);
+  rg::cp_async_commit();
+  const float4* src = reinterpret_cast<const float4*>(res + ((size_t)b * T + t0) * K);
+  for (int i = threadIdx.x; i < DT_TM * (K / 4); i += blockDim.x) {
+    const int r = i / (K / 4), c = i % (K / 4);
+    float* d = a_hi + r * as + 4 * c;
+    if (r < valid)
+      rg::cp_async16(d, src + (size_t)r * (K / 4) + c);
+    else
+      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  rg::cp_async_commit();
+#pragma unroll
+  for (int s = 0; s < DT_STAGES; ++s) {
+    if (s < steps) copy_step(s, s);
+    rg::cp_async_commit();
+  }
+  // the lane's bins' filters and weights, under the copies
+  int f0[JQ], f1[JQ];
+  float w0[JQ], w1[JQ];
+#pragma unroll
+  for (int i = 0; i < JQ; ++i) {
+    const int j = min_i(lane + 32 * i, nbins - 1);
+    f0[i] = __ldg(tbands + j), f1[i] = __ldg(tbands + nbins + j);
+    w0[i] = __ldg(tw + j), w1[i] = __ldg(tw + nbins + j);
+  }
+  // dmel = dfeats / mel above the log floor, 0 below it and past n_valid
+  rg::cp_async_wait<DT_STAGES + 1>();
+  __syncthreads();
+  for (int i = threadIdx.x; i < DT_TM * M; i += blockDim.x) {
+    const float mel = dm[i];
+    dm[i] = i < valid * M && mel > log_floor ? df[i] / fmaxf(mel, log_floor) : 0.f;
+  }
+  rg::cp_async_wait<DT_STAGES>();
+  __syncthreads();
+  // dpower of bin j (a lane a bin; the warp's RQ frames, warp + 8 q): its
+  // filters in ascending order; then A = 2 [re | im] dpower, split
+#pragma unroll
+  for (int i = 0; i < JQ; ++i) {
+    const int j = lane + 32 * i;
+    if (j >= nbins) break;
+#pragma unroll
+    for (int q = 0; q < RQ; ++q) {
+      const int r = warp + DT_WARPS * q;
+      const float dp = fmaf(dm[r * M + f1[i]], w1[i], fmaf(dm[r * M + f0[i]], w0[i], 0.f));
+      float2* hi = reinterpret_cast<float2*>(a_hi + r * as) + j;
+      const float2 x = *hi;
+      uint32_t h0, l0, h1, l1;
+      rg::split_tf32(2.f * x.x * dp, h0, l0);
+      rg::split_tf32(2.f * x.y * dp, h1, l1);
+      *hi = make_float2(__uint_as_float(h0), __uint_as_float(h1));
+      reinterpret_cast<float2*>(a_lo + r * as)[j] =
+          make_float2(__uint_as_float(l0), __uint_as_float(l1));
+    }
+  }
+  __syncthreads();
+  FB_BWD_PHASE(0)
+
+  // the products: the warp's cnt n8 tiles of both m16 tiles (the second's
+  // rows are zeros where the tile holds 16 valid frames or fewer), each
+  // pass over all 2 cnt tiles, so a tile's three dependent products are
+  // 2 cnt - 1 products apart
+  const float* a_row = a_hi + (lane % 16) * as + (lane / 16) * 4;
+  const float4* own = reinterpret_cast<const float4*>(ring) + lane;
+  // piece q: (b0, b1) of tile 2 q, then of tile 2 q + 1
+  uint32_t bh[2 * DT_NP][2], bl[2 * DT_NP][2];
+  float4 v[DT_NP];
+  auto split_bases = [&]() {
+#pragma unroll
+    for (int q = 0; q < DT_NP; ++q) {
+      rg::split_tf32(v[q].x, bh[2 * q][0], bl[2 * q][0]);
+      rg::split_tf32(v[q].y, bh[2 * q][1], bl[2 * q][1]);
+      rg::split_tf32(v[q].z, bh[2 * q + 1][0], bl[2 * q + 1][0]);
+      rg::split_tf32(v[q].w, bh[2 * q + 1][1], bl[2 * q + 1][1]);
+    }
+  };
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  rg::cp_async_wait<DT_STAGES - 1>();
+#pragma unroll
+  for (int q = 0; q < DT_NP; ++q) v[q] = q < pieces ? own[q * 32] : zero4;
+  split_bases();
+  float acc[2][DT_NT][4] = {};
+  for (int s = 0; s < steps; ++s) {
+    // step s + 1's pieces load under step s's products (a stale slot after
+    // the last step, unused); step s + DT_STAGES goes into step s's slot,
+    // whose pieces this lane alone read, into registers, a step ago
+    rg::cp_async_wait<DT_STAGES - 2>();
+    const float4* next = own + ((s + 1) % DT_STAGES) * (DT_NP * 32);
+#pragma unroll
+    for (int q = 0; q < DT_NP; ++q) v[q] = q < pieces ? next[q * 32] : zero4;
+    if (s + DT_STAGES < steps) copy_step(s % DT_STAGES, s + DT_STAGES);
+    rg::cp_async_commit();
+    // ldmatrix on 32-bit elements gives the tf32 fragment (a0: row g, col
+    // t; a1: row g + 8; a2, a3: col t + 4)
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const float* p = a_row + mt * 16 * as + 8 * s;
+      rg::ldsm_x4(ah[mt], reinterpret_cast<const __nv_bfloat16*>(p));
+      rg::ldsm_x4(al[mt], reinterpret_cast<const __nv_bfloat16*>(p + DT_TM * as));
+    }
+    // lo hi, hi lo, then hi hi into this k8 step's own sums, added to the
+    // running sums by a float32 add (the tensor cores' float32 sums round
+    // toward zero)
+    float d[2][DT_NT][4] = {};
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int i = 0; i < DT_NT; ++i)
+        if (i < cnt) rg::mma1688(d[mt][i], al[mt], bh[i][0], bh[i][1]);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int i = 0; i < DT_NT; ++i)
+        if (i < cnt) rg::mma1688(d[mt][i], ah[mt], bl[i][0], bl[i][1]);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int i = 0; i < DT_NT; ++i)
+        if (i < cnt) rg::mma1688(d[mt][i], ah[mt], bh[i][0], bh[i][1]);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int i = 0; i < DT_NT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][i][e] += d[mt][i][e];
+    split_bases();
+  }
+  FB_BWD_PHASE(1)
+
+  // the store: c0, c1 frame g's samples 2t, 2t + 1 of the tile; c2, c3
+  // frame g + 8's (zeros for frames past n_valid: their A rows are zeros)
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = mt * 16 + h * 8 + g;
+      if (r >= rows) continue;
+      float2* row = reinterpret_cast<float2*>(outb + (size_t)r * L);
+#pragma unroll
+      for (int i = 0; i < DT_NT; ++i)
+        if (i < cnt)
+          row[(n0 + i) * 4 + t] = make_float2(acc[mt][i][2 * h], acc[mt][i][2 * h + 1]);
+    }
+  }
+  FB_BWD_PHASE(2)
+  FB_BWD_END
+}
+
 // dwav[b, n] = sum over the frames t that cover sample n of
 // dframes[b, t, n - t * shift], in ascending t; 0 past the last frame
 __global__ void overlap_add_kernel(const float* __restrict__ dframes, float* __restrict__ dwav,
@@ -638,13 +940,15 @@ int slices_for(int M) { return max(1, min(8, 1024 / M)); }
 // The masked log-mel (B, T, M) before CMVN: route "tc" where tm > 0 (the
 // plan of ops/fbank_fused.py::fbank_plan: tm frames a block, nbins padded
 // bins, shared bytes), else route "simt"
+// (with res and melr: route "tc" only, and the valid frames' spectra and
+// mel for the frame pass's route "tc")
 cudaError_t logmel(const float* wav, const int* nv, const float* mcos, const float* msin,
                    const float* fb, const float4* bases, const int* bands, const float* bw,
-                   float* x, int B, int N, int T, int L, int shift, int F, int M, int tm,
-                   int nbins, int copy16, int smem, float log_floor, int use_power,
-                   cudaStream_t s) {
+                   float* x, float* res, float* melr, int B, int N, int T, int L, int shift,
+                   int F, int M, int tm, int nbins, int copy16, int smem, float log_floor,
+                   int use_power, cudaStream_t s) {
   if (tm == 0) {
-    if (F > MAX_THREADS) return cudaErrorInvalidValue;
+    if (F > MAX_THREADS || res) return cudaErrorInvalidValue;
     const size_t bytes = (size_t)max(L * TS, TT * F) * sizeof(float);
     const cudaError_t err = rg::reserve_smem<logmel_kernel>(bytes);
     if (err != cudaSuccess) return err;
@@ -661,14 +965,14 @@ cudaError_t logmel(const float* wav, const int* nv, const float* mcos, const flo
   cudaError_t err;
   if (tm == 64) {
     if ((err = rg::reserve_smem<logmel_tc_kernel<4>>(smem)) != cudaSuccess) return err;
-    logmel_tc_kernel<4><<<grid, warps * 32, smem, s>>>(wav, nv, bases, bands, bw, x, N, T, L,
-                                                       shift, M, nbins, copy16, log_floor,
-                                                       use_power);
+    logmel_tc_kernel<4><<<grid, warps * 32, smem, s>>>(wav, nv, bases, bands, bw, x, res,
+                                                       melr, N, T, L, shift, M, nbins,
+                                                       copy16, log_floor, use_power);
   } else {
     if ((err = rg::reserve_smem<logmel_tc_kernel<2>>(smem)) != cudaSuccess) return err;
-    logmel_tc_kernel<2><<<grid, warps * 32, smem, s>>>(wav, nv, bases, bands, bw, x, N, T, L,
-                                                       shift, M, nbins, copy16, log_floor,
-                                                       use_power);
+    logmel_tc_kernel<2><<<grid, warps * 32, smem, s>>>(wav, nv, bases, bands, bw, x, res,
+                                                       melr, N, T, L, shift, M, nbins,
+                                                       copy16, log_floor, use_power);
   }
   return cudaGetLastError();
 }
@@ -688,22 +992,32 @@ extern "C" int fbank_fwd(const void* wav, const void* n_valid, const void* mcos,
       static_cast<const float*>(wav), nv, static_cast<const float*>(mcos),
       static_cast<const float*>(msin), static_cast<const float*>(fb),
       static_cast<const float4*>(bases), static_cast<const int*>(bands),
-      static_cast<const float*>(bw), x, B, N, T, L, shift, F, M, tm, nbins, copy16, smem,
-      log_floor, use_power, s);
+      static_cast<const float*>(bw), x, nullptr, nullptr, B, N, T, L, shift, F, M, tm, nbins,
+      copy16, smem, log_floor, use_power, s);
   if (err != cudaSuccess) return (int)err;
   const int S = slices_for(M);
   cmvn_kernel<<<B, S * M, S * M * sizeof(float), s>>>(x, nv, T, M, S, norm_var, eps);
   return (int)cudaGetLastError();
 }
 
+// The backward: the frame pass on route "tc" where bwd_smem > 0 (the plan
+// of ops/fbank_fused.py::fbank_bwd_plan: its shared bytes; the recompute
+// must be on route "tc", tm > 0, and write res and melr), else route
+// "simt" (dframes_kernel; res, melr, bases_t, tbands and tw unused)
 extern "C" int fbank_bwd(const void* wav, const void* n_valid, const void* mcos,
                          const void* msin, const void* fb, const void* bases, const void* bands,
                          const void* bw, const void* mcos_t, const void* msin_t,
-                         const void* fb_t, const void* g, void* feats, void* dfeats,
-                         void* dframes, void* dwav, int B, int N, int T, int L, int shift, int F,
-                         int M, int tm, int nbins, int copy16, int smem, float log_floor,
-                         int norm_var, float eps, void* stream) {
-  if (B < 1 || T < 1 || F > MAX_THREADS || M > 1024 || L > MAX_THREADS || L < 1)
+                         const void* fb_t, const void* bases_t, const void* tbands,
+                         const void* tw, const void* g, void* feats, void* dfeats, void* res,
+                         void* melr, void* dframes, void* dwav, int B, int N, int T, int L,
+                         int shift, int F, int M, int tm, int nbins, int copy16, int smem,
+                         int bwd_smem, float log_floor, int norm_var, float eps, void* stream) {
+  const bool tc = bwd_smem > 0;
+  if (B < 1 || T < 1 || M > 1024 || L < 1 || (!tc && (F > MAX_THREADS || L > MAX_THREADS)))
+    return (int)cudaErrorInvalidValue;
+  if (tc && (tm == 0 || L % 8 || (L / 8 + DT_WARPS - 1) / DT_WARPS > DT_NT || nbins % 32 ||
+             nbins > DT_BINS ||
+             bwd_smem < dt_smem_bytes(nbins, M) || !res || !melr))
     return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* w = static_cast<const float*>(wav);
@@ -714,12 +1028,14 @@ extern "C" int fbank_bwd(const void* wav, const void* n_valid, const void* mcos,
   auto* x = static_cast<float*>(feats);
   auto* dx = static_cast<float*>(dfeats);
   auto* dfr = static_cast<float*>(dframes);
-  const dim3 tiles((T + TT - 1) / TT, B);
+  auto* r = tc ? static_cast<float*>(res) : nullptr;
+  auto* mr = tc ? static_cast<float*>(melr) : nullptr;
 
   // the forward's masked log-mel (before CMVN), recomputed by its route
   cudaError_t err = logmel(w, nv, mc, ms, f, static_cast<const float4*>(bases),
-                           static_cast<const int*>(bands), static_cast<const float*>(bw), x, B,
-                           N, T, L, shift, F, M, tm, nbins, copy16, smem, log_floor, 1, s);
+                           static_cast<const int*>(bands), static_cast<const float*>(bw), x, r,
+                           mr, B, N, T, L, shift, F, M, tm, nbins, copy16, smem, log_floor, 1,
+                           s);
   if (err != cudaSuccess) return (int)err;
 
   const int S = slices_for(M);
@@ -727,13 +1043,18 @@ extern "C" int fbank_bwd(const void* wav, const void* n_valid, const void* mcos,
       x, static_cast<const float*>(g), dx, nv, T, M, S, norm_var, eps);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  const size_t smem_bwd =
-      (size_t)(max(L, 2 * F) * TS + TT * F + M * TS) * sizeof(float);
-  err = rg::reserve_smem<dframes_kernel>(smem_bwd);
-  if (err != cudaSuccess) return (int)err;
-  dframes_kernel<<<tiles, block_for(max(L, F)), smem_bwd, s>>>(
-      w, mc, ms, f, static_cast<const float*>(mcos_t), static_cast<const float*>(msin_t),
-      static_cast<const float*>(fb_t), dx, dfr, N, T, L, shift, F, M, log_floor);
+  if (tc) {
+    if ((err = rg::reserve_smem<dframes_tc_kernel>(bwd_smem)) != cudaSuccess) return (int)err;
+    dframes_tc_kernel<<<dim3((T + DT_TM - 1) / DT_TM, B), DT_WARPS * 32, bwd_smem, s>>>(
+        r, mr, dx, nv, static_cast<const float4*>(bases_t), static_cast<const int*>(tbands),
+        static_cast<const float*>(tw), dfr, T, L, M, nbins, log_floor);
+  } else {
+    const size_t smem_bwd = (size_t)(max(L, 2 * F) * TS + TT * F + M * TS) * sizeof(float);
+    if ((err = rg::reserve_smem<dframes_kernel>(smem_bwd)) != cudaSuccess) return (int)err;
+    dframes_kernel<<<dim3((T + TT - 1) / TT, B), block_for(max(L, F)), smem_bwd, s>>>(
+        w, mc, ms, f, static_cast<const float*>(mcos_t), static_cast<const float*>(msin_t),
+        static_cast<const float*>(fb_t), dx, dfr, N, T, L, shift, F, M, log_floor);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   overlap_add_kernel<<<dim3((N + 255) / 256, B), 256, 0, s>>>(dfr, static_cast<float*>(dwav),

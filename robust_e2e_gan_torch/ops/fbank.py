@@ -46,9 +46,16 @@ def window_fn(cfg: FrontendConfig) -> np.ndarray:
     return w.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=8)
 def dft_matrices(n_fft: int) -> Tuple[np.ndarray, np.ndarray]:
-    """(n_fft, n_fft//2+1) real-DFT bases: cos and sin of -2 pi k j / n."""
+    """(n_fft, n_fft//2+1) real-DFT bases: cos and sin of -2 pi k j / n.
+    The caller's own copies: a CPU tensor made from them by
+    ``torch.from_numpy`` aliases them, and a write into the cached arrays
+    would change every later call."""
+    return tuple(x.copy() for x in _dft_matrices_np(n_fft))
+
+
+@functools.lru_cache(maxsize=8)
+def _dft_matrices_np(n_fft: int) -> Tuple[np.ndarray, np.ndarray]:
     k = np.arange(n_fft, dtype=np.float64)[:, None]
     f = np.arange(n_fft // 2 + 1, dtype=np.float64)[None, :]
     ang = -2.0 * np.pi * k * f / n_fft
@@ -73,10 +80,11 @@ def _mel_filterbank_np(n_mels, n_fft, sample_rate, f_min, f_max):
 
 
 def mel_filterbank(cfg: FrontendConfig) -> np.ndarray:
-    """Kaldi-style triangular mel filterbank, (n_freqs, n_mels)."""
+    """Kaldi-style triangular mel filterbank, (n_freqs, n_mels): the
+    caller's own copy, as ``dft_matrices``'."""
     f_max = cfg.f_max if cfg.f_max is not None else cfg.sample_rate / 2.0
     return _mel_filterbank_np(cfg.n_mels, cfg.n_fft, cfg.sample_rate,
-                              cfg.f_min, float(f_max))
+                              cfg.f_min, float(f_max)).copy()
 
 
 def frame_signal(wav: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:

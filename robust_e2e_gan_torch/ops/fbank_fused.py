@@ -22,6 +22,16 @@ wherever ``fbank_plan`` fits, every flagship configuration. "simt"
 (``logmel_kernel``, float32 FMAs, a thread a bin) runs past the plan, or
 inside ``_force_fbank_route("simt")``. ``FBANK_ROUTE_LAUNCHES`` counts the
 forward launches by route.
+
+The backward recomputes the log-mel on the forward's route; its frame
+pass has two routes too. "tc" (``dframes_tc_kernel``) takes the band
+spectra and mel that the "tc" recompute writes, sums dpower over the few
+filters of each bin and runs the transposed DFT over the band on the
+tensor cores in 3xTF32; it runs wherever ``fbank_bwd_plan`` fits, every
+flagship configuration. "simt" (``dframes_kernel``, float32 FMAs) runs
+past the plan, or inside ``_force_fbank_bwd_route("simt")``.
+``FBANK_BWD_ROUTE_LAUNCHES`` counts the backward launches by frame-pass
+route.
 """
 
 from __future__ import annotations
@@ -62,6 +72,33 @@ TC_SKEW = 4
 TC_PPAD = 8
 TC_TILES = (64, 32)
 
+# the backward's frame pass on route "tc" (csrc/fbank.cu's DT_* constants):
+# frames a block, warps a block, n8 tiles of the frame's samples a warp at
+# most and the 16-byte pieces (two tiles each) they take a lane a k8 step,
+# k8 steps of the bases in flight a warp, the padding of A's rows, band
+# bins at most; the filters a band bin sums at most (its table holds two)
+DT_TM = 32
+DT_WARPS = 8
+DT_NT = 7
+DT_NP = (DT_NT + 1) // 2
+DT_STAGES = 4
+DT_APAD = 4
+DT_BINS = TC_WARP_BINS * TC_MAX_WARPS
+DT_FILTERS = 2
+
+
+def _preprocess_matrix(cfg: FrontendConfig) -> np.ndarray:
+    """(L, L) float64: frame' = diag(w) @ P @ A @ frame, DC removal,
+    pre-emphasis and window in the order of ops.fbank._preprocess_frames."""
+    n = cfg.frame_length
+    w = fbank_ref.window_fn(cfg).astype(np.float64)
+    a = np.eye(n) - (np.ones((n, n)) / n if cfg.remove_dc else 0.0)
+    p = np.eye(n)
+    if cfg.preemphasis > 0.0:
+        p = p - cfg.preemphasis * np.diag(np.ones(n - 1), k=-1)
+        p[0, 0] -= cfg.preemphasis  # x'[0] = x[0] - p * x[0]
+    return np.diag(w) @ p @ a
+
 
 def combined_bases(cfg: FrontendConfig) -> Tuple[np.ndarray, ...]:
     """DC removal, pre-emphasis and window folded into the DFT bases.
@@ -71,15 +108,7 @@ def combined_bases(cfg: FrontendConfig) -> Tuple[np.ndarray, ...]:
     preprocessed frame.
     """
     n = cfg.frame_length
-    w = fbank_ref.window_fn(cfg).astype(np.float64)
-    # frame' = diag(w) @ P @ A @ frame: DC, pre-emphasis, window, in the
-    # order of ops.fbank._preprocess_frames
-    a = np.eye(n) - (np.ones((n, n)) / n if cfg.remove_dc else 0.0)
-    p = np.eye(n)
-    if cfg.preemphasis > 0.0:
-        p = p - cfg.preemphasis * np.diag(np.ones(n - 1), k=-1)
-        p[0, 0] -= cfg.preemphasis  # x'[0] = x[0] - p * x[0]
-    t_pre = np.diag(w) @ p @ a
+    t_pre = _preprocess_matrix(cfg)
     cos_m, sin_m = fbank_ref.dft_matrices(cfg.n_fft)
     m_cos = (t_pre.T @ cos_m[:n].astype(np.float64)).astype(np.float32)
     m_sin = (t_pre.T @ sin_m[:n].astype(np.float64)).astype(np.float32)
@@ -132,6 +161,49 @@ def mel_bands(cfg: FrontendConfig) -> MelBands:
     return MelBands(first, last - first + 1, lo, length, off, weights)
 
 
+class BinBands(NamedTuple):
+    """The filters that touch each bin of the band (``MelBands.first`` on,
+    ``nbins`` of them): bin j's weights ``weights[off[j] : off[j] +
+    length[j]]`` are those of filters ``lo[j]`` onward (``length[j]`` 0
+    for a bin no filter touches, and for the padding past the band)."""
+    lo: np.ndarray
+    length: np.ndarray
+    off: np.ndarray
+    weights: np.ndarray
+
+
+@functools.lru_cache(maxsize=8)
+def mel_tbands(cfg: FrontendConfig) -> BinBands:
+    """The filterbank's transpose in bands, over the band padded to
+    ``padded_bins``: summing bin j's filters in ascending order equals the
+    dense ascending chain of ``dmel @ fb.T`` over every filter bit for bit
+    (the filters left out carry a zero weight)."""
+    bands = mel_bands(cfg)
+    fb = fbank_ref.mel_filterbank(cfg).astype(np.float32)
+    rows = fb[bands.first:bands.first + bands.n_bins]
+    nz = [np.flatnonzero(r) for r in rows]
+    nz += [np.zeros(0, np.int64)] * (padded_bins(cfg) - len(nz))
+    lo = np.array([x[0] if x.size else 0 for x in nz], np.int32)
+    length = np.array([x[-1] - x[0] + 1 if x.size else 0 for x in nz],
+                      np.int32)
+    off = np.concatenate([[0], np.cumsum(length)[:-1]]).astype(np.int32)
+    weights = np.concatenate(
+        [rows[j, a:a + n] for j, (a, n) in enumerate(zip(lo, length))
+         if n] + [np.zeros(1)]).astype(np.float32)
+    return BinBands(lo, length, off, weights)
+
+
+def _interleaved_band(m_cos: np.ndarray, m_sin: np.ndarray,
+                      bands: MelBands, nbins: int) -> np.ndarray:
+    """(L, 2 nbins): columns 2j and 2j + 1 are M_cos and M_sin of bin
+    ``bands.first + j`` for j < ``bands.n_bins``, zeros past it."""
+    lo, n = bands.first, bands.n_bins
+    bm = np.zeros((m_cos.shape[0], 2 * nbins), np.float32)
+    bm[:, 0:2 * n:2] = m_cos[:, lo:lo + n]
+    bm[:, 1:2 * n:2] = m_sin[:, lo:lo + n]
+    return bm
+
+
 def pack_bases(m_cos: np.ndarray, m_sin: np.ndarray, bands: MelBands,
                nbins: int) -> np.ndarray:
     """The "tc" route's B operand in the order its lanes read it.
@@ -144,14 +216,42 @@ def pack_bases(m_cos: np.ndarray, m_sin: np.ndarray, bands: MelBands,
     (nt = 2 q, h 0 / 1, nt = 2 q + 1, h 0 / 1). Returns float32 (L / 8,
     warps, 4, 32, 4), flattened."""
     length = m_cos.shape[0]
-    lo, n = bands.first, bands.n_bins
-    bm = np.zeros((length, 2 * nbins), np.float32)
-    bm[:, 0:2 * n:2] = m_cos[:, lo:lo + n]
-    bm[:, 1:2 * n:2] = m_sin[:, lo:lo + n]
+    bm = _interleaved_band(m_cos, m_sin, bands, nbins)
     # k = 8 s + 4 h + t, column = 64 w + 8 (2 q + i) + g
     x = bm.reshape(length // 8, 2, 4, nbins // TC_WARP_BINS, 4, 2, 8)
     # (s, h, t, w, q, i, g) -> (s, w, q, g, t, i, h)
     return np.ascontiguousarray(x.transpose(0, 3, 4, 6, 2, 5, 1)).reshape(-1)
+
+
+def warp_tiles(length: int) -> list:
+    """(first n8 tile, tiles) of each warp of the frame pass over a frame's
+    L / 8 tiles: the remainder to the first warps (7, 7, 6, ..., 6 at
+    L = 400)."""
+    base, extra = divmod(length // 8, DT_WARPS)
+    return [(w * base + min(w, extra), base + (w < extra))
+            for w in range(DT_WARPS)]
+
+
+def pack_bases_t(m_cos: np.ndarray, m_sin: np.ndarray, bands: MelBands,
+                 nbins: int) -> np.ndarray:
+    """The backward's B operand, the interleaved band transposed (2 nbins,
+    L), in the order the frame pass's lanes read it. At k8 step s, lane
+    4 g + t holds (b0, b1) = (B[8 s + t][8 n + g], B[8 s + t + 4][8 n + g])
+    of n8 tile n; a 16-byte piece holds those of two tiles, a warp's tiles
+    n0, n0 + 1, ... in its pieces (zeros past its last tile), the warps'
+    pieces one after another. Returns float32 (2 nbins / 8, pieces, 32,
+    4), flattened."""
+    length = m_cos.shape[0]
+    b = _interleaved_band(m_cos, m_sin, bands, nbins).T
+    # k = 8 s + 4 h + t, column = 8 n + g
+    x = b.reshape(2 * nbins // 8, 2, 4, length // 8, 8)
+    # (s, h, t, n, g) -> (s, n, g, t, h) -> (s, n, lane, (b0, b1))
+    x = x.transpose(0, 3, 4, 2, 1).reshape(2 * nbins // 8, length // 8, 32, 2)
+    zero = np.zeros_like(x[:, 0])
+    pieces = [np.concatenate([x[:, n0 + i], x[:, n0 + i + 1]
+                              if i + 1 < cnt else zero], axis=-1)
+              for n0, cnt in warp_tiles(length) for i in range(0, cnt, 2)]
+    return np.ascontiguousarray(np.stack(pieces, axis=1)).reshape(-1)
 
 
 class FbankPlan(NamedTuple):
@@ -211,6 +311,41 @@ def fbank_plan(cfg: FrontendConfig, b: int, n: int, n_sm: int,
             best = (cost, FbankPlan(tm, nbins, smem,
                                     n % 4 == 0 and ptr % 16 == 0))
     return None if best is None else best[1]
+
+
+class FbankBwdPlan(NamedTuple):
+    """The frame pass's route "tc": frames a block, the band's padded bins
+    (the recompute's, ``fbank_plan``), shared bytes."""
+    tm: int
+    nbins: int
+    smem: int
+
+
+def tc_bwd_smem(nbins: int, n_mels: int) -> int:
+    """Shared bytes of a "tc" frame-pass block (csrc/fbank.cu::
+    dt_smem_bytes): A's tf32 hi and lo rows, the mel and dfeats tiles, the
+    warps' rings."""
+    return 4 * (2 * DT_TM * (2 * nbins + DT_APAD) + 2 * DT_TM * n_mels
+                + DT_WARPS * DT_STAGES * DT_NP * 128)
+
+
+def fbank_bwd_plan(cfg: FrontendConfig, b: int, n: int, n_sm: int,
+                   smem_optin: int, ptr: int = 0) -> Optional[FbankBwdPlan]:
+    """The frame pass's route "tc" for b utterances of n samples at
+    ``ptr``, or None for route "simt": integer arithmetic.
+
+    It needs the recompute on route "tc" (``fbank_plan``), which writes the
+    band spectra and the mel the frame pass reads; the power spectrum;
+    the frame's L / 8 n8 tiles over 8 warps at 7 a warp at most (L <=
+    448); at most two filters on a bin (as triangular filters are); and
+    its block within ``smem_optin``."""
+    fwd = fbank_plan(cfg, b, n, n_sm, smem_optin, ptr)
+    if (fwd is None or not cfg.use_power
+            or max(cnt for _, cnt in warp_tiles(cfg.frame_length)) > DT_NT
+            or mel_tbands(cfg).length.max() > DT_FILTERS):
+        return None
+    smem = tc_bwd_smem(fwd.nbins, cfg.n_mels)
+    return FbankBwdPlan(DT_TM, fwd.nbins, smem) if smem <= smem_optin else None
 
 
 def _check_cfg(cfg: FrontendConfig) -> None:
@@ -305,6 +440,21 @@ def fbank_fused_plain(wav: torch.Tensor, cfg: FrontendConfig,
 fbank_fused_plain.calls = 0
 
 
+def cmvn_transpose(c, g, valid, denom, norm_var: bool, eps: float):
+    """d loss / d (masked log-mel) from the cotangent g of the CMVN'd
+    features: the transpose of the two-pass masked CMVN, given the centred
+    log-mel c, the (B, T, 1) mask and the (B, 1, 1) frame counts."""
+    gm = torch.where(valid, g.to(c.dtype), 0.0)
+    if norm_var:
+        var = (c * c).sum(dim=1, keepdim=True) / denom
+        s = torch.rsqrt(var + eps)
+        dvar = (gm * c).sum(dim=1, keepdim=True) * (-0.5) * s * s * s
+        dc = gm * s + (2.0 / denom) * c * dvar
+    else:
+        dc = gm
+    return torch.where(valid, dc - dc.sum(dim=1, keepdim=True) / denom, 0.0)
+
+
 def fbank_fused_bwd_plain(wav: torch.Tensor, n_valid: torch.Tensor,
                           g: torch.Tensor, cfg: FrontendConfig,
                           norm_var: bool = True, eps: float = 1e-8
@@ -319,15 +469,7 @@ def fbank_fused_bwd_plain(wav: torch.Tensor, n_valid: torch.Tensor,
     m_cos, m_sin, fb = device_bases(cfg, wav.device)[:3]
     c, valid, denom, (re, im, mel) = _centred_logmel(wav, n_valid, cfg)
     t = mel.shape[1]
-    gm = torch.where(valid, g.float(), 0.0)
-    if norm_var:
-        var = (c * c).sum(dim=1, keepdim=True) / denom
-        s = torch.rsqrt(var + eps)
-        dvar = (gm * c).sum(dim=1, keepdim=True) * (-0.5) * s * s * s
-        dc = gm * s + (2.0 / denom) * c * dvar
-    else:
-        dc = gm
-    dfeats = torch.where(valid, dc - dc.sum(dim=1, keepdim=True) / denom, 0.0)
+    dfeats = cmvn_transpose(c, g, valid, denom, norm_var, eps)
     dmel = torch.where(mel > cfg.log_floor,
                        dfeats / torch.clamp_min(mel, cfg.log_floor), 0.0)
     dpower = dmel @ fb.t()
@@ -368,6 +510,28 @@ def _force_fbank_route(route: str):
         _forced_fbank_route = prev
 
 
+# backward launches by the frame pass's route: "tc" the tensor-core kernel,
+# "simt" the one it replaced, run past the plan or where forced
+FBANK_BWD_ROUTE_LAUNCHES = {"tc": 0, "simt": 0}
+_forced_fbank_bwd_route = None
+
+
+@contextlib.contextmanager
+def _force_fbank_bwd_route(route: str):
+    """Run every backward's frame pass inside the block on one route ("tc"
+    or "simt"): the tests and ``chip_smoke.py`` hold both to the plain
+    version and time them. Forcing "tc" where its plan does not fit (or
+    with the recompute forced onto "simt") raises."""
+    global _forced_fbank_bwd_route
+    check(route in FBANK_BWD_ROUTE_LAUNCHES,
+          f"unknown fbank backward route {route!r}")
+    prev, _forced_fbank_bwd_route = _forced_fbank_bwd_route, route
+    try:
+        yield
+    finally:
+        _forced_fbank_bwd_route = prev
+
+
 @functools.lru_cache(maxsize=None)
 def _plan_on(index: int, cfg: FrontendConfig, b: int, n: int, ptr16: int):
     """The "tc" plan of these shapes on card ``index``, for a waveform at
@@ -389,6 +553,29 @@ def _route_plan(wav: torch.Tensor, cfg: FrontendConfig):
     return plan
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_plan_on(index: int, cfg: FrontendConfig, b: int, n: int, ptr16: int):
+    """The frame pass's "tc" plan of these shapes on card ``index``."""
+    return fbank_bwd_plan(cfg, b, n, *device_limits(index), ptr=ptr16)
+
+
+def _bwd_route_plan(wav: torch.Tensor, cfg: FrontendConfig, plan):
+    """The frame pass's "tc" plan, or None for route "simt": past the plan,
+    with the recompute on "simt" (``plan`` None), or where "simt" is
+    forced."""
+    if _forced_fbank_bwd_route == "simt":
+        return None
+    b, n = wav.shape
+    bplan = None if plan is None else _bwd_plan_on(
+        wav.device.index or 0, cfg, b, n, wav.data_ptr() % 16)
+    check(bplan is not None or _forced_fbank_bwd_route is None,
+          f"the backward's tc route does not fit B={b} N={n} frame_length="
+          f"{cfg.frame_length} frame_shift={cfg.frame_shift} "
+          f"n_fft={cfg.n_fft} n_mels={cfg.n_mels}"
+          + ("" if plan else " (its log-mel recompute is on route simt)"))
+    return bplan
+
+
 @functools.lru_cache(maxsize=8)
 def tc_bases(cfg: FrontendConfig, device: torch.device
              ) -> Tuple[torch.Tensor, ...]:
@@ -399,6 +586,26 @@ def tc_bases(cfg: FrontendConfig, device: torch.device
     bands = mel_bands(cfg)
     arrays = (pack_bases(m_cos, m_sin, bands, padded_bins(cfg)),
               np.stack([bands.lo, bands.length, bands.off]), bands.weights)
+    return tuple(torch.from_numpy(x).to(device) for x in arrays)
+
+
+@functools.lru_cache(maxsize=8)
+def tc_bwd_bases(cfg: FrontendConfig, device: torch.device
+                 ) -> Tuple[torch.Tensor, ...]:
+    """The frame pass's packed transposed bases and each band bin's (at
+    most two) filters ((2, nbins) int32, ascending; the first again where
+    a bin has one or none) and their weights ((2, nbins) float32; zero
+    where it has fewer) on ``device``, built once per (configuration,
+    card)."""
+    m_cos, m_sin, _ = combined_bases(cfg)
+    tb = mel_tbands(cfg)
+    second = tb.length > 1
+    filters = np.stack([tb.lo, tb.lo + second]).astype(np.int32)
+    weights = np.zeros((2, tb.lo.size), np.float32)
+    weights[0, tb.length > 0] = tb.weights[tb.off[tb.length > 0]]
+    weights[1, second] = tb.weights[tb.off[second] + 1]
+    arrays = (pack_bases_t(m_cos, m_sin, mel_bands(cfg), padded_bins(cfg)),
+              filters, weights)
     return tuple(torch.from_numpy(x).to(device) for x in arrays)
 
 
@@ -417,14 +624,15 @@ def _logmel_args(wav, cfg, plan) -> list:
             [plan.tm, plan.nbins, int(plan.copy16), plan.smem])
 
 
-def _check_kernel_inputs(wav, cfg, backward: bool, plan):
+def _check_kernel_inputs(wav, cfg, backward: bool, plan, bplan=None):
     """The kernels' limits: route "simt"'s thread per DFT bin in one block
-    and its shared memory (route "tc" has ``fbank_plan``'s), and the
-    backward's thread per bin and per frame sample."""
+    and its shared memory (route "tc" has ``fbank_plan``'s), and the simt
+    frame pass's thread per bin and per frame sample (route "tc" has
+    ``fbank_bwd_plan``'s)."""
     check(wav.dtype == torch.float32 and wav.dim() == 2,
           f"wav must be (B, N) float32, got {tuple(wav.shape)} {wav.dtype}")
     check(cfg.n_mels <= 1024, f"n_mels={cfg.n_mels} > 1024")
-    if backward:
+    if backward and bplan is None:
         check(max(cfg.n_freqs, cfg.frame_length) <= MAX_THREADS,
               f"n_fft // 2 + 1 = {cfg.n_freqs} and frame_length = "
               f"{cfg.frame_length} must be <= {MAX_THREADS} (one thread "
@@ -501,7 +709,8 @@ def fbank_fused_bwd(wav: torch.Tensor, n_valid: torch.Tensor,
         return fbank_fused_bwd_plain(wav, n_valid, g, cfg, norm_var, eps)
     wav = wav.contiguous()
     plan = _route_plan(wav, cfg)
-    _check_kernel_inputs(wav, cfg, True, plan)
+    bplan = _bwd_route_plan(wav, cfg, plan)
+    _check_kernel_inputs(wav, cfg, True, plan, bplan)
     b, n = wav.shape
     t = fbank_ref.num_frames(n, cfg)
     check(g.shape == (b, t, cfg.n_mels), f"g shape {tuple(g.shape)}")
@@ -514,13 +723,24 @@ def fbank_fused_bwd(wav: torch.Tensor, n_valid: torch.Tensor,
     dframes = torch.empty((b, t, cfg.frame_length), dtype=torch.float32,
                           device=wav.device)
     dwav = torch.empty_like(wav)
+    if bplan is None:
+        frame_pass, res, melr = [None] * 3, None, None
+    else:  # the recompute's band spectra and mel, for the frame pass
+        frame_pass = [x.data_ptr() for x in tc_bwd_bases(cfg, wav.device)]
+        res = torch.empty((b, t, 2 * bplan.nbins), dtype=torch.float32,
+                          device=wav.device)
+        melr = torch.empty_like(g)
     launch("fbank_bwd", wav.data_ptr(), n_valid.data_ptr(), *bases,
-           *(x.data_ptr() for x in transposed), g.data_ptr(),
-           feats.data_ptr(), dfeats.data_ptr(), dframes.data_ptr(),
+           *(x.data_ptr() for x in transposed), *frame_pass, g.data_ptr(),
+           feats.data_ptr(), dfeats.data_ptr(),
+           None if res is None else res.data_ptr(),
+           None if melr is None else melr.data_ptr(), dframes.data_ptr(),
            dwav.data_ptr(), b, n, t, cfg.frame_length, cfg.frame_shift,
-           cfg.n_freqs, cfg.n_mels, *route, cfg.log_floor, int(norm_var),
-           eps, torch.cuda.current_stream(wav.device).cuda_stream)
+           cfg.n_freqs, cfg.n_mels, *route, 0 if bplan is None else bplan.smem,
+           cfg.log_floor, int(norm_var), eps,
+           torch.cuda.current_stream(wav.device).cuda_stream)
     fbank_fused_bwd.launches += 1
+    FBANK_BWD_ROUTE_LAUNCHES["simt" if bplan is None else "tc"] += 1
     return dwav
 
 

@@ -97,10 +97,12 @@ SIGNATURES = {
     # bytes), log_floor, use_power, norm_var, eps, stream
     "fbank_fwd": [_P] * 9 + [_I] * 11 + [_F, _I, _I, _F, _P],
     # wav, n_valid, mcos, msin, fb, packed bases, bands, weights, mcos_t,
-    # msin_t, fb_t, g, feats, dfeats, dframes, dwav, B, N, T, L, shift, F,
-    # M, the forward's route (tm, nbins, copy16, shared bytes), log_floor,
-    # norm_var, eps, stream
-    "fbank_bwd": [_P] * 16 + [_I] * 11 + [_F, _I, _F, _P],
+    # msin_t, fb_t, the frame pass's packed bases, bin bands and weights,
+    # g, feats, dfeats, res, melr, dframes, dwav, B, N, T, L, shift, F, M,
+    # the forward's route (tm, nbins, copy16, shared bytes), the frame
+    # pass's shared bytes (0: route "simt"), log_floor, norm_var, eps,
+    # stream
+    "fbank_bwd": [_P] * 21 + [_I] * 12 + [_F, _I, _F, _P],
     # tok, emb, wx0, wxs, whs, bias, wout, bout, h_in, c_in, h_out, c_out,
     # logits, N, V, E, H, L, bf16, stream
     "lm_step": [_P] * 13 + [_I] * 6 + [_P],

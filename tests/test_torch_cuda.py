@@ -6,6 +6,8 @@ one (and nvcc), run them without the JAX test configuration:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import contextlib
+
 import pytest
 import torch
 
@@ -1338,6 +1340,139 @@ def test_fbank_forced_tc_past_the_plan_raises(dev):
                                                     match="does not fit"):
         ff.fbank_fused(wav, cfg, lens)
     assert ff.FBANK_ROUTE_LAUNCHES["tc"] == before["tc"]
+
+
+FBANK_BWD_CASES = {  # B, N, wav_lengths, float offset, frontend changes
+    "ragged": (4, 16_000, [16_000, 9_000, 300, 12_001], 0, {}),
+    "unaligned": (3, 16_000, [16_000, 9_000, 401], 1, {}),
+    "n_mod4_3": (2, 16_003, [16_003, 9_003], 0, {}),
+    "one_frame": (2, 559, [559, 400], 0, {}),
+    "mels_40": (3, 16_000, [16_000, 9_000, 5_000], 0, {"n_mels": 40}),
+    "band_128": (3, 16_000, [16_000, 9_000, 5_000], 0,
+                 {"f_min": 4000.0, "n_mels": 24}),
+}
+
+
+def _fbank_bwd_routes(ff, wav, n_valid, g, cfg, norm_var=True):
+    """The backward with its frame pass on auto, forced "tc" and forced
+    "simt", with the frame-pass launches each took."""
+    out = {}
+    for route in ("auto", "tc", "simt"):
+        before = dict(ff.FBANK_BWD_ROUTE_LAUNCHES)
+        if route == "auto":
+            got = ff.fbank_fused_bwd(wav, n_valid, g, cfg, norm_var)
+        else:
+            with ff._force_fbank_bwd_route(route):
+                got = ff.fbank_fused_bwd(wav, n_valid, g, cfg, norm_var)
+        took = {k: ff.FBANK_BWD_ROUTE_LAUNCHES[k] - before[k] for k in before}
+        out[route] = (got, took)
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("norm_var", [True, False], ids=["cmvn", "mean_only"])
+@pytest.mark.parametrize("case", list(FBANK_BWD_CASES))
+def test_fbank_bwd_tc_route_matches_plain_and_simt(dev, case, norm_var):
+    """The backward's frame pass on route "tc" (auto) and "simt" against
+    the plain version at 1e-4 of max|plain|: ragged lengths with an
+    utterance shorter than a frame, a waveform 4 bytes past a 16-byte
+    boundary and N % 4 == 3 (the recompute's 4-byte copies), T = 1, 40
+    mels, a band of 128 bins; nothing past each utterance's end."""
+    import dataclasses
+
+    from robust_e2e_gan_torch.config import FrontendConfig
+    from robust_e2e_gan_torch.ops import fbank_fused as ff
+
+    b, n, lens, offset, changes = FBANK_BWD_CASES[case]
+    cfg = dataclasses.replace(FrontendConfig(), **changes)
+    wav, lens = _fbank_batch(dev, b, n, lens, offset=offset)
+    plan = ff.fbank_bwd_plan(cfg, b, n, *ff.device_limits(0), wav.data_ptr())
+    assert plan is not None and plan.nbins == ff.padded_bins(cfg)
+    n_valid = ff.valid_frames(wav, cfg, lens)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    g = torch.randn((b, ff.fbank_ref.num_frames(n, cfg), cfg.n_mels),
+                    generator=gen, device=dev)
+    runs = _fbank_bwd_routes(ff, wav, n_valid, g, cfg, norm_var)
+    want = ff.fbank_fused_bwd_plain(wav, n_valid, g, cfg, norm_var)
+    assert runs["auto"][1] == {"tc": 1, "simt": 0}
+    assert runs["tc"][1] == {"tc": 1, "simt": 0}
+    assert runs["simt"][1] == {"tc": 0, "simt": 1}
+    scale = max(want.abs().max().item(), 1e-30)
+    for route in ("auto", "simt"):
+        got = runs[route][0]
+        torch.testing.assert_close(got / scale, want / scale, rtol=1e-4,
+                                   atol=1e-4)
+        for i, length in enumerate(lens.tolist()):
+            assert not got[i, length:].any()
+
+
+@pytest.mark.parametrize("shape", [(128, 111_360), (32, 46_080)],
+                         ids=["decode", "train"])
+def test_fbank_bwd_auto_takes_tc_at_flagship_shapes(dev, shape):
+    """At the decode's and the train step's shapes the backward's frame
+    pass takes route "tc" on auto, held to the plain version at 1e-4 of
+    max|plain|, and a rerun is bit-identical."""
+    from robust_e2e_gan_torch.config import FrontendConfig
+    from robust_e2e_gan_torch.ops import fbank_fused as ff
+
+    cfg = FrontendConfig()
+    b, n = shape
+    gen = torch.Generator(device=dev).manual_seed(b + 1)
+    lens = torch.randint(n // 2, n + 1, (b,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    lens[0] = n
+    wav, lens = _fbank_batch(dev, b, n, lens)
+    n_valid = ff.valid_frames(wav, cfg, lens)
+    g = torch.randn((b, ff.fbank_ref.num_frames(n, cfg), cfg.n_mels),
+                    generator=gen, device=dev)
+    assert ff.fbank_bwd_plan(cfg, b, n, *ff.device_limits(0),
+                             wav.data_ptr()) is not None
+    before = dict(ff.FBANK_BWD_ROUTE_LAUNCHES)
+    got = ff.fbank_fused_bwd(wav, n_valid, g, cfg)
+    again = ff.fbank_fused_bwd(wav, n_valid, g, cfg)
+    torch.cuda.synchronize()
+    assert ff.FBANK_BWD_ROUTE_LAUNCHES == {"tc": before["tc"] + 2,
+                                           "simt": before["simt"]}
+    assert torch.equal(got, again)
+    want = ff.fbank_fused_bwd_plain(wav, n_valid, g, cfg)
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got / scale, want / scale, rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_fbank_bwd_forced_tc_past_the_plan_raises(dev):
+    """Past the plan (a frame shift off a multiple of 8, whose recompute
+    takes "simt") auto takes "simt"; a forced "tc" raises before any
+    launch, as it does with the recompute forced onto "simt"."""
+    import dataclasses
+
+    from robust_e2e_gan_torch.config import FrontendConfig
+    from robust_e2e_gan_torch.ops import fbank_fused as ff
+
+    for cfg, force in ((dataclasses.replace(FrontendConfig(),
+                                            frame_shift=164), None),
+                       (FrontendConfig(), "simt")):
+        wav, lens = _fbank_batch(dev, 2, 16_000, [16_000, 8_000])
+        n_valid = ff.valid_frames(wav, cfg, lens)
+        g = torch.randn((2, ff.fbank_ref.num_frames(16_000, cfg),
+                         cfg.n_mels), device=dev)
+        with contextlib.ExitStack() as stack:
+            if force:
+                stack.enter_context(ff._force_fbank_route(force))
+            before = dict(ff.FBANK_BWD_ROUTE_LAUNCHES)
+            launches = ff.fbank_fused_bwd.launches
+            got = ff.fbank_fused_bwd(wav, n_valid, g, cfg)
+            assert ff.FBANK_BWD_ROUTE_LAUNCHES == {
+                "tc": before["tc"], "simt": before["simt"] + 1}
+            want = ff.fbank_fused_bwd_plain(wav, n_valid, g, cfg)
+            scale = want.abs().max().item()
+            torch.testing.assert_close(got / scale, want / scale, rtol=1e-4,
+                                       atol=1e-4)
+            with ff._force_fbank_bwd_route("tc"), pytest.raises(
+                    ValueError, match="does not fit"):
+                ff.fbank_fused_bwd(wav, n_valid, g, cfg)
+            assert ff.fbank_fused_bwd.launches == launches + 1
+            assert ff.FBANK_BWD_ROUTE_LAUNCHES["tc"] == before["tc"]
 
 
 def _lm_args(gen, dev, layers, n, h, e, v):

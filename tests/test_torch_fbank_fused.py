@@ -5,9 +5,13 @@ degenerate lengths, and the waveform gradient of the trainable form. Then
 the forward's "tc" route on the CPU: its plan (integer arithmetic), the
 bases in the order its lanes read them, the skewed span, its numerics
 (3xTF32 products emulated by bit masking, the banded mel) against the JAX
-kernel, and the banded mel against the dense product."""
+kernel, and the banded mel against the dense product. Last, the backward's
+"tc" frame pass on the CPU: its plan, its packed transposed bases and bin
+filter table as its lanes read them, the band-limited transposed product,
+and its numerics emulated against the JAX backward."""
 
 import dataclasses
+import functools
 import os
 import re
 
@@ -87,6 +91,33 @@ def test_fbank_fused_matches_jax(name):
                                  None, norm_var=False)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=SPLIT_RTOL,
                                atol=SPLIT_ATOL)
+
+
+def test_frontend_tables_are_the_callers_own():
+    """The frontend's table functions must not hand out their cached
+    arrays: ``torch.from_numpy`` aliases them on the CPU, so one write into
+    them would change every later result (``test_fbank_fused_matches_jax``
+    once failed with the port's side off, a way that could happen).
+    Writing into what they return changes no later result, of the fused
+    frontend (bases folded anew) or of the split chain."""
+    cfg = dataclasses.replace(CFG, n_mels=23, n_fft=1024)  # its own caches
+    wav = torch.from_numpy(_signal(1, 4000))
+
+    def outputs():
+        tff.device_bases.cache_clear()
+        fused, _ = tff.fbank_fused_plain(wav, cfg)
+        split = tff.fbank_ref.log_mel(tff.fbank_ref.stft_power(wav, cfg), cfg)
+        return fused, split
+
+    try:
+        before = outputs()
+        for table in (*tff.fbank_ref.dft_matrices(cfg.n_fft),
+                      tff.fbank_ref.mel_filterbank(cfg)):
+            table *= 2.0
+        for got, want in zip(outputs(), before):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+    finally:
+        tff.device_bases.cache_clear()
 
 
 def test_fbank_fused_zero_frames():
@@ -278,7 +309,13 @@ def _kernel_view(packed, length, nbins):
 
 def _interleaved(cfg, nbins):
     """Columns 2j, 2j + 1: M_cos and M_sin of bin first + j, zeros past the
-    band: a C fragment's column pair (2t, 2t + 1) is one bin's (re, im)."""
+    band: a C fragment's column pair (2t, 2t + 1) is one bin's (re, im).
+    A copy of each call's own."""
+    return _interleaved_once(cfg, nbins).copy()
+
+
+@functools.lru_cache(maxsize=None)
+def _interleaved_once(cfg, nbins):
     m_cos, m_sin, _ = tff.combined_bases(cfg)
     bands = tff.mel_bands(cfg)
     bm = np.zeros((cfg.frame_length, 2 * nbins), np.float32)
@@ -333,20 +370,17 @@ def _tf32(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def _banded_mel(power: torch.Tensor, cfg) -> torch.Tensor:
-    """Each filter's band in ascending bin order as a float32 fmaf chain
-    (the product exact in float64, one rounding of the sum; float64 then
-    float32 rounds twice at most 2^-29 of the time). power (..., nbins)
-    starts at the band's first bin."""
-    bands = tff.mel_bands(cfg)
-    width = max(int(bands.length.max()), 1)
+def _banded_sum(x: torch.Tensor, lo, length, off, weights) -> torch.Tensor:
+    """out[..., i] = sum over j < length[i] of x[..., lo[i] + j] *
+    weights[off[i] + j] in ascending j as a float32 fmaf chain (the product
+    exact in float64, one rounding of the sum; float64 then float32 rounds
+    twice at most 2^-29 of the time)."""
+    width = max(int(length.max()), 1)
     j = np.arange(width)[None, :]
-    idx = bands.lo[:, None] + np.minimum(j, np.maximum(bands.length[:, None]
-                                                       - 1, 0))
-    w = np.where(j < bands.length[:, None],
-                 bands.weights[np.minimum(bands.off[:, None] + j,
-                                          bands.weights.size - 1)], 0.0)
-    p = power.double()[..., torch.from_numpy(idx)]  # (..., M, width)
+    idx = lo[:, None] + np.minimum(j, np.maximum(length[:, None] - 1, 0))
+    w = np.where(j < length[:, None],
+                 weights[np.minimum(off[:, None] + j, weights.size - 1)], 0.0)
+    p = x.double()[..., torch.from_numpy(idx)]  # (..., out, width)
     w = torch.from_numpy(w)
     acc = torch.zeros(p.shape[:-1], dtype=torch.float32)
     for i in range(width):  # zero weights past a band add exactly 0
@@ -354,29 +388,50 @@ def _banded_mel(power: torch.Tensor, cfg) -> torch.Tensor:
     return acc
 
 
-def _tc_route_emulated(wav, cfg, wav_lengths, norm_var, eps=1e-8,
-                       passes=3):
-    """Route "tc"'s arithmetic: frames @ the interleaved band, each k8
-    step's lo hi + hi lo + hi hi summed apart and added to the running sums
-    in float32 (``passes=1``: hi hi alone, single-pass TF32); power from
-    each column pair; the banded mel; log floor, mask, CMVN (the second
-    launch, as the plain version)."""
-    nbins = tff.padded_bins(cfg)
+def _banded_mel(power: torch.Tensor, cfg) -> torch.Tensor:
+    """Each filter's band in ascending bin order (logmel_tc_kernel's mel).
+    power (..., nbins) starts at the band's first bin."""
+    bands = tff.mel_bands(cfg)
+    return _banded_sum(power, bands.lo, bands.length, bands.off,
+                       bands.weights)
+
+
+def _banded_dpower(dmel: torch.Tensor, cfg) -> torch.Tensor:
+    """Each band bin's filters in ascending order (dframes_tc_kernel's
+    dpower): (..., n_mels) -> (..., padded bins)."""
+    tb = tff.mel_tbands(cfg)
+    return _banded_sum(dmel, tb.lo, tb.length, tb.off, tb.weights)
+
+
+def _tf32_product(a: torch.Tensor, b: torch.Tensor, passes=3):
+    """a @ b as route "tc" runs it: each k8 step's lo hi + hi lo + hi hi
+    summed apart and added to the running sums in float32 (``passes=1``:
+    hi hi alone, single-pass TF32)."""
+    def steps(x, y):  # each k8 step's product apart: (K / 8, M, N)
+        return x.reshape(x.shape[0], -1, 8).transpose(0, 1) @ y.reshape(
+            -1, 8, y.shape[1])
+
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    d = steps(ah, bh)
+    if passes != 1:
+        d = steps(al, bh) + steps(ah, bl) + d
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    for step in d:
+        acc = acc + step
+    return acc
+
+
+def _tc_logmel(wav, cfg, wav_lengths, passes=3):
+    """Route "tc"'s log-mel: frames @ the interleaved band in 3xTF32, power
+    from each column pair, the banded mel, log floor, mask. Returns (band
+    spectra (B T, 2 nbins), mel, masked log-mel, valid (B, T, 1), frame
+    counts (B, 1, 1))."""
     frames = tff.fbank_ref.frame_signal(wav, cfg)
     b, t, length = frames.shape
-    a = frames.reshape(-1, length)
-    bm = torch.from_numpy(_interleaved(cfg, nbins))
-    ah, bh = _tf32(a), _tf32(bm)
-    al, bl = _tf32(a - ah), _tf32(bm - bh)
-    acc = torch.zeros(a.shape[0], 2 * nbins)
-    for s in range(length // 8):
-        k = slice(8 * s, 8 * s + 8)
-        if passes == 1:
-            acc = acc + ah[:, k] @ bh[k]
-        else:
-            acc = acc + (al[:, k] @ bh[k] + ah[:, k] @ bl[k]
-                         + ah[:, k] @ bh[k])
-    power = acc[:, 0::2] * acc[:, 0::2] + acc[:, 1::2] * acc[:, 1::2]
+    bm = torch.from_numpy(_interleaved(cfg, tff.padded_bins(cfg)))
+    spec = _tf32_product(frames.reshape(-1, length), bm, passes)
+    power = spec[:, 0::2] * spec[:, 0::2] + spec[:, 1::2] * spec[:, 1::2]
     if not cfg.use_power:
         power = torch.sqrt(torch.clamp_min(power, 0.0))
     mel = _banded_mel(power, cfg).reshape(b, t, cfg.n_mels)
@@ -385,10 +440,44 @@ def _tc_route_emulated(wav, cfg, wav_lengths, norm_var, eps=1e-8,
     feats = torch.where(valid, torch.log(torch.clamp_min(mel, cfg.log_floor)),
                         0.0)
     denom = torch.clamp_min(n_valid.float(), 1.0)[:, None, None]
+    return spec, mel, feats, valid, denom
+
+
+def _tc_route_emulated(wav, cfg, wav_lengths, norm_var, eps=1e-8,
+                       passes=3):
+    """Route "tc"'s arithmetic: the log-mel of ``_tc_logmel``, then CMVN
+    (the second launch, as the plain version)."""
+    _, _, feats, valid, denom = _tc_logmel(wav, cfg, wav_lengths, passes)
     out = torch.where(valid, feats - feats.sum(1, keepdim=True) / denom, 0.0)
     if norm_var:
         out = out * torch.rsqrt((out * out).sum(1, keepdim=True) / denom + eps)
     return out
+
+
+def _tc_bwd_emulated(wav, cfg, wav_lengths, g, norm_var, eps=1e-8,
+                     passes=3):
+    """The backward with its frame pass on route "tc": the recompute's band
+    spectra and mel (``_tc_logmel``), the CMVN transpose (the plain
+    version's), dmel above the log floor, dpower by each bin's filters, A =
+    2 [re | im] dpower and A @ the interleaved band transposed in 3xTF32
+    (``passes=1``: single-pass TF32), the overlap-add."""
+    b, n = wav.shape
+    spec, mel, feats, valid, denom = _tc_logmel(wav, cfg, wav_lengths)
+    t = mel.shape[1]
+    c = torch.where(valid, feats - feats.sum(1, keepdim=True) / denom, 0.0)
+    dfeats = tff.cmvn_transpose(c, g, valid, denom, norm_var, eps)
+    dmel = torch.where(valid & (mel > cfg.log_floor),
+                       dfeats / torch.clamp_min(mel, cfg.log_floor), 0.0)
+    dpower = _banded_dpower(dmel.reshape(b * t, -1), cfg)
+    a = 2.0 * spec * dpower.repeat_interleave(2, dim=1)
+    bt = torch.from_numpy(_interleaved(cfg, tff.padded_bins(cfg)).T.copy())
+    dframes = _tf32_product(a, bt, passes).reshape(b, t, -1)
+    covered = (t - 1) * cfg.frame_shift + cfg.frame_length
+    dwav = torch.nn.functional.fold(
+        dframes.transpose(1, 2), output_size=(1, covered),
+        kernel_size=(1, cfg.frame_length),
+        stride=(1, cfg.frame_shift)).reshape(b, covered)
+    return torch.nn.functional.pad(dwav, (0, n - covered))
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -434,3 +523,201 @@ def test_banded_mel_matches_the_dense_product(n_mels):
     want = power.astype(np.float64) @ fb.astype(np.float64)
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
     np.testing.assert_allclose(got, power @ fb, rtol=1e-5, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the backward's frame pass, route "tc" of csrc/fbank.cu, on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _dt_constants():
+    path = os.path.join(os.path.dirname(tff.__file__), "..", "csrc",
+                        "fbank.cu")
+    with open(path) as f:
+        src = f.read()
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (DT_\w+) = (\d+);", src)}
+
+
+def test_tc_bwd_constants_match_the_kernel():
+    """The frame pass's constants as the kernel has them; at L = 400 its 50
+    n8 tiles go 7, 7, 6, ..., 6 to the 8 warps, each tile once."""
+    assert _dt_constants() == {"DT_TM": tff.DT_TM, "DT_WARPS": tff.DT_WARPS,
+                               "DT_NT": tff.DT_NT,
+                               "DT_STAGES": tff.DT_STAGES,
+                               "DT_APAD": tff.DT_APAD,
+                               "DT_BINS": tff.DT_BINS}
+    assert tff.DT_NP == 4 and tff.DT_BINS == 256
+    split = tff.warp_tiles(400)
+    assert [cnt for _, cnt in split] == [7, 7, 6, 6, 6, 6, 6, 6]
+    tiles = [n for n0, cnt in split for n in range(n0, n0 + cnt)]
+    assert tiles == list(range(400 // 8))
+
+
+@pytest.mark.parametrize("n_mels,smem", [(80, 218_112), (40, 207_872)])
+@pytest.mark.parametrize("shape", [DECODE, TRAIN], ids=["decode", "train"])
+def test_fbank_bwd_plan_fits_every_flagship_configuration(n_mels, smem,
+                                                          shape):
+    """Decode and train shapes, 80 and 40 mels: 32-frame tiles over the
+    forward's 256 padded bins; A's hi and lo rows (2 x 32 x 516 floats),
+    the mel and dfeats tiles (2 x 32 x M) and 8 rings of 4 steps x 4
+    pieces x 32 lanes x 4 floats within the H100's opt-in shared
+    memory."""
+    cfg = dataclasses.replace(FLAGSHIP, n_mels=n_mels)
+    plan = tff.fbank_bwd_plan(cfg, *shape, H100_SMS, H100_SMEM)
+    assert plan == tff.FbankBwdPlan(32, 256, smem)
+    assert plan.smem == tff.tc_bwd_smem(256, n_mels) <= H100_SMEM
+    assert tff.fbank_plan(cfg, *shape, H100_SMS, H100_SMEM).nbins == 256
+
+
+@pytest.mark.parametrize("change", ["recompute_simt", "magnitude",
+                                    "length_456", "smem", "no_frame"])
+def test_fbank_bwd_plan_refuses(change):
+    """Where the recompute cannot take route "tc" (it writes what the
+    frame pass reads), magnitude spectra, a frame of more than 8 x 7 n8
+    tiles, too little shared memory, no frame: route "simt"."""
+    cfg, b, n, smem = FLAGSHIP, 4, 16_000, H100_SMEM
+    if change == "recompute_simt":
+        cfg = dataclasses.replace(cfg, frame_shift=164)
+    elif change == "magnitude":
+        cfg = dataclasses.replace(cfg, use_power=False)
+    elif change == "length_456":
+        cfg = dataclasses.replace(cfg, frame_length=456)
+        assert tff.fbank_plan(cfg, b, n, H100_SMS, smem) is not None
+    elif change == "smem":
+        smem = tff.tc_bwd_smem(256, 80) - 1
+        assert tff.fbank_plan(cfg, b, n, H100_SMS, smem) is not None
+    else:
+        n = 399
+    assert tff.fbank_bwd_plan(cfg, b, n, H100_SMS, smem) is None
+
+
+def _kernel_view_t(packed, length, nbins):
+    """The (2 nbins, L) B operand of the frame pass as its lanes read it:
+    at k8 step s, warp w's piece q (from its first piece p0: the pieces of
+    the warps before it) holds in lane 4 g + t (b0, b1) of its tile n0 +
+    2 q, then of n0 + 2 q + 1, b0 row 8 s + t and b1 row 8 s + t + 4 of
+    column 8 n + g; the piece's half past the warp's last tile is zeros."""
+    split = tff.warp_tiles(length)
+    n_pieces = sum(-(-cnt // 2) for _, cnt in split)
+    x = packed.reshape(2 * nbins // 8, n_pieces, 32, 4)
+    out = np.full((2 * nbins, length), np.nan, np.float32)
+    s = np.arange(2 * nbins // 8)
+    p0 = 0
+    for n0, cnt in split:
+        for q in range(-(-cnt // 2)):
+            for lane in range(32):
+                g, t = divmod(lane, 4)
+                for e, (i, h) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+                    got = x[:, p0 + q, lane, e]
+                    if 2 * q + i >= cnt:
+                        assert not got.any()
+                        continue
+                    out[8 * s + t + 4 * h, 8 * (n0 + 2 * q + i) + g] = got
+        p0 += -(-cnt // 2)
+    return out
+
+
+def test_pack_bases_t_is_what_the_lanes_read():
+    bands = tff.mel_bands(FLAGSHIP)
+    m_cos, m_sin, _ = tff.combined_bases(FLAGSHIP)
+    packed = tff.pack_bases_t(m_cos, m_sin, bands, 256)
+    assert packed.shape == (512 // 8 * 26 * 32 * 4,)  # 26 pieces a step
+    np.testing.assert_array_equal(_kernel_view_t(packed, 400, 256),
+                                  _interleaved(FLAGSHIP, 256).T)
+
+
+@pytest.mark.parametrize("n_mels", [80, 40])
+def test_bin_filter_table_gives_the_banded_dpower(n_mels):
+    """The frame pass's table of each band bin's two filters and weights:
+    fmaf(dmel[f1], w1, fmaf(dmel[f0], w0, 0)) equals the bins' ascending
+    chain (``_banded_dpower``) bit for bit, zeros on the padding bins."""
+    cfg = dataclasses.replace(FLAGSHIP, n_mels=n_mels)
+    _, filters, weights = tff.tc_bwd_bases(cfg, torch.device("cpu"))
+    assert filters.shape == weights.shape == (2, tff.padded_bins(cfg))
+    dmel = torch.from_numpy(np.random.default_rng(n_mels).standard_normal(
+        (16, n_mels)).astype(np.float32))
+    f0, f1 = filters.long()
+    first = (dmel[:, f0].double() * weights[0].double()).float()
+    got = (first.double() + dmel[:, f1].double() * weights[1].double()
+           ).float()
+    torch.testing.assert_close(got, _banded_dpower(dmel, cfg), rtol=0,
+                               atol=0)
+    assert not got[:, tff.mel_bands(cfg).n_bins:].any()
+
+
+@pytest.mark.parametrize("n_mels", [80, 40])
+def test_band_limited_transposed_product_equals_the_full_one(n_mels):
+    """For a dpower made through fb (dmel @ fb.T over all 257 bins), dpower
+    is exactly 0 outside the band 1..255, the bins' filter bands rebuild fb
+    and give dpower to summation order, and the transposed product over
+    the band's 512 interleaved rows equals the full 257-bin one (float64:
+    the two differ by the order of their sums only)."""
+    cfg = dataclasses.replace(FLAGSHIP, n_mels=n_mels)
+    bands, tb = tff.mel_bands(cfg), tff.mel_tbands(cfg)
+    m_cos, m_sin, fb = tff.combined_bases(cfg)
+    dense = np.zeros((tff.padded_bins(cfg), n_mels), np.float32)
+    for j in range(bands.n_bins):
+        dense[j, tb.lo[j]:tb.lo[j] + tb.length[j]] = tb.weights[
+            tb.off[j]:tb.off[j] + tb.length[j]]
+    np.testing.assert_array_equal(dense[:bands.n_bins],
+                                  fb[bands.first:bands.first + bands.n_bins])
+    assert not tb.length[bands.n_bins:].any() and tb.length.max() == 2
+    rng = np.random.default_rng(n_mels)
+    frames = 48
+    dmel = rng.standard_normal((frames, n_mels)).astype(np.float32)
+    re, im = (rng.standard_normal((frames, cfg.n_freqs)) for _ in range(2))
+    dpower = dmel.astype(np.float64) @ fb.T.astype(np.float64)  # (48, 257)
+    band = slice(bands.first, bands.first + bands.n_bins)
+    outside = np.ones(cfg.n_freqs, bool)
+    outside[band] = False
+    assert not dpower[:, outside].any()
+    got = _banded_dpower(torch.from_numpy(dmel), cfg).numpy()
+    np.testing.assert_allclose(got[:, :bands.n_bins], dpower[:, band],
+                               rtol=1e-6, atol=1e-7)
+    assert not got[:, bands.n_bins:].any()
+    full = ((2 * re * dpower) @ m_cos.T.astype(np.float64)
+            + (2 * im * dpower) @ m_sin.T.astype(np.float64))
+    a = np.zeros((frames, 2 * tff.padded_bins(cfg)))
+    a[:, 0:2 * bands.n_bins:2] = 2 * re[:, band] * dpower[:, band]
+    a[:, 1:2 * bands.n_bins:2] = 2 * im[:, band] * dpower[:, band]
+    limited = a @ _interleaved(cfg, tff.padded_bins(cfg)).T.astype(np.float64)
+    np.testing.assert_allclose(limited, full, rtol=1e-12,
+                               atol=1e-12 * np.abs(full).max())
+
+
+@pytest.mark.parametrize("norm_var", [True, False], ids=["cmvn", "mean_only"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_tc_bwd_numerics_match_jax(name, norm_var):
+    """The backward with its frame pass emulated as route "tc" runs it
+    (the recompute's band spectra and mel, the banded dpower, the
+    transposed band in 3xTF32) against the JAX custom-VJP gradient
+    (interpret mode), normalised by the largest JAX gradient, at rtol/atol
+    1e-4 as the plain version's test (~1e-6 reached); single-pass TF32 in
+    the transposed product misses it (by ~2e-4 to ~3e-4) on the cases with
+    more than one frame, whose gradients are not all exact zeros."""
+    b, n, lens, _ = CASES[name]
+    wav = _signal(b, n, seed=1)
+    jl, tl = _lengths(lens)
+    t = tff.fbank_ref.num_frames(n, CFG)
+    w = np.random.default_rng(2).standard_normal(
+        (b, t, CFG.n_mels)).astype(np.float32)
+
+    def loss_jax(x):
+        feats, _ = jfp.fbank_fused_trainable(x, JCFG, wav_lengths=jl,
+                                             norm_var=norm_var)
+        return jnp.sum(feats * w)
+
+    want = np.asarray(jax.grad(loss_jax)(jnp.asarray(wav)))
+    x, g = torch.from_numpy(wav), torch.from_numpy(w)
+    got = _tc_bwd_emulated(x, CFG, tl, g, norm_var).numpy()
+    scale = np.abs(want).max()
+    if name == "one_frame":  # CMVN over one frame: exact zeros
+        assert scale == 0.0 and not got.any()
+        return
+    np.testing.assert_allclose(got / scale, want / scale, rtol=1e-4,
+                               atol=1e-4)
+    single = _tc_bwd_emulated(x, CFG, tl, g, norm_var, passes=1).numpy()
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(single / scale, want / scale, rtol=1e-4,
+                                   atol=1e-4)
