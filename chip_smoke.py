@@ -30,8 +30,14 @@ Phases, each of which exits non-zero on failure:
    flagship's decoder widths at B=128 and B=16 and at the decode CLI's
    float32 model, timed in turns with the attention step alone and the
    plain version, the host ahead), in float32 with
-   TF32 off and in bfloat16, with the time of each; one BLSTM layer too
-   wide for the W_x-resident kernel, which must take the gate-stream one;
+   TF32 off and in bfloat16, with the time of each; the gate-stream BLSTM
+   recurrence on both of its routes, W_h split by gate columns over a
+   co-resident grid (csrc/blstm_gx_grid.cu, with its plan) and row tiles
+   (csrc/blstm.cu), at the flagship's enhancer and encoder layers and at
+   the wide encoder's (H=1,024), timed in turns with cuDNN's LSTM from x
+   at row 1b's shape (the enhancer layer, bfloat16) and at the wide layer
+   in float32 and bfloat16; one BLSTM layer too wide for the W_x-resident
+   kernel, which must take the gate-stream one on its grid route;
    then the training kernels, forward and every gradient, at the train
    shapes (B=32 ~2.9 s
    utterances: 286 STFT frames, 72 encoder frames; the train CLI's model
@@ -132,9 +138,16 @@ Phases, each of which exits non-zero on failure:
 14. the per-utterance CTC prefix kernel (``prefix_impl="pallas"``) on
     phase 4's traffic (every attention step and state launch on the
     per-utterance route), against the tiled prefix kernels in turns with
-    one profiled batch of each, then an f32 B=16 parity against them.
+    one profiled batch of each, then an f32 B=16 parity against them;
+15. serving with a wide encoder: phase 4's traffic through the flagship
+    with its encoder widened to 3 BLSTMP layers of hidden = proj = 1,024
+    in float32 (random weights, seed 3), whose layers the fit rule sends
+    to the gate-stream kernel: 3 grid-route launches a batch and no plain
+    version required, one batch forced onto the row-tiled route, both
+    timed in turns with a profiled batch of each (its BLSTM rows), then a
+    B=16 slice parity of the kernel path against the plain path.
 
-The line before the last is a JSON object of the 21 kernels (``gemm``
+The line before the last is a JSON object of the 22 kernels (``gemm``
 the products of one row-6 call, with phase 6's launches; the
 attention's two routes as ``att_loc_step`` and ``att_loc_step_hyp``, the
 CTC prefix kernels' as ``ctc_prefix_psi_utt``/``ctc_prefix_state_utt``
@@ -144,7 +157,10 @@ with phase 4's forced batch's launches; the fused step's as
 with phase 13's forced batch's; the LM step's as ``lm_step``, with phase
 9's launches, and ``lm_step_lane``, with phase 9's forced batch's;
 ``fbank_fused`` the fused frontend's tensor-core route, with phase 9's
-launches); the last line is
+launches; ``blstm_recurrence`` the gate-stream grid route, timed at the
+wide float32 encoder layer, with phase 15's launches, and
+``blstm_recurrence_row_tiled`` its row-tiled route, timed there too,
+with phase 15's forced batch's); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -219,6 +235,8 @@ from robust_e2e_gan_torch.utils.build import build
 from robust_e2e_gan_torch.utils.impl import device_limits
 
 VOCAB = 52
+# the wide encoder's width (phase 15): hidden = proj = 1,024
+WIDE = 1024
 BATCH = 128
 N_BATCHES = 3
 BEAM = 8
@@ -245,11 +263,21 @@ KERNELS = {
         source="robust_e2e_gan_torch/csrc/blstm_infer.cu",
         replaces="robust_e2e_gan_tpu/ops/blstm_pallas.py:332 "
                  "(W_x-resident, pallas_call :403)"),
+    # blstm_recurrence's two routes (ops/blstm.py::gx_plan), counted by
+    # route: W_h split by gate columns over a co-resident grid, and the
+    # row-tiled kernel past the plan
     "blstm_recurrence": dict(
         wrapper=blstm.blstm_recurrence, plain=blstm.blstm_recurrence_plain,
+        gx_route="grid",
+        source="robust_e2e_gan_torch/csrc/blstm_gx_grid.cu",
+        replaces="robust_e2e_gan_tpu/ops/blstm_pallas.py:332 "
+                 "(gate-stream _gx_kernel :210, pallas_call :455)"),
+    "blstm_recurrence_row_tiled": dict(
+        wrapper=blstm.blstm_recurrence, plain=blstm.blstm_recurrence_plain,
+        gx_route="row_tiled",
         source="robust_e2e_gan_torch/csrc/blstm.cu",
         replaces="robust_e2e_gan_tpu/ops/blstm_pallas.py:332 "
-                 "(gate-stream, pallas_call :455)"),
+                 "(gate-stream _gx_kernel :210, pallas_call :455)"),
     # att_loc_step's two routes (ops/att.py::utt_plan), counted by route
     "att_loc_step": dict(
         wrapper=att.att_loc_step, plain=att.att_loc_step_plain,
@@ -411,6 +439,13 @@ ROUTES = ("resident", "loop")
 # (csrc/blstm_infer_cluster.cu), chosen by ops/blstm.py::cluster_plan, and
 # the row-tiled kernel past it (csrc/blstm_infer.cu)
 INFER_ROUTES = ("cluster", "row_tiled")
+# blstm_recurrence's two routes: W_h split by gate columns over a
+# co-resident grid (csrc/blstm_gx_grid.cu), chosen by ops/blstm.py::gx_plan,
+# and the row-tiled kernel past it (csrc/blstm.cu)
+GX_ROUTES = ("grid", "row_tiled")
+# their kernels' names in a profile, and the W_x-resident kernels'
+BLSTM_KERNELS = ("blstm_gx_grid_kernel", "blstm_rec_kernel",
+                 "blstm_infer_kernel", "blstm_infer_cluster_kernel")
 # att_loc_step's two routes: one block per utterance (csrc/att_loc_utt.cu),
 # chosen by ops/att.py::utt_plan, and one block per hypothesis past it
 # (csrc/att_loc.cu)
@@ -461,6 +496,8 @@ def reset_counts() -> None:
         blstm_train.GEMM_ROUTE_LAUNCHES[route] = 0
     for route in INFER_ROUTES:
         blstm.INFER_ROUTE_LAUNCHES[route] = 0
+    for route in GX_ROUTES:
+        blstm.GX_ROUTE_LAUNCHES[route] = 0
     for route in ATT_ROUTES:
         att.ATT_ROUTE_LAUNCHES[route] = 0
     for route in DEC_ROUTES:
@@ -488,6 +525,8 @@ def launch_count(name: str) -> int:
         return lm_step.LM_ROUTE_LAUNCHES[k["lm_route"]]
     if "fbank_route" in k:
         return fbank_fused.FBANK_ROUTE_LAUNCHES[k["fbank_route"]]
+    if "gx_route" in k:
+        return blstm.GX_ROUTE_LAUNCHES[k["gx_route"]]
     if "route" in k:
         routes = (att.ATT_ROUTE_LAUNCHES if k["route"] in ATT_ROUTES
                   else blstm.INFER_ROUTE_LAUNCHES)
@@ -656,20 +695,23 @@ def nbytes(*tensors) -> int:
     return total
 
 
-def entry(name, err, ms, plain_ms, flops, moved, dtype, library_ms=None
-          ) -> dict:
+def entry(name, err, ms, plain_ms, flops, moved, dtype, library_ms=None,
+          rate=None) -> dict:
     """A kernel's numbers for the JSON line. ``bound_ms``: the larger of
     ``flops`` (the operations the function needs on these inputs) over the
-    card's peak for the operands' ``dtype`` and ``moved`` (its inputs read
-    once, its outputs written once) over the memory rate."""
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    card's peak for the operands' ``dtype``, or over ``rate`` where given
+    (``TF32X3_FLOPS``: float32 products run as 3xTF32 on the tensor
+    cores), and ``moved`` (its inputs read once, its outputs written once)
+    over the memory rate."""
+    t_ops = flops / (rate or PEAK_FLOPS[dtype]) * 1e3
     t_bytes = moved / HBM_BYTES * 1e3
     bound = max(t_ops, t_bytes)
     by = "operations" if t_ops >= t_bytes else "bytes"
+    peak = "3xTF32" if rate == TF32X3_FLOPS else f"{dtype}"
     print(f"    {name}: {ms:.3f} ms (plain {plain_ms:.3f}"
           f"{f', library {library_ms:.3f}' if library_ms else ''}); "
           f"bound {bound:.4f} ms by {by} ({flops / 1e9:.3f} GFLOP at the "
-          f"{dtype} peak, {moved / 1e6:.2f} MB)")
+          f"{peak} peak, {moved / 1e6:.2f} MB)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, library_ms=library_ms)
 
@@ -852,23 +894,82 @@ def prefix_parity(gen, b, t, dev):
     return rows, ok_all
 
 
-def blstm_row(err, gx, wh, lengths, out, d_in) -> dict:
-    """Kernel, plain and library times of the gate-stream BLSTM recurrence
-    on gx (B, T, 2, 4H). The recurrence needs 2 * 4H * H multiply-adds per
-    valid frame and direction. cuDNN's LSTM takes x (B, T, D) and computes
-    the input projection too (``blstm_infer_parity`` times the projection
-    and this kernel together against it)."""
-    b, t, _, g4 = gx.shape
-    h = g4 // 4
-    valid = int(lengths.sum())
-    ms = cuda_ms(lambda: blstm.blstm_recurrence(gx, wh, lengths), 5)
-    plain_ms = cuda_ms(lambda: blstm.blstm_recurrence_plain(
-        gx, wh, lengths, round_h=True), 2)
-    x = torch.randn((b, t, d_in), device=gx.device, dtype=wh.dtype)
-    library_ms = lstm_library_ms(x, lengths, h, train=False)
-    return entry("blstm_recurrence", err, ms, plain_ms,
-                 2 * valid * 2 * 4 * h * h, nbytes(gx, wh, lengths, out),
-                 wh.dtype, library_ms)
+def on_gx_route(route, fn):
+    """``fn`` with every ``blstm_recurrence`` launch on ``route``."""
+    def run(*args):
+        with blstm._force_gx_route(route):
+            return fn(*args)
+    return run
+
+
+def blstm_gx_parity(gen, b, t_enh, t_enc, jcfg, dev):
+    """Both routes of ``blstm_recurrence`` against its plain version (h
+    rounded) at the flagship's enhancer and encoder layer shapes (H=256)
+    and at the wide encoder's layer 0 (H=1,024, D=2,560), float32 and
+    bfloat16; then the grid route, the row-tiled route and cuDNN's LSTM
+    from x (TF32 off) timed in turns at row 1b's shape (the enhancer layer
+    0, bfloat16) and at the wide layer in float32 and bfloat16, each with
+    the grid plan and its bound: the recurrence needs 2 * 4H * H
+    multiply-adds per valid frame and direction (cuDNN computes the input
+    projection too), at the 3xTF32 peak in float32 (the grid route's
+    products) and the bfloat16 peak in bfloat16. Returns (both routes'
+    rows at the wide layer in float32, the shape phase 15 launches them
+    at, whether every shape agreed)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    enc = jcfg.e2e.encoder
+    d_vgg = subsampled_frames(enc.input_dim) * enc.vgg_channels[-1]
+    shapes = (("enhancer", t_enh, jcfg.enhancer.input_dim,
+               jcfg.enhancer.hidden_dim),
+              ("encoder", t_enc, enc.proj_dim, enc.hidden_dim),
+              ("wide encoder", t_enc, d_vgg, WIDE))
+    timed_at = {("enhancer", bf16), ("wide encoder", f32),
+                ("wide encoder", bf16)}
+    rows, ok_all = {}, True
+    for tag, t, d, h in shapes:
+        for dt in (f32, bf16):
+            gx, wh, lengths = blstm_inputs(gen, b, t, h, dt, dev)
+
+            def kernel(gx=gx, wh=wh, lengths=lengths):
+                return blstm.blstm_recurrence(gx, wh, lengths)
+
+            def plain(gx=gx, wh=wh, lengths=lengths):
+                return blstm.blstm_recurrence_plain(gx, wh, lengths,
+                                                    round_h=True)
+
+            want = plain()
+            tol = dict(rtol=1e-4, atol=1e-5) if dt == f32 else dict(
+                scale_atol=2e-2)
+            errs = {}
+            for route in GX_ROUTES:
+                errs[route], ok = compare(
+                    f"blstm_recurrence {route} {tag} B={b} T={t} H={h} {dt}",
+                    [on_gx_route(route, kernel)()], [want], **tol)
+                ok_all &= ok
+            valid = int(lengths.sum())
+            print(f"    (B={b} valid frames {valid})")
+            if (tag, dt) not in timed_at:
+                continue
+            print(f"    grid plan {tuple(blstm._gx_grid(b, h, wh))} "
+                  f"({'|'.join(blstm.GxPlan._fields)})")
+            x = torch.randn((b, t, d), device=dev, dtype=dt)
+            ms = cuda_ms_in_turns([on_gx_route("grid", kernel),
+                                   on_gx_route("row_tiled", kernel),
+                                   lstm_library_fn(x, lengths, h,
+                                                   train=False)], 3)
+            print(f"    {tag} D={d} {dt}, ms in turns: grid {ms[0]:.3f}, "
+                  f"row-tiled {ms[1]:.3f}, cuDNN LSTM from x {ms[2]:.3f}")
+            plain_ms = cuda_ms(plain, 1)
+            flops, moved = 2 * valid * 2 * 4 * h * h, nbytes(gx, wh, lengths,
+                                                            want)
+            for name, route, v in (("blstm_recurrence", "grid", ms[0]),
+                                   ("blstm_recurrence_row_tiled",
+                                    "row_tiled", ms[1])):
+                row = entry(f"{name} {tag} {dt}", errs[route], v, plain_ms,
+                            flops, moved, dt, ms[2],
+                            TF32X3_FLOPS if dt == f32 else None)
+                if (tag, dt) == ("wide encoder", f32):
+                    rows[name] = row
+    return rows, ok_all
 
 
 def on_infer_route(route, fn):
@@ -960,8 +1061,8 @@ def oversize_blstm(dev) -> int:
     """One BLSTM layer past the fit rule, through ``models/rnn.py::BLSTM``
     on the card: B=16, T=72, D=32,768, H=256 in bfloat16, where W_x alone
     (128 MB) is over the JAX kernel's 64 MB budget. It must take the
-    gate-stream kernel and agree with its plain version. Returns the
-    launches of that kernel, its only path."""
+    gate-stream kernel on its grid route and agree with its plain
+    version."""
     b, t, d, h, dt = 16, 72, 32768, 256, torch.bfloat16
     require(blstm.infer_kernel_for(b, t, d, h, dt) == "gx",
             "the fit rule keeps the oversize layer in the W_x-resident kernel")
@@ -980,50 +1081,41 @@ def oversize_blstm(dev) -> int:
     reset_counts()
     with torch.inference_mode():
         got = layer(x, mask)
-        launches, plain_calls = counts(("blstm_recurrence", "blstm_infer",
+        launches, plain_calls = counts(("blstm_recurrence",
+                                        "blstm_recurrence_row_tiled",
+                                        "blstm_infer",
                                         "blstm_infer_row_tiled"))
         want = blstm.blstm_recurrence_plain(
             input_projection(x, layer.wx, layer.bias, dt),
             layer.wh.to(dt), lengths, round_h=True)
     print(f"  oversize BLSTM layer: launches {launches}")
-    require(launches == {"blstm_recurrence": 1, "blstm_infer": 0,
+    require(launches == {"blstm_recurrence": 1,
+                         "blstm_recurrence_row_tiled": 0, "blstm_infer": 0,
                          "blstm_infer_row_tiled": 0},
-            f"the oversize layer did not take the gate-stream kernel: "
-            f"{launches}")
+            f"the oversize layer did not take the gate-stream kernel's "
+            f"grid route: {launches}")
     require(not any(plain_calls.values()),
             f"a plain version ran in the oversize layer: {plain_calls}")
     _, ok = compare(f"BLSTM(auto) B={b} T={t} D={d} H={h} {dt} vs plain",
                     [got], [want], scale_atol=2e-2)
     require(ok, "the oversize layer disagrees with its plain version")
-    return launches["blstm_recurrence"]
 
 
 def kernel_parity(b: int, t_enh: int, t_enc: int, jcfg, dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     acfg = jcfg.e2e.attention
-    h_enh, h_enc = jcfg.enhancer.hidden_dim, jcfg.e2e.encoder.hidden_dim
     e_dim = jcfg.e2e.encoder.proj_dim
     f32, bf16 = torch.float32, torch.bfloat16
     res = {}
     rows, ok_all = blstm_infer_parity(gen, b, t_enh, t_enc, jcfg, dev)
     res.update(rows)
 
-    # BLSTM recurrence (gate stream): enhancer and encoder layer shapes
-    for tag, t, h in (("enhancer", t_enh, h_enh), ("encoder", t_enc, h_enc)):
-        for dt in (f32, bf16):
-            gx, wh, lengths = blstm_inputs(gen, b, t, h, dt, dev)
-            got = blstm.blstm_recurrence(gx, wh, lengths)
-            want = blstm.blstm_recurrence_plain(gx, wh, lengths, round_h=True)
-            tol = dict(rtol=1e-4, atol=1e-5) if dt == f32 else dict(
-                scale_atol=2e-2)
-            err, ok = compare(f"blstm_recurrence {tag} T={t} H={h} {dt}",
-                              [got], [want], **tol)
-            ok_all &= ok
-            if tag == "enhancer" and dt == bf16:
-                res["blstm_recurrence"] = blstm_row(
-                    err, gx, wh, lengths, got, jcfg.enhancer.input_dim)
-            print(f"    (B={b} valid frames {int(lengths.sum())})")
+    # BLSTM recurrence (gate stream): both routes, the flagship's layer
+    # shapes and the wide encoder's
+    rows, ok = blstm_gx_parity(gen, b, t_enh, t_enc, jcfg, dev)
+    res.update(rows)
+    ok_all &= ok
 
     # attention step: both routes, timed in turns with the plain version
     sharp = acfg.sharpening
@@ -2662,6 +2754,92 @@ def utt_prefix_path(b, n_batches, state, dev):
     return launches
 
 
+def wide_config(dtype: str):
+    """The flagship with its encoder widened to hidden = proj = 1,024 in
+    three BLSTMP layers (the ESPnet CHiME-4 recipe's VGG-BLSTMP encoder:
+    elayers 3, eunits 1024, eprojs 1024; the JAX ``EncoderConfig``'s
+    default depth), kernel impls, in ``dtype`` compute."""
+    base = flagship_config(VOCAB)
+    wide = dataclasses.replace(base, e2e=dataclasses.replace(
+        base.e2e, encoder=dataclasses.replace(
+            base.e2e.encoder, num_layers=3, hidden_dim=WIDE, proj_dim=WIDE)))
+    return with_impls(wide, "auto", "auto", dtype)
+
+
+def wide_encoder_path(b, n_batches, dev):
+    """Phase 15: phase 4's traffic (B utterances ~7 s, beam 8, 48 steps, no
+    early exit, the enhancer on) through ``make_beam_searcher`` over
+    ``RobustE2E.encode_for_decode`` with the wide encoder in float32
+    (random weights, seed 3): every encoder layer's ``blstm_recurrence``
+    on the grid route (3 a batch), no plain version; one batch with the
+    recurrence forced onto the row-tiled route (its launches are that
+    kernel's); both timed in turns with a profiled batch of each (its
+    BLSTM rows); then the B=16 slice parity, kernel path against plain
+    path. Returns the launches of both routes."""
+    bcfg = BeamSearchConfig(beam_size=BEAM, ctc_weight=0.3, max_steps=STEPS,
+                            early_exit=False)
+    kcfg = wide_config("float32")
+    state = from_flax(init_params(kcfg, seed=3))
+    model = load(kcfg, state, dev)
+    searcher = make_beam_searcher(model, kcfg.e2e, bcfg, use_enhancer=True)
+    batches = [batch_tensors(b, seed, dev) for seed in range(n_batches)]
+    layers = kcfg.e2e.encoder.num_layers
+    names = ("blstm_recurrence", "blstm_recurrence_row_tiled",
+             "blstm_infer_row_tiled")
+    reset_counts()
+    first = []
+    for wav, lens in batches:
+        res, ms = timed(lambda: searcher(wav, lens))
+        check_result(res, b)
+        first.append(ms)
+    launches, plain_calls = counts(names)
+    print(f"  first pass: ms per batch {['%.1f' % x for x in first]}; "
+          f"launches {launches}")
+    require(launches == {"blstm_recurrence": n_batches * layers,
+                         "blstm_recurrence_row_tiled": 0,
+                         "blstm_infer_row_tiled": n_batches
+                         * kcfg.enhancer.num_layers},
+            f"the wide encoder's layers did not all take the grid route: "
+            f"{launches}, expected {n_batches * layers}")
+    require(not any(plain_calls.values()),
+            f"a plain version ran on the wide path: {plain_calls}")
+    before = dict(blstm.GX_ROUTE_LAUNCHES)
+    check_result(on_gx_route("row_tiled", searcher)(*batches[0]), b)
+    forced = {r: blstm.GX_ROUTE_LAUNCHES[r] - before[r] for r in GX_ROUTES}
+    print(f"  one batch with the recurrence forced to row_tiled: {forced}")
+    require(forced == {"grid": 0, "row_tiled": layers},
+            f"the forced row-tiled batch launched {forced}")
+    launches["blstm_recurrence_row_tiled"] = forced["row_tiled"]
+    k_ms, k_enc, k_search = steady(batches, searcher, model, kcfg, bcfg)
+    print(f"  grid route: {b * 1e3 / k_ms:.2f} utt/s, {k_ms:.1f} ms/batch "
+          f"(encode {k_enc:.1f} ms + search {k_search:.1f} ms)")
+    in_turns({"grid recurrence": searcher,
+              "row-tiled recurrence": on_gx_route("row_tiled", searcher)},
+             batches, b, pick=BLSTM_KERNELS)
+
+    wav, lens = batch_tensors(16, 100, dev)
+    out = {}
+    for tag, cfg, prefix in (("kernel", kcfg, "auto"),
+                             ("plain", with_impls(kcfg, "scan", "xla",
+                                                  "float32"), "twopass")):
+        m = load(cfg, state, dev)
+        reset_counts()
+        out[tag] = make_beam_searcher(m, cfg.e2e, dataclasses.replace(
+            bcfg, prefix_impl=prefix))(wav, lens)
+        check_result(out[tag], 16)
+        if tag == "kernel":
+            n = counts(names)[0]
+            require(n["blstm_recurrence"] == layers,
+                    f"the B=16 slice's encoder launched {n}")
+    k, p = out["kernel"], out["plain"]
+    rel = ((k.scores - p.scores).abs() / p.scores.abs().clamp_min(1e-6)).max()
+    same = sum(bool(torch.equal(x, y)) for x, y in zip(k.tokens, p.tokens))
+    print(f"  float32 B=16 slice: best-score max rel diff {rel.item():.3e} "
+          f"(limit 1e-3); best hypotheses token-identical {same}/16")
+    require(rel.item() <= 1e-3, "the wide kernel and plain paths disagree")
+    return launches
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -2694,7 +2872,7 @@ def main() -> int:
     # 3. kernel parity
     print("kernel parity (kernel vs plain version on the card):")
     timings = kernel_parity(BATCH, t_enh, t_enc, jcfg, dev)
-    gx_launches = oversize_blstm(dev)
+    oversize_blstm(dev)
     t_train = num_frames(TRAIN_SYNTH.max_samples, jcfg.e2e.frontend)
     train_timings, alpha_launches = train_kernel_parity(
         jcfg, t_train, subsampled_frames(t_train), dev)
@@ -2720,13 +2898,11 @@ def main() -> int:
     launches.update({n: train_launches[n] for n in ("blstm_train",
                                                      "ctc_nll", "gemm")})
     # no path runs the backward of the fused frontend or the bare alpha
-    # recursion, and only a layer past the fit rule takes the gate-stream
-    # BLSTM: phase 3's launches
+    # recursion: phase 3's launches
     launches["fbank_fused_bwd"] = bwd_launches
     launches["ctc_alpha"] = alpha_launches
-    launches["blstm_recurrence"] = gx_launches
 
-    # 7-14, in a scratch dir: phase 12 decodes phase 7's experiment
+    # 7-15, in a scratch dir: phase 12 decodes phase 7's experiment
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches.update(later_phases(state, state_d, dev, work, phase4_ms))
@@ -2744,7 +2920,7 @@ def main() -> int:
 
 
 def later_phases(state, state_d, dev, work, phase4_ms) -> dict:
-    """Phases 7-14; returns the launches of the kernels they hold."""
+    """Phases 7-15; returns the launches of the kernels they hold."""
     # 7. entry point
     print("train CLI (--mode joint --synthetic, default model, float32):")
     ckpt = os.path.join(work, "joint")
@@ -2782,6 +2958,11 @@ def later_phases(state, state_d, dev, work, phase4_ms) -> dict:
           "prefix_impl=pallas):")
     utt_launches = utt_prefix_path(BATCH, N_BATCHES, state, dev)
 
+    # 15. serving with the wide encoder
+    print(f"wide-encoder serving (phase 4's traffic, encoder 3 x {WIDE} "
+          "BLSTMP, float32):")
+    wide_launches = wide_encoder_path(BATCH, N_BATCHES, dev)
+
     return {"blstm_train_gx": cli_launches["blstm_train_gx"],
             "fbank_fused": clean_launches["fbank_fused"],
             "lm_step": clean_launches["lm_step"],
@@ -2789,7 +2970,10 @@ def later_phases(state, state_d, dev, work, phase4_ms) -> dict:
             "att_dec_step": dec_launches["att_dec_step"],
             "att_dec_step_hyp": fused_launches["att_dec_step_hyp"],
             "blstm_infer_row_tiled": dec_launches["blstm_infer_row_tiled"],
-            "ctc_prefix_utt": utt_launches["ctc_prefix_utt"]}
+            "ctc_prefix_utt": utt_launches["ctc_prefix_utt"],
+            "blstm_recurrence": wide_launches["blstm_recurrence"],
+            "blstm_recurrence_row_tiled":
+                wide_launches["blstm_recurrence_row_tiled"]}
 
 
 if __name__ == "__main__":

@@ -1,9 +1,13 @@
-// Masked bidirectional LSTM recurrence for inference.
+// Masked bidirectional LSTM recurrence for inference: the "row_tiled" route
+// of ops/blstm.py::blstm_recurrence.
 //
 // Replaces robust_e2e_gan_tpu/ops/blstm_pallas.py::blstm_infer, in the form
 // of its gate-stream variant (_gx_kernel, pallas_call :455), the one the
-// JAX package takes for layers too large for its W_x-resident variant:
-// the input projection
+// JAX package takes for layers too large for its W_x-resident variant,
+// where ops/blstm.py::gx_plan does not fit the "grid" route
+// (csrc/blstm_gx_grid.cu: H not a multiple of 32, or too many rows for its
+// warps' tiles, e.g. B > 128 at H = 1,024), and under a forced route for
+// timing. The input projection
 // x @ W_x + bias of both directions is one matrix product outside the
 // kernel, and the kernel owns the serial frame loop
 //   gates = gx_t + h_{t-1} @ W_h  ->  i, f, g, o  ->  c_t, h_t.
@@ -31,8 +35,9 @@
 // zeros and leave the state alone. The recurrent product reads h_{t-1}
 // rounded to the compute type, as the TPU kernel's h_prev.astype(cdtype);
 // the output is h_t, written in the compute type. The W_x-resident variant
-// of the same TPU function is csrc/blstm_infer.cu. Keeping W_h in the
-// shared memory of a cluster's CTAs is work for a later change.
+// of the same TPU function is csrc/blstm_infer.cu. The "grid" route splits
+// W_h by gate columns over a co-resident grid instead, so that each
+// element is read once a frame, and runs the product on the tensor cores.
 
 #include "common.cuh"
 

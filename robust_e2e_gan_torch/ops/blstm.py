@@ -16,7 +16,11 @@ in its two variants:
 * ``blstm_recurrence(gx, wh, lengths)``, the gate-stream variant
   (``_gx_kernel``): the input projection of both directions is one matrix
   product over the whole sequence (``models/rnn.py::input_projection``)
-  and the serial frame loop is ``csrc/blstm.cu``.
+  and the serial frame loop is a kernel chosen by ``gx_plan`` before the
+  launch: the "grid" route (``csrc/blstm_gx_grid.cu``: W_h split by gate
+  columns over a co-resident grid, the recurrent product on the tensor
+  cores, h exchanged through L2 at one barrier a frame) where the plan
+  fits, else the "row_tiled" route (``csrc/blstm.cu``).
 
 ``infer_kernel_for`` is the JAX package's choice between the two. Masks
 are length masks: frames at or past a row's length leave the state
@@ -31,15 +35,18 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from robust_e2e_gan_torch.utils.build import launch
 from robust_e2e_gan_torch.utils.impl import (
+    aligned16,
     check,
     check_no_grad,
     device_limits,
+    grid_barrier,
     on_cuda,
 )
 
@@ -313,6 +320,159 @@ def _cluster_pack(wx, wh, bias, dw: int, c: int):
 
 
 # --------------------------------------------------------------------------
+# which kernel runs blstm_recurrence: the "grid" route of
+# csrc/blstm_gx_grid.cu where gx_plan fits, else the row-tiled csrc/blstm.cu;
+# a rule computed before the launch
+# --------------------------------------------------------------------------
+
+GX_WARPS = 8  # warps of a grid block (NT / 32 of the source)
+GX_CHUNK = 32  # k rows of h and W_h a chunk (KC)
+GX_TILES = (1, 2, 4)  # m16 tiles a warp (MW; MW_MAX the largest)
+GX_STAGES = 8  # chunks in flight at most (MAX_STAGES)
+
+
+class GxPlan(NamedTuple):
+    """The grid route's launch: P blocks a direction of ``units`` hidden
+    units each, the first ``resident`` k rows of a block's W_h slice kept
+    in shared memory (the rest streamed a frame), ``stages`` chunks in
+    flight, warp tiles of ``m_tiles`` m16 tiles by ``col_groups``
+    16-column groups (4 units each), ``k_splits`` warp groups splitting the
+    k steps, ``smem`` bytes of shared memory a block."""
+
+    blocks: int
+    units: int
+    resident: int
+    stages: int
+    m_tiles: int
+    col_groups: int
+    k_splits: int
+    smem: int
+
+
+def gx_smem(b: int, h: int, n_u: int, itemsize: int, resident: int,
+            stages: int, m_tiles: int, col_groups: int,
+            k_splits: int) -> int:
+    """Bytes of dynamic shared memory of one grid block, each part rounded
+    up to 16 bytes: the resident rows of its W_h slice (rows of 4 n_u + 8
+    elements, as ``gx_pack`` pads them), ``stages`` h stages of MA rows (M
+    = B rounded up to 16, then up to whole warp tiles of ``m_tiles`` m16
+    tiles) of 32 elements, ``stages`` W_h stages of 32 rows where not all
+    of H is resident, gx of a frame (M rows of 4 n_u + 4 float32), the k
+    slices' sums ((k_splits - 1) x warp tiles x m_tiles x col_groups x 32
+    lanes x 8 float32), M + 1 int32 and ``stages`` 8-byte mbarriers.
+    ``gx_layout`` of the kernel source computes the same."""
+    m = _round_up(b, 16)
+    n = 4 * n_u
+    ws, gxs = n + 8, n + 4
+    blocks_m = -(-(m // 16) // m_tiles)
+    ma = blocks_m * m_tiles * 16
+    groups = blocks_m * (n_u // 4 // col_groups)
+    parts = (resident * ws * itemsize, stages * ma * GX_CHUNK * itemsize,
+             stages * GX_CHUNK * ws * itemsize if resident < h else 0,
+             m * gxs * 4,
+             (k_splits - 1) * groups * m_tiles * col_groups * 32 * 8 * 4,
+             (m + 1) * 4, stages * 8)
+    return sum(_round_up(x, 16) for x in parts)
+
+
+def gx_plan(b: int, h: int, itemsize: int, n_sm: int,
+            smem_optin: int) -> Optional[GxPlan]:
+    """The grid route's plan, or None where it does not fit: H a multiple
+    of 32 up to ``MAX_HIDDEN``; n_u the fewest units a block (a multiple of
+    4 that divides H) whose 2 H / n_u blocks fit one an SM; the fewest
+    m16 tiles a warp (1, 2 or 4) that leave the warp tiles (of one
+    16-column group, 4 units) within 8 warps, 4 tiles by one group taken
+    as 2 by 2 where the groups pair up (as many warp tiles, fewer fragment
+    loads and tf32 splits), and the largest power-of-2 k split of the
+    warps left over; all of W_h's slice resident with the most chunks in
+    flight (8 at most, 3 at least, or all of H / 32 where fewer) that fit
+    ``smem_optin``, else that least number in flight and the most 32-row
+    pieces of the slice resident that fit."""
+    if b < 1 or h < GX_CHUNK or h % GX_CHUNK or h > MAX_HIDDEN:
+        return None
+    n_u = next((u for u in range(4, h + 1, 4)
+                if h % u == 0 and 2 * (h // u) <= n_sm), None)
+    if n_u is None:
+        return None
+    mt, pairs = _round_up(b, 16) // 16, n_u // 4
+    m_tiles = next((w for w in GX_TILES
+                    if -(-mt // w) * pairs <= GX_WARPS), None)
+    if m_tiles is None:
+        return None
+    col_groups = 1
+    if m_tiles == 4 and pairs % 2 == 0:
+        m_tiles, col_groups = 2, 2
+    groups = -(-mt // m_tiles) * (pairs // col_groups)
+    k_splits = 1
+    while groups * k_splits * 2 <= GX_WARPS:
+        k_splits *= 2
+    chunks = h // GX_CHUNK
+    tail = (m_tiles, col_groups, k_splits)
+    least = min(3, max(2, chunks))  # chunks in flight at least
+    most = min(GX_STAGES, max(2, chunks))
+    for ns in range(most, least - 1, -1):
+        smem = gx_smem(b, h, n_u, itemsize, h, ns, *tail)
+        if smem <= smem_optin:
+            return GxPlan(h // n_u, n_u, h, ns, *tail, smem)
+    for resident in range(h - GX_CHUNK, -1, -GX_CHUNK):
+        smem = gx_smem(b, h, n_u, itemsize, resident, least, *tail)
+        if smem <= smem_optin:
+            return GxPlan(h // n_u, n_u, resident, least, *tail, smem)
+    return None
+
+
+# blstm_recurrence launches by route
+GX_ROUTE_LAUNCHES = {"grid": 0, "row_tiled": 0}
+_forced_gx_route = None
+
+
+@contextlib.contextmanager
+def _force_gx_route(route: str):
+    """Run every ``blstm_recurrence`` launch inside the block on one route
+    ("grid" or "row_tiled"): the tests and ``chip_smoke.py`` hold both to
+    the plain version and time them in turns. Forcing "grid" where the plan
+    does not fit raises."""
+    global _forced_gx_route
+    check(route in GX_ROUTE_LAUNCHES, f"unknown route {route!r}")
+    prev, _forced_gx_route = _forced_gx_route, route
+    try:
+        yield
+    finally:
+        _forced_gx_route = prev
+
+
+@functools.lru_cache(maxsize=None)
+def _gx_plan_on(index: int, b: int, h: int, itemsize: int):
+    """The grid plan of these shapes on card ``index``."""
+    return gx_plan(b, h, itemsize, *device_limits(index))
+
+
+def _gx_grid(b: int, h: int, wh: torch.Tensor) -> Optional[GxPlan]:
+    """The grid plan of this layer on wh's card, or None for the row-tiled
+    kernel: past the plan, or where "row_tiled" is forced."""
+    if _forced_gx_route == "row_tiled":
+        return None
+    plan = _gx_plan_on(wh.device.index, b, h, wh.element_size())
+    check(plan is not None or _forced_gx_route is None,
+          f"the grid route does not fit B={b} H={h} {wh.dtype}")
+    return plan
+
+
+def gx_pack(wh: torch.Tensor, n_u: int) -> torch.Tensor:
+    """wh (2, H, 4H) -> (2, P, H, 4 n_u + 8), P = H / n_u: block p's gate
+    columns, in the order of ``_cluster_columns`` with P blocks (16 columns
+    a group of 4 units, (i f) of each unit, then (g o) of each unit), so
+    that lane t of an m16n8 tile pair holds i, f, g, o of unit t; 8 zero
+    columns after them, the padding of the kernel's shared-memory rows, so
+    that a chunk of rows is one contiguous copy."""
+    h = wh.shape[1]
+    p = h // n_u
+    cols = _cluster_columns(h, p, wh.device)
+    packed = wh[:, :, cols].view(2, h, p, 4 * n_u).permute(0, 2, 1, 3)
+    return F.pad(packed, (0, 8)).contiguous()
+
+
+# --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
 
@@ -329,8 +489,10 @@ def blstm_recurrence(gx: torch.Tensor, wh: torch.Tensor,
     """Kernel wrapper, the contract of ``blstm_recurrence_plain`` with
     ``round_h=True``.
 
-    CPU tensors run the plain version; CUDA tensors launch
-    ``csrc/blstm.cu`` or raise.
+    CPU tensors run the plain version; CUDA tensors launch the kernel of
+    the layer's route (``gx_plan``; ``GX_ROUTE_LAUNCHES`` counts them) or
+    raise: ``csrc/blstm_gx_grid.cu`` with W_h packed by ``gx_pack`` (at
+    every call, as ``_cluster_pack`` packs), else ``csrc/blstm.cu``.
     """
     check_no_grad("blstm_recurrence", gx, wh)
     if not on_cuda(gx, wh, lengths):
@@ -347,12 +509,28 @@ def blstm_recurrence(gx: torch.Tensor, wh: torch.Tensor,
     check(lengths.shape == (b,), f"lengths shape {tuple(lengths.shape)}")
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty((b, t, 2 * h_dim), dtype=wh.dtype, device=gx.device)
-    launch(
-        "blstm_recurrence", gx.data_ptr(), wh.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, t, h_dim, _rows_per_block(b, gx.device),
-        int(wh.dtype == torch.bfloat16),
-        torch.cuda.current_stream(gx.device).cuda_stream,
-    )
+    bf16 = int(wh.dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream(gx.device).cuda_stream
+    plan = _gx_grid(b, h_dim, wh)
+    if plan is not None:
+        wp = gx_pack(wh, plan.units)
+        # h_t of both directions by frame parity, in the compute dtype, as
+        # (2, 2, H / 32, B, 32) chunks (the kernel's swizzled layout); zeros
+        # where no frame writes
+        hbuf = torch.zeros((2, 2, b, h_dim), dtype=wh.dtype, device=gx.device)
+        barrier = grid_barrier(gx.device, stream, counters=2)
+        launch("blstm_gx_grid", aligned16(gx).data_ptr(), wp.data_ptr(),
+               lengths.data_ptr(), hbuf.data_ptr(), out.data_ptr(),
+               barrier[0].data_ptr(), b, t, h_dim, plan.units, plan.resident,
+               plan.stages, plan.m_tiles, plan.col_groups, plan.k_splits,
+               plan.smem, barrier[1], bf16, stream)
+        barrier[1] = (barrier[1] + t * plan.blocks) % 2**32
+        GX_ROUTE_LAUNCHES["grid"] += 1
+    else:
+        launch("blstm_recurrence", gx.data_ptr(), wh.data_ptr(),
+               lengths.data_ptr(), out.data_ptr(), b, t, h_dim,
+               _rows_per_block(b, gx.device), bf16, stream)
+        GX_ROUTE_LAUNCHES["row_tiled"] += 1
     blstm_recurrence.launches += 1
     return out
 

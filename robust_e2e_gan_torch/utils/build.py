@@ -41,6 +41,11 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     # gx, wh, lengths, out, B, T, H, rows_per_block, bf16, stream
     "blstm_recurrence": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # gx, packed wh, lengths, h scratch, out, the barrier counters, B, T,
+    # H, units a block, resident k rows, chunks in flight, m16 tiles and
+    # 16-column groups a warp, k slices, shared-memory bytes, the counters'
+    # value, bf16, stream
+    "blstm_gx_grid": [_P] * 6 + [_I] * 10 + [_U, _I, _P],
     # feat, enc_proj, enc, dec, wloc, g, mask, ctx, att,
     # B, K, T, C, A, E, sharpening, bf16, stream
     "att_loc_step": [_P] * 9 + [_I] * 6 + [_F, _I, _P],

@@ -86,19 +86,24 @@ def device_limits(index: int):
 
 
 # the grid-barrier counters of the cooperative kernels (csrc/common.cuh's
-# grid_arrive and grid_wait), by (card, stream): the counter and its value
-# after the last launch. The counter is never reset: a launch is given its
-# value and adds its own arrivals to it, so the kernels of one stream share
-# one counter.
+# grid_arrive and grid_wait), by (card, stream, counters): the counters and
+# their value after the last launch. A counter is never reset: a launch is
+# given its value and adds its own arrivals to it, so the kernels of one
+# stream share one counter (or one set of counters, each moved by the same
+# arrivals a launch).
 _BARRIERS = {}
+BARRIER_LINE = 32  # int32 between two counters of a set
 
 
-def grid_barrier(dev: torch.device, stream: int) -> list:
-    """[counter tensor, its value after the last launch] of ``stream`` on
-    card ``dev``; a launch passes the value and adds its arrivals to it."""
-    key = (dev.index, stream)
+def grid_barrier(dev: torch.device, stream: int, counters: int = 1) -> list:
+    """[counters tensor, their value after the last launch] of ``stream``
+    on card ``dev``: ``counters`` counters ``BARRIER_LINE`` apart, each at
+    the same value; a launch passes the value and adds its arrivals to
+    each."""
+    key = (dev.index, stream, counters)
     if key not in _BARRIERS:
-        _BARRIERS[key] = [torch.zeros(1, dtype=torch.int32, device=dev), 0]
+        size = 1 if counters == 1 else counters * BARRIER_LINE
+        _BARRIERS[key] = [torch.zeros(size, dtype=torch.int32, device=dev), 0]
     return _BARRIERS[key]
 
 

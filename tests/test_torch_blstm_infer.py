@@ -413,6 +413,289 @@ def test_force_infer_route_names_a_route():
     assert ops._forced_infer_route is None
 
 
+# ---------------------------------------------------------------------------
+# the gate-stream recurrence's grid route (csrc/blstm_gx_grid.cu), without
+# the card: its plan, packing and arithmetic
+# ---------------------------------------------------------------------------
+
+# (B, H, itemsize): (units a block, resident rows, chunks in flight, m16
+# tiles and 16-column groups a warp, k splits) on an H100
+GX_FITS = [
+    # row 1b's shape, the enhancer layer in bf16 at B=128
+    ((128, 256, 2), (4, 256, 8, 1, 1, 1)),
+    # the wide encoder (H = 1,024) in float32 and bf16, and its B=16 slice
+    ((128, 1024, 4), (16, 416, 3, 2, 2, 1)),
+    ((128, 1024, 2), (16, 1024, 6, 2, 2, 1)),
+    ((16, 1024, 4), (16, 640, 3, 1, 1, 2)),
+    # B=112: 7 m16 tiles staged as 8
+    ((112, 1024, 2), (16, 1024, 6, 2, 2, 1)),
+    # phase 3's oversize layer (B=16, H=256, bf16)
+    ((16, 256, 2), (4, 256, 8, 1, 1, 8)),
+    # H = 768 (3 column groups: no pairs) and 512 in float32, B not a
+    # multiple of 16
+    ((128, 768, 4), (12, 576, 3, 4, 1, 1)),
+    ((5, 512, 4), (8, 512, 8, 1, 1, 4)),
+    ((5, 32, 2), (4, 32, 2, 1, 1, 8)),
+]
+
+
+@pytest.mark.parametrize("case", GX_FITS,
+                         ids=[f"B{c[0][0]}-H{c[0][1]}-i{c[0][2]}"
+                              for c in GX_FITS])
+def test_gx_plan_fits(case):
+    """64 blocks a direction (32 at H=32), each the fewest units that fit
+    one block an SM; all of W_h's slice resident in bf16, the most rows
+    that fit beside three chunks in flight in float32 at H >= 768; k
+    splits where the warp tiles are fewer than the 8 warps; at B=128, H=768
+    as many tiles as four warps' fit: 6 tile groups of 8 warps."""
+    (b, h, itemsize), want = case
+    plan = ops.gx_plan(b, h, itemsize, **H100)
+    assert plan is not None
+    assert (plan.units, plan.resident, plan.stages, plan.m_tiles,
+            plan.col_groups, plan.k_splits) == want
+    assert plan.blocks * plan.units == h and 2 * plan.blocks <= H100["n_sm"]
+    tile = (plan.m_tiles, plan.col_groups, plan.k_splits)
+    assert plan.smem == ops.gx_smem(b, h, plan.units, itemsize, plan.resident,
+                                    plan.stages, *tile)
+    assert plan.smem <= H100["smem_optin"]
+    tiles = (-(-ops._round_up(b, 16) // 16 // plan.m_tiles)
+             * (plan.units // 4 // plan.col_groups))
+    assert tiles * plan.k_splits <= ops.GX_WARPS
+    if plan.resident < h:  # one more 32-row piece would not fit
+        assert ops.gx_smem(b, h, plan.units, itemsize,
+                           plan.resident + ops.GX_CHUNK, plan.stages,
+                           *tile) > H100["smem_optin"]
+
+
+# (B, H, itemsize, SMs, shared memory a block may take)
+GX_REFUSED = [
+    (128, 200, 2, 132, 232_448),  # H not a multiple of 32
+    (5, 16, 4, 132, 232_448),  # H below one chunk
+    (256, 1024, 2, 132, 232_448),  # 16 m16 tiles x 4 groups past 8 warps
+    (128, 2048, 2, 132, 232_448),  # H past MAX_HIDDEN
+    (128, 1024, 4, 132, 100_000),  # not even the stages fit
+    (128, 256, 2, 1, 232_448),  # one SM: no two blocks
+]
+
+
+@pytest.mark.parametrize("case", GX_REFUSED,
+                         ids=["H200", "H16", "B256", "H2048", "small-smem",
+                              "one-SM"])
+def test_gx_plan_refuses(case):
+    assert ops.gx_plan(*case) is None
+
+
+def test_gx_smem_is_the_hand_sum():
+    """Two blocks byte by byte: the wide bf16 layer (all of W_h resident,
+    6 stages) and the float32 B=16 slice (640 rows resident, 3 stages of h
+    and W_h, two k slices)."""
+    w_res = 1024 * (64 + 8) * 2  # (H, 4 n_u + 8) bf16
+    h_st = 6 * 128 * 32 * 2  # 6 x (MA, KC) bf16
+    gx = 128 * (64 + 4) * 4  # (M, 4 n_u + 4) float32
+    lens = 528  # (M + 1) int32, rounded up to 16 bytes
+    bars = 48  # 6 mbarriers
+    assert ops.gx_smem(128, 1024, 16, 2, 1024, 6, 2, 2, 1) == (
+        w_res + h_st + gx + lens + bars)
+    w_res = 640 * (64 + 8) * 4
+    h_st = 3 * 16 * 32 * 4
+    w_st = 3 * 32 * (64 + 8) * 4  # the streamed rows' stages
+    gx = 16 * (64 + 4) * 4
+    red = 1 * 4 * 1 * 32 * 8 * 4  # (k splits - 1) x groups x tiles x lanes x 8
+    lens = 80
+    bars = 32  # 3 mbarriers, rounded up to 16 bytes
+    assert ops.gx_smem(16, 1024, 16, 4, 640, 3, 1, 1, 2) == (
+        w_res + h_st + w_st + gx + red + lens + bars)
+    # B=112 at 2 x 2 warp tiles: 7 m16 tiles staged as 8, the eighth zeros
+    assert ops.gx_smem(112, 1024, 16, 2, 1024, 6, 2, 2, 1) - ops.gx_smem(
+        128, 1024, 16, 2, 1024, 6, 2, 2, 1) == -(16 * (64 + 4) * 4 + 64)
+    # the k slices' sums of 2 x 2 warp tiles: 8 floats a lane, tile and group
+    assert ops.gx_smem(32, 1024, 16, 2, 1024, 6, 2, 2, 2) - ops.gx_smem(
+        32, 1024, 16, 2, 1024, 6, 2, 2, 1) == 1 * 2 * 2 * 2 * 32 * 8 * 4
+
+
+def test_gx_constants_are_the_kernels():
+    """The plan's constants are those of ``csrc/blstm_gx_grid.cu``."""
+    import re
+    from robust_e2e_gan_torch.utils.build import CSRC
+
+    with open(f"{CSRC}/blstm_gx_grid.cu") as f:
+        src = f.read()
+    const = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int (\w+) = (\d+);", src)}
+    assert const["NT"] // 32 == ops.GX_WARPS
+    assert const["KC"] == ops.GX_CHUNK
+    assert const["MW_MAX"] == ops.GX_TILES[-1]
+    assert const["MAX_STAGES"] == ops.GX_STAGES
+    from robust_e2e_gan_torch.utils.impl import BARRIER_LINE
+    assert const["LINE"] == BARRIER_LINE
+
+
+@pytest.mark.parametrize("h, n_u", [(256, 4), (1024, 16), (96, 12)])
+def test_gx_pack_as_the_lanes_read_it(h, n_u):
+    """Block p's slice of ``gx_pack``: (H, 4 n_u + 8), the columns of group q
+    (16 a group of 4 units) such that lane (g, t) of an m16n8 tile pair
+    reads i and f of unit 4 q + t from columns 2t and 2t + 1 of the first
+    n8 tile and g and o from those of the second: the four gates of one
+    unit, for the cell in registers."""
+    wh = torch.arange(4 * h).float().expand(2, h, 4 * h) + torch.arange(
+        h).float()[None, :, None] * 1e5
+    wh = wh + torch.tensor([0.0, 1e9])[:, None, None]
+    packed = ops.gx_pack(wh, n_u)
+    p = h // n_u
+    assert packed.shape == (2, p, h, 4 * n_u + 8)
+    assert not packed[..., 4 * n_u:].any()  # the rows' padding
+    for z in (0, 1):
+        for blk in (0, p - 1):
+            for q in range(n_u // 4):
+                for lane in range(32):
+                    t = lane % 4
+                    unit = blk * n_u + 4 * q + t
+                    for j, gates in ((0, (0, 1)), (1, (2, 3))):
+                        for e, gate in enumerate(gates):
+                            col = q * 16 + j * 8 + 2 * t + e
+                            for k in (0, h - 1):
+                                assert packed[z, blk, k, col] == wh[
+                                    z, k, gate * h + unit]
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to tf32 (to nearest, ties away: common.cuh's tf32) by
+    masking its float32 bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _grid_products(a, w, itemsize, k_splits):
+    """a (B, H) @ w (H, 4H) as the grid route sums it: each k step's
+    product apart (bf16: k16 steps of exact products; float32: k8 steps of
+    lo hi + hi lo + hi hi in tf32), the steps of each k slice (step modulo
+    k_splits) added in float32 in order, then the slices in order."""
+    kstep = 16 if itemsize == 2 else 8
+    steps = a.shape[1] // kstep
+    a3 = a.reshape(a.shape[0], steps, kstep).transpose(0, 1).double()
+    w3 = w.reshape(steps, kstep, w.shape[1]).double()
+    if itemsize == 2:
+        d = (a3 @ w3).float()
+    else:
+        ah, wh = _tf32(a3.float()).double(), _tf32(w3.float()).double()
+        al = _tf32((a3 - ah).float()).double()
+        wl = _tf32((w3 - wh).float()).double()
+        d = (al @ wh + ah @ wl + ah @ wh).float()
+    total = None
+    for ks in range(k_splits):
+        part = torch.zeros(d.shape[1:])
+        for step in range(ks, steps, k_splits):
+            part = part + d[step]
+        total = part if total is None else total + part
+    return total
+
+
+def _grid_route_emulated(gx, wh, lengths, plan):
+    """The grid route's arithmetic on the CPU: per direction and frame,
+    h_{t-1} rounded to wh's dtype, ``_grid_products`` with the plan's k
+    splits, the float32 cell; rows past their length keep their state and
+    write nothing; pad frames zeros."""
+    b, t = gx.shape[:2]
+    h = wh.shape[1]
+    lengths = lengths.long().clamp(0, t)
+    out = torch.zeros(b, t, 2 * h)
+    rows = torch.arange(b)
+    for z in (0, 1):
+        w = wh[z].float()
+        hs, c = torch.zeros(b, h), torch.zeros(b, h)
+        for s in range(int(lengths.max())):
+            acc = (_grid_products(hs.to(wh.dtype).float(), w,
+                                  wh.element_size(), plan.k_splits)
+                   if s > 0 else torch.zeros(b, 4 * h))
+            live = s < lengths
+            tt = (torch.full((b,), s) if z == 0 else lengths - 1 - s).clamp(
+                0, t - 1)
+            gates = gx[rows, tt, z] + acc
+            gi, gf, gg, go = gates.chunk(4, dim=-1)
+            cn = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(gg)
+            hn = torch.sigmoid(go) * torch.tanh(cn)
+            c = torch.where(live[:, None], cn, c)
+            hs = torch.where(live[:, None], hn, hs)
+            out[rows[live], tt[live], z * h:(z + 1) * h] = hn[live]
+    return out.to(wh.dtype)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES), ids=list(DTYPES))
+def test_grid_route_arithmetic_matches_jax_kernel(dt, monkeypatch):
+    """The grid route's arithmetic, emulated on the CPU at its H100 plan
+    (8 k slices at B=2, H=32), against the interpreted JAX ``_gx_kernel``
+    at the oversize layer's set-up (W_x over the 64 MB budget), and
+    against the port's plain version with h rounded."""
+    tdt, jdt = DTYPES[dt]
+    b, t, d, h = 2, 5, 40_000, 32
+    lens = [5, 3]
+    params, x = _inputs(1, b, t, d, h)
+    assert _jax_variant(b, t, d, h, jdt) == "gx"
+    if dt == "bf16":
+        _einsum_in_a_cpu_layout(monkeypatch)
+    want = _jax_infer(x, lens, params, jdt)
+    plan = ops.gx_plan(b, h, torch.finfo(tdt).bits // 8, **H100)
+    assert plan.k_splits == 8
+    p = {k: torch.from_numpy(v) for k, v in params.items()}
+    from robust_e2e_gan_torch.models.rnn import input_projection
+    gx = input_projection(torch.from_numpy(x), p["wx"], p["bias"], tdt)
+    wh = p["wh"].to(tdt)
+    lengths = torch.tensor(lens)
+    got = _grid_route_emulated(gx, wh, lengths, plan)
+    np.testing.assert_allclose(got.float().numpy(), want, **TOL[dt])
+    plain = ops.blstm_recurrence_plain(gx, wh, lengths, round_h=True)
+    np.testing.assert_allclose(got.float().numpy(), plain.float().numpy(),
+                               **TOL[dt])
+    assert not got[1, 3:].any()
+
+
+@pytest.mark.parametrize("dt", list(DTYPES), ids=list(DTYPES))
+def test_grid_route_arithmetic_wide_and_ragged(dt):
+    """The emulated grid route at H=256 (bf16: k16 steps; float32: k8
+    steps of three tf32 products, two k slices at B=16 H=1,024's plan
+    shape) with ragged lengths 0, 1 and T, against the plain version."""
+    tdt, _ = DTYPES[dt]
+    rng = np.random.default_rng(6)
+    b, t, h = 6, 9, 256
+    gx = torch.from_numpy(rng.standard_normal((b, t, 2, 4 * h)).astype(
+        np.float32))
+    wh = torch.from_numpy((rng.standard_normal((2, h, 4 * h)) / 16).astype(
+        np.float32)).to(tdt)
+    lengths = torch.tensor([t, 1, 0, 7, t - 1, 4])
+    plan = ops.gx_plan(b, h, torch.finfo(tdt).bits // 8, **H100)
+    plan = plan._replace(k_splits=2)
+    got = _grid_route_emulated(gx, wh, lengths, plan)
+    want = ops.blstm_recurrence_plain(gx, wh, lengths, round_h=True)
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               **TOL[dt])
+    pad = torch.arange(t)[None] >= lengths[:, None]
+    assert not got[pad].any()
+
+
+@pytest.mark.parametrize("b", [16, 128])
+@pytest.mark.parametrize("d", [2560, 1024])
+def test_wide_f32_encoder_takes_the_gate_stream_kernel(d, b):
+    """A 1,024-wide float32 encoder (hidden = proj = 1,024): layer 0 reads
+    the VGG output (D = 2,560 at 80 mels), layers 1 and 2 the projection
+    (D = 1,024). Both packages send every layer to the gate-stream kernel
+    (W_x and W_h together past the 64 MB budget), which the grid route
+    runs on an H100."""
+    t, h = 174, 1024
+    assert ops.infer_kernel_for(b, t, d, h, torch.float32) == "gx"
+    assert blstm_pallas.infer_fits(b, h, 4)
+    assert _jax_variant(b, t, d, h, jnp.float32) == "gx"
+    assert ops.gx_plan(b, h, 4, **H100) is not None
+
+
+def test_force_gx_route_names_a_route():
+    with pytest.raises(ValueError, match="unknown route"):
+        with ops._force_gx_route("cuDNN"):
+            pass
+    with ops._force_gx_route("row_tiled"):
+        assert ops._forced_gx_route == "row_tiled"
+    assert ops._forced_gx_route is None
+
+
 @pytest.fixture(autouse=True)
 def _forward_only():
     """These tests compare forward values: parameters are trainable, and

@@ -33,21 +33,109 @@ def _tol(dtype, want):
     return dict(rtol=0, atol=2e-2 * want.abs().max().item())
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("h", [32, 256, 1024])
-def test_blstm_kernel_matches_plain(dev, dtype, h):
-    gen = torch.Generator(device=dev).manual_seed(h)
-    b, t = 5, 23
+def _rec_inputs(gen, dev, b, t, h, dtype):
+    """gx, wh and lengths of a gate-stream layer: the first five rows'
+    lengths T, 1, 0, 17, T - 1, the others at random in [0, T]."""
     gx = torch.randn((b, t, 2, 4 * h), generator=gen, device=dev)
     wh = (torch.randn((2, h, 4 * h), generator=gen, device=dev)
           / h ** 0.5).to(dtype)
-    lengths = torch.tensor([t, 1, 0, 17, t - 1], dtype=torch.int32, device=dev)
-    got = blstm.blstm_recurrence(gx, wh, lengths)
+    lengths = torch.randint(0, t + 1, (b,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    lengths[:5] = torch.tensor([t, 1, 0, 17, t - 1], dtype=torch.int32)
+    return gx, wh, lengths
+
+
+def _gx_on(route, gx, wh, lengths):
+    """blstm_recurrence on ``route`` (None: the default); checks that it
+    launched there."""
+    before = dict(blstm.GX_ROUTE_LAUNCHES)
+    ctx = (blstm._force_gx_route(route) if route is not None
+           else contextlib.nullcontext())
+    with ctx:
+        got = blstm.blstm_recurrence(gx, wh, lengths)
+    want = route or "grid"
+    after = dict(blstm.GX_ROUTE_LAUNCHES)
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == want) for k in after}
+    return got
+
+
+def _pad_is_zero(got, lengths):
+    t = got.shape[1]
+    pad = torch.arange(t, device=got.device)[None] >= lengths[:, None]
+    return not got[pad].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("h", [32, 256, 512, 768, 1024])
+@pytest.mark.parametrize("b", [5, 16, 128])
+def test_blstm_kernel_matches_plain(dev, dtype, h, b):
+    """The gate-stream recurrence on its default route, the grid route of
+    ``csrc/blstm_gx_grid.cu`` (``gx_plan`` fits every one of these shapes:
+    k splits at B = 5 and 16, W_h's slice partly streamed in float32 at H
+    >= 768), against the plain version with h rounded: ragged lengths with
+    0, 1 and T, pad frames exact zeros, a rerun bit-identical."""
+    gen = torch.Generator(device=dev).manual_seed(h + b)
+    t = 23
+    gx, wh, lengths = _rec_inputs(gen, dev, b, t, h, dtype)
+    assert blstm._gx_grid(b, h, wh) is not None
+    got = _gx_on(None, gx, wh, lengths)
     want = blstm.blstm_recurrence_plain(gx, wh, lengths, round_h=True)
     torch.cuda.synchronize()
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype, want))
-    assert not got[2].any() and not got[1, 1:].any()  # pad frames
+    assert _pad_is_zero(got, lengths)
+    assert torch.equal(_gx_on(None, gx, wh, lengths), got)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("h", [32, 256, 1024])
+def test_blstm_row_tiled_route_matches_plain(dev, dtype, h):
+    """``csrc/blstm.cu`` forced: the route past the plan and the timing
+    yardstick."""
+    gen = torch.Generator(device=dev).manual_seed(h)
+    gx, wh, lengths = _rec_inputs(gen, dev, 5, 23, h, dtype)
+    got = _gx_on("row_tiled", gx, wh, lengths)
+    want = blstm.blstm_recurrence_plain(gx, wh, lengths, round_h=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype, want))
+    assert _pad_is_zero(got, lengths)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_blstm_grid_long_and_short_batches(dev, dtype):
+    """Frames past the batch's longest length advance the barrier counters
+    all the same: a batch whose rows all end early, then a full one, a
+    long one (T = 300) and B = 112 at H = 1,024 (7 m16 tiles staged as 8
+    in 2 x 2 warp tiles), each against the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for b, t, top, h in ((16, 40, 25, 256), (16, 40, 40, 256),
+                         (128, 300, 300, 256), (112, 30, 30, 1024)):
+        gx, wh, lengths = _rec_inputs(gen, dev, b, t, h, dtype)
+        lengths = lengths.clamp(max=top)
+        got = _gx_on(None, gx, wh, lengths)
+        want = blstm.blstm_recurrence_plain(gx, wh, lengths, round_h=True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **_tol(dtype, want))
+        assert _pad_is_zero(got, lengths)
+
+
+def test_blstm_grid_refusals(dev):
+    """Past ``gx_plan`` (H not a multiple of 32; B = 256 at H = 1,024,
+    more warp tiles than warps) the default is the row-tiled kernel, and a
+    forced grid route raises before any launch."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for b, h in ((5, 40), (256, 1024)):
+        gx, wh, lengths = _rec_inputs(gen, dev, b, 23, h, torch.bfloat16)
+        assert blstm._gx_grid(b, h, wh) is None
+        got = _gx_on("row_tiled", gx, wh, lengths)
+        torch.testing.assert_close(got, blstm.blstm_recurrence(gx, wh,
+                                                               lengths))
+        launches = dict(blstm.GX_ROUTE_LAUNCHES)
+        with blstm._force_gx_route("grid"), pytest.raises(ValueError):
+            blstm.blstm_recurrence(gx, wh, lengths)
+        assert blstm.GX_ROUTE_LAUNCHES == launches
 
 
 def _infer_inputs(gen, dev, b, t, d, h, dtype):
