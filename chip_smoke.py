@@ -23,7 +23,11 @@ Phases, each of which exits non-zero on failure:
    CTC prefix psi, state and beam-step state (prefix_state_step) on both
    of their routes, one block per utterance and one thread per lane
    (csrc/ctc_prefix.cu, with their plans), timed in turns with the host
-   ahead, at B=128 and B=16; the fused decoder step on both of its
+   ahead, at B=128 and B=16; the per-utterance psi kernel
+   (csrc/ctc_prefix_utt.cu, a ring of frame chunks, with its plan) at
+   B=128 and at B=16 with 1,200 frames, timed in turns with the psi
+   kernel's utt route on the same inputs, the host ahead; the fused
+   decoder step on both of its
    routes, the attention an utterance a block then the cell over all
    lanes on a co-resident grid (csrc/att_dec_utt.cu, with its plan) and
    one block per utterance for the whole step (csrc/att_dec.cu), at the
@@ -241,6 +245,9 @@ BATCH = 128
 N_BATCHES = 3
 BEAM = 8
 STEPS = 48
+# encoder frames of phase 3's long-utterance psi parity (~48 s of audio),
+# past what staging a whole utterance in shared memory allowed
+LONG_T = 1200
 SYNTH = SyntheticConfig(vocab_size=VOCAB, min_tokens=48, max_tokens=58)
 # training traffic (scripts/bench_train.py): ~2.9 s utterances, 46,080
 # samples, 286 STFT frames, 72 encoder frames
@@ -1175,16 +1182,35 @@ def kernel_parity(b: int, t_enh: int, t_enc: int, jcfg, dev) -> dict:
     def psi_plain():
         return ctc_prefix.prefix_psi_plain(lpz, last, lens, r_n, r_b, 0, 1)
 
-    # the per-utterance psi kernel: the same function, eos and blank
-    # columns included
+    # the per-utterance psi kernel (row 12): the same function, eos and
+    # blank columns included; at B utterances and at B=16, T=1,200 (the
+    # ring of frame chunks takes any length)
     def utt_kernel():
         return ctc_prefix.prefix_psi_utt(lpz, last, lens, r_n, r_b, 0, 1)
 
     err, ok = compare(f"ctc_prefix_utt B={b} K={BEAM} T={t_enc} V={VOCAB}",
                       [utt_kernel()], [psi_plain()], atol=1e-3)
     ok_all &= ok
+    long_in = ctc_inputs(gen, 16, BEAM, LONG_T, VOCAB, dev)
+    long_err, ok = compare(
+        f"ctc_prefix_utt B=16 K={BEAM} T={LONG_T} V={VOCAB}",
+        [ctc_prefix.prefix_psi_utt(*long_in[:1], *long_in[2:], 0, 1)],
+        [ctc_prefix.prefix_psi_plain(*long_in[:1], *long_in[2:], 0, 1)],
+        atol=1e-3)
+    ok_all &= ok
+    print(f"    utt psi plan (frame splits, chunk frames, stages): "
+          f"{ctc_prefix._utt_psi_plan_on(dev.index or 0, BEAM, t_enc, VOCAB)}"
+          f" at T={t_enc}, "
+          f"{ctc_prefix._utt_psi_plan_on(dev.index or 0, BEAM, LONG_T, VOCAB)}"
+          f" at T={LONG_T}")
+    # in turns with row 3's route "utt" on the same inputs, the host ahead
+    ms = cuda_ms_in_turns(
+        [utt_kernel, on_prefix_route("utt", lambda: ctc_prefix.prefix_psi(
+            lpz, last, lens, r_n, r_b, 0, 1))], 20, ahead=True)
+    print(f"    psi ms in turns: ctc_prefix_utt (row 12) {ms[0]:.4f}, "
+          f"ctc_prefix_psi_utt (row 3) {ms[1]:.4f}")
     res["ctc_prefix_utt"] = entry(
-        "ctc_prefix_utt", err, cuda_ms(utt_kernel, 20), cuda_ms(psi_plain, 5),
+        "ctc_prefix_utt", max(err, long_err), ms[0], cuda_ms(psi_plain, 5),
         8 * b * BEAM * VOCAB * t_enc,
         nbytes(lpz, last, lens, r_n, r_b, utt_kernel()), lpz.dtype)
     print(f"    host time per call: ctc_prefix_utt {host_us(utt_kernel):.1f} "

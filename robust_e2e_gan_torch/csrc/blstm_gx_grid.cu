@@ -140,46 +140,6 @@ __device__ __forceinline__ int swz(int r) {
   return kB16<W> ? (r >> 1) & 3 : r & 7;
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(rg::smem_addr(bar)) : "memory");
-}
-
-// One arrival on the mbarrier, which then expects `bytes` of complete_tx
-// in its current phase.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   rg::smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait until the mbarrier's phase of the given parity has completed: what
-// the copies it counted wrote is then visible.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const unsigned addr = rg::smem_addr(bar);
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-// `bytes` (a multiple of 16) from device to shared memory by the copy
-// engine; the mbarrier counts them in.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(rg::smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(rg::smem_addr(bar))
-      : "memory");
-}
-
 // Orders this thread's generic accesses of device memory with the copy
 // engine's (the async proxy's): h written by st.global is read by bulk
 // copies in other blocks after the grid barrier.
@@ -322,7 +282,7 @@ blstm_gx_grid_kernel(const float* __restrict__ gx,      // (B, T, 2, 4H)
   // resident rows of the W_h slice, gx of frame 0
   if (tid == 0) {
     len_s[M] = 0;
-    for (int i = 0; i < NS; ++i) mbar_init(bar + i);
+    for (int i = 0; i < NS; ++i) rg::mbar_init(bar + i);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   for (int i = tid; i < NS * (MA - B) * KC / P16; i += NT) {
@@ -362,12 +322,12 @@ blstm_gx_grid_kernel(const float* __restrict__ gx,      // (B, T, 2, 4H)
     const bool stream_w = kc * KC >= KR;
     const unsigned a_bytes = (unsigned)(chunk_elems * sizeof(W));
     const unsigned w_bytes = stream_w ? (unsigned)(KC * WS * sizeof(W)) : 0u;
-    mbar_expect(bar + buf, a_bytes + w_bytes);
-    bulk_load(a_st + (size_t)buf * MA * KC,
-              hbuf + ((size_t)(((s - 1) & 1) * 2 + z) * nk + kc) * chunk_elems, a_bytes,
-              bar + buf);
+    rg::mbar_expect(bar + buf, a_bytes + w_bytes);
+    rg::bulk_load(a_st + (size_t)buf * MA * KC,
+                  hbuf + ((size_t)(((s - 1) & 1) * 2 + z) * nk + kc) * chunk_elems, a_bytes,
+                  bar + buf);
     if (stream_w)
-      bulk_load(w_st + (size_t)buf * KC * WS, wblk + (size_t)kc * KC * WS, w_bytes, bar + buf);
+      rg::bulk_load(w_st + (size_t)buf * KC * WS, wblk + (size_t)kc * KC * WS, w_bytes, bar + buf);
   };
 
   if (steps > 0) prefetch_gx(0);
@@ -402,7 +362,7 @@ blstm_gx_grid_kernel(const float* __restrict__ gx,      // (B, T, 2, 4H)
       for (int kc = 0; kc < nk; ++kc) {
         const int buf = kc % NS;
         const bool refill = kc + NS - 1 < nk;
-        mbar_wait(bar + buf, (phase >> buf) & 1u);
+        rg::mbar_wait(bar + buf, (phase >> buf) & 1u);
         phase ^= 1u << buf;
         // where chunk kc - 1's stage is refilled, every warp has read it
         // first; where every chunk of the frame is in flight, the warps run

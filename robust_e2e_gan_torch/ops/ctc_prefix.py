@@ -10,7 +10,9 @@ versions are the JAX package's twopass forms,
 with the frame loop written out. The kernels are ``csrc/ctc_prefix.cu``
 (psi and state on two routes each: "utt", one block per utterance, where
 ``psi_plan``/``state_plan`` fit, and "lane", one thread per lane, past
-them) and ``csrc/ctc_prefix_utt.cu``. Everything is float32.
+them) and ``csrc/ctc_prefix_utt.cu`` (psi one block per utterance over
+a ring of frame chunks, where ``utt_psi_plan`` fits). Everything is
+float32.
 """
 
 from __future__ import annotations
@@ -23,7 +25,6 @@ import torch
 
 from robust_e2e_gan_torch.utils.build import launch
 from robust_e2e_gan_torch.utils.impl import (
-    SMEM_LIMIT,
     check,
     check_no_grad,
     device_limits,
@@ -31,7 +32,6 @@ from robust_e2e_gan_torch.utils.impl import (
 )
 
 LOG_ZERO = -1e10
-UTT_THREADS = 1024  # one thread per (k, v) lane in ctc_prefix_utt's block
 
 
 def gather_beam(x: torch.Tensor, k_idx: torch.Tensor) -> torch.Tensor:
@@ -201,6 +201,79 @@ def state_plan(k: int, t: int, v: int, smem_optin: int) -> Optional[int]:
     return None
 
 
+# csrc/ctc_prefix_utt.cu's constants (kUttMaxThreads, kUttMaxSplits,
+# kUttAhead, kUttTabs), its chunk frames and the ring's stages, tried in
+# turn
+UTT_MAX_THREADS = 1024  # a block's threads: consumers and a producer warp
+UTT_MAX_SPLITS = 8
+UTT_AHEAD = 2  # phi items (k, t) of a chunk a consumer thread forms
+UTT_TABLES = 4  # phi tables in flight
+UTT_CHUNKS = (192, 128, 64, 32, 16, 8, 4)
+UTT_STAGES = (3, 2)
+
+
+def _r16(x: int) -> int:
+    return _round_up(x, 16)
+
+
+def utt_units(k: int, v: int) -> int:
+    """Units of work of ``csrc/ctc_prefix_utt.cu``: K x ceil(V / 2) pairs
+    of lanes (k, v), (k, v + ceil(V / 2)) sharing their phi loads, and K
+    lanes of the hypotheses' last tokens, whose phi is r_b."""
+    return k * -(-v // 2) + k
+
+
+def utt_consumers(k: int, v: int, splits: int) -> int:
+    """Consumer threads of the kernel: the units x splits in whole warps,
+    at most all of a block's warps but the producer's."""
+    return min(_round_up(utt_units(k, v) * splits, 32), UTT_MAX_THREADS - 32)
+
+
+def utt_psi_smem(k: int, v: int, splits: int, chunk: int,
+                 stages: int) -> int:
+    """Shared bytes of ``csrc/ctc_prefix_utt.cu`` (its ``utt_layout``):
+    ``stages`` stages of a chunk's lpz rows (F x V floats and 8 of slack);
+    ``UTT_TABLES`` phi buffers, each 2K rows of F + 4 floats and 8 more;
+    the (max, sum) pairs of the units' two lanes and splits; phi0, the eos
+    column and the last token of each hypothesis; two 8-byte mbarriers a
+    stage and one a phi buffer."""
+    stage = _r16(4 * (chunk * v + 8))
+    tables = UTT_TABLES * 4 * (2 * k * (chunk + 4) + 8)
+    pairs = _r16(16 * utt_units(k, v) * splits)
+    return (stages * stage + tables + pairs + _r16(12 * k)
+            + 8 * (2 * stages + UTT_TABLES))
+
+
+def utt_psi_plan(k: int, t: int, v: int,
+                 smem_optin: int) -> Optional[Tuple[int, int, int]]:
+    """(frame splits S, chunk frames F, stages) of the per-utterance psi
+    kernel at K hypotheses, T frames and V columns, or None past it: K x V
+    above 1,024 lanes, ``utt_units`` above the 992 consumer threads (a
+    beam above 330 at V = 3, above 496 at V <= 2), or no chunk fitting.
+    Each unit takes
+    S splits, a consumer each, S as large as the consumers allow (at most
+    ``UTT_MAX_SPLITS``); F from ``UTT_CHUNKS``, cut to T rounded up to 4,
+    with K x F phi items at most ``UTT_AHEAD`` a consumer; the ring holds
+    3 chunks, or 2 (also where T takes at most two), and the first (F,
+    stages) whose ``utt_psi_smem`` fits in ``smem_optin`` bytes is taken.
+    Shared memory does not grow with T."""
+    units = utt_units(k, v)
+    consumers = UTT_MAX_THREADS - 32
+    if k * v > UTT_MAX_THREADS or units > consumers:
+        return None
+    splits = min(UTT_MAX_SPLITS, consumers // units)
+    for chunk in UTT_CHUNKS:
+        chunk = min(chunk, _round_up(t, 4))
+        if k * chunk > UTT_AHEAD * utt_consumers(k, v, splits):
+            continue
+        n_chunks = -(-t // chunk)
+        for stages in UTT_STAGES:
+            stages = min(stages, max(2, n_chunks))
+            if utt_psi_smem(k, v, splits, chunk, stages) <= smem_optin:
+                return splits, chunk, stages
+    return None
+
+
 # launches of the psi and the state kernels by route
 PREFIX_ROUTE_LAUNCHES = {"psi": {"utt": 0, "lane": 0},
                          "state": {"utt": 0, "lane": 0}}
@@ -235,6 +308,11 @@ def _route(plan, what: str):
 @functools.lru_cache(maxsize=None)
 def _psi_plan_on(index: int, k: int, t: int, v: int):
     return psi_plan(k, t, v, device_limits(index)[1])
+
+
+@functools.lru_cache(maxsize=None)
+def _utt_psi_plan_on(index: int, k: int, t: int, v: int):
+    return utt_psi_plan(k, t, v, device_limits(index)[1])
 
 
 @functools.lru_cache(maxsize=None)
@@ -302,20 +380,24 @@ def prefix_psi_utt(lpz, last_tok, lengths, r_n, r_b, blank: int,
     which is ``prefix_psi``'s, so its plain version is ``prefix_psi_plain``.
 
     CPU tensors run the plain version; CUDA tensors launch
-    ``csrc/ctc_prefix_utt.cu`` (one block per utterance, the eos and blank
-    columns set in the kernel) or raise.
+    ``csrc/ctc_prefix_utt.cu`` (one block per utterance, chunks of frames
+    through a ring in shared memory at ``utt_psi_plan``, the eos and blank
+    columns set in the kernel) or raise, e.g. past the plan (K x V above
+    1,024 lanes). Any T runs.
     """
     check_no_grad("prefix_psi_utt", lpz, r_n, r_b)
     if not on_cuda(lpz, last_tok, lengths, r_n, r_b):
         return prefix_psi_plain(lpz, last_tok, lengths, r_n, r_b, blank, eos)
     b, k, t, v = _check_common(lpz, r_n, r_b,
                                {"last_tok": last_tok, "lengths": lengths})
-    check(k * v <= UTT_THREADS,
-          f"K*V={k * v} lanes, more than a block's {UTT_THREADS} threads")
-    need = 4 * (t * v + 2 * k * t)
-    check(need <= SMEM_LIMIT,
-          f"T={t}, V={v}, K={k} stage {need} bytes, more than a block's "
-          f"{SMEM_LIMIT} of shared memory")
+    check(0 <= blank < v and 0 <= eos < v,
+          f"blank={blank} or eos={eos} outside [0, {v})")
+    plan = _utt_psi_plan_on(lpz.device.index, k, t, v)
+    check(plan is not None,
+          f"K*V={k * v} lanes at T={t}: past utt_psi_plan (more than "
+          f"{UTT_MAX_THREADS} lanes, as many as a block's threads, or no "
+          "chunk fits shared memory)")
+    splits, chunk, stages = plan
     lpz, r_n, r_b = lpz.contiguous(), r_n.contiguous(), r_b.contiguous()
     last_tok = last_tok.to(torch.int32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
@@ -323,7 +405,8 @@ def prefix_psi_utt(lpz, last_tok, lengths, r_n, r_b, blank: int,
     launch(
         "ctc_prefix_utt", lpz.data_ptr(), last_tok.data_ptr(),
         lengths.data_ptr(), r_n.data_ptr(), r_b.data_ptr(), psi.data_ptr(),
-        b, k, t, v, blank, eos,
+        b, k, t, v, blank, eos, splits, chunk, stages,
+        utt_psi_smem(k, v, splits, chunk, stages),
         torch.cuda.current_stream(lpz.device).cuda_stream,
     )
     prefix_psi_utt.launches += 1

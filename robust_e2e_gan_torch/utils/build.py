@@ -124,8 +124,9 @@ SIGNATURES = {
     # a chunk, grid, shared-memory bytes, the counter's value, sharpening,
     # bf16, stream
     "att_dec_utt": [_P] * 23 + [_I] * 14 + [_U, _F, _I, _P],
-    # lpz, last_tok, lengths, r_n, r_b, psi, B, K, T, V, blank, eos, stream
-    "ctc_prefix_utt": [_P] * 6 + [_I] * 6 + [_P],
+    # lpz, last_tok, lengths, r_n, r_b, psi, B, K, T, V, blank, eos,
+    # frame splits, chunk frames, stages, shared-memory bytes, stream
+    "ctc_prefix_utt": [_P] * 6 + [_I] * 10 + [_P],
     # x, wx, wh, bias, lengths, out, B, T, D, DW (wx rows), H,
     # rows_per_block, bf16, mma, stream
     "blstm_infer": [_P] * 6 + [_I] * 8 + [_P],

@@ -5,6 +5,9 @@ state of a beam step's survivors (``prefix_state_step``) and the twopass
 searcher; the CUDA route plans as integer arithmetic."""
 
 import dataclasses
+import functools
+import os
+import re
 
 import pytest
 
@@ -303,3 +306,148 @@ def test_force_prefix_route():
         with pytest.raises(ValueError, match="utt route does not fit"):
             ops._route(None, "the state")
     assert ops._forced_prefix_route is None
+
+
+# --------------------------------------------------------------------------
+# csrc/ctc_prefix_utt.cu: the plan, the kernel's constants, and its
+# summation order emulated in numpy against the JAX per-utterance kernel
+# --------------------------------------------------------------------------
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "robust_e2e_gan_torch", "csrc")
+
+
+@pytest.mark.parametrize("k,t,v,smem,want", [
+    # the flagship decode: 216 units (208 lane pairs, 8 last-token lanes)
+    # in 4 splits, the utterance in one 176-frame chunk, 2 stages: 2 x
+    # 36,640 (lpz) + 46,208 (4 phi buffers) + 13,824 (pairs) + 96 + 64 bytes
+    (8, 174, 52, SMEM, (4, 176, 2, 133_472)),
+    # 1,200 frames: 7 chunks of 192 through a ring of 3, where staging the
+    # whole utterance took 4 x (1,200 x 52 + 2 x 8 x 1,200) = 326,400 bytes
+    (8, 1200, 52, SMEM, (4, 192, 3, 184_208)),
+    # 1,024 lanes: 528 units, one split; 64-frame chunks keep the 1,024
+    # phi items of a chunk within two a consumer
+    (16, 174, 64, SMEM, (1, 64, 3, 92_912)),
+    # short T: one chunk of T rounded up to 4, two stages
+    (4, 17, 9, SMEM, (8, 20, 2, 7_888)),
+    # wide V: the chunk falls to 16 frames
+    (1, 174, 1000, SMEM, (1, 16, 3, 200_976)),
+    # past the plan: 1,025 lanes; 993 units, one more than the consumers;
+    # shared memory too small for one chunk
+    (25, 174, 41, SMEM, None),
+    (331, 5, 3, SMEM, None),
+    (8, 174, 52, 12_000, None),
+])
+def test_utt_psi_plan(k, t, v, smem, want):
+    """``utt_psi_plan`` as integer arithmetic, with ``utt_psi_smem`` the
+    hand sum of the kernel's layout."""
+    plan = ops.utt_psi_plan(k, t, v, smem)
+    if want is None:
+        assert plan is None
+        return
+    splits, chunk, stages = plan
+    assert (splits, chunk, stages,
+            ops.utt_psi_smem(k, v, splits, chunk, stages)) == want
+    assert chunk % 4 == 0 and 2 <= stages <= 4
+    consumers = ops.utt_consumers(k, v, splits)
+    assert consumers % 32 == 0 and consumers + 32 <= ops.UTT_MAX_THREADS
+    assert ops.utt_units(k, v) * splits <= consumers
+    assert k * chunk <= ops.UTT_AHEAD * consumers
+    assert ops.utt_psi_smem(k, v, splits, chunk, stages) <= smem
+
+
+def test_utt_constants_are_the_kernels():
+    """The plan's constants are those of ``csrc/ctc_prefix_utt.cu``."""
+    with open(os.path.join(CSRC, "ctc_prefix_utt.cu")) as f:
+        src = f.read()
+    for name, value in (("kUttMaxThreads", ops.UTT_MAX_THREADS),
+                        ("kUttMaxSplits", ops.UTT_MAX_SPLITS),
+                        ("kUttAhead", ops.UTT_AHEAD),
+                        ("kUttTabs", ops.UTT_TABLES)):
+        assert re.search(rf"constexpr int {name} = (\d+);", src).group(1) == \
+            str(value)
+
+
+def _utt_emulate(s, splits, chunk):
+    """psi of ``csrc/ctc_prefix_utt.cu`` in its summation order, in float32
+    numpy: the phi table once per (k, t); per chunk of ``chunk`` frames,
+    split j takes the j-th run of round_up(ceil(fc / S), 4) frames two at a
+    time: the pair's (max, 1 + exp(-|t0 - t1|)) merged into the running
+    (m, acc) by scaling the side with the smaller max; then the S pairs
+    and the LOG_ZERO start term in split order."""
+    f32 = np.float32
+    lpz, last, lens = s["lpz"], s["last"], s["lens"]
+    r_n, r_b = s["r_n"], s["r_b"]
+    b, t, v = lpz.shape
+    k = last.shape[1]
+    phi0 = np.where(lens == 0, f32(0), f32(-1e10))[..., None]
+    rs = np.concatenate([phi0, np.logaddexp(r_n, r_b)[..., :-1]], -1)
+    rb = np.concatenate([phi0, r_b[..., :-1]], -1)
+    is_last = ((np.arange(v)[None, None] == last[..., None])
+               & (lens[..., None] > 0))
+    phi = np.where(is_last[:, :, None, :], rb[..., None], rs[..., None])
+    terms = (phi + lpz[:, None]).astype(f32)  # (B, K, T, V)
+    m = np.full((splits, b, k, v), -np.inf, f32)
+    acc = np.zeros((splits, b, k, v), f32)
+    none = np.full((b, k, v), -np.inf, f32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        for t0 in range(0, t, chunk):
+            fc = min(chunk, t - t0)
+            per = -(-(-(-fc // splits)) // 4) * 4
+            for j in range(splits):
+                a = t0 + j * per
+                for i in range(a, t0 + min(fc, j * per + per), 2):
+                    x0 = terms[:, :, i]
+                    x1 = (terms[:, :, i + 1] if i + 1 < t0 + min(
+                        fc, j * per + per) else none)
+                    pair = (f32(1) + np.exp(-np.abs(x1 - x0))).astype(f32)
+                    top = np.maximum(x0, x1)
+                    d = top - m[j]
+                    e = np.exp(-np.abs(d)).astype(f32)
+                    acc[j] = np.where(d > 0, acc[j] * e + pair,
+                                      pair * e + acc[j])
+                    m[j] = np.maximum(m[j], top)
+    top = np.maximum(f32(-1e10), m.max(axis=0))
+    total = np.exp(f32(-1e10) - top)
+    for j in range(splits):
+        total = (total + acc[j] * np.exp(m[j] - top)).astype(f32)
+    out = (top + np.log(total)).astype(f32)
+    out[..., EOS] = np.logaddexp(r_n[..., -1], r_b[..., -1])
+    out[..., BLANK] = -1e10
+    return out
+
+
+_UTT_SHAPE = dict(b=3, k=4, t=41, v=9)
+
+
+@functools.lru_cache(maxsize=None)
+def _utt_reference(seed):
+    s = _state(seed, **_UTT_SHAPE)
+    j = {n: jnp.asarray(a) for n, a in s.items()}
+    want = prefix_scores_psi_pallas(j["lpz"], j["last"], j["lens"], j["r_n"],
+                                    j["r_b"], BLANK, EOS, interpret=True)
+    return s, np.asarray(want)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("splits,chunk", [
+    (0, 0),    # the plan: 8 splits, one 44-frame chunk, runs of 8
+    (2, 8),    # six chunks of runs of 4, a last of 1 frame
+    (2, 32),   # a 32-frame chunk (runs of 16) and a 9-frame one (12 and 0)
+    (1, 16),   # one split: runs of 16 and a 9-frame tail (an odd count)
+    (3, 20),   # runs of 8, 8 and 4 frames
+], ids=["plan", "s2f8", "s2f32", "s1f16", "s3f20"])
+def test_utt_summation_order_matches_jax_per_utterance_kernel(seed, splits,
+                                                              chunk):
+    """The kernel's summation order (frame splits, chunks, pairs of
+    frames, the fixed combine), emulated in float32 numpy, against
+    ``prefix_scores_psi_pallas`` (interpret mode): the same sums in
+    another order, so at the tolerance of the per-utterance test."""
+    s, want = _utt_reference(seed)
+    if splits == 0:
+        splits, chunk, _ = ops.utt_psi_plan(_UTT_SHAPE["k"], _UTT_SHAPE["t"],
+                                            _UTT_SHAPE["v"], SMEM)
+        assert (splits, chunk) == (8, 44)
+    got = _utt_emulate(s, splits, chunk)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    assert (got[..., BLANK] == -1e10).all()

@@ -1853,9 +1853,30 @@ def test_att_dec_utt_refusals(dev):
         torch.testing.assert_close(g, w, **_tol(torch.bfloat16, w))
 
 
+def _utt_parents(gen, dev, lpz, k, steps):
+    """Parents ``steps`` tokens deep (repeats included) of every row, by
+    the state kernel: (last_tok, lengths, r_n, r_b)."""
+    b, t, v = lpz.shape
+    r_b = torch.cumsum(lpz[:, :, 0], 1)[:, None].expand(b, k, t).contiguous()
+    r_n = torch.full((b, k, t), ctc_prefix.LOG_ZERO, device=dev)
+    last = torch.ones((b, k), dtype=torch.int32, device=dev)
+    lens = torch.zeros((b, k), dtype=torch.int32, device=dev)
+    for step in range(steps):
+        tok = torch.randint(2, v, (b, k), generator=gen, device=dev,
+                            dtype=torch.int32)
+        tok[:, 0] = last[:, 0] if step else tok[:, 0]
+        r_n, r_b = ctc_prefix.prefix_state(lpz, tok, last, lens, r_n, r_b, 0)
+        last, lens = tok, lens + 1
+    return last, lens, r_n, r_b
+
+
 def test_ctc_prefix_utt_kernel_matches_plain(dev):
-    """The per-utterance psi kernel, eos and blank columns included, over
-    three steps of parents; K*V past a block's threads raises."""
+    """The per-utterance psi kernel, eos and blank columns included: over
+    three steps of parents at a small shape (V % 4 != 0: lpz by 4-byte
+    pieces), at the flagship decode (B=128, K=8, T=174, V=52: lpz by bulk
+    copies; and from a base off 16-byte alignment: 4-byte pieces), and at
+    T = 1,200 (19 chunks through the ring; a length the old whole-utterance
+    staging refused); K*V past a block's threads raises."""
     gen = torch.Generator(device=dev).manual_seed(1)
     b, k, t, v = 3, 4, 29, 9
     lpz = torch.log_softmax(
@@ -1876,11 +1897,52 @@ def test_ctc_prefix_utt_kernel_matches_plain(dev):
         r_n, r_b = ctc_prefix.prefix_state(lpz, tok, last, lens, r_n, r_b, 0)
         last, lens = tok, lens + 1
     assert ctc_prefix.prefix_psi_utt.launches == launches + 3
+    for b, t in ((128, 174), (16, 1200)):
+        lpz = _prefix_lpz(gen, dev, b, t, 52, 0)
+        parents = _utt_parents(gen, dev, lpz, 8, 2)
+        want = ctc_prefix.prefix_psi_plain(lpz, *parents, 0, 1)
+        got = ctc_prefix.prefix_psi_utt(lpz, *parents, 0, 1)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+        if t == 174:
+            buf = torch.empty(lpz.numel() + 1, device=dev)
+            off = buf[1:].view(lpz.shape)
+            off.copy_(lpz)
+            assert off.data_ptr() % 16 != 0
+            got = ctc_prefix.prefix_psi_utt(off, *parents, 0, 1)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
     wide = torch.zeros((b, 40), dtype=torch.int32, device=dev)
     rows = torch.zeros((b, 40, t), device=dev)
     with pytest.raises(ValueError, match="threads"):
         ctc_prefix.prefix_psi_utt(torch.zeros((b, t, 30), device=dev), wide,
                                   wide, rows, rows, 0, 1)
+
+
+def test_ctc_prefix_utt_is_deterministic(dev):
+    """Two runs of the per-utterance psi kernel are bit-identical, at the
+    flagship decode and at T = 1,200, and a launch whose shared-memory
+    bytes disagree with the kernel's layout is refused."""
+    from robust_e2e_gan_torch.utils.build import launch
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for b, t in ((128, 174), (16, 1200)):
+        lpz = _prefix_lpz(gen, dev, b, t, 52, 0)
+        parents = _utt_parents(gen, dev, lpz, 8, 2)
+        runs = [ctc_prefix.prefix_psi_utt(lpz, *parents, 0, 1)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0], runs[1])
+    splits, chunk, stages = ctc_prefix.utt_psi_plan(8, t, 52, 232_448)
+    smem = ctc_prefix.utt_psi_smem(8, 52, splits, chunk, stages)
+    with pytest.raises(RuntimeError, match="ctc_prefix_utt"):
+        launch("ctc_prefix_utt", lpz.data_ptr(),
+               *(x.data_ptr() for x in parents), runs[0].data_ptr(), b, 8, t,
+               52, 0, 1, splits, chunk, stages, smem + 16,
+               torch.cuda.current_stream(dev).cuda_stream)
+    got = ctc_prefix.prefix_psi_utt(lpz, *parents, 0, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, runs[0])
 
 
 def test_decode_cli_on_the_card(dev, tmp_path):
