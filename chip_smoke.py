@@ -149,9 +149,36 @@ Phases, each of which exits non-zero on failure:
     to the gate-stream kernel: 3 grid-route launches a batch and no plain
     version required, one batch forced onto the row-tiled route, both
     timed in turns with a profiled batch of each (its BLSTM rows), then a
-    B=16 slice parity of the kernel path against the plain path.
+    B=16 slice parity of the kernel path against the plain path;
+16. the verify drive, ``robust_e2e_gan_torch/tools/verify_drive.py``
+    (``scripts/verify_drive.py``'s model and task: H=64, vocab 12, 2-6
+    tokens at 5 dB): 500 joint steps at B=16 in float32 (Adam 1e-3) on the
+    kernel path, with the ms per step and the accuracy and losses every
+    100 steps; the JAX drive's gates (accuracy > 0.9, greedy WER <= 0.05,
+    beam <= greedy, bfloat16 beam within 0.02 of float32); then the
+    bfloat16 token gates on the trained model: 128 more utterances decoded
+    on the default routes and with the fused decoder step, the
+    per-utterance psi kernel, the inference BLSTM forced to its row-tiled
+    and to its cluster route, each WER within 0.02 of the default's, with
+    each route's token-identical share and launches by route; the probes;
+    and the manifest, loop and resume section. Each section's launches are
+    checked: the training kernels on the resident frame loops in the
+    training sections, the serving kernels on their routes in the decodes,
+    no plain version but the teacher-forced attention's;
+17. the corpus recipe through its entry points at ``train.cli``'s default
+    model (float32, 512 wide): a manifest of 32 .npy utterances of the
+    default task with a Kaldi text file of their references;
+    ``train.cli --train-manifest --dev-manifest`` for one epoch and a
+    resume to two (the step count continues, ``tokenizer.json`` written),
+    ``--mode lm`` on the manifest's transcripts, ``enhance_cli`` in both
+    domains (32 matrices, each utterance's valid frames, finite, read back
+    with ``kaldi_io``), ``decode.cli`` with the LM fused (word and char
+    rates in ``wer.json``), and ``score_cli --bootstrap 200`` on its
+    ``hyp.txt`` (the same rates exactly, inside their intervals); the
+    training, serving and LM kernels launched and no plain version but the
+    teacher-forced attention's.
 
-The line before the last is a JSON object of the 22 kernels (``gemm``
+Each phase after 15 prints its seconds. The line before the last is a JSON object of the 22 kernels (``gemm``
 the products of one row-6 call, with phase 6's launches; the
 attention's two routes as ``att_loc_step`` and ``att_loc_step_hyp``, the
 CTC prefix kernels' as ``ctc_prefix_psi_utt``/``ctc_prefix_state_utt``
@@ -191,6 +218,7 @@ from robust_e2e_gan_torch.config import (
     BeamSearchConfig,
     DecoderConfig,
     EncoderConfig,
+    FrontendConfig,
     JointConfig,
     LMConfig,
     TrainConfig,
@@ -218,6 +246,8 @@ from robust_e2e_gan_torch.models.lm import RNNLM
 from robust_e2e_gan_torch.models import rnn
 from robust_e2e_gan_torch.models.rnn import BLSTM, input_projection
 from robust_e2e_gan_torch.decode import cli as decode_cli
+from robust_e2e_gan_torch.decode import enhance_cli, score_cli
+from robust_e2e_gan_torch.data import kaldi_io
 from robust_e2e_gan_torch.data.dataset import CharTokenizer
 from robust_e2e_gan_torch.ops import (
     att,
@@ -234,6 +264,7 @@ from robust_e2e_gan_torch.pipeline import build_model
 from robust_e2e_gan_torch.train import cli as train_cli
 from robust_e2e_gan_torch.train import steps as train_steps
 from robust_e2e_gan_torch.train.lm import load_lm
+from robust_e2e_gan_torch.tools import verify_drive
 from robust_e2e_gan_torch.utils import checkpoint as ckpt_lib
 from robust_e2e_gan_torch.utils.build import build
 from robust_e2e_gan_torch.utils.impl import device_limits
@@ -2866,6 +2897,232 @@ def wide_encoder_path(b, n_batches, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 16-17: the verify drive, and the corpus recipe through its entry
+# points
+# ---------------------------------------------------------------------------
+
+# the verify drive's training steps
+DRIVE_STEPS = 500
+# what each of the drive's sections must launch and must not (its
+# float32 model's inference BLSTM layers take the row-tiled route, its
+# bfloat16 ones the cluster route; float32 at B=16 takes the attention's
+# per-hypothesis route, bfloat16 the per-utterance one), and whether the
+# teacher-forced decoder's attention (plain PyTorch, as the JAX package's
+# is XLA) runs in it: every other plain version is refused
+TRAIN_SECTION = (("blstm_train", "gemm", "ctc_nll", "blstm_infer_row_tiled"),
+                 (), True)
+DRIVE_SECTIONS = {
+    "train": TRAIN_SECTION,
+    "decode": (("blstm_infer", "blstm_infer_row_tiled", "att_loc_step",
+                "att_loc_step_hyp", "ctc_prefix_psi_utt",
+                "ctc_prefix_state_utt"),
+               ("ctc_prefix_psi", "ctc_prefix_state"), False),
+    "routes": (("blstm_infer", "blstm_infer_row_tiled", "att_loc_step",
+                "att_dec_step", "ctc_prefix_utt", "ctc_prefix_psi_utt",
+                "ctc_prefix_state_utt"),
+               ("att_loc_step_hyp", "att_dec_step_hyp", "ctc_prefix_psi",
+                "ctc_prefix_state"), False),
+    "probes": (("blstm_infer_row_tiled", "ctc_nll"), (), True),
+    "loop": TRAIN_SECTION,
+}
+# the teacher-forced attention's plain version, shared by the two routes'
+# entries
+ATTENTION = ("att_loc_step", "att_loc_step_hyp")
+# phase 17's transcripts: token t is ALPHABET[t - 2]
+ALPHABET = "abcdefghij"
+
+
+def require_launches(where, launched, plain_calls, ran, not_ran,
+                     attention=False):
+    """Every kernel of ``ran`` launched and none of ``not_ran``; no plain
+    version ran but, with ``attention``, the teacher-forced attention's."""
+    print(f"  {where}: launches {launched}")
+    require(all(launched[n] > 0 for n in ran),
+            f"{where}: a kernel never launched: "
+            f"{ {n: launched[n] for n in ran} }")
+    require(not any(launched[n] for n in not_ran),
+            f"{where}: a route that should not run launched: "
+            f"{ {n: launched[n] for n in not_ran} }")
+    plain = {n: c for n, c in plain_calls.items()
+             if c and not (attention and n in ATTENTION)}
+    require(not plain, f"{where}: a plain version ran: {plain}")
+
+
+def drive_phase(dev) -> dict:
+    """Phase 16: ``tools/verify_drive.py::main`` on the card, each of its
+    sections' launches checked (``DRIVE_SECTIONS``)."""
+    seconds = {}
+
+    @contextlib.contextmanager
+    def watch(name):
+        reset_counts()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        launched, plain_calls = counts(KERNELS)
+        ran, not_ran, attention = DRIVE_SECTIONS[name]
+        require_launches(f"drive section {name!r}",
+                         {n: v for n, v in launched.items() if v
+                          or n in ran + not_ran},
+                         plain_calls, ran, not_ran, attention)
+        if name in ("train", "loop"):
+            require_resident(f"phase 16, {name}")
+
+    out = verify_drive.main(DRIVE_STEPS, dev, watch=watch)
+    print(f"  drive: {out['ms_per_step']:.2f} ms/step over {DRIVE_STEPS} "
+          "steps (host clock, ending in torch.cuda.synchronize())")
+    for h in out["history"]:
+        print(f"  step {h['step']}: acc {h['acc']:.4f} loss_ctc "
+              f"{h['loss_ctc']:.4f} loss_att {h['loss_att']:.4f} loss_d "
+              f"{h['loss_d']:.4f}")
+    w = out["wer"]
+    print(f"  WER greedy {w['greedy']:.4f}, beam {w['beam']:.4f}, bf16 beam "
+          f"{w['beam_bf16']:.4f} (16 utterances)")
+    for name, r in out["routes"].items():
+        print(f"  bf16 {name}: WER {r['wer']:.4f}, token-identical "
+              f"{r['identical']}/{r['n']} ({r['identical'] / r['n']:.4f})")
+    print("  seconds by section "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return out
+
+
+def write_corpus(root, n, seed):
+    """A jsonl manifest of ``n`` noisy and clean .npy utterances of the
+    default synthetic task from ``seed`` with ``ALPHABET`` text, and a
+    Kaldi text file of its references; (manifest, text, entries)."""
+    synth = SyntheticConfig()
+    rng = np.random.default_rng(seed)
+    entries = []
+    for i in range(n):
+        tokens = sample_transcript(synth, rng)
+        clean, noisy = synth_utterance(tokens, synth, rng)
+        np.save(os.path.join(root, f"n{i:02d}.npy"), noisy)
+        np.save(os.path.join(root, f"c{i:02d}.npy"), clean)
+        entries.append({"utt_id": f"u{i:02d}", "noisy": f"n{i:02d}.npy",
+                        "clean": f"c{i:02d}.npy", "n_samples": len(clean),
+                        "text": "".join(ALPHABET[t - 2] for t in tokens)})
+    manifest = os.path.join(root, "manifest.jsonl")
+    with open(manifest, "w") as f:
+        f.write("\n".join(json.dumps(e) for e in entries) + "\n")
+    text = os.path.join(root, "text")
+    with open(text, "w") as f:
+        f.writelines(f"{e['utt_id']} {e['text']}\n" for e in entries)
+    return manifest, text, entries
+
+
+def latest_step(ckpt):
+    with open(os.path.join(ckpt, "checkpoints.json")) as f:
+        return json.load(f)["latest"]["step"]
+
+
+def corpus_recipe(work):
+    """Phase 17: the corpus recipe through its entry points at
+    ``train.cli``'s default model (float32, 512 wide): train on a manifest
+    and resume, train the LM on its transcripts, enhance it to ark/scp in
+    both domains, decode it with the LM fused, and score the hypotheses
+    with ``score_cli``."""
+    root = os.path.join(work, "corpus")
+    os.makedirs(root)
+    n_utts = 32
+    manifest, text, entries = write_corpus(root, n_utts, seed=17)
+    exp, lm_dir = os.path.join(root, "exp"), os.path.join(root, "lm")
+    seconds = {}
+
+    argv = ["--mode", "joint", "--train-manifest", manifest,
+            "--dev-manifest", manifest, "--batch-size", "16",
+            "--ckpt-dir", exp, "--log-every", "1"]
+    reset_counts()
+    t0 = time.perf_counter()
+    train_cli.main(argv + ["--epochs", "1"])
+    first = latest_step(exp)
+    train_cli.main(argv + ["--epochs", "2"])
+    torch.cuda.synchronize()
+    seconds["train"] = time.perf_counter() - t0
+    second = latest_step(exp)
+    print(f"  train.cli --train-manifest: epoch 1 ended at step {first}, "
+          f"the resume at {second}")
+    require(first == n_utts // 16 and second == 2 * first,
+            f"manifest training steps {first} then {second}")
+    require(os.path.exists(os.path.join(exp, "tokenizer.json")),
+            "train.cli wrote no tokenizer.json")
+    launched, plain_calls = counts(KERNELS)
+    require_launches("train.cli", launched, plain_calls,
+                     ("blstm_train", "blstm_train_gx", "gemm", "ctc_nll",
+                      "blstm_infer_row_tiled"), (), attention=True)
+    require_resident("phase 17")
+
+    t0 = time.perf_counter()
+    train_cli.main(["--mode", "lm", "--train-manifest", manifest,
+                    "--batch-size", "16", "--epochs", "2", "--ckpt-dir",
+                    lm_dir])
+    seconds["lm"] = time.perf_counter() - t0
+    require(latest_step(lm_dir) == 2 * n_utts // 16,
+            f"the LM trained {latest_step(lm_dir)} steps")
+    with open(os.path.join(exp, "tokenizer.json")) as a, \
+            open(os.path.join(lm_dir, "tokenizer.json")) as b:
+        require(a.read() == b.read(), "the LM's tokenizer differs")
+
+    n_mels = FrontendConfig().n_mels
+    for domain, dim in (("logmel", n_mels),
+                        ("power", FrontendConfig().n_freqs)):
+        out = os.path.join(root, f"enhanced_{domain}")
+        reset_counts()
+        t0 = time.perf_counter()
+        enhance_cli.main(["--manifest", manifest, "--ckpt-dir", exp,
+                          "--out", out, "--domain", domain])
+        torch.cuda.synchronize()
+        seconds[f"enhance {domain}"] = time.perf_counter() - t0
+        launched, plain_calls = counts(KERNELS)
+        require_launches(f"enhance_cli --domain {domain}", launched,
+                         plain_calls, ("blstm_infer_row_tiled",), ())
+        mats = dict(kaldi_io.read_mat_scp(out + ".scp"))
+        frames = {e["utt_id"]: num_frames(e["n_samples"], FrontendConfig())
+                  for e in entries}
+        got = {k: m.shape for k, m in mats.items()}
+        print(f"  --domain {domain}: {len(mats)} matrices, frames "
+              f"{min(s[0] for s in got.values())}-"
+              f"{max(s[0] for s in got.values())}, dim {dim}")
+        require(got == {k: (f, dim) for k, f in frames.items()},
+                f"enhance_cli --domain {domain} wrote shapes {got}")
+        require(all(np.isfinite(m).all() for m in mats.values()),
+                f"enhance_cli --domain {domain} wrote non-finite values")
+
+    dec = os.path.join(root, "decode")
+    reset_counts()
+    t0 = time.perf_counter()
+    decode_cli.main(["--manifest", manifest, "--ckpt-dir", exp,
+                     "--lm-dir", lm_dir, "--lm-weight", str(LM_WEIGHT),
+                     "--out", dec])
+    torch.cuda.synchronize()
+    seconds["decode"] = time.perf_counter() - t0
+    launched, plain_calls = counts(KERNELS)
+    require_launches("decode.cli --lm-dir", launched, plain_calls,
+                     ("blstm_infer_row_tiled", "att_loc_step_hyp",
+                      "ctc_prefix_psi_utt", "ctc_prefix_state_utt",
+                      "lm_step"), ("ctc_prefix_psi", "ctc_prefix_state"))
+    with open(os.path.join(dec, "wer.json")) as f:
+        wer = json.load(f)
+    report_path = os.path.join(root, "score.json")
+    score_cli.main(["--ref", text, "--hyp", os.path.join(dec, "hyp.txt"),
+                    "--bootstrap", "200", "--out", report_path])
+    with open(report_path) as f:
+        report = json.load(f)
+    for kind in ("wer", "cer"):
+        rate, r = wer[kind]["error_rate"], report[kind]
+        print(f"  {kind}: decode.cli {rate!r}, score_cli {r['error_rate']!r}"
+              f" 95% CI [{r['ci_low']!r}, {r['ci_high']!r}]")
+        require(r["error_rate"] == rate,
+                f"score_cli's {kind} {r['error_rate']} != decode.cli's {rate}")
+        require(r["ci_low"] <= rate <= r["ci_high"],
+                f"the {kind} CI does not bracket {rate}: {r}")
+    require(report["n_utts"] == n_utts and not report["n_missing_hyp"],
+            f"score_cli scored {report['n_utts']} utterances")
+    print("  seconds by step "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -2928,7 +3185,7 @@ def main() -> int:
     launches["fbank_fused_bwd"] = bwd_launches
     launches["ctc_alpha"] = alpha_launches
 
-    # 7-15, in a scratch dir: phase 12 decodes phase 7's experiment
+    # 7-17, in a scratch dir: phase 12 decodes phase 7's experiment
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches.update(later_phases(state, state_d, dev, work, phase4_ms))
@@ -2946,7 +3203,8 @@ def main() -> int:
 
 
 def later_phases(state, state_d, dev, work, phase4_ms) -> dict:
-    """Phases 7-15; returns the launches of the kernels they hold."""
+    """Phases 7-17; returns the launches of the kernels phases 7-15
+    hold."""
     # 7. entry point
     print("train CLI (--mode joint --synthetic, default model, float32):")
     ckpt = os.path.join(work, "joint")
@@ -2988,6 +3246,20 @@ def later_phases(state, state_d, dev, work, phase4_ms) -> dict:
     print(f"wide-encoder serving (phase 4's traffic, encoder 3 x {WIDE} "
           "BLSTMP, float32):")
     wide_launches = wide_encoder_path(BATCH, N_BATCHES, dev)
+
+    # 16. the verify drive
+    print(f"verify drive (tools/verify_drive.py, {DRIVE_STEPS} joint steps "
+          "B=16 float32, then the bf16 token gates):")
+    t0 = time.perf_counter()
+    drive_phase(dev)
+    print(f"  phase 16: {time.perf_counter() - t0:.1f} s")
+
+    # 17. the corpus recipe
+    print("corpus recipe (train.cli on a manifest + resume, --mode lm, "
+          "enhance_cli, decode.cli with the LM, score_cli):")
+    t0 = time.perf_counter()
+    corpus_recipe(work)
+    print(f"  phase 17: {time.perf_counter() - t0:.1f} s")
 
     return {"blstm_train_gx": cli_launches["blstm_train_gx"],
             "fbank_fused": clean_launches["fbank_fused"],

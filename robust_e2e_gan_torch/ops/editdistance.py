@@ -2,13 +2,15 @@
 
 Port of ``robust_e2e_gan_tpu/ops/editdistance.py`` in pure Python, the JAX
 package's own form when its C++ binding is not built (the binding is not
-ported yet): ``edit_distance``, ``wer_details``, ``score_texts`` and
-``align_stats``.
+ported yet): ``edit_distance``, ``wer_details``, ``bootstrap_wer_ci``,
+``score_texts`` and ``align_stats``.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
 
 
 def edit_distance(ref: Sequence, hyp: Sequence) -> int:
@@ -41,6 +43,33 @@ def wer_details(refs: List[Sequence], hyps: List[Sequence]
         "errors": float(errs),
         "ref_tokens": float(total),
         "error_rate": errs / max(total, 1),
+    }
+
+
+def bootstrap_wer_ci(refs: List[Sequence], hyps: List[Sequence],
+                     n_resamples: int = 1000, alpha: float = 0.05,
+                     seed: int = 0) -> Dict[str, float]:
+    """Percentile-bootstrap confidence interval on the corpus error rate:
+    utterances resampled with replacement (Bisani & Ney 2004), each
+    utterance's edit distance computed once. The same draws as the JAX
+    package's for the same ``seed``."""
+    if len(refs) != len(hyps):
+        raise ValueError("refs and hyps must have equal length")
+    errs = np.array([edit_distance(r, h) for r, h in zip(refs, hyps)],
+                    dtype=np.float64)
+    lens = np.array([len(r) for r in refs], dtype=np.float64)
+    n = len(refs)
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, n, size=(n_resamples, n))
+    rates = errs[idx].sum(axis=1) / np.maximum(lens[idx].sum(axis=1), 1.0)
+    lo, hi = np.quantile(rates, [alpha / 2, 1 - alpha / 2])
+    return {
+        "error_rate": float(errs.sum() / max(lens.sum(), 1.0)),
+        "ci_low": float(lo),
+        "ci_high": float(hi),
+        "confidence": 1.0 - alpha,
+        "n_resamples": int(n_resamples),
+        "n_utts": int(n),
     }
 
 

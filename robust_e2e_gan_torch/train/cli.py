@@ -10,13 +10,20 @@ the CUDA kernels on the GPU and their plain versions on the CPU; ``scan``
 takes the plain versions everywhere. ``--fused-frontend`` takes the fused
 frontend kernel on the enhancer-free path (``--mode asr``).
 
+  python -m robust_e2e_gan_torch.train.cli --mode joint \\
+      --train-manifest data/train.jsonl --dev-manifest data/dev.jsonl \\
+      --ckpt-dir exp/joint
+  python -m robust_e2e_gan_torch.train.cli --mode lm \\
+      --train-manifest data/train.jsonl --ckpt-dir exp/lm   # the RNNLM
   python -m robust_e2e_gan_torch.train.cli --mode joint --synthetic \\
       --ckpt-dir /tmp/exp_demo --epochs 2      # no-corpus run
-  python -m robust_e2e_gan_torch.train.cli --mode lm --synthetic \\
-      --ckpt-dir /tmp/lm_demo                  # the shallow-fusion LM
 
-Only the synthetic task is ported as a data source: the corpus and
-precomputed-feature flags, global or speaker CMVN and ``--mesh-data``
+The data sources are jsonl manifests of ``.npy`` waveforms
+(``data/dataset.py``: one length-bucketed batcher whose batch order
+reshuffles every epoch from ``--seed``, the dev set in order with the
+train tokenizer, which is saved as ``tokenizer.json``; ``--mode lm``
+trains on the manifest's transcripts) and the synthetic task. The Kaldi
+and precomputed-feature flags, global or speaker CMVN and ``--mesh-data``
 raise ``NotImplementedError`` naming their ROADMAP item. ``--remat`` and
 ``--scan-unroll`` are XLA scheduling knobs, accepted and without effect;
 ``--prefetch-depth`` likewise (the loop is synchronous).
@@ -47,13 +54,12 @@ from robust_e2e_gan_torch.config import (
     TrainConfig,
 )
 
-CORPUS_FLAGS = ("train_manifest", "dev_manifest", "train_noisy_scp",
-                "train_clean_scp", "train_feats_scp", "train_text",
-                "index_cache", "utt2num_frames", "train_clean_feats_scp",
-                "cmvn_ark", "utt2spk")
-# where the refusals of the corpus and feature inputs send the reader
+# data-source flags of the Kaldi and precomputed-feature inputs
+KALDI_FLAGS = ("train_noisy_scp", "train_clean_scp", "train_feats_scp",
+               "train_text", "index_cache", "utt2num_frames",
+               "train_clean_feats_scp", "cmvn_ark", "utt2spk")
+# where the refusals of those inputs send the reader
 KALDI_ITEM = "ROADMAP queue 1, Kaldi and precomputed-feature inputs"
-CORPUS_ITEMS = f"ROADMAP queue 1, train.cli on .npy manifests; {KALDI_ITEM}"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -61,10 +67,13 @@ def build_parser() -> argparse.ArgumentParser:
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--mode", choices=("asr", "gan", "joint", "lm"),
                    default="joint")
-    # data (only --synthetic is ported)
-    for flag in CORPUS_FLAGS:
+    # data
+    p.add_argument("--train-manifest",
+                   help="jsonl manifest of .npy waveforms (data/dataset.py)")
+    p.add_argument("--dev-manifest")
+    for flag in KALDI_FLAGS:
         p.add_argument("--" + flag.replace("_", "-"),
-                       help=f"not ported yet ({CORPUS_ITEMS})")
+                       help=f"not ported yet ({KALDI_ITEM})")
     p.add_argument("--feats-kind",
                    choices=("mel", "spectrogram", "log-spectrogram"),
                    default="mel")
@@ -192,7 +201,38 @@ def _synthetic_factories(args):
         for _ in range(max(steps // 8, 1)):
             yield make_batch(args.batch_size, scfg, rng)
 
-    return train_batches, dev_batches, scfg.vocab_size
+    return train_batches, dev_batches, scfg.vocab_size, None
+
+
+def _corpus_factories(args):
+    """(train factory, dev factory or None, vocab size, tokenizer) of
+    ``--train-manifest`` and ``--dev-manifest``."""
+    from robust_e2e_gan_torch.data.dataset import (
+        AudioTextDataset,
+        BucketBatcher,
+    )
+
+    train_ds = AudioTextDataset.from_jsonl(args.train_manifest)
+    tok = train_ds.tokenizer
+    buckets = tuple(int(x) for x in args.length_buckets.split(",") if x)
+    # one batcher shared across epochs: its generator advances every
+    # epoch() call, so the batch order reshuffles each epoch
+    train_batcher = BucketBatcher(train_ds, args.batch_size, buckets,
+                                  args.max_label_len, seed=args.seed)
+
+    def train_batches():
+        return train_batcher.epoch(shuffle=True)
+
+    dev_batches = None
+    if args.dev_manifest:
+        dev_ds = AudioTextDataset.from_jsonl(args.dev_manifest, tokenizer=tok)
+        dev_batcher = BucketBatcher(dev_ds, args.batch_size, buckets,
+                                    args.max_label_len)
+
+        def dev_batches():
+            return dev_batcher.epoch(shuffle=False)
+
+    return train_batches, dev_batches, tok.vocab_size, tok
 
 
 def _lm_label_batches(args):
@@ -219,12 +259,42 @@ def _lm_label_batches(args):
     return label_batches, scfg.vocab_size
 
 
+def _lm_manifest_batches(args):
+    """(factory of one epoch of (B, max_label_len) -1-padded label
+    batches, tokenizer) of ``--train-manifest``'s transcripts, encoded
+    once; each epoch takes a new permutation from one generator seeded
+    once, as the JAX CLI's ``--mode lm``."""
+    from robust_e2e_gan_torch.data.dataset import AudioTextDataset
+
+    ds = AudioTextDataset.from_jsonl(args.train_manifest)
+    tok = ds.tokenizer
+    rng = np.random.default_rng(args.seed)
+    encoded = [np.asarray(tok.encode(u.text)[:args.max_label_len], np.int32)
+               for u in ds.utts]
+
+    def label_batches():
+        order = rng.permutation(len(encoded))
+        for s in range(0, len(order), args.batch_size):
+            idxs = order[s:s + args.batch_size]
+            ys = np.full((len(idxs), args.max_label_len), -1, np.int32)
+            for j, i in enumerate(idxs):
+                ys[j, :len(encoded[i])] = encoded[i]
+            yield ys
+
+    return label_batches, tok
+
+
 def _lm_main(args) -> None:
     """--mode lm: train the shallow-fusion RNNLM on transcripts only."""
     from robust_e2e_gan_torch.config import LMConfig
     from robust_e2e_gan_torch.train.lm import train_lm
 
-    label_batches, vocab = _lm_label_batches(args)
+    if args.synthetic:
+        label_batches, vocab = _lm_label_batches(args)
+        tok = None
+    else:
+        label_batches, tok = _lm_manifest_batches(args)
+        vocab = tok.vocab_size
     lmcfg = LMConfig(vocab_size=vocab, embed_dim=args.dec_embed,
                      hidden_dim=args.dec_hidden)
     tcfg = TrainConfig(
@@ -238,17 +308,23 @@ def _lm_main(args) -> None:
         json.dump({"lm": dataclasses.asdict(lmcfg),
                    "train": dataclasses.asdict(tcfg), "mode": "lm"}, f,
                   indent=2)
+    if tok is not None:
+        tok.save(os.path.join(args.ckpt_dir, "tokenizer.json"))
     train_lm(lmcfg, tcfg, label_batches, log_dir=args.ckpt_dir,
              resume=not args.no_resume, device=args.device)
 
 
 def _refuse_unported(args) -> None:
-    given = [f for f in CORPUS_FLAGS if getattr(args, f)]
-    if given or not args.synthetic:
+    given = [f for f in KALDI_FLAGS if getattr(args, f)]
+    if given:
         raise NotImplementedError(
-            "the corpus and precomputed-feature data sources "
-            f"({', '.join(given) or 'no --synthetic'}) are not ported yet "
-            f"({CORPUS_ITEMS}); use --synthetic")
+            f"the Kaldi and precomputed-feature sources ({', '.join(given)}) "
+            f"are not ported yet ({KALDI_ITEM}); use --train-manifest or "
+            "--synthetic")
+    if not (args.synthetic or args.train_manifest):
+        raise SystemExit(
+            "need --train-manifest, --train-noisy-scp/--train-text, "
+            "--train-feats-scp/--train-text, or --synthetic")
     if args.cmvn in ("global", "speaker"):
         raise NotImplementedError(
             f"--cmvn {args.cmvn} needs Kaldi CMVN stats, not ported yet "
@@ -268,13 +344,17 @@ def main(argv: Optional[list] = None) -> None:
     if args.mode == "lm":
         _lm_main(args)
         return
-    train_b, dev_b, vocab = _synthetic_factories(args)
+    factories = (_synthetic_factories if args.synthetic
+                 else _corpus_factories)
+    train_b, dev_b, vocab, tok = factories(args)
     jcfg, tcfg = configs_from_args(args, vocab)
     os.makedirs(args.ckpt_dir, exist_ok=True)
     with open(os.path.join(args.ckpt_dir, "config.json"), "w") as f:
         json.dump({"joint": dataclasses.asdict(jcfg),
                    "train": dataclasses.asdict(tcfg), "mode": args.mode,
                    "input_kind": "wav"}, f, indent=2)
+    if tok is not None:
+        tok.save(os.path.join(args.ckpt_dir, "tokenizer.json"))
 
     from robust_e2e_gan_torch.train.loop import train
 

@@ -57,7 +57,7 @@ def test_cli_trains_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--train-manifest", "train.jsonl"],
+    ["--train-noisy-scp", "wav.scp"],
     ["--synthetic", "--cmvn", "global"],
 ], ids=["corpus", "global_cmvn"])
 def test_cli_refuses_unported_sources(tmp_path, argv):
