@@ -176,7 +176,23 @@ Phases, each of which exits non-zero on failure:
     rates in ``wer.json``), and ``score_cli --bootstrap 200`` on its
     ``hyp.txt`` (the same rates exactly, inside their intervals); the
     training, serving and LM kernels launched and no plain version but the
-    teacher-forced attention's.
+    teacher-forced attention's;
+18. the paper-claim protocols on the hard synthetic task at a smoke
+    budget: ``tools/adversarial_benefit.py::main`` (the toy model, float32
+    B=16: 20 clean-ASR steps, 40 enhancement-GAN steps, 20 joint steps,
+    the no-enhancement, cascade and joint decodes of 16 eval utterances,
+    20 LM steps and the joint decode with the LM, then the bfloat16 route
+    gates on 2 batches of 16) and ``tools/lm_benefit.py::main`` (20
+    clean-ASR steps, 20 LM steps, 64 eval utterances decoded at three LM
+    weights). Each section's launches are checked: the training sections
+    on the resident frame loops, ``gemm.cu`` and the CTC loss (the GAN
+    section on the D-step's row-tiled inference BLSTM instead of the CTC
+    loss), each float32 decode on the row-tiled BLSTM, the attention route
+    ``ops/att.py::utt_preferred`` picks and the CTC prefix's route "utt"
+    (with the LM, the LM step on "tile"), the route gates as phase 16's;
+    no plain version but the teacher-forced attention's. Every error rate
+    must be finite and every summary key present; 20 steps train nothing,
+    so neither ordering is gated here (the full runs gate them).
 
 Each phase after 15 prints its seconds. The line before the last is a JSON object of the 22 kernels (``gemm``
 the products of one row-6 call, with phase 6's launches; the
@@ -264,7 +280,11 @@ from robust_e2e_gan_torch.pipeline import build_model
 from robust_e2e_gan_torch.train import cli as train_cli
 from robust_e2e_gan_torch.train import steps as train_steps
 from robust_e2e_gan_torch.train.lm import load_lm
-from robust_e2e_gan_torch.tools import verify_drive
+from robust_e2e_gan_torch.tools import (
+    adversarial_benefit,
+    lm_benefit,
+    verify_drive,
+)
 from robust_e2e_gan_torch.utils import checkpoint as ckpt_lib
 from robust_e2e_gan_torch.utils.build import build
 from robust_e2e_gan_torch.utils.impl import device_limits
@@ -2949,10 +2969,11 @@ def require_launches(where, launched, plain_calls, ran, not_ran,
     require(not plain, f"{where}: a plain version ran: {plain}")
 
 
-def drive_phase(dev) -> dict:
-    """Phase 16: ``tools/verify_drive.py::main`` on the card, each of its
-    sections' launches checked (``DRIVE_SECTIONS``)."""
-    seconds = {}
+def section_watch(where, sections, seconds, resident=("train", "loop")):
+    """A ``watch(name)`` for a tool's ``main``: the counts set to 0 as a
+    section starts, its seconds into ``seconds`` and its launches checked
+    against ``sections[name]`` (ran, not ran, attention) as it ends; the
+    sections of ``resident`` also on the resident frame loops."""
 
     @contextlib.contextmanager
     def watch(name):
@@ -2962,14 +2983,22 @@ def drive_phase(dev) -> dict:
         torch.cuda.synchronize()
         seconds[name] = time.perf_counter() - t0
         launched, plain_calls = counts(KERNELS)
-        ran, not_ran, attention = DRIVE_SECTIONS[name]
-        require_launches(f"drive section {name!r}",
+        ran, not_ran, attention = sections[name]
+        require_launches(f"{where} section {name!r}",
                          {n: v for n, v in launched.items() if v
                           or n in ran + not_ran},
                          plain_calls, ran, not_ran, attention)
-        if name in ("train", "loop"):
-            require_resident(f"phase 16, {name}")
+        if name in resident:
+            require_resident(f"{where}, {name}")
 
+    return watch
+
+
+def drive_phase(dev) -> dict:
+    """Phase 16: ``tools/verify_drive.py::main`` on the card, each of its
+    sections' launches checked (``DRIVE_SECTIONS``)."""
+    seconds = {}
+    watch = section_watch("drive", DRIVE_SECTIONS, seconds)
     out = verify_drive.main(DRIVE_STEPS, dev, watch=watch)
     print(f"  drive: {out['ms_per_step']:.2f} ms/step over {DRIVE_STEPS} "
           "steps (host clock, ending in torch.cuda.synchronize())")
@@ -3123,6 +3152,105 @@ def corpus_recipe(work):
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the paper-claim protocols at a smoke budget
+# ---------------------------------------------------------------------------
+
+# tools/adversarial_benefit.py::main's smoke budget (20 steps train
+# nothing: the orderings are gated by the full runs, not here)
+BENEFIT_SMOKE = dict(steps_a=20, steps_c=20, with_lm=True, eval_utts=16,
+                     route_batches=2, lm_steps=20)
+LM_BENEFIT_SMOKE = dict(asr_steps=20, lm_steps=20)
+# the float32 training sections of the toy models: the frame loops on the
+# resident route and gemm.cu's products; the CTC loss where the ASR
+# trains, the D-step's inference BLSTM (float32: row-tiled) where the
+# enhancer does; only the teacher-forced attention's plain version
+ASR_SECTION = (("blstm_train", "gemm", "ctc_nll"), ("blstm_infer",), True)
+BENEFIT_SECTIONS = {
+    "asr": ASR_SECTION,
+    "gan": (("blstm_train", "gemm", "blstm_infer_row_tiled"),
+            ("ctc_nll", "blstm_infer"), False),
+    "joint": TRAIN_SECTION,
+    "lm": ((), (), False),  # the LM trains on its plain cells
+    # the bfloat16 route gates, as phase 16's
+    "routes": DRIVE_SECTIONS["routes"],
+}
+# the summaries' keys: the JAX scripts' and the tools' own
+BENEFIT_KEYS = (
+    "task", "scale", "model_params_m", "noisy_wer_no_enhancement",
+    "noisy_wer_cascade_enhancement", "noisy_wer_joint_adversarial",
+    "token_error_rates", "relative_improvement", "steps", "recipe",
+    "eval_set", "snr_range_db", "reverb_t60", "babble_streams",
+    "channel_tilt", "noisy_wer_joint_plus_lm", "lm_ppl", "wer_ci95",
+    "ms_per_step", "synthesis_seconds", "routes", "card")
+LM_BENEFIT_KEYS = ("task", "asr_steps", "lm_steps", "results",
+                   "wer_improvement_vs_no_lm", "ms_per_step",
+                   "synthesis_seconds", "card")
+
+
+def decode_section(b: int, lm: bool = False):
+    """What a float32 beam decode of B utterances must launch and must
+    not: the encoder's BLSTM on the row-tiled route, the attention on the
+    route ``att.utt_preferred`` picks, the CTC prefix on route "utt", with
+    ``lm`` the LM step on route "tile"; no plain version."""
+    n_sm, _ = device_limits(0)
+    att_routes = ["att_loc_step_hyp", "att_loc_step"]
+    if att.utt_preferred(b, 4, n_sm):
+        att_routes.reverse()
+    ran = ("blstm_infer_row_tiled", att_routes[0], "ctc_prefix_psi_utt",
+           "ctc_prefix_state_utt") + (("lm_step",) if lm else ())
+    not_ran = ("blstm_infer", "blstm_recurrence",
+               "blstm_recurrence_row_tiled", att_routes[1], "att_dec_step",
+               "att_dec_step_hyp", "ctc_prefix_psi", "ctc_prefix_state",
+               "ctc_prefix_utt", "lm_step_lane") + (() if lm else ("lm_step",))
+    return ran, not_ran, False
+
+
+def benefit_phase(dev) -> None:
+    """Phase 18: ``tools/adversarial_benefit.py::main`` and
+    ``tools/lm_benefit.py::main`` on the card at ``BENEFIT_SMOKE`` and
+    ``LM_BENEFIT_SMOKE``, each section's launches checked; every error
+    rate finite and every summary key present."""
+    seconds = {}
+    b = BENEFIT_SMOKE["eval_utts"]
+    sections = dict(BENEFIT_SECTIONS,
+                    no_enhancement=decode_section(b),
+                    cascade=decode_section(b),
+                    joint_decode=decode_section(b),
+                    lm_decode=decode_section(b, lm=True))
+    out = adversarial_benefit.main(
+        device=dev, check_claim=False,
+        watch=section_watch("adversarial_benefit", sections, seconds,
+                            ("asr", "gan", "joint")), **BENEFIT_SMOKE)
+    missing = [k for k in BENEFIT_KEYS if k not in out]
+    require(not missing, f"adversarial_benefit summary lacks {missing}")
+    rates = adversarial_benefit.finite_wers(out)
+    require(all(np.isfinite(rates)), f"adversarial_benefit rates {rates}")
+    print(f"  adversarial_benefit word WER: no enhancement "
+          f"{out['noisy_wer_no_enhancement']}, cascade "
+          f"{out['noisy_wer_cascade_enhancement']}, joint "
+          f"{out['noisy_wer_joint_adversarial']}, joint + LM "
+          f"{out['noisy_wer_joint_plus_lm']}; ms/step {out['ms_per_step']}; "
+          f"synthesis {out['synthesis_seconds']:.1f} s")
+    lm_seconds = {}
+    lm_sections = {"asr": ASR_SECTION, "lm": BENEFIT_SECTIONS["lm"],
+                   "decode": decode_section(lm_benefit.EVAL_UTTS, lm=True)}
+    lm_out = lm_benefit.main(
+        device=dev, check_claim=False,
+        watch=section_watch("lm_benefit", lm_sections, lm_seconds, ("asr",)),
+        **LM_BENEFIT_SMOKE)
+    missing = [k for k in LM_BENEFIT_KEYS if k not in lm_out]
+    require(not missing, f"lm_benefit summary lacks {missing}")
+    require(all(np.isfinite(v) for r in lm_out["results"].values()
+                for v in r.values()), f"lm_benefit rates {lm_out}")
+    print(f"  lm_benefit: {lm_out['results']}; ms/step "
+          f"{lm_out['ms_per_step']}")
+    print("  seconds by section: adversarial_benefit "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + "; lm_benefit "
+          + ", ".join(f"{k} {v:.1f}" for k, v in lm_seconds.items()))
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -3260,6 +3388,13 @@ def later_phases(state, state_d, dev, work, phase4_ms) -> dict:
     t0 = time.perf_counter()
     corpus_recipe(work)
     print(f"  phase 17: {time.perf_counter() - t0:.1f} s")
+
+    # 18. the paper-claim protocols
+    print("paper-claim protocols (tools/adversarial_benefit.py 20 20 --lm, "
+          "tools/lm_benefit.py 20 20; the hard task):")
+    t0 = time.perf_counter()
+    benefit_phase(dev)
+    print(f"  phase 18: {time.perf_counter() - t0:.1f} s")
 
     return {"blstm_train_gx": cli_launches["blstm_train_gx"],
             "fbank_fused": clean_launches["fbank_fused"],

@@ -236,10 +236,11 @@ def decode_gates(jcfg, model, eval_b, dev) -> dict:
             "beam_bf16": wer_bf["error_rate"]}
 
 
-def route_gates(jcfg, params, batches, dev) -> dict:
-    """Section 3: the bfloat16 decode of ``batches`` on the default routes
-    and with each of ``ROUTES``' changes; each route's WER, token-identical
-    share against the default and launches by route."""
+def route_gates(jcfg, params, batches, dev, bcfg=BCFG) -> dict:
+    """Section 3: the bfloat16 decode of ``batches`` with the beam config
+    ``bcfg`` on the default routes and with each of ``ROUTES``' changes;
+    each route's WER, token-identical share against the default and
+    launches by route."""
     refs = [r for b in batches for r in token_lists(
         torch.from_numpy(b["labels"]))]
     inputs = [(torch.from_numpy(b["noisy_wav"]).to(dev),
@@ -251,7 +252,7 @@ def route_gates(jcfg, params, batches, dev) -> dict:
         model = serving_model(bf16_config(jcfg, step_impl), params, dev)
         search = make_beam_searcher(
             model, jcfg.e2e,
-            dataclasses.replace(BCFG, prefix_impl=prefix_impl),
+            dataclasses.replace(bcfg, prefix_impl=prefix_impl),
             use_enhancer=True)
         before = route_launches()
         hyps = []

@@ -188,7 +188,7 @@ def configs_from_args(args, vocab_size: int):
 def _synthetic_factories(args):
     from robust_e2e_gan_torch.data.synthetic import SyntheticConfig, make_batch
 
-    scfg = SyntheticConfig()
+    scfg = SyntheticConfig(seed=args.seed)
     steps = max(args.synthetic_utts // args.batch_size, 1)
 
     def train_batches():
@@ -236,7 +236,7 @@ def _corpus_factories(args):
 
 
 def _lm_label_batches(args):
-    """(factory of one epoch of (B, max_tokens) -1-padded label batches,
+    """(factory of one epoch of (B, max_label_len) -1-padded label batches,
     vocab size): synthetic transcripts from one generator seeded once, so
     each epoch continues the stream, as the JAX CLI's ``--mode lm``."""
     from robust_e2e_gan_torch.data.synthetic import (
@@ -244,13 +244,14 @@ def _lm_label_batches(args):
         sample_transcript,
     )
 
-    scfg = SyntheticConfig()
+    scfg = SyntheticConfig(seed=args.seed)
     rng = np.random.default_rng(args.seed)
     steps = max(args.synthetic_utts // args.batch_size, 1)
 
     def label_batches():
         for _ in range(steps):
-            ys = np.full((args.batch_size, scfg.max_tokens), -1, np.int32)
+            ys = np.full((args.batch_size, scfg.max_label_len), -1,
+                         np.int32)
             for i in range(args.batch_size):
                 t = sample_transcript(scfg, rng)
                 ys[i, :len(t)] = t

@@ -156,17 +156,45 @@ def test_config_fields_are_the_jax_fields(name):
     assert config.from_dict(ours, dataclasses.asdict(theirs())) == ours()
 
 
-@pytest.mark.parametrize("kw", [
-    dict(vocab_size=12, min_tokens=2, max_tokens=4),
-    dict(vocab_size=52, min_tokens=48, max_tokens=58),  # the bench traffic
-], ids=["tiny", "bench"])
-def test_synthetic_batch_matches_jax(kw):
-    want = jax_synthetic.make_batch(3, jax_synthetic.SyntheticConfig(**kw),
-                                    np.random.default_rng(5), ignore_id=-1)
-    got = synthetic.make_batch(3, synthetic.SyntheticConfig(**kw),
-                               np.random.default_rng(5))
+# name -> (the config, built from either package's synthetic module, and
+# make_batch's keyword arguments)
+SYNTH_CASES = {
+    "tiny": (lambda m: m.SyntheticConfig(vocab_size=12, min_tokens=2,
+                                         max_tokens=4), {}),
+    # the bench traffic
+    "bench": (lambda m: m.SyntheticConfig(vocab_size=52, min_tokens=48,
+                                          max_tokens=58), {}),
+    # the paper-claim protocols' task, and its round-2 form
+    "hard": (lambda m: m.hard_task(32), {}),
+    "hard_no_reverb_babble": (
+        lambda m: m.hard_task(32, reverb=False, babble=False), {}),
+    # lm_benefit's lexicon task, with a seed that moves the lexicon
+    "lexicon": (lambda m: dataclasses.replace(m.hard_task(32, seed=3),
+                                              lexicon_size=50), {}),
+    "jitter": (lambda m: m.SyntheticConfig(vocab_size=12, tone_jitter=0.3),
+               {}),
+    "snr_range": (lambda m: m.SyntheticConfig(vocab_size=12,
+                                              snr_range_db=(-3.0, 5.0)), {}),
+    # padded short of the longest utterances (cut) and with another label
+    # pad; the flat task's max_tokens override
+    "pad_ignore": (lambda m: m.hard_task(32),
+                   dict(pad_to_samples=20000, ignore_id=-7)),
+    "max_tokens": (lambda m: m.SyntheticConfig(vocab_size=12),
+                   dict(max_tokens=3, pad_to_samples=9000)),
+}
+
+
+@pytest.mark.parametrize("case", list(SYNTH_CASES))
+def test_synthetic_batch_matches_jax(case):
+    make_cfg, kw = SYNTH_CASES[case]
+    want = jax_synthetic.make_batch(3, make_cfg(jax_synthetic),
+                                    np.random.default_rng(5),
+                                    **{"ignore_id": -1, **kw})
+    got = synthetic.make_batch(3, make_cfg(synthetic),
+                               np.random.default_rng(5), **kw)
     assert set(got) == set(want)
     for key in want:
+        assert got[key].dtype == want[key].dtype, key
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
 
 

@@ -53,13 +53,16 @@ def test_configs_match_the_jax_script():
         port = getattr(verify_drive, name)
         assert jax_config.from_dict(type(want[name]),
                                     dataclasses.asdict(port)) == want[name]
-    # the port's synthetic task has the default task's fields; the JAX
-    # script sets none of the hard task's
+    # the port's synthetic task equals the script's field for field, and
+    # the script sets none of the hard task's fields
     scfg = dataclasses.asdict(verify_drive.SCFG)
     jax_scfg = dataclasses.asdict(want["SCFG"])
-    assert scfg == {k: jax_scfg[k] for k in scfg}
+    assert scfg == jax_scfg
     defaults = dataclasses.asdict(jax_synthetic.SyntheticConfig())
-    assert all(jax_scfg[k] == defaults[k] for k in jax_scfg if k not in scfg)
+    hard = set(jax_scfg) - {"vocab_size", "sample_rate", "tone_ms",
+                            "min_tokens", "max_tokens", "base_freq",
+                            "freq_step", "noise_snr_db"}
+    assert hard and all(jax_scfg[k] == defaults[k] for k in hard)
     # the drive runs the BLSTM layers on the kernels
     jcfg = verify_drive.kernel_config(verify_drive.JCFG)
     assert (jcfg.e2e.encoder.lstm_impl, jcfg.enhancer.lstm_impl) == (
