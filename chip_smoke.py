@@ -192,7 +192,33 @@ Phases, each of which exits non-zero on failure:
     (with the LM, the LM step on "tile"), the route gates as phase 16's;
     no plain version but the teacher-forced attention's. Every error rate
     must be finite and every summary key present; 20 steps train nothing,
-    so neither ordering is gated here (the full runs gate them).
+    so neither ordering is gated here (the full runs gate them);
+19. the Kaldi and precomputed-feature inputs: (1) the flagship in float32
+    (TF32 off) on 16 utterances of phase 4's traffic, their log-mel and log
+    power spectra made by ``data/featbin_cli.py``'s extraction:
+    ``encode_for_decode_feats`` (utterance CMVN) against
+    ``encode_for_decode`` without the enhancer, and
+    ``encode_for_decode_spec`` (log domain) against it with the enhancer,
+    each on the kernels: hlens equal, CTC logits at rtol/atol 1e-4, beam-8
+    tokens over 48 steps identical (a spectrum's rows at the log floor
+    printed where they are not); then speaker CMVN, every utterance of one
+    speaker holding the global stats, against global CMVN: equal; (2) the
+    flagship's joint forward on log spectra against the waveforms at phase
+    8's shape (float32, B=16, the clean speech dithered), every loss
+    within 1e-4, then one ``input_kind="spec"`` joint step on the kernel
+    path whose enhancer gradients are finite and nonzero; (3) phase 4's
+    traffic as log spectra through the flagship with the enhancer in
+    bfloat16 (B=128, beam 8, 48 steps, 3 warm batches): utt/s, ms per
+    batch and launches on a line that names the card, not gated; (4) a
+    Kaldi recipe of 32 utterances through ``python -m
+    robust_e2e_gan_torch`` at ``train.cli``'s default model: ``fbank``
+    (log-mel and log spectra), ``copy-feats --compress 1``, ``cmvn``
+    global and ``--utt2spk``, ``train --mode asr`` on the compressed
+    log-mel with speaker CMVN, ``--mode joint`` on log spectra, ``--mode
+    joint`` on the wav.scp with global CMVN and an index cache, resumed
+    with no ark header probed, ``decode`` of each from its Kaldi source,
+    ``enhance --noisy-scp`` and ``score`` equal to each ``wer.json``; every
+    section's launches checked as phase 17's.
 
 Each phase after 15 prints its seconds. The line before the last is a JSON object of the 22 kernels (``gemm``
 the products of one row-6 call, with phase 6's launches; the
@@ -227,6 +253,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from robust_e2e_gan_torch import __main__ as unified_cli
 from robust_e2e_gan_torch import config as config_lib
 from robust_e2e_gan_torch import pipeline
 from robust_e2e_gan_torch.config import (
@@ -257,13 +284,17 @@ from robust_e2e_gan_torch.decode.beam import (
     make_beam_searcher,
 )
 from robust_e2e_gan_torch.models.encoder import subsampled_frames
-from robust_e2e_gan_torch.models.enhancement import Discriminator
+from robust_e2e_gan_torch.models.enhancement import (
+    Discriminator,
+    adversarial_losses,
+    enhancement_loss,
+)
 from robust_e2e_gan_torch.models.lm import RNNLM
 from robust_e2e_gan_torch.models import rnn
 from robust_e2e_gan_torch.models.rnn import BLSTM, input_projection
 from robust_e2e_gan_torch.decode import cli as decode_cli
 from robust_e2e_gan_torch.decode import enhance_cli, score_cli
-from robust_e2e_gan_torch.data import kaldi_io
+from robust_e2e_gan_torch.data import cmvn, dataset, featbin_cli, kaldi_io
 from robust_e2e_gan_torch.data.dataset import CharTokenizer
 from robust_e2e_gan_torch.ops import (
     att,
@@ -3251,12 +3282,18 @@ def benefit_phase(dev) -> None:
           + ", ".join(f"{k} {v:.1f}" for k, v in lm_seconds.items()))
 
 
-def main() -> int:
-    # 1. device
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's kernels run only on "
-              "the GPU", file=sys.stderr)
-        return 1
+# ---------------------------------------------------------------------------
+# phase 19: the Kaldi and precomputed-feature inputs
+# ---------------------------------------------------------------------------
+
+# the kernels of a float32 decode, whichever route each takes (float32 B=16
+# leaves the BLSTM to the row-tiled kernel and the attention to "hyp")
+F32_ROUTED = {"blstm": ("blstm_infer", "blstm_infer_row_tiled"),
+              "attention": ("att_loc_step", "att_loc_step_hyp")}
+
+
+def card() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -3264,7 +3301,425 @@ def main() -> int:
         timeout=60)
     require(smi.returncode == 0 and smi.stdout.strip() != "",
             f"nvidia-smi failed: {smi.stdout}")
-    print(smi.stdout.strip().splitlines()[0])
+    return smi.stdout.strip().splitlines()[0]
+
+
+def kaldi_features(wav, lens, cfg, kind):
+    """``data/featbin_cli.py``'s extraction on a batch: (B, T, D) log-mel
+    (``kind`` "fbank") or log power spectra ("spectrogram") without CMVN,
+    pad frames zeroed as a Kaldi batch reads, and each row's frames."""
+    with torch.no_grad():
+        feats, mask = featbin_cli.frontend(wav, lens, cfg, kind)
+    return feats * mask[..., None], mask.sum(dim=-1).to(torch.int32)
+
+
+def launched_now() -> dict:
+    """The kernels launched since the last reset, by name."""
+    launched, _ = counts(KERNELS)
+    return {n: v for n, v in launched.items() if v}
+
+
+def f32_search(model, cfg, bcfg, kind, use_enhancer, x, n, cmvn_batch=None):
+    """(encoder outputs, result, launches) of one float32 search of 16
+    utterances on the kernel path: each BLSTM layer launched once, every
+    attention, CTC psi and state step on a kernel, no plain version."""
+    search = make_beam_searcher(model, cfg.e2e, bcfg,
+                                use_enhancer=use_enhancer, input_kind=kind,
+                                log_domain=True)
+    with torch.inference_mode():
+        enc = search.encode(x, n, cmvn_batch)
+    reset_counts()
+    res = search(x, n, cmvn_batch)
+    check_result(res, x.shape[0])
+    launched = launched_now()
+    _, plain_calls = counts(KERNELS)
+    layers = cfg.e2e.encoder.num_layers + (
+        cfg.enhancer.num_layers if use_enhancer else 0)
+    got = {k: sum(launched.get(n, 0) for n in names)
+           for k, names in F32_ROUTED.items()}
+    require(got == {"blstm": layers, "attention": STEPS}
+            and launched.get("ctc_prefix_psi_utt") == STEPS
+            and launched.get("ctc_prefix_state_utt") == STEPS,
+            f"{kind}: launches {launched}, not {layers} BLSTM layers and "
+            f"{STEPS} of each beam-step kernel")
+    require(not any(plain_calls.values()),
+            f"{kind}: a plain version ran: {plain_calls}")
+    return enc, res, launched
+
+
+def floor_rows(spec, lens, log_floor):
+    """Frames at the log floor in each row's valid frames."""
+    valid = torch.arange(spec.shape[1], device=spec.device)[None] < lens[:, None]
+    at = (spec <= np.log(log_floor) + 1e-6) & valid[..., None]
+    return at.sum(dim=(1, 2)).tolist()
+
+
+def kaldi_parity(state, dev):
+    """Phase 19, step 1: the flagship in float32 (TF32 off) on 16
+    utterances of phase 4's traffic: precomputed log-mel against the
+    waveform without the enhancer, log spectra against the waveform with
+    it; then the speaker branch against the global one."""
+    bcfg = BeamSearchConfig(beam_size=BEAM, ctc_weight=0.3, max_steps=STEPS,
+                            early_exit=False)
+    cfg = with_impls(flagship_config(VOCAB), "auto", "auto", "float32")
+    fe = cfg.e2e.frontend
+    model = load(cfg, state, dev)
+    wav, lens = batch_tensors(16, 100, dev)
+    mel, flens = kaldi_features(wav, lens, fe, "fbank")
+    spec, slens = kaldi_features(wav, lens, fe, "spectrogram")
+    require(torch.equal(flens, slens), "mel and spectra frame counts differ")
+    runs = {}
+    for tag, kind, use_enh, x, n in (
+            ("wav, no enhancer", "wav", False, wav, lens),
+            ("log-mel feats", "feats", False, mel, flens),
+            ("wav, enhancer", "wav", True, wav, lens),
+            ("log spectra", "spec", True, spec, slens)):
+        runs[tag] = f32_search(model, cfg, bcfg, kind, use_enh, x, n)
+        print(f"  {tag}: launches {runs[tag][2]}")
+    for got, want in (("log-mel feats", "wav, no enhancer"),
+                      ("log spectra", "wav, enhancer")):
+        (hs_g, _, hl_g, ctc_g, _), res_g, _ = runs[got]
+        (hs_w, _, hl_w, ctc_w, _), res_w, _ = runs[want]
+        err = (ctc_g - ctc_w).abs().max().item()
+        same = [bool(torch.equal(a, b)) for a, b in zip(res_g.tokens,
+                                                        res_w.tokens)]
+        print(f"  {got} vs {want}: hlens equal {torch.equal(hl_g, hl_w)}, "
+              f"CTC logits max abs diff {err:.3e}, best hypotheses "
+              f"token-identical {sum(same)}/16")
+        if not all(same) and got == "log spectra":
+            rows = [i for i, s in enumerate(same) if not s]
+            floors = floor_rows(spec, slens, fe.log_floor)
+            print(f"  rows that differ {rows}, their values at the log floor "
+                  f"{[floors[i] for i in rows]} (all rows {floors})")
+        require(torch.equal(hl_g, hl_w), f"{got}: hlens differ")
+        require(torch.allclose(ctc_g, ctc_w, rtol=1e-4, atol=1e-4),
+                f"{got}: CTC logits differ by {err:.3e}")
+        require(all(same), f"{got}: tokens differ from {want}")
+
+    # one speaker holding the global stats of these 16 utterances
+    acc = cmvn.CmvnAccumulator(fe.n_mels)
+    for row, n in zip(mel.cpu().numpy(), flens.tolist()):
+        acc.add(row[:n])
+    ids = [f"u{i}" for i in range(16)]
+    speakers = cmvn.SpeakerCmvn({"spk": acc.stats()},
+                                {u: "spk" for u in ids})
+    cmvn_batch = tuple(torch.from_numpy(a).to(dev)
+                       for a in speakers.lookup(ids))
+    out = {}
+    for mode in ("global", "speaker"):
+        mcfg = dataclasses.replace(cfg, e2e=dataclasses.replace(
+            cfg.e2e, frontend=dataclasses.replace(fe, cmvn=mode)))
+        m = build_model(mcfg, cmvn_stats=acc.mean_inv_std()
+                        if mode == "global" else None)
+        m.load_state_dict(state)
+        out[mode] = f32_search(m.to(dev).eval(), mcfg, bcfg, "feats", False,
+                               mel, flens,
+                               cmvn_batch if mode == "speaker" else None)
+    (enc_g, res_g, _), (enc_s, res_s, _) = out["global"], out["speaker"]
+    equal = (all(torch.equal(a, b) for a, b in zip(enc_g, enc_s))
+             and torch.equal(res_g.tokens, res_s.tokens)
+             and torch.equal(res_g.scores, res_s.scores))
+    print(f"  speaker CMVN (one speaker, the global stats) vs global CMVN: "
+          f"encoder outputs, tokens and scores equal {equal}")
+    require(equal, "the speaker branch differs from the global one")
+    return runs["log-mel feats"][2], runs["log spectra"][2]
+
+
+def spec_train_step(state_g, state_d, dev):
+    """Phase 19, step 2: the flagship's joint forward on log spectra
+    against the waveforms they came from (phase 8's shape, float32, the
+    clean speech dithered so that no clean bin sits at the log floor), then
+    one ``input_kind="spec"`` joint step on the kernel path."""
+    data = make_batch(16, TRAIN_SYNTH, np.random.default_rng(100))
+    valid = (np.arange(data["clean_wav"].shape[1])[None]
+             < data["wav_lengths"][:, None])
+    data["clean_wav"] += (0.1 * np.random.default_rng(101).standard_normal(
+        data["clean_wav"].shape) * valid).astype(np.float32)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    jcfg = train_cfg("auto", "auto", "float32")
+    fe = jcfg.e2e.frontend
+    spec, flens = kaldi_features(batch["noisy_wav"], batch["wav_lengths"],
+                                 fe, "spectrogram")
+    clean, _ = kaldi_features(batch["clean_wav"], batch["wav_lengths"], fe,
+                              "spectrogram")
+    state = train_state(jcfg, state_g, state_d, dev)
+    model, disc = state.model, state.discriminator
+    loss_type = jcfg.discriminator.loss_type
+
+    def losses(out):
+        loss_d, loss_adv = adversarial_losses(
+            disc(out["clean_logmel"], out["frame_mask"]),
+            disc(out["enhanced_logmel"], out["frame_mask"]), loss_type)
+        return {"loss": out["loss"], "loss_ctc": out["loss_ctc"],
+                "loss_att": out["loss_att"], "loss_d": loss_d,
+                "loss_adv": loss_adv,
+                "loss_enh": enhancement_loss(
+                    out["enhanced_power"], out["clean_power"],
+                    out["frame_mask"], kind=jcfg.enh_loss)}
+
+    with torch.no_grad():
+        w = losses(model.joint_forward(batch["noisy_wav"], batch["clean_wav"],
+                                       batch["wav_lengths"], batch["labels"]))
+        s = losses(model.joint_forward_spec(spec, clean, flens,
+                                            batch["labels"], log_domain=True))
+    ok = True
+    for key in w:
+        rel = abs(float(s[key]) - float(w[key])) / max(abs(float(w[key])),
+                                                        1e-12)
+        ok &= rel <= 1e-4
+        print(f"  {key}: spectra {float(s[key]):.6g} waveforms "
+              f"{float(w[key]):.6g} rel {rel:.2e} (limit 1e-4)")
+    require(ok, "joint_forward_spec's losses differ from joint_forward's")
+
+    grads = {}
+    step_g = state.opt_g.step
+
+    def keep_grads(gs):
+        grads.update(zip((n for n, _ in model.named_parameters()), gs))
+        return step_g(gs)
+
+    state.opt_g.step = keep_grads
+    step = train_steps.make_joint_train_step(jcfg, input_kind="spec",
+                                             log_domain=True)
+    reset_counts()
+    check_metrics(step(state, {"feats": spec, "clean_feats": clean,
+                               "feat_lengths": flens,
+                               "labels": batch["labels"]}))
+    torch.cuda.synchronize()
+    launched = launched_now()
+    enh = {n: g for n, g in grads.items() if n.startswith("enhancer.")}
+    bad = [n for n, g in enh.items() if g is None
+           or not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
+    print(f"  one spec joint step: {len(enh)} enhancer gradients, "
+          f"norms {[round(float(g.norm()), 4) for g in enh.values()]}; "
+          f"launches {launched}")
+    require(enh and not bad, f"enhancer gradients zero or non-finite: {bad}")
+    require_launches("the spec joint step", *counts(KERNELS),
+                     ("blstm_train", "gemm", "ctc_nll"), (), attention=True)
+    return launched
+
+
+def spec_serving(b, n_batches, state, dev):
+    """Phase 19, step 3: phase 4's traffic as log spectra through the
+    flagship with the enhancer, bfloat16, beam 8, 48 steps. Reported, not
+    gated: one call's host varies 1.5-2x."""
+    bcfg = BeamSearchConfig(beam_size=BEAM, ctc_weight=0.3, max_steps=STEPS,
+                            early_exit=False)
+    kcfg = with_impls(flagship_config(VOCAB), "auto", "auto", "bfloat16")
+    model = load(kcfg, state, dev)
+    search = make_beam_searcher(model, kcfg.e2e, bcfg, use_enhancer=True,
+                                input_kind="spec", log_domain=True)
+    batches = [kaldi_features(*batch_tensors(b, seed, dev),
+                              kcfg.e2e.frontend, "spectrogram")
+               for seed in range(n_batches)]
+    check_result(search(*batches[0]), b)  # warm-up
+    reset_counts()
+    times = []
+    for x, n in batches:
+        res, ms = timed(lambda: search(x, n))
+        check_result(res, b)
+        times.append(ms)
+    launches, plain_calls = counts(SERVING)
+    require(all(v > 0 for v in launches.values()) and not any(
+        plain_calls.values()), f"spec serving launches {launches}, plain "
+                               f"calls {plain_calls}")
+    print(f"  {card()}: spec serving B={b}: {b * 1e3 / mean(times):.2f} "
+          f"utt/s, {mean(times):.1f} ms/batch "
+          f"{['%.1f' % t for t in times]} ({n_batches} warm batches); "
+          f"launches {launched_now()}")
+    return launched_now()
+
+
+def kaldi_recipe(work):
+    """Phase 19, step 4: a Kaldi recipe of 32 utterances through ``python -m
+    robust_e2e_gan_torch`` (its ``main``, in this process, so the launches
+    count) at ``train.cli``'s default model: fbank, copy-feats, cmvn, the
+    three Kaldi trainings, their decodes, enhance and score."""
+    root = os.path.join(work, "kaldi")
+    os.makedirs(root)
+    n_utts = 32
+    _, text, entries = write_corpus(root, n_utts, seed=19)
+
+    def path(name):
+        return os.path.join(root, name)
+
+    for name, key in (("wav", "noisy"), ("clean_wav", "clean")):
+        kaldi_io.write_ark_scp(
+            ((e["utt_id"], np.load(path(e[key]))[None]) for e in entries),
+            path(f"{name}.ark"), path(f"{name}.scp"))
+    with open(path("utt2spk"), "w") as f:
+        f.writelines(f"{e['utt_id']} spk{i % 4}\n"
+                     for i, e in enumerate(entries))
+    seconds = {}
+
+    def run(name, argv, ran=(), not_ran=(), attention=False):
+        reset_counts()
+        t0 = time.perf_counter()
+        unified_cli.main(argv)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        require_launches(name, *counts(KERNELS), ran, not_ran, attention)
+
+    for name, src, kind in (("mel", "wav", "fbank"),
+                            ("spec", "wav", "spectrogram"),
+                            ("clean_spec", "clean_wav", "spectrogram")):
+        run(f"fbank {name}", ["fbank", "--wav-scp", path(f"{src}.scp"),
+                              "--feats-kind", kind, "--out-ark",
+                              path(f"{name}.ark"), "--out-scp",
+                              path(f"{name}.scp")])
+    run("copy-feats", ["copy-feats", "--feats-scp", path("mel.scp"),
+                       "--out-ark", path("mel_cm.ark"), "--out-scp",
+                       path("mel_cm.scp"), "--compress", "1"])
+    run("cmvn --utt2spk", ["cmvn", "--feats-scp", path("mel_cm.scp"),
+                           "--utt2spk", path("utt2spk"), "--out",
+                           path("spk_cmvn.ark")])
+    run("cmvn", ["cmvn", "--wav-scp", path("wav.scp"), "--out",
+                 path("cmvn.ark")])
+    shapes = {}
+    for name in ("mel", "mel_cm", "spec", "clean_spec"):
+        mats = dict(kaldi_io.read_mat_scp(path(f"{name}.scp")))
+        require(len(mats) == n_utts and all(np.isfinite(m).all()
+                                            for m in mats.values()),
+                f"{name}: {len(mats)} matrices or non-finite values")
+        shapes[name] = {m.shape[1] for m in mats.values()}
+    frames = max(num_frames(e["n_samples"], FrontendConfig())
+                 for e in entries)
+    require(shapes == {"mel": {80}, "mel_cm": {80}, "spec": {257},
+                       "clean_spec": {257}}, f"feature widths {shapes}")
+    arks = {name: list(dict(kaldi_io.read_mat_ark(path(name))))
+            for name in ("spk_cmvn.ark", "cmvn.ark")}
+    print(f"  features: 32 utterances, up to {frames} frames, widths "
+          f"{shapes}; stats keys {arks}")
+    require(arks == {"spk_cmvn.ark": ["spk0", "spk1", "spk2", "spk3"],
+                     "cmvn.ark": ["global"]}, f"stats arks {arks}")
+
+    frame_buckets = ["--length-buckets", str(frames)]
+    common = ["--train-text", text, "--batch-size", "16", "--log-every", "1"]
+    trains = {
+        "asr": (["--mode", "asr", "--train-feats-scp", path("mel_cm.scp"),
+                 "--cmvn", "speaker", "--cmvn-ark", path("spk_cmvn.ark"),
+                 "--utt2spk", path("utt2spk")] + frame_buckets,
+                ("blstm_train", "blstm_train_gx", "gemm", "ctc_nll")),
+        "joint_spec": (["--mode", "joint", "--train-feats-scp",
+                        path("spec.scp"), "--feats-kind", "log-spectrogram",
+                        "--train-clean-feats-scp", path("clean_spec.scp")]
+                       + frame_buckets,
+                       ("blstm_train", "blstm_train_gx", "gemm", "ctc_nll",
+                        "blstm_infer_row_tiled")),
+        "joint_wav": (["--mode", "joint", "--train-noisy-scp",
+                       path("wav.scp"), "--train-clean-scp",
+                       path("clean_wav.scp"), "--cmvn", "global",
+                       "--cmvn-ark", path("cmvn.ark"), "--index-cache",
+                       path("index.json")],
+                      ("blstm_train", "blstm_train_gx", "gemm", "ctc_nll",
+                       "blstm_infer_row_tiled")),
+    }
+    probes = {"n": 0}
+    probe = dataset._probe_shape
+
+    def counted_probe(*a):
+        probes["n"] += 1
+        return probe(*a)
+
+    dataset._probe_shape = counted_probe
+    try:
+        for name, (argv, ran) in trains.items():
+            exp = path(f"exp_{name}")
+            probes["n"] = 0
+            run(f"train {name}", ["train", *argv, *common, "--ckpt-dir", exp,
+                                  "--epochs", "1"], ran, attention=True)
+            require(latest_step(exp) == n_utts // 16,
+                    f"train {name} ended at step {latest_step(exp)}")
+            if "--cmvn-ark" in argv:
+                ark = argv[argv.index("--cmvn-ark") + 1]
+                with open(ark, "rb") as a, \
+                        open(os.path.join(exp, "cmvn.ark"), "rb") as b:
+                    require(a.read() == b.read(),
+                            f"train {name}: cmvn.ark not copied")
+            print(f"  train {name}: {latest_step(exp)} steps, "
+                  f"{probes['n']} ark headers probed")
+        probes["n"] = 0
+        exp = path("exp_joint_wav")
+        run("train joint_wav resumed", ["train", *trains["joint_wav"][0],
+                                        *common, "--ckpt-dir", exp,
+                                        "--epochs", "2"],
+            trains["joint_wav"][1], attention=True)
+        print(f"  the resume: step {latest_step(exp)}, {probes['n']} ark "
+              f"headers probed (lengths from the index cache)")
+        require(latest_step(exp) == 2 * n_utts // 16 and probes["n"] == 0,
+                f"resume ended at step {latest_step(exp)} after "
+                f"{probes['n']} probes")
+    finally:
+        dataset._probe_shape = probe
+
+    serving = ("blstm_infer_row_tiled", "ctc_prefix_psi_utt",
+               "ctc_prefix_state_utt")
+    decodes = {
+        "asr": ["--feats-scp", path("mel_cm.scp"), "--utt2spk",
+                path("utt2spk")] + frame_buckets,
+        "joint_spec": ["--feats-scp", path("spec.scp")] + frame_buckets,
+        "joint_wav": ["--noisy-scp", path("wav.scp"), "--index-cache",
+                      path("index.json")],
+    }
+    for name, argv in decodes.items():
+        out = path(f"decode_{name}")
+        run(f"decode {name}", ["decode", *argv, "--text", text, "--ckpt-dir",
+                               path(f"exp_{name}"), "--out", out], serving)
+        with open(os.path.join(out, "wer.json")) as f:
+            wer = json.load(f)
+        run(f"score {name}", ["score", "--ref", text, "--hyp",
+                              os.path.join(out, "hyp.txt"), "--out",
+                              path(f"score_{name}.json")])
+        with open(path(f"score_{name}.json")) as f:
+            report = json.load(f)
+        print(f"  decode {name}: wer {wer['wer']['error_rate']!r} cer "
+              f"{wer['cer']['error_rate']!r} over {wer['n_utts']}; score "
+              f"wer {report['wer']['error_rate']!r}")
+        require(wer["n_utts"] == n_utts and all(
+            np.isfinite(wer[k]["error_rate"]) for k in ("wer", "cer")),
+                f"decode {name}: {wer}")
+        for kind in ("wer", "cer"):
+            require(report[kind]["error_rate"] == wer[kind]["error_rate"],
+                    f"score {name}'s {kind} differs from wer.json")
+
+    run("enhance", ["enhance", "--noisy-scp", path("wav.scp"), "--text",
+                    text, "--ckpt-dir", path("exp_joint_wav"), "--out",
+                    path("enhanced")], ("blstm_infer_row_tiled",))
+    mats = dict(kaldi_io.read_mat_scp(path("enhanced.scp")))
+    want = {k: (m.shape[0], 80) for k, m in kaldi_io.read_mat_scp(
+        path("mel.scp"))}
+    require({k: m.shape for k, m in mats.items()} == want
+            and all(np.isfinite(m).all() for m in mats.values()),
+            "enhance --noisy-scp wrote other shapes or non-finite values")
+    print("  seconds by step "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+
+
+def kaldi_phase(state, state_d, dev, work) -> None:
+    """Phase 19: the Kaldi and precomputed-feature inputs."""
+    t0 = time.perf_counter()
+    print("  step 1: flagship parity (float32, B=16, phase 4's traffic)")
+    feats_launches, spec_launches = kaldi_parity(state, dev)
+    print("  step 2: one joint step on log spectra (phase 8's shape)")
+    train_launches = spec_train_step(state, state_d, dev)
+    print(f"  step 3: spec serving (phase 4's traffic, bfloat16, B={BATCH})")
+    serve_launches = spec_serving(BATCH, N_BATCHES, state, dev)
+    print("  step 4: the Kaldi recipe through python -m robust_e2e_gan_torch")
+    kaldi_recipe(work)
+    print("  phase 19 launches by path: "
+          + json.dumps({"feats f32 B=16": feats_launches,
+                        "spec f32 B=16": spec_launches,
+                        "spec joint step": train_launches,
+                        f"spec serving x{N_BATCHES}": serve_launches}))
+
+
+def main() -> int:
+    # 1. device
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run only on "
+              "the GPU", file=sys.stderr)
+        return 1
+    print(card())
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind}  torch {torch.__version__}  "
           f"cuda {torch.version.cuda}")
@@ -3313,7 +3768,7 @@ def main() -> int:
     launches["fbank_fused_bwd"] = bwd_launches
     launches["ctc_alpha"] = alpha_launches
 
-    # 7-17, in a scratch dir: phase 12 decodes phase 7's experiment
+    # 7-19, in a scratch dir: phase 12 decodes phase 7's experiment
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches.update(later_phases(state, state_d, dev, work, phase4_ms))
@@ -3331,7 +3786,7 @@ def main() -> int:
 
 
 def later_phases(state, state_d, dev, work, phase4_ms) -> dict:
-    """Phases 7-17; returns the launches of the kernels phases 7-15
+    """Phases 7-19; returns the launches of the kernels phases 7-15
     hold."""
     # 7. entry point
     print("train CLI (--mode joint --synthetic, default model, float32):")
@@ -3395,6 +3850,14 @@ def later_phases(state, state_d, dev, work, phase4_ms) -> dict:
     t0 = time.perf_counter()
     benefit_phase(dev)
     print(f"  phase 18: {time.perf_counter() - t0:.1f} s")
+
+    # 19. the Kaldi and precomputed-feature inputs
+    print("Kaldi and precomputed-feature inputs (log-mel and log spectra "
+          "against the waveform path, a spec joint step, spec serving, the "
+          "Kaldi recipe through python -m robust_e2e_gan_torch):")
+    t0 = time.perf_counter()
+    kaldi_phase(state, state_d, dev, work)
+    print(f"  phase 19: {time.perf_counter() - t0:.1f} s")
 
     return {"blstm_train_gx": cli_launches["blstm_train_gx"],
             "fbank_fused": clean_launches["fbank_fused"],

@@ -39,7 +39,7 @@ class FrontendConfig:
     window: str = "povey"  # povey | hann | hamming
     log_floor: float = 1.1920928955078125e-07  # FLT_EPSILON, Kaldi log floor
     use_power: bool = True  # power spectrum (Kaldi default) vs magnitude
-    cmvn: str = "utterance"  # utterance | global | none
+    cmvn: str = "utterance"  # utterance | global | speaker | none
     # the fused fbank kernel (ops/fbank_fused.py) on enhancer-free paths
     # with utterance CMVN
     fused: bool = False

@@ -237,23 +237,44 @@ def beam_search_from_encoder(
 
 
 def make_beam_searcher(model, ecfg: E2EConfig, bcfg: BeamSearchConfig,
-                       use_enhancer: bool = True, lm=None) -> Callable:
-    """Bind a ``RobustE2E`` into ``search(wav, wav_lengths) -> BeamResult``:
-    enhancer -> fbank -> encoder -> batched joint CTC/attention beam search
-    for a batch of utterances, on the model's device. ``lm``: an ``RNNLM``
+                       use_enhancer: bool = True, lm=None,
+                       input_kind: str = "wav",
+                       log_domain: bool = False) -> Callable:
+    """Bind a ``RobustE2E`` into ``search(wav, wav_lengths, cmvn_batch=None)
+    -> BeamResult``: enhancer -> fbank -> encoder -> batched joint
+    CTC/attention beam search for a batch of utterances, on the model's
+    device. ``input_kind``: "wav" (waveforms), "feats" (precomputed
+    log-mel: ``wav`` is (B, T, D) features and ``wav_lengths`` their frame
+    counts) or "spec" (precomputed power spectra, through the enhancer when
+    ``use_enhancer``; ``log_domain``: Kaldi's log power). ``cmvn_batch``:
+    the per-utterance speaker-CMVN (mean, inv_std). ``lm``: an ``RNNLM``
     (``models/lm.py``) with its weights on the same device, fused with
-    ``bcfg.lm_weight``. There is no batch padding: the TPU lane-packing
-    rule of the JAX package does not apply."""
+    ``bcfg.lm_weight``. ``search.encode(wav, wav_lengths, cmvn_batch)``
+    is its encoder pass alone (the greedy decode and the attention maps
+    read it). There is no batch padding: the TPU lane-packing rule of the
+    JAX package does not apply."""
     lm_step_fn = lm_init_fn = None
     if lm is not None and bcfg.lm_weight != 0.0:
         lm_step_fn, lm_init_fn = lm.step, lm.initial_carry
 
+    def encode(wav, wav_lengths, cmvn_batch):
+        if input_kind == "feats":
+            return model.encode_for_decode_feats(wav, wav_lengths,
+                                                 cmvn_batch=cmvn_batch)
+        if input_kind == "spec":
+            return model.encode_for_decode_spec(
+                wav, wav_lengths, use_enhancer, cmvn_batch=cmvn_batch,
+                log_domain=log_domain)
+        return model.encode_for_decode(wav, wav_lengths, use_enhancer,
+                                       cmvn_batch=cmvn_batch)
+
     @torch.inference_mode()
-    def search(wav, wav_lengths) -> BeamResult:
-        hs, hmask, hlens, ctc_logits, enc_proj = model.encode_for_decode(
-            wav, wav_lengths, use_enhancer)
+    def search(wav, wav_lengths, cmvn_batch=None) -> BeamResult:
+        hs, hmask, hlens, ctc_logits, enc_proj = encode(wav, wav_lengths,
+                                                        cmvn_batch)
         return beam_search_from_encoder(
             model.decoder_step, model.decoder_initial_carry, hs, hmask,
             hlens, enc_proj, ctc_logits, ecfg, bcfg, lm_step_fn, lm_init_fn)
 
+    search.encode = encode
     return search

@@ -15,11 +15,15 @@ attention and tiled CTC-prefix kernels with the unfused decoder step;
 the plain versions everywhere, an explicit escape hatch. On CPU tensors
 every kernel wrapper runs its plain version.
 
-Only ``.npy`` manifests are ported as a data source: the Kaldi and
-precomputed-feature flags and speaker CMVN raise ``NotImplementedError``
-naming their ROADMAP item, as do ``--mesh-data > 1`` and the staged and
-chunked schedules (``--pipelined auto`` resolves to sequential, as it does
-in the JAX package off the TPU).
+The data sources are a jsonl manifest of ``.npy`` waveforms, a Kaldi
+waveform scp (``--noisy-scp``) or a Kaldi feats.scp (``--feats-scp``, for
+an experiment trained on precomputed log-mel or spectra), each with a
+Kaldi ``text`` file (``--text``). An experiment trained with global CMVN
+reads ``<ckpt-dir>/cmvn.ark``; one with speaker CMVN needs ``--utt2spk``
+(stats from ``--cmvn-ark`` or ``<ckpt-dir>/cmvn.ark``). ``--mesh-data >
+1`` and the staged and chunked schedules raise ``NotImplementedError``
+naming their ROADMAP item (``--pipelined auto`` resolves to sequential,
+as it does in the JAX package off the TPU).
 
   python -m robust_e2e_gan_torch.decode.cli \\
       --manifest data/eval.jsonl --ckpt-dir exp/joint \\
@@ -51,26 +55,29 @@ from robust_e2e_gan_torch.ops.editdistance import score_texts, wer_details
 from robust_e2e_gan_torch.train.loop import init_state, resolve_device
 from robust_e2e_gan_torch.utils import checkpoint as ckpt_lib
 
-# data-source flags of the Kaldi and precomputed-feature inputs
-KALDI_FLAGS = ("noisy_scp", "text", "feats_scp", "utt2num_frames",
-               "index_cache", "utt2spk", "cmvn_ark")
-# where the refusals of those inputs send the reader
-KALDI_ITEM = "ROADMAP queue 1, Kaldi and precomputed-feature inputs"
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--manifest", help="jsonl manifest of .npy waveforms")
-    for flag in KALDI_FLAGS:
-        p.add_argument("--" + flag.replace("_", "-"),
-                       help=f"not ported yet ({KALDI_ITEM})")
+    p.add_argument("--noisy-scp", help="Kaldi scp of waveforms (with --text)")
+    p.add_argument("--feats-scp",
+                   help="Kaldi feats.scp of precomputed features (with "
+                        "--text); requires an experiment trained with "
+                        "--train-feats-scp. --length-buckets are frames.")
+    p.add_argument("--text", help="Kaldi text file (with --noisy-scp or "
+                                  "--feats-scp)")
     p.add_argument("--serving-impls", choices=("auto", "fused", "xla"),
                    default="auto",
                    help="serving kernel selection: 'auto' the BLSTM, "
                         "attention and tiled CTC-prefix kernels; 'fused' "
                         "adds the fused decoder step; 'xla' the plain "
                         "versions (operational escape hatch)")
+    p.add_argument("--index-cache",
+                   help="persist probed utterance lengths here (reused "
+                        "while the scp's size and mtime match)")
+    p.add_argument("--utt2num-frames",
+                   help="Kaldi utt2num_frames map for --feats-scp (skips "
+                        "the header probe at index build)")
     p.add_argument("--ckpt-dir", required=True)
     p.add_argument("--which", choices=("best", "latest"), default="best")
     p.add_argument("--out", help="output dir (default: ckpt_dir/decode)")
@@ -95,6 +102,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "hypotheses finish")
     p.add_argument("--no-enhancer", action="store_true",
                    help="decode raw noisy features (cascade-off baseline)")
+    p.add_argument("--utt2spk",
+                   help="Kaldi utt2spk map for per-speaker CMVN (the "
+                        "experiment's cmvn mode must be 'speaker'; stats "
+                        "come from <ckpt-dir>/cmvn.ark or --cmvn-ark)")
+    p.add_argument("--cmvn-ark",
+                   help="speaker-keyed CMVN stats ark (default: "
+                        "<ckpt-dir>/cmvn.ark)")
     p.add_argument("--length-buckets", default="32000,64000,112000,160000")
     p.add_argument("--mesh-data", type=int, default=0,
                    help="data-parallel serving: not ported yet")
@@ -115,11 +129,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    given = [f for f in KALDI_FLAGS if getattr(args, f)]
-    if given:
-        raise NotImplementedError(
-            f"the Kaldi and precomputed-feature sources ({', '.join(given)}) "
-            f"are not ported yet ({KALDI_ITEM}); use --manifest")
     if args.mesh_data > 1:
         raise NotImplementedError(
             "--mesh-data: data-parallel serving is not ported yet "
@@ -152,34 +161,69 @@ def with_serving_impls(jcfg: JointConfig, serving_impls: str) -> JointConfig:
 
 def load_experiment(ckpt_dir: str, which: str = "best",
                     serving_impls: str = "auto", device="cuda"):
-    """Rebuild (model, jcfg, tokenizer or None, step) from a training run's
-    dir: the model of its saved config with the serving impls applied,
-    restored from "best" (or "latest" when the run recorded no best) into
-    a ``train/loop.py::init_state`` template on ``device``, in eval mode."""
+    """Rebuild (model, jcfg, tokenizer or None, step, input_kind,
+    log_domain) from a training run's dir: the model of its saved config
+    with the serving impls applied and the global CMVN stats of its
+    ``cmvn.ark``, restored from "best" (or "latest" when the run recorded
+    no best) into a ``train/loop.py::init_state`` template on ``device``,
+    in eval mode. ``input_kind`` and ``log_domain`` are the training
+    input's ("wav", "feats" or "spec"; whether spectra are log power)."""
+    from robust_e2e_gan_torch.data.cmvn import (
+        load_cmvn_ark,
+        stats_to_mean_inv_std,
+    )
+
     device = resolve_device(device)
     with open(os.path.join(ckpt_dir, "config.json")) as f:
         saved = json.load(f)
     input_kind = saved.get("input_kind", "wav")
-    if input_kind != "wav":
-        raise NotImplementedError(
-            f"experiments on {input_kind!r} inputs are not ported yet "
-            f"({KALDI_ITEM})")
+    log_domain = bool(saved.get("spec_log_domain", False))
     jcfg = with_serving_impls(
         cfg_lib.from_dict(JointConfig, saved["joint"]), serving_impls)
-    if jcfg.e2e.frontend.cmvn in ("global", "speaker"):
-        raise NotImplementedError(
-            f"cmvn {jcfg.e2e.frontend.cmvn!r} needs Kaldi CMVN stats, not "
-            f"ported yet ({KALDI_ITEM})")
     tok_path = os.path.join(ckpt_dir, "tokenizer.json")
     tok = load_tokenizer(tok_path) if os.path.exists(tok_path) else None
+    cmvn_stats = None
+    cmvn_ark = os.path.join(ckpt_dir, "cmvn.ark")
+    if jcfg.e2e.frontend.cmvn == "global" and os.path.exists(cmvn_ark):
+        cmvn_stats = stats_to_mean_inv_std(load_cmvn_ark(cmvn_ark))
     tcfg = cfg_lib.from_dict(TrainConfig, saved["train"])
-    state = init_state(jcfg, tcfg, device)
+    # a feats experiment's discriminator was sized to its features, which
+    # the encoder reads at n_mels wide
+    feat_dim = jcfg.e2e.frontend.n_mels if input_kind == "feats" else None
+    state = init_state(jcfg, tcfg, device, cmvn_stats, feat_dim)
     if which == "best" and not ckpt_lib.has_checkpoint(ckpt_dir, "best"):
         # runs without a dev set never record a 'best' entry
         print("no 'best' checkpoint (no dev metric); using 'latest'")
         which = "latest"
     _, step = ckpt_lib.restore_checkpoint(ckpt_dir, state, which)
-    return state.model.eval(), jcfg, tok, step
+    return state.model.eval(), jcfg, tok, step, input_kind, log_domain
+
+
+def dataset_of(args, tok, input_kind: str) -> AudioTextDataset:
+    """The dataset of ``--manifest``, ``--feats-scp``/``--text`` or
+    ``--noisy-scp``/``--text``, which must match the experiment's
+    ``input_kind``."""
+    if args.manifest:
+        ds = AudioTextDataset.from_jsonl(args.manifest, tokenizer=tok)
+    elif args.feats_scp and args.text:
+        if input_kind not in ("feats", "spec"):
+            raise SystemExit("--feats-scp needs an experiment trained "
+                             "with --train-feats-scp")
+        ds = AudioTextDataset.from_kaldi_feats(
+            args.feats_scp, args.text, tokenizer=tok,
+            utt2num_frames=args.utt2num_frames,
+            index_cache=args.index_cache)
+    elif args.noisy_scp and args.text:
+        ds = AudioTextDataset.from_kaldi(
+            args.noisy_scp, args.text, tokenizer=tok,
+            index_cache=args.index_cache)
+    else:
+        raise SystemExit(
+            "need --manifest, --noisy-scp/--text, or --feats-scp/--text")
+    if input_kind in ("feats", "spec") and not args.feats_scp:
+        raise SystemExit("this experiment was trained on precomputed "
+                         "features; decode it with --feats-scp/--text")
+    return ds
 
 
 def _load_lm(lm_dir: str, serving_impls: str, device):
@@ -201,16 +245,23 @@ def main(argv: Optional[list] = None) -> None:
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
     device = resolve_device(args.device)  # raises before any output
-    model, jcfg, tok, step = load_experiment(
+    model, jcfg, tok, step, input_kind, log_domain = load_experiment(
         args.ckpt_dir, args.which, args.serving_impls, device)
     print(f"restored step {step} from {args.ckpt_dir} ({args.which})")
-    if not args.manifest:
-        raise SystemExit("need --manifest")
 
-    ds = AudioTextDataset.from_jsonl(args.manifest, tokenizer=tok)
+    ds = dataset_of(args, tok, input_kind)
     buckets = tuple(int(x) for x in args.length_buckets.split(",") if x)
+    speaker_cmvn = None
+    if jcfg.e2e.frontend.cmvn == "speaker":
+        if not args.utt2spk:
+            raise SystemExit("cmvn mode 'speaker' requires --utt2spk")
+        from robust_e2e_gan_torch.data.cmvn import SpeakerCmvn
+
+        cmvn_ark = args.cmvn_ark or os.path.join(args.ckpt_dir, "cmvn.ark")
+        speaker_cmvn = SpeakerCmvn.load(cmvn_ark, args.utt2spk)
     # pad_final: every batch has the same shape, the last one included
-    batcher = BucketBatcher(ds, args.batch_size, buckets, pad_final=True)
+    batcher = BucketBatcher(ds, args.batch_size, buckets,
+                            speaker_cmvn=speaker_cmvn, pad_final=True)
     prefix_impl = {"auto": "auto", "fused": "tiled",
                    "xla": "twopass"}[args.serving_impls]
     bcfg = BeamSearchConfig(
@@ -226,24 +277,30 @@ def main(argv: Optional[list] = None) -> None:
               f"(weight {args.lm_weight})")
     use_enh = not args.no_enhancer
     searcher = make_beam_searcher(model, jcfg.e2e, bcfg, use_enhancer=use_enh,
-                                  lm=lm)
+                                  lm=lm, input_kind=input_kind,
+                                  log_domain=log_domain)
     e2e = jcfg.e2e
+    inputs = (("feats", "feat_lengths") if input_kind in ("feats", "spec")
+              else ("noisy_wav", "wav_lengths"))
 
     out_dir = args.out or os.path.join(args.ckpt_dir, "decode")
     os.makedirs(out_dir, exist_ok=True)
     refs, hyps, lines, nbest_rows = [], [], [], []
     ref_texts, hyp_texts = [], []
     for batch in batcher.epoch(shuffle=False):
-        wav = torch.from_numpy(batch["noisy_wav"]).to(device)
-        lens = torch.from_numpy(batch["wav_lengths"]).to(device)
+        wav, lens = (torch.from_numpy(batch[k]).to(device) for k in inputs)
+        cmvn_batch = None
+        if "cmvn_mean" in batch:
+            cmvn_batch = tuple(torch.from_numpy(batch[k]).to(device)
+                               for k in ("cmvn_mean", "cmvn_inv_std"))
         if args.greedy:
             with torch.inference_mode():
-                _, _, hlens, ctc_logits, _ = model.encode_for_decode(
-                    wav, lens, use_enh)
+                _, _, hlens, ctc_logits, _ = searcher.encode(wav, lens,
+                                                             cmvn_batch)
                 toks = ctc_greedy_decode(ctc_logits, hlens,
                                          e2e.blank_id).cpu().numpy()
         else:
-            res = searcher(wav, lens)
+            res = searcher(wav, lens, cmvn_batch)
             toks = res.tokens.cpu().numpy()
             if args.nbest > 0:
                 bt = res.beam_tokens.cpu().numpy()
@@ -265,8 +322,8 @@ def main(argv: Optional[list] = None) -> None:
         if args.dump_attention:
             labels = torch.from_numpy(batch["labels"]).to(device)
             with torch.inference_mode():
-                hs, hmask, hlens, _, _ = model.encode_for_decode(
-                    wav, lens, use_enh)
+                hs, hmask, hlens, _, _ = searcher.encode(wav, lens,
+                                                         cmvn_batch)
                 ys_in, _, _ = add_sos_eos(labels, e2e.sos_id, e2e.eos_id,
                                           e2e.ignore_id)
                 _, atts = model.asr.decoder(hs, hmask, ys_in)

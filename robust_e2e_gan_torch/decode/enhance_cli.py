@@ -9,9 +9,10 @@ written by the port's ``train.cli`` on the GPU (``--device cuda``, the
 default; it raises without one) or, when asked, on the CPU (``--device
 cpu``), batch after batch under ``torch.no_grad()``.
 
-Only ``.npy`` manifests are ported as a data source: ``--noisy-scp`` and
-``--text`` raise ``NotImplementedError`` naming their ROADMAP item, as does
-``--mesh-data > 1``.
+The data sources are a jsonl manifest of ``.npy`` waveforms and a Kaldi
+waveform scp with its ``text`` file (``--noisy-scp``/``--text``).
+``--mesh-data > 1`` raises ``NotImplementedError`` naming its ROADMAP
+item.
 
   python -m robust_e2e_gan_torch.decode.enhance_cli \\
       --manifest data/eval.jsonl --ckpt-dir exp/joint \\
@@ -28,7 +29,7 @@ import torch
 
 from robust_e2e_gan_torch.data import kaldi_io
 from robust_e2e_gan_torch.data.dataset import AudioTextDataset, BucketBatcher
-from robust_e2e_gan_torch.decode.cli import KALDI_ITEM, load_experiment
+from robust_e2e_gan_torch.decode.cli import load_experiment
 from robust_e2e_gan_torch.train.loop import resolve_device
 
 
@@ -36,8 +37,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--manifest", help="jsonl manifest of .npy waveforms")
-    p.add_argument("--noisy-scp", help=f"not ported yet ({KALDI_ITEM})")
-    p.add_argument("--text", help=f"not ported yet ({KALDI_ITEM})")
+    p.add_argument("--noisy-scp", help="Kaldi scp of waveforms (with --text)")
+    p.add_argument("--text", help="Kaldi text file (with --noisy-scp)")
     p.add_argument("--ckpt-dir", required=True)
     p.add_argument("--which", choices=("best", "latest"), default="best")
     p.add_argument("--out", required=True, help="output prefix (.ark/.scp)")
@@ -53,11 +54,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    given = [f for f in ("noisy_scp", "text") if getattr(args, f)]
-    if given:
-        raise NotImplementedError(
-            f"the Kaldi waveform sources ({', '.join(given)}) are not ported "
-            f"yet ({KALDI_ITEM}); use --manifest")
     if args.mesh_data > 1:
         raise NotImplementedError(
             "--mesh-data: data-parallel enhancement is not ported yet "
@@ -68,11 +64,15 @@ def main(argv: Optional[list] = None) -> None:
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
     device = resolve_device(args.device)  # raises before any output
-    model, _, tok, step = load_experiment(args.ckpt_dir, args.which,
-                                          device=device)
-    if not args.manifest:
-        raise SystemExit("need --manifest")
-    ds = AudioTextDataset.from_jsonl(args.manifest, tokenizer=tok)
+    model, _, tok, step, _, _ = load_experiment(args.ckpt_dir, args.which,
+                                                device=device)
+    if args.manifest:
+        ds = AudioTextDataset.from_jsonl(args.manifest, tokenizer=tok)
+    elif args.noisy_scp and args.text:
+        ds = AudioTextDataset.from_kaldi(args.noisy_scp, args.text,
+                                         tokenizer=tok)
+    else:
+        raise SystemExit("need --manifest or --noisy-scp/--text")
     buckets = tuple(int(x) for x in args.length_buckets.split(",") if x)
     batcher = BucketBatcher(ds, args.batch_size, buckets, pad_final=True)
 

@@ -15,16 +15,27 @@ frontend kernel on the enhancer-free path (``--mode asr``).
       --ckpt-dir exp/joint
   python -m robust_e2e_gan_torch.train.cli --mode lm \\
       --train-manifest data/train.jsonl --ckpt-dir exp/lm   # the RNNLM
+  python -m robust_e2e_gan_torch.train.cli --mode asr \\
+      --train-feats-scp data/feats.scp --train-text data/text \\
+      --cmvn speaker --cmvn-ark data/cmvn.ark --utt2spk data/utt2spk \\
+      --ckpt-dir exp/asr_feats          # precomputed log-mel (Kaldi)
   python -m robust_e2e_gan_torch.train.cli --mode joint --synthetic \\
       --ckpt-dir /tmp/exp_demo --epochs 2      # no-corpus run
 
-The data sources are jsonl manifests of ``.npy`` waveforms
-(``data/dataset.py``: one length-bucketed batcher whose batch order
-reshuffles every epoch from ``--seed``, the dev set in order with the
-train tokenizer, which is saved as ``tokenizer.json``; ``--mode lm``
-trains on the manifest's transcripts) and the synthetic task. The Kaldi
-and precomputed-feature flags, global or speaker CMVN and ``--mesh-data``
-raise ``NotImplementedError`` naming their ROADMAP item. ``--remat`` and
+The data sources (``data/dataset.py``) are jsonl manifests of ``.npy``
+waveforms, Kaldi waveform scp files with a ``text`` file
+(``--train-noisy-scp``), Kaldi feats.scp files of precomputed features
+(``--train-feats-scp``: log-mel for ``--mode asr``, or with ``--feats-kind
+spectrogram|log-spectrogram`` power spectra that go through the enhancer,
+paired with ``--train-clean-feats-scp`` for ``--mode gan|joint``) and the
+synthetic task. One length-bucketed batcher reshuffles its batch order
+every epoch from ``--seed``; the dev set is ``--dev-manifest``, in order,
+with the train tokenizer, which is saved as ``tokenizer.json``; ``--mode
+lm`` trains on the manifest's transcripts. ``--cmvn global`` takes its
+stats from ``--cmvn-ark``, ``--cmvn speaker`` from a speaker-keyed
+``--cmvn-ark`` and ``--utt2spk``; the ark is copied into the run dir as
+``cmvn.ark`` for decoding. ``--mesh-data > 1`` raises
+``NotImplementedError`` naming its ROADMAP item. ``--remat`` and
 ``--scan-unroll`` are XLA scheduling knobs, accepted and without effect;
 ``--prefetch-depth`` likewise (the loop is synchronous).
 ``--gate-storage compute`` rounds the plain BLSTM frame loop's gate
@@ -38,6 +49,7 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 from typing import Optional
 
 import numpy as np
@@ -54,14 +66,6 @@ from robust_e2e_gan_torch.config import (
     TrainConfig,
 )
 
-# data-source flags of the Kaldi and precomputed-feature inputs
-KALDI_FLAGS = ("train_noisy_scp", "train_clean_scp", "train_feats_scp",
-               "train_text", "index_cache", "utt2num_frames",
-               "train_clean_feats_scp", "cmvn_ark", "utt2spk")
-# where the refusals of those inputs send the reader
-KALDI_ITEM = "ROADMAP queue 1, Kaldi and precomputed-feature inputs"
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
@@ -71,12 +75,34 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--train-manifest",
                    help="jsonl manifest of .npy waveforms (data/dataset.py)")
     p.add_argument("--dev-manifest")
-    for flag in KALDI_FLAGS:
-        p.add_argument("--" + flag.replace("_", "-"),
-                       help=f"not ported yet ({KALDI_ITEM})")
+    p.add_argument("--train-noisy-scp", help="Kaldi scp of noisy waveforms")
+    p.add_argument("--train-clean-scp")
+    p.add_argument("--train-feats-scp",
+                   help="Kaldi feats.scp of precomputed features (with "
+                        "--train-text; --mode asr only for log-mel, which "
+                        "has lost the linear spectrum the enhancer masks). "
+                        "--length-buckets are then frame counts.")
+    p.add_argument("--train-text")
+    p.add_argument("--index-cache",
+                   help="persist probed utterance lengths to this path; "
+                        "reused while the scp's size and mtime match")
+    p.add_argument("--utt2num-frames",
+                   help="Kaldi utt2num_frames map; skips the header probe "
+                        "when building the feats.scp index")
     p.add_argument("--feats-kind",
                    choices=("mel", "spectrogram", "log-spectrogram"),
-                   default="mel")
+                   default="mel",
+                   help="what --train-feats-scp holds: 'mel' = offline "
+                        "log-mel (ASR only, no enhancer), 'spectrogram' = "
+                        "linear power spectra at n_fft//2+1 dims, "
+                        "'log-spectrogram' = Kaldi compute-spectrogram-"
+                        "feats log power. The spectrogram kinds go through "
+                        "the enhancer, so --mode gan/joint train on them "
+                        "(with --train-clean-feats-scp)")
+    p.add_argument("--train-clean-feats-scp",
+                   help="clean spectrogram feats paired by utt key "
+                        "(required for --mode gan/joint with a "
+                        "spectrogram --feats-kind)")
     p.add_argument("--synthetic", action="store_true",
                    help="use the built-in synthetic learnable task")
     p.add_argument("--synthetic-utts", type=int, default=512)
@@ -115,6 +141,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fused fbank kernel on enhancer-free paths "
                         "(clean-ASR pretraining forward and backward, "
                         "no-enhancer decode)")
+    p.add_argument("--cmvn-ark",
+                   help="Kaldi CMVN stats ark: global stats for --cmvn "
+                        "global, speaker-keyed for --cmvn speaker "
+                        "(data/cmvn.py layout)")
+    p.add_argument("--utt2spk",
+                   help="Kaldi utt2spk map (required for --cmvn speaker)")
     # optimisation
     p.add_argument("--optimizer", choices=("adadelta", "adam"),
                    default="adadelta")
@@ -205,20 +237,58 @@ def _synthetic_factories(args):
 
 
 def _corpus_factories(args):
-    """(train factory, dev factory or None, vocab size, tokenizer) of
-    ``--train-manifest`` and ``--dev-manifest``."""
+    """(train factory, dev factory or None, vocab size, tokenizer) of the
+    corpus flags: a manifest, a Kaldi waveform scp or a Kaldi feats.scp,
+    with speaker-CMVN stats on every batch for ``--cmvn speaker``."""
     from robust_e2e_gan_torch.data.dataset import (
         AudioTextDataset,
         BucketBatcher,
     )
 
-    train_ds = AudioTextDataset.from_jsonl(args.train_manifest)
+    if args.train_manifest:
+        train_ds = AudioTextDataset.from_jsonl(args.train_manifest)
+    elif args.train_feats_scp and args.train_text:
+        spec = args.feats_kind != "mel"
+        if args.mode != "asr" and not spec:
+            raise SystemExit(
+                "--train-feats-scp with --feats-kind mel supports --mode "
+                "asr only (offline log-mel discarded the linear spectrum "
+                "the enhancer needs); use --feats-kind spectrogram for "
+                "gan/joint on precomputed inputs")
+        if args.mode in ("gan", "joint") and not args.train_clean_feats_scp:
+            raise SystemExit(
+                "--mode gan/joint on spectrogram feats needs paired clean "
+                "spectra: --train-clean-feats-scp")
+        train_ds = AudioTextDataset.from_kaldi_feats(
+            args.train_feats_scp, args.train_text,
+            utt2num_frames=args.utt2num_frames,
+            clean_scp=args.train_clean_feats_scp,
+            index_cache=args.index_cache)
+    elif args.train_noisy_scp and args.train_text:
+        train_ds = AudioTextDataset.from_kaldi(
+            args.train_noisy_scp, args.train_text, args.train_clean_scp,
+            index_cache=args.index_cache)
+    else:
+        raise SystemExit(
+            "need --train-manifest, --train-noisy-scp/--train-text, "
+            "--train-feats-scp/--train-text, or --synthetic")
     tok = train_ds.tokenizer
     buckets = tuple(int(x) for x in args.length_buckets.split(",") if x)
+
+    speaker_cmvn = None
+    if args.cmvn == "speaker":
+        if not (args.cmvn_ark and args.utt2spk):
+            raise SystemExit("--cmvn speaker requires --cmvn-ark (speaker-"
+                             "keyed) and --utt2spk")
+        from robust_e2e_gan_torch.data.cmvn import SpeakerCmvn
+
+        speaker_cmvn = SpeakerCmvn.load(args.cmvn_ark, args.utt2spk)
+
     # one batcher shared across epochs: its generator advances every
     # epoch() call, so the batch order reshuffles each epoch
     train_batcher = BucketBatcher(train_ds, args.batch_size, buckets,
-                                  args.max_label_len, seed=args.seed)
+                                  args.max_label_len, seed=args.seed,
+                                  speaker_cmvn=speaker_cmvn)
 
     def train_batches():
         return train_batcher.epoch(shuffle=True)
@@ -227,7 +297,8 @@ def _corpus_factories(args):
     if args.dev_manifest:
         dev_ds = AudioTextDataset.from_jsonl(args.dev_manifest, tokenizer=tok)
         dev_batcher = BucketBatcher(dev_ds, args.batch_size, buckets,
-                                    args.max_label_len)
+                                    args.max_label_len,
+                                    speaker_cmvn=speaker_cmvn)
 
         def dev_batches():
             return dev_batcher.epoch(shuffle=False)
@@ -316,24 +387,35 @@ def _lm_main(args) -> None:
 
 
 def _refuse_unported(args) -> None:
-    given = [f for f in KALDI_FLAGS if getattr(args, f)]
-    if given:
-        raise NotImplementedError(
-            f"the Kaldi and precomputed-feature sources ({', '.join(given)}) "
-            f"are not ported yet ({KALDI_ITEM}); use --train-manifest or "
-            "--synthetic")
-    if not (args.synthetic or args.train_manifest):
-        raise SystemExit(
-            "need --train-manifest, --train-noisy-scp/--train-text, "
-            "--train-feats-scp/--train-text, or --synthetic")
-    if args.cmvn in ("global", "speaker"):
-        raise NotImplementedError(
-            f"--cmvn {args.cmvn} needs Kaldi CMVN stats, not ported yet "
-            f"({KALDI_ITEM})")
     if args.mesh_data > 1:
         raise NotImplementedError(
             "--mesh-data: data parallelism is not ported yet "
             "(ROADMAP queue 1, data parallel)")
+
+
+def _input_kind(args) -> str:
+    if not args.train_feats_scp:
+        return "wav"
+    return "feats" if args.feats_kind == "mel" else "spec"
+
+
+def _cmvn_stats(args):
+    """The global (mean, inv_std) for ``--cmvn global``; for ``global``
+    and ``speaker`` the stats ark is copied into the run dir, where
+    ``decode.cli`` finds it."""
+    if args.cmvn not in ("global", "speaker"):
+        return None
+    if not args.cmvn_ark:
+        raise SystemExit(f"--cmvn {args.cmvn} requires --cmvn-ark")
+    shutil.copy(args.cmvn_ark, os.path.join(args.ckpt_dir, "cmvn.ark"))
+    if args.cmvn == "speaker":
+        return None  # the per-utterance stats ride each batch
+    from robust_e2e_gan_torch.data.cmvn import (
+        load_cmvn_ark,
+        stats_to_mean_inv_std,
+    )
+
+    return stats_to_mean_inv_std(load_cmvn_ark(args.cmvn_ark))
 
 
 def main(argv: Optional[list] = None) -> None:
@@ -353,15 +435,21 @@ def main(argv: Optional[list] = None) -> None:
     with open(os.path.join(args.ckpt_dir, "config.json"), "w") as f:
         json.dump({"joint": dataclasses.asdict(jcfg),
                    "train": dataclasses.asdict(tcfg), "mode": args.mode,
-                   "input_kind": "wav"}, f, indent=2)
+                   "input_kind": _input_kind(args),
+                   "spec_log_domain": args.feats_kind == "log-spectrogram"},
+                  f, indent=2)
     if tok is not None:
         tok.save(os.path.join(args.ckpt_dir, "tokenizer.json"))
+    cmvn_stats = _cmvn_stats(args)
 
     from robust_e2e_gan_torch.train.loop import train
 
     train(jcfg, tcfg, train_b, dev_batches=dev_b, mode=args.mode,
           log_dir=args.ckpt_dir, resume=not args.no_resume,
-          init_from=args.init_from, save_every_steps=args.save_every_steps,
+          init_from=args.init_from, cmvn_stats=cmvn_stats,
+          save_every_steps=args.save_every_steps,
+          input_kind=_input_kind(args),
+          log_domain=args.feats_kind == "log-spectrogram",
           device=args.device)
 
 

@@ -6,13 +6,16 @@ share one epoch loop with per-step logging, dev evaluation after each
 epoch, Adadelta eps decay on a dev-accuracy plateau, best and latest
 checkpoints (each epoch, and every ``save_every_steps`` within one), resume
 from the latest, and a warm start (``init_from``) from another run's best
-parameters. Batches are moved to the device and checkpoints written on the
+parameters. The input kind (waveforms, precomputed log-mel features or
+precomputed spectra) is the caller's, or is read off the first batch's
+keys. Batches are moved to the device and checkpoints written on the
 training thread; the JAX package's host prefetch thread and asynchronous
 checkpointer are not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Iterator, Optional, Union
 
 import numpy as np
@@ -27,7 +30,8 @@ from robust_e2e_gan_torch.utils import checkpoint as ckpt_lib
 from robust_e2e_gan_torch.utils.logging import MetricLogger, StepTimer
 
 MODES = ("asr", "gan", "joint")
-BATCH_KEYS = ("noisy_wav", "clean_wav", "wav_lengths", "labels")
+BATCH_KEYS = ("noisy_wav", "clean_wav", "wav_lengths", "labels", "feats",
+              "feat_lengths", "clean_feats", "cmvn_mean", "cmvn_inv_std")
 
 
 def resolve_device(device: Union[str, torch.device, None] = "cuda"
@@ -49,13 +53,20 @@ def device_batch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor
 
 
 def init_state(jcfg: JointConfig, tcfg: TrainConfig, device,
-               cmvn_stats=None) -> steps_lib.TrainState:
+               cmvn_stats=None, feat_dim: Optional[int] = None
+               ) -> steps_lib.TrainState:
     """Generator and discriminator with fresh parameters drawn from
-    ``tcfg.seed`` (the flax initialisers' distributions), on ``device``."""
+    ``tcfg.seed`` (the flax initialisers' distributions), on ``device``.
+    ``feat_dim``: the width of a precomputed-features source, which the
+    discriminator is sized to, as the JAX package initialises it on those
+    features; None sizes it to the log-mel of the frontend."""
     model = build_model(jcfg, cmvn_stats=cmvn_stats)
     model.load_state_dict(from_flax(init_params(jcfg, seed=tcfg.seed)))
-    disc = Discriminator(jcfg.discriminator, model.dtype)
-    disc.load_state_dict(from_flax(init_disc_params(jcfg.discriminator,
+    dcfg = jcfg.discriminator
+    if feat_dim is not None:
+        dcfg = dataclasses.replace(dcfg, input_dim=feat_dim)
+    disc = Discriminator(dcfg, model.dtype)
+    disc.load_state_dict(from_flax(init_disc_params(dcfg,
                                                     seed=tcfg.seed + 1)))
     return steps_lib.init_train_state(model.to(device), disc.to(device),
                                       tcfg, seed=tcfg.seed)
@@ -72,22 +83,33 @@ def train(
     init_from: Optional[str] = None,
     cmvn_stats=None,
     save_every_steps: int = 0,
-    input_kind: str = "wav",
+    input_kind: Optional[str] = None,
+    log_domain: bool = False,
     device: Union[str, torch.device] = "cuda",
 ) -> steps_lib.TrainState:
     """Run ``tcfg.num_epochs`` of the selected regime; returns the state.
 
     ``train_batches``/``dev_batches``: zero-argument factories of a fresh
-    epoch of host batches (noisy_wav, clean_wav, wav_lengths, labels).
+    epoch of host batches (noisy_wav, clean_wav, wav_lengths, labels; or
+    feats, feat_lengths[, clean_feats], labels; speaker-CMVN stats too).
     ``mode``: "asr", "gan" or "joint". ``init_from``: a checkpoint dir
     whose best parameters start this run (its step count is not resumed).
+    ``input_kind``: "wav", "feats" or "spec" (``log_domain``: log power
+    spectra); None reads it off the first batch.
     ``device``: the GPU by default (raises without one); "cpu" only when
     asked for.
     """
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}")
     device = resolve_device(device)
-    state = init_state(jcfg, tcfg, device, cmvn_stats)
+    # drawn on every run, as the JAX loop draws it (a shared batcher's
+    # shuffle moves on by one epoch): a batch of features is "feats"
+    # ("spec" is only ever asked for), and sizes a feats run's discriminator
+    first = next(iter(train_batches()))
+    if input_kind is None:
+        input_kind = "feats" if "feats" in first else "wav"
+    feat_dim = first["feats"].shape[-1] if input_kind == "feats" else None
+    state = init_state(jcfg, tcfg, device, cmvn_stats, feat_dim)
 
     start_epoch = 0
     best_acc = -float("inf")
@@ -101,13 +123,15 @@ def train(
         best_acc = float(extra.get("best_acc", best_acc))
 
     if mode == "asr":
-        step_fn = steps_lib.make_asr_pretrain_step(use_enhancer=False,
-                                                   input_kind=input_kind)
+        step_fn = steps_lib.make_asr_pretrain_step(
+            use_enhancer=False, input_kind=input_kind, log_domain=log_domain)
     else:
         step_fn = steps_lib.make_joint_train_step(
-            jcfg, with_asr=(mode == "joint"), input_kind=input_kind)
+            jcfg, with_asr=(mode == "joint"), input_kind=input_kind,
+            log_domain=log_domain)
     eval_fn = steps_lib.make_eval_step(use_enhancer=(mode != "asr"),
-                                       input_kind=input_kind)
+                                       input_kind=input_kind,
+                                       log_domain=log_domain)
 
     logger = MetricLogger(log_dir, name=mode)
     timer = StepTimer()

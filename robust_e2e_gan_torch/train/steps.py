@@ -12,7 +12,13 @@ exactly as optax's ``clip_by_global_norm`` (scaled by ``max_norm / norm``
 only when ``norm >= max_norm``), then Adadelta (rho and eps in the param
 group, so ``decay_adadelta_eps`` changes eps in place) or Adam with
 optax's ``linear_schedule`` warmup (``lr / W`` at the first update,
-``lr`` from update W on). Only the waveform input kind is ported.
+``lr`` from update W on).
+
+``input_kind`` is the batch's input: "wav" (waveforms through the
+frontend), "feats" (precomputed log-mel, Kaldi feats.scp: ASR only) or
+"spec" (precomputed power spectra through the enhancer, linear or, with
+``log_domain``, Kaldi's log power). Speaker-CMVN stats ride the batch as
+"cmvn_mean"/"cmvn_inv_std".
 """
 
 from __future__ import annotations
@@ -33,12 +39,20 @@ from robust_e2e_gan_torch.pipeline import RobustE2E
 Batch = Dict[str, torch.Tensor]
 
 
+INPUT_KINDS = ("wav", "feats", "spec")
+
+
 def _check_input_kind(input_kind: str) -> None:
-    if input_kind != "wav":
-        raise NotImplementedError(
-            f"input_kind {input_kind!r}: the precomputed feats/spectrogram "
-            "inputs are not ported yet (ROADMAP queue 1, Kaldi and "
-            "precomputed-feature inputs)")
+    if input_kind not in INPUT_KINDS:
+        raise ValueError(f"input_kind must be one of {INPUT_KINDS}, got "
+                         f"{input_kind!r}")
+
+
+def _cmvn_batch(batch: Batch):
+    """The per-batch speaker-CMVN stats the loader attached, or None."""
+    if "cmvn_mean" in batch:
+        return (batch["cmvn_mean"], batch["cmvn_inv_std"])
+    return None
 
 
 class Optimizer:
@@ -162,15 +176,37 @@ def _grads(loss: torch.Tensor, params) -> List[torch.Tensor]:
     return list(torch.autograd.grad(loss, params, allow_unused=True))
 
 
+def _asr_out(model: RobustE2E, batch: Batch, input_kind: str,
+             use_enhancer: bool, log_domain: bool, wav: str, **kw):
+    """The ASR forward of ``batch``, as the JAX steps dispatch it: spectra
+    where ``input_kind`` is "spec", else log-mel features where the batch
+    has them (a waveform dev set of a feats run takes the frontend), else
+    the waveforms under key ``wav``."""
+    cmvn = _cmvn_batch(batch)
+    if input_kind == "spec":
+        return model.asr_forward_spec(
+            batch["feats"], batch["feat_lengths"], batch["labels"],
+            use_enhancer=use_enhancer, cmvn_batch=cmvn,
+            log_domain=log_domain, **kw)
+    if "feats" in batch:
+        return model.asr_forward_feats(
+            batch["feats"], batch["feat_lengths"], batch["labels"],
+            cmvn_batch=cmvn, **kw)
+    return model.asr_forward(batch[wav], batch["wav_lengths"],
+                             batch["labels"], use_enhancer=use_enhancer,
+                             cmvn_batch=cmvn, **kw)
+
+
 def make_asr_pretrain_step(use_enhancer: bool = False,
-                           input_kind: str = "wav") -> Callable:
+                           input_kind: str = "wav",
+                           log_domain: bool = False) -> Callable:
     """Clean-ASR pretraining: ``step(state, batch) -> metrics``."""
     _check_input_kind(input_kind)
 
     def step_fn(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
-        out = state.model.asr_forward(
-            batch["clean_wav"], batch["wav_lengths"], batch["labels"],
-            use_enhancer=use_enhancer, deterministic=False, rngs=state.rngs)
+        out = _asr_out(state.model, batch, input_kind, use_enhancer,
+                       log_domain, "clean_wav", deterministic=False,
+                       rngs=state.rngs)
         norm = state.opt_g.step(_grads(out["loss"], state.opt_g.params))
         state.step += 1
         return {"loss": out["loss"].detach(),
@@ -181,49 +217,65 @@ def make_asr_pretrain_step(use_enhancer: bool = False,
     return step_fn
 
 
-def make_eval_step(use_enhancer: bool = True,
-                   input_kind: str = "wav") -> Callable:
+def make_eval_step(use_enhancer: bool = True, input_kind: str = "wav",
+                   log_domain: bool = False) -> Callable:
     """Dev-eval forward: ``eval(model, batch) -> ASR metrics``, on the
     enhanced noisy speech when ``use_enhancer`` (the quantity the reference
     tracked for eps decay and the best checkpoint)."""
     _check_input_kind(input_kind)
+    wav = "noisy_wav" if use_enhancer else "clean_wav"
 
     @torch.no_grad()
     def eval_fn(model: RobustE2E, batch: Batch) -> Dict[str, torch.Tensor]:
-        wav = batch["noisy_wav"] if use_enhancer else batch["clean_wav"]
-        out = model.asr_forward(wav, batch["wav_lengths"], batch["labels"],
-                                use_enhancer=use_enhancer)
+        out = _asr_out(model, batch, input_kind, use_enhancer, log_domain,
+                       wav)
         return {k: out[k] for k in ("loss", "loss_ctc", "loss_att", "acc")}
 
     return eval_fn
 
 
 def make_joint_train_step(jcfg: JointConfig, with_asr: bool = True,
-                          input_kind: str = "wav") -> Callable:
+                          input_kind: str = "wav",
+                          log_domain: bool = False) -> Callable:
     """One alternating adversarial update, ``step(state, batch) ->
     metrics``: the D-step on the generator's deterministic output (no
     gradient to G), then the G-step against the updated D, with loss
     L_ASR + lambda_adv * L_adv + mu_enh * L_enh (L_ASR left out when
-    ``with_asr`` is False: GAN pretraining)."""
+    ``with_asr`` is False: GAN pretraining). ``input_kind="spec"`` runs
+    the same objective on precomputed spectra (batch keys feats,
+    clean_feats, feat_lengths)."""
     _check_input_kind(input_kind)
+    if input_kind == "feats":
+        raise ValueError(
+            "the joint and GAN steps need the linear spectrum the enhancer "
+            "masks: precomputed log-mel features train --mode asr only")
     loss_type = jcfg.discriminator.loss_type
 
     def step_fn(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
         model, disc = state.model, state.discriminator
-        args = (batch["noisy_wav"], batch["clean_wav"], batch["wav_lengths"],
-                batch["labels"])
+        if input_kind == "spec":
+            forward = model.joint_forward_spec
+            args = (batch["feats"], batch["clean_feats"],
+                    batch["feat_lengths"], batch["labels"])
+            kw = {"log_domain": log_domain}
+        else:
+            forward = model.joint_forward
+            args = (batch["noisy_wav"], batch["clean_wav"],
+                    batch["wav_lengths"], batch["labels"])
+            kw = {}
+        kw["cmvn_batch"] = _cmvn_batch(batch)
 
         # ---- D-step: the generator runs without a graph
         with torch.no_grad():
-            fixed = model.joint_forward(*args, with_asr=False)
+            fixed = forward(*args, with_asr=False, **kw)
         d_real = disc(fixed["clean_logmel"], fixed["frame_mask"])
         d_fake = disc(fixed["enhanced_logmel"], fixed["frame_mask"])
         loss_d, _ = adversarial_losses(d_real, d_fake, loss_type)
         norm_d = state.opt_d.step(_grads(loss_d, state.opt_d.params))
 
         # ---- G-step against the updated discriminator
-        out = model.joint_forward(*args, deterministic=False, rngs=state.rngs,
-                                  with_asr=with_asr)
+        out = forward(*args, deterministic=False, rngs=state.rngs,
+                      with_asr=with_asr, **kw)
         d_fake = disc(out["enhanced_logmel"], out["frame_mask"])
         d_real = disc(out["clean_logmel"], out["frame_mask"])
         _, loss_adv = adversarial_losses(d_real, d_fake, loss_type)

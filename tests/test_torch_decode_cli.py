@@ -2,12 +2,15 @@
 the JAX package's ``decode/cli.py`` on the CPU: the same manifest and the
 same parameters decode to the same ``hyp.txt``, ``wer.json`` and n-best
 lists, with ``--serving-impls fused`` and ``xla``, a ragged final batch and
-``--greedy``; the flags of unported paths raise, and without ``--device
+``--greedy``; the Kaldi sources and speaker CMVN decode as the manifest
+and global CMVN they stand for, and refuse what the JAX CLI refuses with
+its message; the flags of unported paths raise, and without ``--device
 cpu`` the CLI raises where there is no GPU."""
 
 import dataclasses
 import json
 import os
+import shutil
 
 import pytest
 
@@ -19,6 +22,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from robust_e2e_gan_tpu import config as jax_config  # noqa: E402
+from robust_e2e_gan_tpu.data import dataset as jax_dataset  # noqa: E402
 from robust_e2e_gan_tpu.data import synthetic as jax_synthetic  # noqa: E402
 from robust_e2e_gan_tpu.decode import cli as jax_cli  # noqa: E402
 from robust_e2e_gan_tpu.models.enhancement import Discriminator  # noqa: E402
@@ -161,26 +165,163 @@ def test_greedy_and_attention_dump(exp):
         np.testing.assert_allclose(att.sum(axis=1), 1.0, rtol=1e-5)
 
 
+@pytest.fixture(scope="module")
+def kaldi(exp):
+    """``exp``'s manifest as a Kaldi recipe (wav.scp of (1, N) vectors,
+    ``text``, ``utt2spk`` with one speaker), the global log-mel stats of
+    its utterances as a "global" ark and as that speaker's ark, and two
+    copies of the port experiment: one with global CMVN (its cmvn.ark
+    in the dir) and one with speaker CMVN."""
+    from robust_e2e_gan_torch.data import cmvn, kaldi_io
+    from robust_e2e_gan_torch.data.featbin_cli import extract_iter
+
+    root = exp["root"] / "kaldi"
+    os.makedirs(root)
+    entries = [json.loads(line) for line in _read(exp["manifest"]).split("\n")]
+    wavs = {e["utt_id"]: np.load(exp["root"] / e["noisy"]) for e in entries}
+    kaldi_io.write_ark_scp(((k, v[None]) for k, v in wavs.items()),
+                           str(root / "wav.ark"), str(root / "wav.scp"))
+    (root / "text").write_text(
+        "".join(f"{e['utt_id']} {e['text']}\n" for e in entries))
+    (root / "utt2spk").write_text("".join(f"{k} spk\n" for k in wavs))
+    jcfg = configs.tiny_config(12)
+    acc = cmvn.CmvnAccumulator(jcfg.e2e.frontend.n_mels)
+    for _, feats in extract_iter(iter(wavs.items()), jcfg.e2e.frontend,
+                                 "fbank", "cpu"):
+        acc.add(feats)
+    cmvn.save_cmvn_ark(acc.stats(), str(root / "global.ark"))
+    cmvn.save_cmvn_ark(acc.stats(), str(root / "spk.ark"), key="spk")
+    dirs = {}
+    for mode, ark in (("global", "global.ark"), ("speaker", "spk.ark")):
+        d = dirs[mode] = str(root / f"exp_{mode}")
+        shutil.copytree(exp["port"], d)
+        shutil.copy(root / ark, os.path.join(d, "cmvn.ark"))
+        with open(os.path.join(d, "config.json")) as f:
+            saved = json.load(f)
+        saved["joint"]["e2e"]["frontend"]["cmvn"] = mode
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(saved, f)
+    return {"root": root, "scp": str(root / "wav.scp"),
+            "text": str(root / "text"), "utt2spk": str(root / "utt2spk"),
+            "spk_ark": str(root / "spk.ark"), **dirs}
+
+
+def _jax_exit(monkeypatch, argv, cmvn="utterance", input_kind="wav"):
+    """The JAX CLI's SystemExit for ``argv``, from an experiment of that
+    CMVN mode and input kind (its restore stubbed: the CLI refuses before
+    it runs the model)."""
+    jcfg = _jax(configs.tiny_config(12))
+    jcfg = dataclasses.replace(jcfg, e2e=dataclasses.replace(
+        jcfg.e2e, frontend=dataclasses.replace(jcfg.e2e.frontend,
+                                               cmvn=cmvn)))
+    monkeypatch.setattr(jax_cli, "load_experiment", lambda *a, **kw: (
+        None, None, None, jcfg, None, 1, input_kind, False))
+    with pytest.raises(SystemExit) as exc:
+        jax_cli.main(argv)
+    return str(exc.value)
+
+
+def _port_exit(argv):
+    with pytest.raises(SystemExit) as exc:
+        cli.main(argv + ["--device", "cpu"])
+    return str(exc.value)
+
+
+def _decoded(exp, ckpt, out, *extra):
+    """hyp.txt, wer.json and nbest.jsonl of a port decode."""
+    argv = ["--ckpt-dir", ckpt, "--out", str(exp["root"] / out),
+            "--batch-size", "4", "--beam-size", "3", "--max-steps", "6",
+            "--length-buckets", "16000", "--nbest", "2", "--device", "cpu",
+            *extra]
+    cli.main(argv)
+    return [_read(str(exp["root"] / out / name))
+            for name in ("hyp.txt", "wer.json", "nbest.jsonl")]
+
+
 @pytest.mark.parametrize("flag", [
     ["--noisy-scp", "x.scp", "--text", "text"], ["--feats-scp", "f.scp"],
     ["--utt2num-frames", "u"], ["--index-cache", "c"], ["--utt2spk", "u"],
     ["--cmvn-ark", "c.ark"], ["--mesh-data", "2"], ["--pipelined", "on"],
     ["--pipelined", "chunked"]], ids=lambda f: f[0] + f[-1])
-def test_unported_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["--ckpt-dir", str(tmp_path), "--manifest", "m.jsonl",
-                  "--device", "cpu", *flag])
-    assert not os.listdir(tmp_path)
+def test_unported_flags_raise(exp, kaldi, monkeypatch, tmp_path, flag):
+    """The flags of the paths that stay unported (data-parallel serving,
+    the staged and chunked schedules) raise; the Kaldi flags do what the
+    JAX CLI's do: the same SystemExit, or a decode equal to the one it
+    stands for."""
+    name = flag[0]
+    if name in ("--mesh-data", "--pipelined"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cli.main(["--ckpt-dir", str(tmp_path), "--manifest", "m.jsonl",
+                      "--device", "cpu", *flag])
+        assert not os.listdir(tmp_path)
+    elif name == "--noisy-scp":
+        # a wav.scp with its text decodes as the JAX CLI decodes it, and as
+        # the manifest it was made from
+        src = ["--noisy-scp", kaldi["scp"], "--text", kaldi["text"]]
+        got = _decoded(exp, exp["port"], "kaldi_scp", *src)
+        jax_cli.main(["--ckpt-dir", exp["jax"], "--out",
+                      str(exp["root"] / "jax_scp"), "--batch-size", "4",
+                      "--beam-size", "3", "--max-steps", "6",
+                      "--length-buckets", "16000", *src])
+        assert got[:2] == [_read(str(exp["root"] / "jax_scp" / n))
+                           for n in ("hyp.txt", "wer.json")]
+        assert got == _decoded(exp, exp["port"], "kaldi_manifest",
+                               "--manifest", exp["manifest"])
+    elif name == "--feats-scp":  # a waveform experiment
+        argv = ["--ckpt-dir", exp["port"], "--feats-scp", "f.scp", "--text",
+                kaldi["text"]]
+        msg = _port_exit(argv)
+        assert msg == _jax_exit(monkeypatch, argv)
+        assert "--train-feats-scp" in msg
+    elif name == "--utt2num-frames":  # no source
+        argv = ["--ckpt-dir", exp["port"], "--utt2num-frames", "u"]
+        assert _port_exit(argv) == _jax_exit(monkeypatch, argv)
+    elif name == "--index-cache":
+        # the same lengths cached as the JAX dataset's; the second decode
+        # probes no ark header and decodes the same
+        from robust_e2e_gan_torch.data import dataset
+
+        cache = str(tmp_path / "index.json")
+        argv = ["--noisy-scp", kaldi["scp"], "--text", kaldi["text"],
+                "--index-cache", cache]
+        first = _decoded(exp, exp["port"], "cached_1", *argv)
+        jax_dataset.AudioTextDataset.from_kaldi(
+            kaldi["scp"], kaldi["text"], index_cache=str(tmp_path / "j.json"))
+        with open(cache) as a, open(tmp_path / "j.json") as b:
+            assert json.load(a) == json.load(b)
+        monkeypatch.setattr(dataset, "_probe_shape", None)
+        assert _decoded(exp, exp["port"], "cached_2", *argv) == first
+    elif name == "--utt2spk":
+        # every utterance's speaker holds the global stats: the speaker
+        # experiment decodes as the global one, bit for bit
+        assert _decoded(exp, kaldi["speaker"], "spk", "--manifest",
+                        exp["manifest"], "--utt2spk", kaldi["utt2spk"],
+                        "--cmvn-ark", kaldi["spk_ark"]) == _decoded(
+            exp, kaldi["global"], "global", "--manifest", exp["manifest"])
+    else:  # --cmvn-ark without --utt2spk on a speaker experiment
+        argv = ["--ckpt-dir", kaldi["speaker"], "--manifest",
+                exp["manifest"], "--cmvn-ark", kaldi["spk_ark"]]
+        msg = _port_exit(argv)
+        assert msg == _jax_exit(monkeypatch, argv, cmvn="speaker")
+        assert "--utt2spk" in msg
 
 
-def test_precomputed_feature_experiment_raises(exp, tmp_path):
-    with open(os.path.join(exp["port"], "config.json")) as f:
+def test_precomputed_feature_experiment_raises(exp, monkeypatch, tmp_path):
+    """A feats experiment decoded from a manifest raises the JAX CLI's
+    SystemExit; its discriminator is rebuilt at the features' width."""
+    shutil.copytree(exp["port"], tmp_path / "feats_exp")
+    with open(tmp_path / "feats_exp" / "config.json") as f:
         saved = json.load(f)
-    with open(tmp_path / "config.json", "w") as f:
+    with open(tmp_path / "feats_exp" / "config.json", "w") as f:
         json.dump({**saved, "input_kind": "feats"}, f)
-    with pytest.raises(NotImplementedError,
-                       match="Kaldi and precomputed-feature inputs"):
-        cli.load_experiment(str(tmp_path), device="cpu")
+    argv = ["--ckpt-dir", str(tmp_path / "feats_exp"), "--manifest",
+            exp["manifest"]]
+    msg = _port_exit(argv)
+    assert msg == _jax_exit(monkeypatch, argv, input_kind="feats")
+    assert "--feats-scp" in msg
+    _, _, _, _, input_kind, log_domain = cli.load_experiment(
+        str(tmp_path / "feats_exp"), device="cpu")
+    assert (input_kind, log_domain) == ("feats", False)
 
 
 def test_cli_raises_without_a_gpu(exp, monkeypatch, tmp_path):

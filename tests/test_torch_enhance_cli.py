@@ -3,9 +3,10 @@ package's ``decode/enhance_cli.py`` on the CPU: the parameters the port
 restores from its experiment dir, handed to the JAX CLI's program in place
 of its own restore, enhance the same manifest (a ragged final batch
 included) to arks and scps with the same keys, frame counts and values in
-both domains, which each package's ``kaldi_io`` reads; the flags of
-unported paths raise, and without ``--device cpu`` the CLI raises where
-there is no GPU."""
+both domains, which each package's ``kaldi_io`` reads; a Kaldi wav.scp
+enhances as the manifest it was made from; the flags of unported paths
+raise, and without ``--device cpu`` the CLI raises where there is no
+GPU."""
 
 import dataclasses
 import json
@@ -102,13 +103,54 @@ def test_enhance_cli_matches_jax(exp, monkeypatch, domain, dim):
 @pytest.mark.parametrize("flag", [["--noisy-scp", "wav.scp"],
                                   ["--text", "text"], ["--mesh-data", "2"]],
                          ids=lambda f: f[0])
-def test_unported_flags_raise(tmp_path, flag):
-    match = "data parallel" if flag[0] == "--mesh-data" else (
-        "Kaldi and precomputed-feature inputs")
-    with pytest.raises(NotImplementedError, match=match):
-        enhance_cli.main(["--ckpt-dir", str(tmp_path), "--out",
-                          str(tmp_path / "e"), "--device", "cpu", *flag])
+def test_unported_flags_raise(exp, monkeypatch, tmp_path, flag):
+    """``--mesh-data`` stays unported; a Kaldi flag without its pair
+    raises the JAX CLI's SystemExit, before anything is written."""
+    argv = ["--ckpt-dir", exp["port"], "--out", str(tmp_path / "e"), *flag]
+    if flag[0] == "--mesh-data":
+        with pytest.raises(NotImplementedError, match="data parallel"):
+            enhance_cli.main(argv + ["--device", "cpu"])
+    else:
+        with pytest.raises(SystemExit) as port:
+            enhance_cli.main(argv + ["--device", "cpu"])
+        with pytest.raises(SystemExit) as jax_exit:
+            _jax_enhance(exp, monkeypatch, argv)
+        assert str(port.value) == str(jax_exit.value) == (
+            "need --manifest or --noisy-scp/--text")
     assert not os.listdir(tmp_path)
+
+
+def test_enhance_cli_from_a_wav_scp(exp, monkeypatch, tmp_path):
+    """A Kaldi wav.scp and text enhance as the JAX CLI enhances them, and
+    to the ark and scp of the manifest they were made from, byte for
+    byte."""
+    wavs = {e["utt_id"]: np.load(exp["root"] / e["noisy"])
+            for e in exp["entries"]}
+    kaldi_io.write_ark_scp(((k, v[None]) for k, v in wavs.items()),
+                           str(tmp_path / "wav.ark"), str(tmp_path / "wav.scp"))
+    (tmp_path / "text").write_text("".join(f"{k} ab\n" for k in wavs))
+    out = {}
+    for tag, src in (("scp", ["--noisy-scp", str(tmp_path / "wav.scp"),
+                              "--text", str(tmp_path / "text")]),
+                     ("manifest", ["--manifest", exp["manifest"]])):
+        out[tag] = tmp_path / tag
+        enhance_cli.main([*src, "--ckpt-dir", exp["port"], "--out",
+                          str(out[tag]), "--batch-size", "4",
+                          "--length-buckets", "16000", "--device", "cpu"])
+    _jax_enhance(exp, monkeypatch, [
+        "--noisy-scp", str(tmp_path / "wav.scp"), "--text",
+        str(tmp_path / "text"), "--ckpt-dir", exp["port"], "--out",
+        str(tmp_path / "jax"), "--batch-size", "4", "--length-buckets",
+        "16000"])
+    got = dict(kaldi_io.read_mat_scp(str(tmp_path / "scp.scp")))
+    want = dict(jax_kio.read_mat_scp(str(tmp_path / "jax.scp")))
+    assert sorted(got) == sorted(want) == sorted(wavs)
+    for k in wavs:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-5)
+    assert (tmp_path / "scp.ark").read_bytes() == (
+        tmp_path / "manifest.ark").read_bytes()
+    assert (tmp_path / "scp.scp").read_text().replace("scp.ark", "x") == (
+        tmp_path / "manifest.scp").read_text().replace("manifest.ark", "x")
 
 
 def test_enhance_cli_raises_without_a_gpu(exp, monkeypatch, tmp_path):

@@ -1,9 +1,12 @@
 """Guards of the PyTorch port: the parameter mapping covers the JAX tree,
 the configs, synthetic data and LM label batches match the JAX package's,
+each command-line tool takes the JAX tool's flags (and ``--device`` where
+it runs on the device),
 the package imports neither JAX nor the JAX package, the inference-only
 wrappers refuse autograd, the entry points refuse to fall back to the CPU,
 and chip_smoke.py refuses to run without a GPU."""
 
+import argparse
 import dataclasses
 import os
 import shutil
@@ -198,6 +201,38 @@ def test_synthetic_batch_matches_jax(case):
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
 
 
+# the subcommands of ``python -m robust_e2e_gan_torch`` that run on the
+# device and so add ``--device`` to the JAX tool's flags
+DEVICE_TOOLS = {"train": True, "decode": True, "enhance": True,
+                "score": False, "cmvn": True, "fbank": True,
+                "copy-feats": False}
+
+
+@pytest.mark.parametrize("command", list(DEVICE_TOOLS))
+def test_cli_flags_are_the_jax_flags(command, monkeypatch):
+    """Each subcommand's parser, caught as its ``main`` parses, against the
+    JAX package's subcommand of that name."""
+    from robust_e2e_gan_tpu import __main__ as jax_entry
+    from robust_e2e_gan_torch import __main__ as entry
+
+    class Parsed(Exception):
+        pass
+
+    def catch(parser, *a, **kw):
+        raise Parsed(parser)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", catch)
+    flags = []
+    for main in (entry.main, jax_entry.main):
+        with pytest.raises(Parsed) as exc:
+            main([command])
+        flags.append({s for a in exc.value.args[0]._actions
+                      for s in a.option_strings})
+    assert flags[0] - flags[1] == ({"--device"} if DEVICE_TOOLS[command]
+                                   else set())
+    assert flags[1] <= flags[0]
+
+
 def test_port_imports_no_jax():
     child = (
         "import importlib, pkgutil, sys\n"
@@ -210,7 +245,9 @@ def test_port_imports_no_jax():
         "       if m in sys.modules]\n"
         "need = {'robust_e2e_gan_torch.' + m for m in ('models.lm',\n"
         "        'ops.lm_step', 'ops.fbank_fused', 'train.lm', 'decode.cli',\n"
-        "        'data.dataset', 'ops.editdistance', 'ops.att_dec')}\n"
+        "        'data.dataset', 'ops.editdistance', 'ops.att_dec',\n"
+        "        'data.cmvn', 'data.cmvn_cli', 'data.featbin_cli',\n"
+        "        '__main__')}\n"
         "print(len(names), bad, need - set(names))\n"
         "sys.exit(1 if bad or need - set(names) or len(names) < 23 else 0)\n"
     )

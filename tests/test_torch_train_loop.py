@@ -56,13 +56,22 @@ def test_cli_trains_and_resumes(tmp_path):
                                                          "sampling"}
 
 
-@pytest.mark.parametrize("argv", [
-    ["--train-noisy-scp", "wav.scp"],
-    ["--synthetic", "--cmvn", "global"],
+@pytest.mark.parametrize("argv,message", [
+    (["--train-noisy-scp", "wav.scp"], "need --train-manifest, "
+     "--train-noisy-scp/--train-text, --train-feats-scp/--train-text, or "
+     "--synthetic"),
+    (["--synthetic", "--cmvn", "global"], "--cmvn global requires "
+     "--cmvn-ark"),
 ], ids=["corpus", "global_cmvn"])
-def test_cli_refuses_unported_sources(tmp_path, argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        cli.main(argv + ["--ckpt-dir", str(tmp_path)])
+def test_cli_refuses_unported_sources(tmp_path, argv, message):
+    """A source the CLI cannot train on stops it with the JAX CLI's
+    SystemExit: a Kaldi scp without its ``text``, global CMVN without its
+    stats ark (``test_torch_precomputed.py`` holds the Kaldi sources
+    themselves)."""
+    with pytest.raises(SystemExit) as exc:
+        cli.main(argv + ["--ckpt-dir", str(tmp_path), "--device", "cpu"])
+    assert str(exc.value) == message
+    assert not os.path.exists(tmp_path / "checkpoints.json")
 
 
 def test_cli_trains_the_lm_resumes_and_reloads(tmp_path):

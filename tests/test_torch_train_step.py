@@ -186,10 +186,16 @@ def test_decay_adadelta_eps_matches_jax():
 
 
 def test_input_kinds_not_ported_raise():
-    for make in (lambda: steps.make_asr_pretrain_step(input_kind="feats"),
-                 lambda: steps.make_eval_step(input_kind="spec"),
-                 lambda: steps.make_joint_train_step(_jcfg(),
-                                                     input_kind="spec")):
-        with pytest.raises(NotImplementedError,
-                           match="Kaldi and precomputed-feature inputs"):
-            make()
+    """The input kinds no JAX step runs raise: the joint and GAN steps on
+    precomputed log-mel (they need the linear spectrum the enhancer
+    masks; the JAX CLI refuses them too) and an unknown kind. The
+    precomputed kinds' steps are held against JAX in
+    test_torch_precomputed.py."""
+    with pytest.raises(ValueError, match="--mode asr only"):
+        steps.make_joint_train_step(_jcfg(), input_kind="feats")
+    for make in (steps.make_asr_pretrain_step, steps.make_eval_step):
+        with pytest.raises(ValueError, match="input_kind must be one of"):
+            make(input_kind="mfcc")
+    for kind in steps.INPUT_KINDS:
+        assert callable(steps.make_asr_pretrain_step(input_kind=kind))
+        assert callable(steps.make_eval_step(input_kind=kind))
