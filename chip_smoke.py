@@ -218,7 +218,36 @@ Phases, each of which exits non-zero on failure:
     joint`` on the wav.scp with global CMVN and an index cache, resumed
     with no ark header probed, ``decode`` of each from its Kaldi source,
     ``enhance --noisy-scp`` and ``score`` equal to each ``wer.json``; every
-    section's launches checked as phase 17's.
+    section's launches checked as phase 17's;
+20. the attention variants and model interchange: (1) phase 4's traffic
+    in bfloat16 through the flagship with AttAdd, then AttDot attention
+    (seed-0 weights from ``init_params``), with the unfused step and with
+    ``step_impl="fused"``, which such a model does not take: 12 cluster
+    BLSTM launches and 144 of each CTC prefix kernel on route "utt", no
+    attention kernel and no fused step, no plain version; utt/s and ms per
+    batch on a line naming the card, not gated; then the kernel path
+    against the plain path in float32 at B=16: best scores within 1e-3
+    relative, best hypotheses identical; (2) the flagship's seed-0
+    generator exported in the reference layout (``torch.save`` of
+    ``tools/import_reference_ckpt.py::export_state_dict``), imported with
+    ``--units`` (50 units at ids 1-50): the parameters bit-equal,
+    enhancer included, a ``TableTokenizer`` of vocab 52, sos = eos = 51;
+    ``decode.cli`` on 128 ``.npy`` utterances of phase 4's task (bfloat16,
+    beam 8, 48 steps) with the default impls and with ``--serving-impls
+    fused``: the best token ids identical to the searcher's on the original
+    weights with the same ids, impls and batch; and the kernel path against
+    the plain path with eos 51 in float32 at B=16, tokens identical; (3)
+    phase 7's experiment written as the JAX package writes one
+    (``ckpt_<step>.msgpack``, a JAX ``TrainState`` in the flax layout):
+    ``decode.cli``'s ``hyp.txt`` and ``wer.json`` and ``enhance_cli``'s
+    ark/scp byte-identical to the ``.pt`` experiment's, ``train.cli
+    --init-from`` it for 2 steps with the first step's metrics within 1e-6
+    of the warm start from the ``.pt`` experiment, ``--resume`` on it
+    refused; (4) 3 flagship joint steps (bfloat16, phase 6's batch), each
+    saved by ``AsyncCheckpointer`` while the next step updates the state
+    in place: every checkpoint restores bit-equal to the state at its
+    save; the ms ``save()`` blocked the training thread and the ms of the
+    last write on the saver's thread printed.
 
 Each phase after 15 prints its seconds. The line before the last is a JSON object of the 22 kernels (``gemm``
 the products of one row-6 call, with phase 6's launches; the
@@ -240,6 +269,7 @@ with phase 15's forced batch's); the last line is
 from __future__ import annotations
 
 import contextlib
+import csv
 import dataclasses
 import json
 import os
@@ -309,10 +339,12 @@ from robust_e2e_gan_torch.ops import (
 from robust_e2e_gan_torch.ops.fbank import num_frames
 from robust_e2e_gan_torch.pipeline import build_model
 from robust_e2e_gan_torch.train import cli as train_cli
+from robust_e2e_gan_torch.train import loop as train_loop
 from robust_e2e_gan_torch.train import steps as train_steps
 from robust_e2e_gan_torch.train.lm import load_lm
 from robust_e2e_gan_torch.tools import (
     adversarial_benefit,
+    import_reference_ckpt,
     lm_benefit,
     verify_drive,
 )
@@ -3713,6 +3745,455 @@ def kaldi_phase(state, state_d, dev, work) -> None:
                         f"spec serving x{N_BATCHES}": serve_launches}))
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the attention variants and model interchange
+# ---------------------------------------------------------------------------
+
+# the kernels no AttAdd or AttDot decode may launch: both attention routes
+# and both fused-step routes are location-only
+LOCATION_ONLY = ("att_loc_step", "att_loc_step_hyp", "att_dec_step",
+                 "att_dec_step_hyp")
+# the imported reference's units: ids 1-50, blank 0, sos = eos = 51
+UNITS = "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWX"
+INTERCHANGE_STEPS = 3
+# two float32 searches whose best hypotheses differ: the two best scores
+# must be this close (relative). On random weights a beam holds
+# hypotheses within float32 summation noise of each other, and one prune
+# decided the other way parts the two beams (AttDot, seed 100, utterance
+# 1: best scores 2.2e-5 apart)
+NEAR_TIE = 1e-4
+
+
+def with_variant(jcfg, variant: str):
+    return dataclasses.replace(jcfg, e2e=dataclasses.replace(
+        jcfg.e2e, attention=dataclasses.replace(jcfg.e2e.attention,
+                                                variant=variant)))
+
+
+def variant_serving(variant, b, n_batches, dev) -> dict:
+    """Phase 20, step 1 for one variant: phase 4's traffic in bfloat16
+    through the flagship with ``variant`` attention (seed-0 weights), with
+    the unfused and with ``step_impl="fused"`` (which such a model does
+    not take): the cluster BLSTM and the CTC prefix on route "utt", no
+    attention kernel, no fused step; utt/s reported; then the kernel path
+    against the plain path in float32 at B=16."""
+    bcfg = BeamSearchConfig(beam_size=BEAM, ctc_weight=0.3, max_steps=STEPS,
+                            early_exit=False)
+    base = with_variant(flagship_config(VOCAB), variant)
+    state = from_flax(init_params(base, seed=0))
+    batches = [batch_tensors(b, seed, dev) for seed in range(n_batches)]
+    n_layers = base.enhancer.num_layers + base.e2e.encoder.num_layers
+    launched = {}
+    for step_impl in ("auto", "fused"):
+        cfg = with_step_impl(with_impls(base, "auto", "auto", "bfloat16"),
+                             step_impl)
+        model = load(cfg, state, dev)
+        search = make_beam_searcher(model, cfg.e2e, bcfg)
+        reset_counts()
+        for wav, lens in batches:
+            check_result(search(wav, lens), b)
+        launched[step_impl] = launched_now()
+        _, plain_calls = counts(KERNELS)
+        where = f"{variant} step_impl={step_impl}"
+        print(f"  {where}: launches {launched[step_impl]}")
+        routes = dict(blstm.INFER_ROUTE_LAUNCHES)
+        require(routes == {"cluster": n_batches * n_layers, "row_tiled": 0}
+                and blstm.blstm_recurrence.launches == 0,
+                f"{where}: BLSTM launches {routes}, not "
+                f"{n_batches * n_layers} on the cluster route")
+        require_utt_prefix(where, n_batches * STEPS, n_batches * STEPS)
+        require(not any(launched[step_impl].get(n) for n in LOCATION_ONLY),
+                f"{where}: a location-only kernel launched")
+        require(not any(plain_calls.values()),
+                f"{where}: a plain version ran: {plain_calls}")
+        if step_impl == "auto":
+            ms, enc_ms, search_ms = steady(batches, search, model, cfg, bcfg)
+            print(f"  {variant}: {b * 1e3 / ms:.2f} utt/s, {ms:.1f} ms/batch "
+                  f"(encode {enc_ms:.1f} ms + search {search_ms:.1f} ms; "
+                  f"means over {n_batches} warm batches; {card()})")
+
+    wav, lens = batch_tensors(16, 100, dev)
+    out = {}
+    for tag, lstm_impl, score, prefix in (("kernel", "auto", "auto", "auto"),
+                                          ("plain", "scan", "xla", "twopass")):
+        cfg = with_impls(base, lstm_impl, score, "float32")
+        search = make_beam_searcher(
+            load(cfg, state, dev), cfg.e2e,
+            dataclasses.replace(bcfg, prefix_impl=prefix))
+        reset_counts()
+        out[tag] = search(wav, lens)
+        check_result(out[tag], 16)
+        if tag == "kernel":
+            require_utt_prefix(f"{variant} f32", STEPS, STEPS)
+    rel, same = compare_results(out["kernel"], out["plain"],
+                                f"{variant} float32")
+    print(f"  {variant} float32 B=16: best-score max rel diff {rel:.3e} "
+          f"(limit 1e-3); best hypotheses token-identical {same}/16 (any "
+          f"other a near tie)")
+    require(rel <= 1e-3, f"{variant}: the kernel and plain paths disagree")
+    return launched["auto"]
+
+
+def compare_results(a, b, where):
+    """(best-score max relative difference, best hypotheses identical) of
+    two searches of one batch. Where the best hypotheses differ, the two
+    are printed, and it passes only as a near tie: the two best scores
+    within ``NEAR_TIE`` relative (the beams parted at a prune between
+    hypotheses of nearly equal score)."""
+    rel = ((a.scores - b.scores).abs()
+           / b.scores.abs().clamp_min(1e-6))
+    same = 0
+    for j in range(a.tokens.shape[0]):
+        if torch.equal(a.tokens[j], b.tokens[j]):
+            same += 1
+            continue
+        ka, kb = hyp_tokens(a.tokens[j]), hyp_tokens(b.tokens[j])
+        first = next((i for i, (x, y) in enumerate(zip(ka, kb)) if x != y),
+                     min(len(ka), len(kb)))
+        print(f"  {where}, utterance {j}: best hypotheses differ from token "
+              f"{first} (lengths {len(ka)}, {len(kb)}); best scores "
+              f"{a.scores[j].item():.4f} (kernel), {b.scores[j].item():.4f} "
+              f"(plain), relative difference {rel[j].item():.3e}")
+        require(rel[j].item() <= NEAR_TIE,
+                f"{where}, utterance {j}: the paths' best hypotheses differ "
+                f"by more than a near tie")
+    return rel.max().item(), same
+
+
+def hyp_tokens(row):
+    return [int(t) for t in row.tolist() if t != -1]
+
+
+def write_units_manifest(root, n, seed):
+    """A manifest of ``n`` .npy utterances of phase 4's task, its texts in
+    the ``UNITS`` table (token t is ``UNITS[t - 1]``; the table cannot
+    write 51, its sos/eos), the units.txt, and its tokenizer."""
+    units = os.path.join(root, "units.txt")
+    with open(units, "w") as f:
+        f.writelines(f"{u} {i + 1}\n" for i, u in enumerate(UNITS))
+    tok = dataset.TableTokenizer.from_units(units)
+    rng = np.random.default_rng(seed)
+    entries = []
+    for i in range(n):
+        tokens = sample_transcript(SYNTH, rng)
+        _, noisy = synth_utterance(tokens, SYNTH, rng)
+        np.save(os.path.join(root, f"r{i:03d}.npy"), noisy)
+        entries.append({"utt_id": f"r{i:03d}", "noisy": f"r{i:03d}.npy",
+                        "n_samples": len(noisy),
+                        "text": tok.decode(tokens)})
+    manifest = os.path.join(root, "manifest.jsonl")
+    with open(manifest, "w") as f:
+        f.write("\n".join(json.dumps(e) for e in entries) + "\n")
+    return manifest, units, tok
+
+
+def cli_batch(manifest, tok, dev):
+    """The one batch ``decode.cli`` decodes from ``manifest`` (its batcher,
+    its default length buckets): (waveforms, lengths, utterance ids)."""
+    buckets = tuple(int(x) for x in decode_cli.build_parser().get_default(
+        "length_buckets").split(","))
+    ds = dataset.AudioTextDataset.from_jsonl(manifest, tokenizer=tok)
+    batch = next(dataset.BucketBatcher(ds, BATCH, buckets, pad_final=True)
+                 .epoch(shuffle=False))
+    return (torch.from_numpy(batch["noisy_wav"]).to(dev),
+            torch.from_numpy(batch["wav_lengths"]).to(dev), batch["utt_ids"])
+
+
+def nbest_tokens(out_dir):
+    """utt id -> the best hypothesis' tokens, from ``--nbest 1``."""
+    with open(os.path.join(out_dir, "nbest.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return {r["utt_id"]: r["nbest"][0]["tokens"] for r in rows}
+
+
+def reference_import(work, dev) -> dict:
+    """Phase 20, step 2: the flagship's seed-0 generator exported in the
+    reference layout, imported with ``--units`` by the port's tool, then
+    decoded with sos = eos = 51 by ``decode.cli`` (bfloat16, the default
+    and the fused step) against the searcher on the original weights, and
+    on the kernel and plain paths in float32 at B=16."""
+    root = os.path.join(work, "import")
+    os.makedirs(root)
+    base = dataclasses.replace(flagship_config(VOCAB),
+                               compute_dtype="bfloat16")
+    params = init_params(base, seed=0)
+    pth = os.path.join(root, "ref.pth")
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in
+                import_reference_ckpt.export_state_dict(params, base).items()},
+               pth)
+    cfg_path = os.path.join(root, "config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(dataclasses.asdict(base), f)
+    manifest, units, tok = write_units_manifest(root, BATCH, seed=20)
+    exp = os.path.join(root, "exp")
+    t0 = time.perf_counter()
+    import_reference_ckpt.main([pth, exp, "--config", cfg_path,
+                                "--units", units])
+    print(f"  import: {time.perf_counter() - t0:.1f} s")
+
+    saved = torch.load(os.path.join(exp, "ckpt_0.pt"), map_location="cpu",
+                       weights_only=True)["model"]
+    want = from_flax(params)
+    require(set(saved) == set(want)
+            and all(torch.equal(saved[k], v) for k, v in want.items()),
+            "the imported parameters differ from the exported ones")
+    got_tok = dataset.load_tokenizer(os.path.join(exp, "tokenizer.json"))
+    with open(os.path.join(exp, "config.json")) as f:
+        e2e = json.load(f)["joint"]["e2e"]
+    ids = (e2e["blank_id"], e2e["sos_id"], e2e["eos_id"])
+    print(f"  imported {len(saved)} tensors, bit-equal, enhancer included; "
+          f"{type(got_tok).__name__} vocab {got_tok.vocab_size}, "
+          f"blank/sos/eos {ids}")
+    require(isinstance(got_tok, dataset.TableTokenizer)
+            and got_tok.vocab_size == VOCAB and ids == (0, 51, 51),
+            f"the imported tokenizer or ids: {got_tok}, {ids}")
+
+    jcfg = config_lib.from_dict(JointConfig, dataclasses.asdict(base))
+    jcfg = dataclasses.replace(jcfg, e2e=dataclasses.replace(
+        jcfg.e2e, sos_id=51, eos_id=51))
+    wav, lens, utt_ids = cli_batch(manifest, tok, dev)
+    argv = ["--manifest", manifest, "--ckpt-dir", exp, "--batch-size",
+            str(BATCH), "--beam-size", str(BEAM), "--max-steps", str(STEPS),
+            "--no-early-exit", "--nbest", "1"]
+    launches = {}
+    for impls, route_check in (("auto", "att_loc_step"),
+                               ("fused", "att_dec_step")):
+        out = os.path.join(root, f"decode_{impls}")
+        args = argv + ["--serving-impls", impls, "--out", out]
+        reset_counts()
+        decode_cli.main(args)
+        torch.cuda.synchronize()
+        launches[impls] = launched_now()
+        print(f"  decode.cli --serving-impls {impls}: launches "
+              f"{launches[impls]}")
+        require(launches[impls].get(route_check) == STEPS,
+                f"--serving-impls {impls}: {route_check} launched "
+                f"{launches[impls].get(route_check)} times, not {STEPS}")
+        # the searcher on the original weights: the same batch, the same
+        # impls and search
+        bcfg = decode_cli.beam_config(decode_cli.build_parser()
+                                      .parse_args(args))
+        cfg = decode_cli.with_serving_impls(jcfg, impls)
+        search = make_beam_searcher(load(cfg, want, dev), cfg.e2e, bcfg)
+        res = search(wav, lens)
+        check_result(res, BATCH)
+        ref = {u: [int(t) for t in row if t != -1]
+               for u, row in zip(utt_ids, res.tokens.tolist())}
+        got = nbest_tokens(out)
+        same = sum(got[u] == ref[u] for u in ref)
+        print(f"  --serving-impls {impls}: best token ids identical to the "
+              f"searcher's on the original weights {same}/{len(ref)}")
+        require(same == len(ref) == BATCH,
+                f"--serving-impls {impls}: the imported model decodes "
+                f"other tokens")
+        require(all(0 < t < 51 for toks in got.values() for t in toks),
+                "a best hypothesis holds blank or sos/eos")
+
+    out = {}
+    wav16, lens16 = wav[:16], lens[:16]
+    bcfg = BeamSearchConfig(beam_size=BEAM, ctc_weight=0.3, max_steps=STEPS,
+                            early_exit=False)
+    for tag, lstm_impl, score, prefix in (("kernel", "auto", "auto", "auto"),
+                                          ("plain", "scan", "xla", "twopass")):
+        cfg = with_impls(jcfg, lstm_impl, score, "float32")
+        search = make_beam_searcher(
+            load(cfg, want, dev), cfg.e2e,
+            dataclasses.replace(bcfg, prefix_impl=prefix))
+        reset_counts()
+        out[tag] = search(wav16, lens16)
+        check_result(out[tag], len(wav16))
+        if tag == "kernel":
+            launches["f32 kernel"] = launched_now()
+    rel, same = compare_results(out["kernel"], out["plain"], "eos 51")
+    print(f"  eos 51, float32 B=16: best-score max rel diff {rel:.3e} "
+          f"(limit 1e-3); token-identical {same}/{len(wav16)} (any other "
+          f"a near tie); kernel launches {launches['f32 kernel']}")
+    require(rel <= 1e-3, "eos 51: the kernel and plain paths disagree")
+    return launches
+
+
+def write_jax_experiment(ckpt, jdir, dev) -> None:
+    """Phase 7's experiment as the JAX package writes one: its config and
+    tokenizer, and each of its best and latest checkpoints as a JAX
+    ``TrainState`` in flax msgpack (``ckpt_<step>.msgpack``)."""
+    os.makedirs(jdir)
+    for name in ("config.json", "tokenizer.json"):
+        shutil.copy(os.path.join(ckpt, name), jdir)
+    with open(os.path.join(ckpt, "config.json")) as f:
+        saved = json.load(f)
+    jcfg = config_lib.from_dict(JointConfig, saved["joint"])
+    tcfg = config_lib.from_dict(TrainConfig, saved["train"])
+    with open(os.path.join(ckpt, "checkpoints.json")) as f:
+        meta = json.load(f)
+    best, latest = meta.get("best"), meta["latest"]
+    for step in sorted({e["step"] for e in (best, latest) if e}):
+        state = train_loop.init_state(jcfg, tcfg, dev)
+        which = "latest" if step == latest["step"] else "best"
+        ckpt_lib.restore_checkpoint(ckpt, state, which)
+        ckpt_lib.save_jax_checkpoint(
+            jdir, state, step,
+            metric=best["metric"] if best and step == best["step"] else None,
+            extra=latest.get("extra") if step == latest["step"] else None)
+
+
+def first_losses(run_dir):
+    """The losses and accuracy of the first logged train step of a
+    ``train.cli`` run."""
+    with open(os.path.join(run_dir, "joint_metrics.csv")) as f:
+        row = next(csv.DictReader(f))
+    return {k: float(v) for k, v in row.items()
+            if k.startswith(("loss", "acc")) and v != ""}
+
+
+def jax_experiment(ckpt, work, dev) -> dict:
+    """Phase 20, step 3: phase 7's experiment written in the JAX layout,
+    then ``decode.cli``, ``enhance_cli`` and ``train.cli --init-from`` on
+    it against the same on the ``.pt`` experiment, and ``--resume``
+    refused."""
+    root = os.path.join(work, "jax_layout")
+    os.makedirs(root)
+    jdir = os.path.join(root, "joint_jax")
+    write_jax_experiment(ckpt, jdir, dev)
+    print(f"  wrote {sorted(os.listdir(jdir))}")
+    manifest, _ = write_manifest(root, BATCH, SyntheticConfig(), seed=21)
+    launches = {}
+    outs = {}
+    for tag, exp in (("pt", ckpt), ("jax", jdir)):
+        outs[tag] = os.path.join(root, f"decode_{tag}")
+        reset_counts()
+        decode_cli.main(["--manifest", manifest, "--ckpt-dir", exp,
+                         "--batch-size", str(BATCH), "--beam-size",
+                         str(BEAM), "--max-steps", str(STEPS),
+                         "--no-early-exit", "--out", outs[tag]])
+        torch.cuda.synchronize()
+        launches[f"decode {tag}"] = launched_now()
+        enhance_cli.main(["--manifest", manifest, "--ckpt-dir", exp,
+                          "--out", os.path.join(root, f"enhanced_{tag}")])
+    for name in ("hyp.txt", "wer.json"):
+        with open(os.path.join(outs["pt"], name), "rb") as a, \
+                open(os.path.join(outs["jax"], name), "rb") as b:
+            require(a.read() == b.read(),
+                    f"decode.cli's {name} differs on the JAX layout")
+    for suffix in (".ark", ".scp"):
+        with open(os.path.join(root, "enhanced_pt" + suffix), "rb") as a, \
+                open(os.path.join(root, "enhanced_jax" + suffix), "rb") as b:
+            pt_bytes, jax_bytes = a.read(), b.read()
+        if suffix == ".scp":  # the scp names its own ark
+            pt_bytes = pt_bytes.replace(b"enhanced_pt", b"enhanced_jax")
+        require(pt_bytes == jax_bytes,
+                f"enhance_cli's {suffix} differs on the JAX layout")
+    print(f"  decode.cli hyp.txt and wer.json byte-identical, enhance_cli "
+          f"ark/scp identical ({BATCH} utterances); decode launches "
+          f"{launches['decode jax']}")
+
+    argv = ["--mode", "joint", "--synthetic", "--synthetic-utts", "16",
+            "--batch-size", "16", "--log-every", "1", "--epochs", "2"]
+    first = {}
+    for tag, exp in (("pt", ckpt), ("jax", jdir)):
+        run = os.path.join(root, f"warm_{tag}")
+        reset_counts()
+        train_cli.main(argv + ["--ckpt-dir", run, "--init-from", exp])
+        torch.cuda.synchronize()
+        require(latest_step(run) == 2, f"--init-from {tag}: "
+                f"{latest_step(run)} steps")
+        first[tag] = first_losses(run)
+        if tag == "jax":
+            launched, plain_calls = counts(KERNELS)
+            require_launches("train.cli --init-from <jax dir>", launched,
+                             plain_calls, ("blstm_train", "blstm_train_gx",
+                                           "ctc_nll"), (), attention=True)
+    diff = max(abs(first["jax"][k] - v) / max(abs(v), 1.0)
+               for k, v in first["pt"].items())
+    print(f"  train.cli --init-from: first-step losses {first['jax']}; "
+          f"max rel diff to the .pt warm start {diff:.3e} (limit 1e-6)")
+    require(set(first["jax"]) == set(first["pt"]) and diff <= 1e-6,
+            "the warm start from the JAX layout differs")
+    try:
+        train_cli.main(argv + ["--ckpt-dir", jdir])
+    except NotImplementedError as e:
+        print(f"  train.cli --resume on the JAX dir raised: {e}")
+        require("random streams" in str(e), "the refusal gives no reason")
+    else:
+        require(False, "train.cli resumed a JAX run")
+    return launches
+
+
+def async_saver(state_g, state_d, work, dev) -> None:
+    """Phase 20, step 4: ``INTERCHANGE_STEPS`` flagship joint steps
+    (bfloat16, phase 6's batch), each followed by an ``AsyncCheckpointer``
+    save while the next step updates the parameters in place; every
+    checkpoint restores bit-equal to the state at its save."""
+    root = os.path.join(work, "async")
+    jcfg = train_cfg("auto", "auto", "bfloat16")
+    state = train_state(jcfg, state_g, state_d, dev)
+    step = train_steps.make_joint_train_step(jcfg)
+    batch = train_batch(TRAIN_BATCH, 0, dev)
+
+    def tensors(s):
+        """Device copies of the modules' and optimizers' tensors."""
+        out = {f"model.{k}": v for k, v in s.model.state_dict().items()}
+        out.update({f"disc.{k}": v for k, v in
+                    s.discriminator.state_dict().items()})
+        for name, opt in (("opt_g", s.opt_g), ("opt_d", s.opt_d)):
+            for i, p in enumerate(opt.params):
+                out.update({f"{name}.{i}.{k}": v
+                            for k, v in opt.opt.state.get(p, {}).items()
+                            if torch.is_tensor(v)})
+        return {k: v.detach().clone() for k, v in out.items()}
+
+    check_metrics(step(state, batch))  # warm-up
+    refs, blocked, step_ms = {}, [], []
+    with ckpt_lib.AsyncCheckpointer() as saver:
+        for _ in range(INTERCHANGE_STEPS):
+            metrics, ms = timed(lambda: step(state, batch))
+            check_metrics(metrics)
+            step_ms.append(ms)
+            refs[state.step] = tensors(state)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            saver.save(root, state, state.step, keep=INTERCHANGE_STEPS + 1)
+            blocked.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        saver.wait()
+        write_ms = (time.perf_counter() - t0) * 1e3
+    fresh = train_state(jcfg, state_g, state_d, dev)
+    for n, ref in refs.items():
+        saved = torch.load(os.path.join(root, f"ckpt_{n}.pt"),
+                           map_location="cpu", weights_only=True)
+        fresh.load_state_dict(saved)
+        got = tensors(fresh)
+        bad = [k for k, v in ref.items()
+               if k not in got or not torch.equal(got[k], v)]
+        require(not bad and fresh.step == n,
+                f"checkpoint {n} differs from the state at its save: {bad}")
+    size = os.path.getsize(os.path.join(root, f"ckpt_{state.step}.pt"))
+    steps_ms = ['%.1f' % x for x in step_ms]
+    print(f"  {INTERCHANGE_STEPS} joint steps (ms {steps_ms}), each saved "
+          f"while the next updated in place: every checkpoint "
+          f"({size / 1e6:.1f} MB) restores bit-equal; save() blocked the "
+          f"training thread {['%.1f' % x for x in blocked]} ms "
+          f"(snapshot, and the wait for the write before); the last write "
+          f"took {write_ms:.1f} ms more on the saver's thread ({card()})")
+
+
+def interchange_phase(state, state_d, dev, work, ckpt) -> None:
+    """Phase 20: the attention variants and model interchange."""
+    launches = {}
+    for variant in ("add", "dot"):
+        print(f"  step 1: {variant} attention, phase 4's traffic "
+              f"(bfloat16, B={BATCH}) and the float32 B=16 parity")
+        launches[f"{variant} serving x{N_BATCHES}"] = variant_serving(
+            variant, BATCH, N_BATCHES, dev)
+    print("  step 2: the reference-layout import (--units, eos 51)")
+    launches.update({f"import {k}": v
+                     for k, v in reference_import(work, dev).items()})
+    print("  step 3: phase 7's experiment in the JAX layout")
+    launches.update(jax_experiment(ckpt, work, dev))
+    print("  step 4: the asynchronous saver at the flagship's size")
+    async_saver(state, state_d, work, dev)
+    print("  phase 20 launches by path: " + json.dumps(launches))
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -3768,7 +4249,7 @@ def main() -> int:
     launches["fbank_fused_bwd"] = bwd_launches
     launches["ctc_alpha"] = alpha_launches
 
-    # 7-19, in a scratch dir: phase 12 decodes phase 7's experiment
+    # 7-20, in a scratch dir: phases 12 and 20 read phase 7's experiment
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches.update(later_phases(state, state_d, dev, work, phase4_ms))
@@ -3786,7 +4267,7 @@ def main() -> int:
 
 
 def later_phases(state, state_d, dev, work, phase4_ms) -> dict:
-    """Phases 7-19; returns the launches of the kernels phases 7-15
+    """Phases 7-20; returns the launches of the kernels phases 7-15
     hold."""
     # 7. entry point
     print("train CLI (--mode joint --synthetic, default model, float32):")
@@ -3858,6 +4339,14 @@ def later_phases(state, state_d, dev, work, phase4_ms) -> dict:
     t0 = time.perf_counter()
     kaldi_phase(state, state_d, dev, work)
     print(f"  phase 19: {time.perf_counter() - t0:.1f} s")
+
+    # 20. the attention variants and model interchange
+    print("attention variants and model interchange (AttAdd and AttDot "
+          "serving, the reference import with --units, phase 7's "
+          "experiment in the JAX layout, the asynchronous saver):")
+    t0 = time.perf_counter()
+    interchange_phase(state, state_d, dev, work, ckpt)
+    print(f"  phase 20: {time.perf_counter() - t0:.1f} s")
 
     return {"blstm_train_gx": cli_launches["blstm_train_gx"],
             "fbank_fused": clean_launches["fbank_fused"],

@@ -9,8 +9,8 @@ kept: "compute" rounds the plain BLSTM frame loop's gate projections to
 the compute dtype, as it rounds the JAX scan's.
 ``DecoderConfig.step_impl`` is kept: the fused decoder step it selects
 rounds where the unfused step does not in bfloat16, and runs one launch
-where the unfused step runs several. ``AttentionConfig.variant`` is kept
-so that the variants the port does not have yet raise. The kernel-impl
+where the unfused step runs several. ``AttentionConfig.variant`` picks
+the attention (``models/attention.py::make_attention``). The kernel-impl
 fields take the JAX values; ``utils/impl.py`` says what each selects.
 ``LMConfig`` is the JAX package's ``models/lm.py::LMConfig``.
 """
@@ -67,13 +67,14 @@ class EncoderConfig:
 
 @dataclass(frozen=True)
 class AttentionConfig:
-    """Location-aware attention (ESPnet AttLoc)."""
+    """The attention: location-aware (ESPnet AttLoc) unless ``variant``
+    says "add" (AttAdd) or "dot" (AttDot)."""
 
     dim: int = 512  # attention inner dim
     conv_channels: int = 10
     conv_kernel: int = 201  # odd
     sharpening: float = 2.0  # scaling of pre-softmax scores
-    variant: str = "location"  # only location is ported; add | dot raise
+    variant: str = "location"  # location | add | dot
     score_impl: str = "auto"  # beam-mode step: xla (plain) | auto (kernel)
     enc_proj_bias: bool = False  # bias of mlp_enc (imported checkpoints)
 

@@ -180,19 +180,21 @@ def init_params(jcfg: JointConfig, seed: int = 0) -> dict:
         d = enc.proj_dim
     e_dim = enc.proj_dim
 
+    # the attention subtree of ``att.variant``, drawn in the flax tree's
+    # key order: AttLoc gvec, loc_conv, mlp_dec, mlp_loc; AttAdd gvec,
+    # mlp_dec; AttDot mlp_dec
+    attn = {}
+    if att.variant in ("location", "add"):
+        attn["gvec"] = dense_params(rng, att.dim, 1, bias=False)
+    if att.variant == "location":
+        attn["loc_conv"] = {"kernel": _lecun_normal(
+            rng, (att.conv_kernel, 1, att.conv_channels), att.conv_kernel)}
+    attn["mlp_dec"] = dense_params(rng, dec.hidden_dim, att.dim, bias=False)
+    if att.variant == "location":
+        attn["mlp_loc"] = dense_params(rng, att.conv_channels, att.dim,
+                                       bias=False)
     step = {
-        "att": {
-            "gvec": dense_params(rng, att.dim, 1, bias=False),
-            "loc_conv": {
-                "kernel": _lecun_normal(
-                    rng, (att.conv_kernel, 1, att.conv_channels),
-                    att.conv_kernel,
-                )
-            },
-            "mlp_dec": dense_params(rng, dec.hidden_dim, att.dim, bias=False),
-            "mlp_loc": dense_params(rng, att.conv_channels, att.dim,
-                                    bias=False),
-        },
+        "att": attn,
         "embed": {"embedding": _embedding(rng, dec.vocab_size, dec.embed_dim)},
         "output": dense_params(rng, dec.hidden_dim + e_dim, dec.vocab_size),
     }

@@ -1,7 +1,9 @@
 """Dataset and loader: paired noisy/clean utterances -> padded batches.
 
 Port of ``robust_e2e_gan_tpu/data/dataset.py``: ``CharTokenizer`` (blank
-0, sos/eos 1, unk 2, characters from id 3), ``load_tokenizer``,
+0, sos/eos 1, unk 2, characters from id 3), ``TableTokenizer`` (the
+reference's own id table, as an imported checkpoint carries it),
+``load_tokenizer``,
 ``Utterance``, the sources (``AudioTextDataset.from_jsonl`` of ``.npy``
 waveforms, ``from_kaldi`` of Kaldi waveform scp files, ``from_kaldi_feats``
 of precomputed feats.scp matrices, with utterance lengths from a Kaldi
@@ -10,9 +12,8 @@ by the scp's fingerprint) and ``BucketBatcher`` (length-sorted batches
 padded to a length bucket, labels padded with ``ignore_id``, an optional
 padded final batch, per-speaker CMVN stats with each batch). Batches are
 read with numpy, the JAX package's own path when its native loader is not
-built. The ``TableTokenizer`` of imported checkpoints and the prefetch
-thread are not ported yet (ROADMAP queue 1, JAX msgpack checkpoints and
-TableTokenizer; Prefetcher).
+built. The prefetch thread is not ported yet (ROADMAP queue 1,
+Prefetcher).
 """
 from __future__ import annotations
 
@@ -62,18 +63,76 @@ class CharTokenizer:
             json.dump({"chars": self.chars}, f)
 
 
-def load_tokenizer(path: str) -> CharTokenizer:
-    """The tokenizer saved at ``path``. The id table of an imported
-    reference checkpoint (``"kind": "table"``) raises: loading such
-    checkpoints is not ported yet (ROADMAP queue 1, JAX msgpack
-    checkpoints and TableTokenizer)."""
+class TableTokenizer:
+    """An explicit token <-> id table in a reference's own id layout
+    (ESPnet-era: blank 0, units at their ``units.txt`` ids, the shared
+    sos/eos after the last unit), which ``CharTokenizer``'s fixed layout
+    cannot hold. ``E2EConfig``'s blank, sos and eos ids carry the special
+    ids (``tools/import_reference_ckpt.py --units`` sets both)."""
+
+    def __init__(self, id2tok: Dict[int, str], blank_id: int = 0,
+                 sos_eos_id: Optional[int] = None,
+                 unk_id: Optional[int] = None):
+        self.id2tok = {int(k): v for k, v in id2tok.items()}
+        self.blank_id = blank_id
+        self.sos_eos_id = (max(self.id2tok) + 1 if sos_eos_id is None
+                           else sos_eos_id)
+        self.unk_id = unk_id
+        self._to_id = {v: k for k, v in self.id2tok.items()}
+
+    @classmethod
+    def from_units(cls, path: str) -> "TableTokenizer":
+        """A Kaldi/ESPnet ``units.txt``: one "token id" pair a line; blank
+        0 implicit, sos/eos after the last unit id."""
+        id2tok = {}
+        with open(path) as f:
+            for line in f:
+                parts = line.split()
+                if parts:
+                    id2tok[int(parts[1])] = parts[0]
+        unk = next((i for i, t in id2tok.items() if t.lower() == "<unk>"),
+                   None)
+        return cls(id2tok, blank_id=0, unk_id=unk)
+
+    @property
+    def vocab_size(self) -> int:
+        return self.sos_eos_id + 1
+
+    def encode(self, text: str) -> List[int]:
+        unk = self.unk_id if self.unk_id is not None else self.blank_id
+        return [self._to_id.get(c, unk) for c in text]
+
+    def decode(self, ids: Sequence[int]) -> str:
+        skip = {self.blank_id, self.sos_eos_id}
+        return "".join(self.id2tok.get(int(i), "<unk>")
+                       for i in ids if int(i) not in skip)
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump({"kind": "table",
+                       "id2tok": {str(k): v for k, v in self.id2tok.items()},
+                       "blank_id": self.blank_id,
+                       "sos_eos_id": self.sos_eos_id,
+                       "unk_id": self.unk_id}, f)
+
+    @classmethod
+    def load(cls, path: str) -> "TableTokenizer":
+        with open(path) as f:
+            return cls._of(json.load(f))
+
+    @classmethod
+    def _of(cls, d: Dict[str, Any]) -> "TableTokenizer":
+        return cls(d["id2tok"], d.get("blank_id", 0), d.get("sos_eos_id"),
+                   d.get("unk_id"))
+
+
+def load_tokenizer(path: str):
+    """The tokenizer saved at ``path``: a ``TableTokenizer`` where the
+    file says ``"kind": "table"``, else a ``CharTokenizer``."""
     with open(path) as f:
         d = json.load(f)
     if d.get("kind") == "table":
-        raise NotImplementedError(
-            "TableTokenizer (the id table of an imported reference "
-            "checkpoint) is not ported yet (ROADMAP queue 1, JAX msgpack "
-            "checkpoints and TableTokenizer)")
+        return TableTokenizer._of(d)
     return CharTokenizer(d["chars"])
 
 

@@ -2,12 +2,14 @@
 
 Port of ``robust_e2e_gan_tpu/decode/cli.py``: the same flags, names and
 defaults. It decodes an experiment directory written by the port's
-``train.cli`` (``config.json``, ``checkpoints.json``, ``ckpt_<step>.pt``)
-on the GPU (``--device cuda``, the default; it raises without one) or,
-when asked, on the CPU (``--device cpu``), with the weights moved to the
-device once. It writes ``hyp.txt``, ``wer.json`` (token-level rate, and
-word and char rates when the experiment has a tokenizer) and, when asked,
-``nbest.jsonl`` and the ``--dump-attention`` maps.
+``train.cli`` (``config.json``, ``checkpoints.json``, ``ckpt_<step>.pt``),
+by the JAX package (``ckpt_<step>.msgpack``, its parameters read without
+flax) or by ``tools/import_reference_ckpt.py``, on the GPU (``--device
+cuda``, the default; it raises without one) or, when asked, on the CPU
+(``--device cpu``), with the weights moved to the device once. It writes
+``hyp.txt``, ``wer.json`` (token-level rate, and word and char rates when
+the experiment has a tokenizer) and, when asked, ``nbest.jsonl`` and the
+``--dump-attention`` maps.
 
 ``--serving-impls`` maps as in the JAX package: ``auto`` takes the BLSTM,
 attention and tiled CTC-prefix kernels with the unfused decoder step;
@@ -54,6 +56,7 @@ from robust_e2e_gan_torch.ops.ctc import ctc_greedy_decode
 from robust_e2e_gan_torch.ops.editdistance import score_texts, wer_details
 from robust_e2e_gan_torch.train.loop import init_state, resolve_device
 from robust_e2e_gan_torch.utils import checkpoint as ckpt_lib
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
@@ -164,10 +167,11 @@ def load_experiment(ckpt_dir: str, which: str = "best",
     """Rebuild (model, jcfg, tokenizer or None, step, input_kind,
     log_domain) from a training run's dir: the model of its saved config
     with the serving impls applied and the global CMVN stats of its
-    ``cmvn.ark``, restored from "best" (or "latest" when the run recorded
-    no best) into a ``train/loop.py::init_state`` template on ``device``,
-    in eval mode. ``input_kind`` and ``log_domain`` are the training
-    input's ("wav", "feats" or "spec"; whether spectra are log power)."""
+    ``cmvn.ark``, its parameters restored from "best" (or "latest" when the
+    run recorded no best; a run of the port or of the JAX package) into a
+    ``train/loop.py::init_state`` template on ``device``, in eval mode.
+    ``input_kind`` and ``log_domain`` are the training input's ("wav",
+    "feats" or "spec"; whether spectra are log power)."""
     from robust_e2e_gan_torch.data.cmvn import (
         load_cmvn_ark,
         stats_to_mean_inv_std,
@@ -195,7 +199,8 @@ def load_experiment(ckpt_dir: str, which: str = "best",
         # runs without a dev set never record a 'best' entry
         print("no 'best' checkpoint (no dev metric); using 'latest'")
         which = "latest"
-    _, step = ckpt_lib.restore_checkpoint(ckpt_dir, state, which)
+    _, step = ckpt_lib.restore_checkpoint(ckpt_dir, state, which,
+                                          params_only=True)
     return state.model.eval(), jcfg, tok, step, input_kind, log_domain
 
 
@@ -224,6 +229,18 @@ def dataset_of(args, tok, input_kind: str) -> AudioTextDataset:
         raise SystemExit("this experiment was trained on precomputed "
                          "features; decode it with --feats-scp/--text")
     return ds
+
+
+def beam_config(args) -> BeamSearchConfig:
+    """The search the parsed flags ask for."""
+    prefix_impl = {"auto": "auto", "fused": "tiled",
+                   "xla": "twopass"}[args.serving_impls]
+    return BeamSearchConfig(
+        beam_size=args.beam_size, ctc_weight=args.ctc_weight,
+        penalty=args.penalty, max_steps=args.max_steps,
+        maxlen_ratio=args.maxlen_ratio, minlen_ratio=args.minlen_ratio,
+        lm_weight=args.lm_weight, end_detect=args.end_detect,
+        early_exit=not args.no_early_exit, prefix_impl=prefix_impl)
 
 
 def _load_lm(lm_dir: str, serving_impls: str, device):
@@ -262,14 +279,7 @@ def main(argv: Optional[list] = None) -> None:
     # pad_final: every batch has the same shape, the last one included
     batcher = BucketBatcher(ds, args.batch_size, buckets,
                             speaker_cmvn=speaker_cmvn, pad_final=True)
-    prefix_impl = {"auto": "auto", "fused": "tiled",
-                   "xla": "twopass"}[args.serving_impls]
-    bcfg = BeamSearchConfig(
-        beam_size=args.beam_size, ctc_weight=args.ctc_weight,
-        penalty=args.penalty, max_steps=args.max_steps,
-        maxlen_ratio=args.maxlen_ratio, minlen_ratio=args.minlen_ratio,
-        lm_weight=args.lm_weight, end_detect=args.end_detect,
-        early_exit=not args.no_early_exit, prefix_impl=prefix_impl)
+    bcfg = beam_config(args)
     lm = None
     if args.lm_dir and args.lm_weight != 0.0:
         lm = _load_lm(args.lm_dir, args.serving_impls, device)

@@ -5,9 +5,9 @@ noisy power -> enhanced log-mel features (``--domain logmel``, what a
 downstream ASR consumes; no CMVN) or the enhanced linear power spectra
 (``--domain power``), each utterance's valid frames written as a Kaldi
 ark/scp through ``data/kaldi_io.py``. It enhances an experiment directory
-written by the port's ``train.cli`` on the GPU (``--device cuda``, the
-default; it raises without one) or, when asked, on the CPU (``--device
-cpu``), batch after batch under ``torch.no_grad()``.
+written by the port's ``train.cli`` or by the JAX package on the GPU
+(``--device cuda``, the default; it raises without one) or, when asked, on
+the CPU (``--device cpu``), batch after batch under ``torch.no_grad()``.
 
 The data sources are a jsonl manifest of ``.npy`` waveforms and a Kaldi
 waveform scp with its ``text`` file (``--noisy-scp``/``--text``).

@@ -23,9 +23,9 @@ from torch import nn
 
 from robust_e2e_gan_torch.config import AttentionConfig, DecoderConfig
 from robust_e2e_gan_torch.models.attention import (
-    AttLoc,
     EncoderProjection,
     initial_alignment,
+    make_attention,
 )
 from robust_e2e_gan_torch.models.layers import Dense, Embed
 from robust_e2e_gan_torch.models.rnn import LSTMCell
@@ -54,7 +54,7 @@ class DecoderStep(nn.Module):
             self.add_module(f"lstm{i}", LSTMCell(d, h, dtype))
             d = h
         self.output = Dense(h + enc_dim, dcfg.vocab_size, dtype=dtype)
-        self.att = AttLoc(acfg, h, dtype)
+        self.att = make_attention(acfg, h, dtype)
 
     def forward(self, carry, tok, enc, enc_proj, enc_mask):
         h_prev, c_prev, att_prev, _ = carry

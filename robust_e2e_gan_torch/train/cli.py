@@ -34,10 +34,12 @@ with the train tokenizer, which is saved as ``tokenizer.json``; ``--mode
 lm`` trains on the manifest's transcripts. ``--cmvn global`` takes its
 stats from ``--cmvn-ark``, ``--cmvn speaker`` from a speaker-keyed
 ``--cmvn-ark`` and ``--utt2spk``; the ark is copied into the run dir as
-``cmvn.ark`` for decoding. ``--mesh-data > 1`` raises
-``NotImplementedError`` naming its ROADMAP item. ``--remat`` and
+``cmvn.ark`` for decoding. ``--init-from`` takes a run dir of the port
+or of the JAX package (its best parameters); resuming a JAX run in
+``--ckpt-dir`` raises ``NotImplementedError`` (ROADMAP 'Not to port'), as
+does ``--mesh-data > 1``, naming its ROADMAP item. ``--remat`` and
 ``--scan-unroll`` are XLA scheduling knobs, accepted and without effect;
-``--prefetch-depth`` likewise (the loop is synchronous).
+``--prefetch-depth`` likewise (batches are read on the training thread).
 ``--gate-storage compute`` rounds the plain BLSTM frame loop's gate
 projections to the compute dtype (``--lstm-impl scan``), as the JAX scan
 does; the kernels ignore it.
@@ -65,6 +67,8 @@ from robust_e2e_gan_torch.config import (
     JointConfig,
     TrainConfig,
 )
+from robust_e2e_gan_torch.utils import checkpoint as ckpt_lib
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
@@ -391,6 +395,9 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             "--mesh-data: data parallelism is not ported yet "
             "(ROADMAP queue 1, data parallel)")
+    if not args.no_resume and ckpt_lib.is_jax_checkpoint(args.ckpt_dir):
+        raise NotImplementedError(
+            f"{args.ckpt_dir}: {ckpt_lib.JAX_RESUME}")
 
 
 def _input_kind(args) -> str:

@@ -50,6 +50,10 @@ class LMState:
             self.opt.load_state_dict(saved["opt"])
             self.step = int(saved["step"])
 
+    def load_jax_params(self, tree: dict) -> None:
+        """Load the parameters of a JAX ``LMState`` tree (``params``)."""
+        self.lm.load_state_dict(from_flax(tree["params"]))
+
 
 def init_lm_state(lmcfg: LMConfig, tcfg: TrainConfig, device,
                   seed: int = 0) -> LMState:

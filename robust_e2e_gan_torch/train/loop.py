@@ -6,11 +6,13 @@ share one epoch loop with per-step logging, dev evaluation after each
 epoch, Adadelta eps decay on a dev-accuracy plateau, best and latest
 checkpoints (each epoch, and every ``save_every_steps`` within one), resume
 from the latest, and a warm start (``init_from``) from another run's best
-parameters. The input kind (waveforms, precomputed log-mel features or
-precomputed spectra) is the caller's, or is read off the first batch's
-keys. Batches are moved to the device and checkpoints written on the
-training thread; the JAX package's host prefetch thread and asynchronous
-checkpointer are not ported yet.
+parameters, a run of the port or of the JAX package. The input kind
+(waveforms, precomputed log-mel features or precomputed spectra) is the
+caller's, or is read off the first batch's keys. Checkpoints are written
+off the training thread by ``utils/checkpoint.py::AsyncCheckpointer``, the
+last one durable before the loop returns. Batches are moved to the device
+on the training thread; the JAX package's host prefetch thread is not
+ported yet (ROADMAP queue 1, Prefetcher).
 """
 
 from __future__ import annotations
@@ -93,7 +95,8 @@ def train(
     epoch of host batches (noisy_wav, clean_wav, wav_lengths, labels; or
     feats, feat_lengths[, clean_feats], labels; speaker-CMVN stats too).
     ``mode``: "asr", "gan" or "joint". ``init_from``: a checkpoint dir
-    whose best parameters start this run (its step count is not resumed).
+    whose best parameters start this run (its step count is not resumed),
+    written by the port or by the JAX package.
     ``input_kind``: "wav", "feats" or "spec" (``log_domain``: log power
     spectra); None reads it off the first batch.
     ``device``: the GPU by default (raises without one); "cpu" only when
@@ -135,49 +138,59 @@ def train(
 
     logger = MetricLogger(log_dir, name=mode)
     timer = StepTimer()
+    # the host snapshot on this thread, the write on the saver's
+    saver = ckpt_lib.AsyncCheckpointer()
 
     def save(epoch, complete, metric=None):
-        ckpt_lib.save_checkpoint(
+        saver.save(
             tcfg.checkpoint_dir, state, state.step, metric=metric, keep=3,
             extra={"epoch": epoch, "epoch_complete": complete,
                    "best_acc": best_acc})
 
+    # leaving the saver's block waits for the last write, also where a
+    # step raises
     try:
-        for epoch in range(start_epoch, tcfg.num_epochs):
-            for batch in train_batches():
-                timer.tic()
-                metrics = step_fn(state, device_batch(batch, device))
-                if state.step % tcfg.log_every == 0:
-                    logger.log(state.step, metrics, prefix=f"epoch {epoch} ")
-                if save_every_steps and state.step % save_every_steps == 0:
-                    save(epoch, False)
-                timer.toc()
-            print(f"[{mode}] epoch {epoch}: {timer.mean_ms:.1f} ms/step "
-                  f"(host clock, last {len(timer.times)} steps)", flush=True)
+        with saver:
+            for epoch in range(start_epoch, tcfg.num_epochs):
+                for batch in train_batches():
+                    timer.tic()
+                    metrics = step_fn(state, device_batch(batch, device))
+                    if state.step % tcfg.log_every == 0:
+                        logger.log(state.step, metrics,
+                                   prefix=f"epoch {epoch} ")
+                    if (save_every_steps
+                            and state.step % save_every_steps == 0):
+                        save(epoch, False)
+                    timer.toc()
+                print(f"[{mode}] epoch {epoch}: {timer.mean_ms:.1f} ms/step "
+                      f"(host clock, last {len(timer.times)} steps)",
+                      flush=True)
 
-            dev_acc = None
-            if dev_batches is not None:
-                sums: Dict[str, float] = {}
-                n = 0
-                for batch in dev_batches():
-                    m = eval_fn(state.model, device_batch(batch, device))
-                    for k, v in m.items():
-                        sums[k] = sums.get(k, 0.0) + float(v)
-                    n += 1
-                if n:
-                    dev = {k: v / n for k, v in sums.items()}
-                    dev_acc = dev["acc"]
-                    logger.log(state.step, dev, prefix=f"DEV epoch {epoch} ")
+                dev_acc = None
+                if dev_batches is not None:
+                    sums: Dict[str, float] = {}
+                    n = 0
+                    for batch in dev_batches():
+                        m = eval_fn(state.model,
+                                    device_batch(batch, device))
+                        for k, v in m.items():
+                            sums[k] = sums.get(k, 0.0) + float(v)
+                        n += 1
+                    if n:
+                        dev = {k: v / n for k, v in sums.items()}
+                        dev_acc = dev["acc"]
+                        logger.log(state.step, dev,
+                                   prefix=f"DEV epoch {epoch} ")
 
-            if dev_acc is not None:
-                if dev_acc > best_acc:
-                    best_acc = dev_acc
-                elif tcfg.optimizer == "adadelta":
-                    steps_lib.decay_adadelta_eps(state.opt_g, tcfg.eps_decay)
-                    steps_lib.decay_adadelta_eps(state.opt_d, tcfg.eps_decay)
-                    print(f"[{mode}] dev plateau at epoch {epoch}: "
-                          f"eps *= {tcfg.eps_decay}", flush=True)
-            save(epoch, True, dev_acc)
+                if dev_acc is not None:
+                    if dev_acc > best_acc:
+                        best_acc = dev_acc
+                    elif tcfg.optimizer == "adadelta":
+                        for opt in (state.opt_g, state.opt_d):
+                            steps_lib.decay_adadelta_eps(opt, tcfg.eps_decay)
+                        print(f"[{mode}] dev plateau at epoch {epoch}: "
+                              f"eps *= {tcfg.eps_decay}", flush=True)
+                save(epoch, True, dev_acc)
     finally:
         logger.close()
     return state

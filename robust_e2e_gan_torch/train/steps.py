@@ -26,9 +26,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, List
 
+import numpy as np
 import torch
 
 from robust_e2e_gan_torch.config import JointConfig, TrainConfig
+from robust_e2e_gan_torch.convert import from_flax, to_flax
 from robust_e2e_gan_torch.models.enhancement import (
     Discriminator,
     adversarial_losses,
@@ -104,6 +106,34 @@ class Optimizer:
         self.opt.load_state_dict(state["opt"])
         self.count = int(state["count"])
 
+    def optax_state(self, names: List[str]) -> dict:
+        """This state as the JAX ``create_optimizer`` chain's optax state
+        in the flax layout (``names``: each parameter's state-dict key):
+        the clip's empty state, then ``inject_hyperparams(adadelta)``'s
+        count, hyperparameters and accumulators (e_g = torch's square_avg,
+        e_x = its acc_delta), or adam's count and moments (mu, nu), with a
+        warmup schedule's count after them. A slot no update has made yet
+        is zeros."""
+        def slot(key):
+            return to_flax({n: self.opt.state.get(p, {}).get(
+                key, torch.zeros_like(p)) for n, p in zip(names, self.params)})
+
+        count = np.asarray(self.count, np.int32)
+        if isinstance(self.opt, torch.optim.Adadelta):
+            group = self.opt.param_groups[0]
+            hyper = {k: np.asarray(v, np.float32) for k, v in (
+                ("eps", group["eps"]), ("learning_rate", group["lr"]),
+                ("rho", group["rho"]), ("weight_decay", 0.0))}
+            inner = {"0": {}, "1": {"e_g": slot("square_avg"),
+                                    "e_x": slot("acc_delta")}, "2": {}}
+            return {"0": {}, "1": {"count": count, "hyperparams": hyper,
+                                   "hyperparams_states": {},
+                                   "inner_state": inner}}
+        adam = {"0": {"count": count, "mu": slot("exp_avg"),
+                      "nu": slot("exp_avg_sq")},
+                "1": {"count": count} if self.tcfg.warmup_steps > 0 else {}}
+        return {"0": {}, "1": adam}
+
 
 def create_optimizer(params, tcfg: TrainConfig) -> Optimizer:
     """Grad clip + Adadelta (the reference default) or Adam."""
@@ -154,6 +184,34 @@ class TrainState:
         for k, g in self.rngs.items():
             g.set_state(saved["rngs"][k].cpu())
         self.step = int(saved["step"])
+
+    def jax_tree(self) -> dict:
+        """This state as a JAX ``TrainState`` tree in the flax layout
+        (``train/steps.py:81-91`` of the JAX package): the step, both
+        parameter trees, both optax states and the PRNG key of the seed
+        (the torch generators have no JAX key)."""
+        named = {"g": self.model.state_dict(),
+                 "d": self.discriminator.state_dict()}
+        seed = self.opt_g.tcfg.seed
+        return {"step": np.asarray(self.step, np.int32),
+                "params_g": to_flax(named["g"]),
+                "opt_state_g": self.opt_g.optax_state(list(named["g"])),
+                "params_d": to_flax(named["d"]),
+                "opt_state_d": self.opt_d.optax_state(list(named["d"])),
+                "rng": np.array([0, seed], np.uint32)}
+
+    def load_jax_params(self, tree: dict) -> None:
+        """Load the parameters of a JAX ``TrainState`` tree (``params_g``,
+        ``params_d``), as a warm start loads them. The tree of a run on
+        precomputed log-mel has no enhancer: the enhancer keeps its
+        parameters."""
+        missing, unexpected = self.model.load_state_dict(
+            from_flax(tree["params_g"]), strict=False)
+        stray = unexpected + [k for k in missing
+                              if not k.startswith("enhancer.")]
+        if stray:
+            raise KeyError(f"the JAX params_g does not fit the model: {stray}")
+        self.discriminator.load_state_dict(from_flax(tree["params_d"]))
 
 
 def init_train_state(model: RobustE2E, discriminator: Discriminator,

@@ -1994,3 +1994,33 @@ def test_decode_cli_on_the_card(dev, tmp_path):
         hyps[impls] = (out / "hyp.txt").read_text()
     assert hyps["fused"] == hyps["xla"]
     assert len(hyps["fused"].splitlines()) == 6
+
+
+def test_async_snapshot_of_a_cuda_state(dev, tmp_path):
+    """``AsyncCheckpointer.save`` of a state on the card: the checkpoint
+    holds the parameters and optimizer state of the moment of ``save()``,
+    though in-place steps on the card's stream follow at once."""
+    from robust_e2e_gan_torch.configs import tiny_config
+    from robust_e2e_gan_torch.config import TrainConfig
+    from robust_e2e_gan_torch.train.loop import init_state
+    from robust_e2e_gan_torch.utils import checkpoint as ckpt
+
+    state = init_state(tiny_config(12), TrainConfig(), dev)
+    opt = state.opt_g
+    opt.step([torch.full_like(p, 0.1) for p in opt.params])
+    want = {k: v.cpu() for k, v in state.model.state_dict().items()}
+    want_acc = [s["square_avg"].cpu() for s in opt.opt.state.values()]
+    with ckpt.AsyncCheckpointer() as saver:
+        saver.save(str(tmp_path), state, 1)
+        for _ in range(3):  # steps queued on the card at once
+            opt.step([torch.full_like(p, 0.3) for p in opt.params])
+            with torch.no_grad():
+                for p in state.model.parameters():
+                    p.mul_(1.5).add_(1.0)
+    saved = torch.load(tmp_path / "ckpt_1.pt", weights_only=True)
+    for k, v in want.items():
+        assert torch.equal(saved["model"][k], v), k
+        assert saved["model"][k].device.type == "cpu"
+    got_acc = [s["square_avg"] for s in saved["opt_g"]["opt"]["state"]
+               .values()]
+    assert all(torch.equal(a, b) for a, b in zip(got_acc, want_acc))

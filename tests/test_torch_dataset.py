@@ -52,9 +52,13 @@ def test_tokenizer_matches_jax(tmp_path):
     theirs.save(str(tmp_path / "tok.json"))
     loaded = dataset.load_tokenizer(str(tmp_path / "tok.json"))
     assert loaded.chars == theirs.chars
-    jax_dataset.TableTokenizer({3: "a", 4: "b"}).save(str(tmp_path / "t.json"))
-    with pytest.raises(NotImplementedError, match="msgpack checkpoints and TableTokenizer"):
-        dataset.load_tokenizer(str(tmp_path / "t.json"))
+    table = jax_dataset.TableTokenizer({3: "a", 4: "b"})
+    table.save(str(tmp_path / "t.json"))
+    loaded = dataset.load_tokenizer(str(tmp_path / "t.json"))
+    assert isinstance(loaded, dataset.TableTokenizer)
+    assert (loaded.id2tok, loaded.sos_eos_id) == (table.id2tok,
+                                                 table.sos_eos_id)
+    assert loaded.decode([3, 0, 4, 5]) == table.decode([3, 0, 4, 5])
 
 
 @pytest.mark.parametrize("pad_final,drop_overlong",

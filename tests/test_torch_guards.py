@@ -44,6 +44,14 @@ CONFIGS = {
             attention=dataclasses.replace(configs.tiny_config(12).e2e.attention,
                                           enc_proj_bias=True))),
 }
+# the AttAdd and AttDot models: the attention subtree follows the variant
+for _variant in ("add", "dot"):
+    for _name, _cfg in (("tiny", configs.tiny_config(12)),
+                        ("flagship", configs.flagship_config(52))):
+        CONFIGS[f"{_name}_{_variant}"] = dataclasses.replace(
+            _cfg, e2e=dataclasses.replace(
+                _cfg.e2e, attention=dataclasses.replace(
+                    _cfg.e2e.attention, variant=_variant)))
 # JAX config fields the port leaves out: XLA scheduling knobs, which do
 # not change what is computed, and the fixed subsampling factor (the fused
 # decoder step's step_impl is kept: it rounds where the unfused step does
@@ -241,13 +249,15 @@ def test_port_imports_no_jax():
         "pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
-        "bad = [m for m in ('jax', 'jaxlib', 'flax', 'robust_e2e_gan_tpu')\n"
+        "bad = [m for m in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack',\n"
+        "                   'robust_e2e_gan_tpu', 'tools')\n"
         "       if m in sys.modules]\n"
         "need = {'robust_e2e_gan_torch.' + m for m in ('models.lm',\n"
         "        'ops.lm_step', 'ops.fbank_fused', 'train.lm', 'decode.cli',\n"
         "        'data.dataset', 'ops.editdistance', 'ops.att_dec',\n"
         "        'data.cmvn', 'data.cmvn_cli', 'data.featbin_cli',\n"
-        "        '__main__')}\n"
+        "        '__main__', 'utils.flax_msgpack',\n"
+        "        'tools.import_reference_ckpt')}\n"
         "print(len(names), bad, need - set(names))\n"
         "sys.exit(1 if bad or need - set(names) or len(names) < 23 else 0)\n"
     )
