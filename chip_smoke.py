@@ -247,7 +247,25 @@ Phases, each of which exits non-zero on failure:
     saved by ``AsyncCheckpointer`` while the next step updates the state
     in place: every checkpoint restores bit-equal to the state at its
     save; the ms ``save()`` blocked the training thread and the ms of the
-    last write on the saver's thread printed.
+    last write on the saver's thread printed;
+21. data parallelism (``robust_e2e_gan_torch/parallel``,
+    ``tools/dp_phases.py``): (1) two gloo ranks on card 0 each take 8 rows
+    of phase 8's float32 B=16 traffic (the second shard cut to fewer
+    label tokens) through 3 joint steps on the kernels: first-step
+    metrics, ``grad_norm_g`` and ``grad_norm_d`` included, within rtol
+    2e-4 / atol 2e-5 of one process's steps, the ranks' parameters
+    bit-equal and within 5e-5 (generator) and 2e-4 (discriminator, whose
+    convolutions' sums differ at B=8) of one process's after 3 steps,
+    every rank launching ``blstm_train``, ``gemm`` and ``ctc_nll`` and no
+    plain version; (2) the same two ranks decode phase 5's B=16 with early exit:
+    tokens identical to one process's, scores within 1e-3 relative, each
+    rank launching an inference BLSTM route, the attention kernel, psi and
+    state; (3) one NCCL rank takes one step through the same reduction,
+    bit-equal to the step with no mesh (deterministic algorithms in both),
+    and ``train.cli --mesh-data 2`` over NCCL where two cards exist; (4)
+    the ms the training thread waits in a depth-2 ``Prefetcher``'s
+    ``next()`` on phase 7's traffic, the collation ms alone, and the
+    loop's ms a step with and without it in turns, reported.
 
 Each phase after 15 prints its seconds. The line before the last is a JSON object of the 22 kernels (``gemm``
 the products of one row-6 call, with phase 6's launches; the
@@ -337,6 +355,7 @@ from robust_e2e_gan_torch.ops import (
     lm_step,
 )
 from robust_e2e_gan_torch.ops.fbank import num_frames
+from robust_e2e_gan_torch.parallel import launch, make_mesh
 from robust_e2e_gan_torch.pipeline import build_model
 from robust_e2e_gan_torch.train import cli as train_cli
 from robust_e2e_gan_torch.train import loop as train_loop
@@ -344,6 +363,7 @@ from robust_e2e_gan_torch.train import steps as train_steps
 from robust_e2e_gan_torch.train.lm import load_lm
 from robust_e2e_gan_torch.tools import (
     adversarial_benefit,
+    dp_phases,
     import_reference_ckpt,
     lm_benefit,
     verify_drive,
@@ -4194,6 +4214,256 @@ def interchange_phase(state, state_d, dev, work, ckpt) -> None:
     print("  phase 20 launches by path: " + json.dumps(launches))
 
 
+# ---------------------------------------------------------------------------
+# phase 21: data parallelism
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 3
+# metrics of the first step, two ranks against one process
+# (tests/test_parallel.py:93-96 of the JAX package)
+DP_RTOL, DP_ATOL = 2e-4, 2e-5
+# the parameters after DP_STEPS float32 Adadelta steps, by module: a
+# gradient summed in another order moves an update by at most its own
+# change (Adadelta's slope is at most 1, at g = 0) and a saturated one
+# (~4.5e-4 * sign(g)) not at all. The discriminator's gradients (norm
+# ~716 at the flagship's seed) take cuDNN's convolutions at B=8 against
+# B=16: on an H100 its conv1 kernel ends 8.778e-05 from one process's on
+# the kernel path and on the plain path alike, the generator 8.9e-06
+# (PERF.md, data parallelism). A wrong reduction moves whole updates.
+DP_PARAM_ATOL = {"g": 5e-5, "d": 2e-4}
+PREFETCH_STEPS = 6
+DP_LIMIT_S = 300.0
+
+
+def dp_batches():
+    """Phase 8's float32 B=16 traffic, one batch a step (seeds 100 on),
+    each second shard cut to TRAIN_SYNTH.min_tokens labels a row: the two
+    shards' valid-token counts differ, so the global denominators count."""
+    out = []
+    for i in range(DP_STEPS):
+        batch = make_batch(16, TRAIN_SYNTH, np.random.default_rng(100 + i))
+        batch["labels"][8:, TRAIN_SYNTH.min_tokens:] = -1
+        toks = (batch["labels"] != -1).sum(axis=1)
+        require(toks[:8].sum() != toks[8:].sum(),
+                f"phase 21: the shards hold equal token counts {toks}")
+        out.append(batch)
+    return out
+
+
+def dp_gate_launches(where, launches, kernels, plain):
+    """Every kernel of ``kernels`` launched (a tuple: one of its routes),
+    no plain version of ``plain`` ran."""
+    ran = {" or ".join(k) if isinstance(k, tuple) else k:
+           sum(launches[n] for n in (k if isinstance(k, tuple) else (k,)))
+           for k in kernels}
+    require(all(v > 0 for v in ran.values()),
+            f"{where}: a kernel never launched: {ran}")
+    ran_plain = {n: launches[n] for n in plain if launches[n]}
+    require(not ran_plain, f"{where}: a plain version ran: {ran_plain}")
+    return ran
+
+
+def dp_train_checks(ranks, one):
+    """Two ranks' joint steps against one process's: first-step metrics,
+    later steps reported, parameters after the last step (the generator's
+    and the discriminator's apart)."""
+    worst = []
+    for i in range(DP_STEPS):
+        want = one["metrics"][i]
+        rel = {}
+        for r in ranks:
+            for k, w in want.items():
+                g = r["metrics"][i][k]
+                rel[k] = max(rel.get(k, 0.0),
+                             abs(g - w) / max(abs(w), 1e-12))
+                if i == 0:
+                    require(abs(g - w) <= DP_ATOL + DP_RTOL * abs(w),
+                            f"phase 21: step 1 {k} two ranks {g!r}, one "
+                            f"process {w!r}")
+        if i == 0:
+            print("  train step 1, rel diff by metric: " + " ".join(
+                f"{k}={v:.2e}" for k, v in rel.items()))
+        k = max(rel, key=rel.get)
+        worst.append(f"{rel[k]:.2e} ({k})")
+    same = all(torch.equal(ranks[0]["params"][k], ranks[1]["params"][k])
+               for k in one["params"])
+    diffs = {k: (ranks[0]["params"][k].float()
+                 - one["params"][k].float()).abs().max().item()
+             for k in one["params"]}
+    by_module = {}
+    for m in ("g", "d"):
+        keys = [k for k in diffs if k.startswith(m + ".")]
+        top = max(keys, key=diffs.get)
+        by_module[m] = (diffs[top], top)
+    m = ranks[0]["metrics"][0]
+    print(f"  train: first-step metrics within rtol {DP_RTOL:g} / atol "
+          f"{DP_ATOL:g} (loss_att {m['loss_att']:.6g}, grad_norm_g "
+          f"{m['grad_norm_g']:.6g}, grad_norm_d {m['grad_norm_d']:.6g}); "
+          f"max rel diff by step {worst}; the ranks' parameters bit-equal "
+          f"{same}; against one process after {DP_STEPS} steps max abs: "
+          f"generator {by_module['g'][0]:.3e} ({by_module['g'][1]}; limit "
+          f"{DP_PARAM_ATOL['g']:g}), discriminator {by_module['d'][0]:.3e} "
+          f"({by_module['d'][1]}; limit {DP_PARAM_ATOL['d']:g})")
+    require(same, "phase 21: the two ranks' parameters differ")
+    require(all(by_module[m][0] <= DP_PARAM_ATOL[m] for m in by_module),
+            f"phase 21: parameters {by_module} from one process's")
+
+
+def dp_decode_checks(ranks, one):
+    tokens = np.concatenate([r["tokens"] for r in ranks])
+    scores = np.concatenate([r["scores"] for r in ranks])
+    same = int(sum(np.array_equal(a, b) for a, b in zip(tokens,
+                                                         one["tokens"])))
+    rel = float(np.max(np.abs(scores - one["scores"])
+                       / np.maximum(np.abs(one["scores"]), 1e-6)))
+    print(f"  decode: tokens identical {same}/16, best-score max rel "
+          f"{rel:.3e} (limit 1e-3)")
+    require(same == 16, "phase 21: two ranks' tokens differ from one "
+                        "process's")
+    require(rel <= 1e-3, "phase 21: two ranks' scores differ")
+
+
+def prefetch_report(dev, work) -> None:
+    """Phase 7's train traffic (train.cli's default model, f32, B=16)
+    through a depth-2 ``Prefetcher``: the ms the training thread waited in
+    ``next()`` each step, and the collation ms of a batch timed alone;
+    then the loop's ms a step (collation included) with the Prefetcher
+    and with batches collated on the training thread, in turns (A, B, B,
+    A). Reported, not gated."""
+    args = train_cli.build_parser().parse_args(
+        ["--mode", "joint", "--synthetic", "--ckpt-dir", work,
+         "--batch-size", "16", "--synthetic-utts",
+         str(16 * PREFETCH_STEPS)])
+    train_b, _, vocab, _ = train_cli._synthetic_factories(args)
+    jcfg, tcfg = train_cli.configs_from_args(args, vocab)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in train_b())
+    collate_ms = (time.perf_counter() - t0) * 1e3 / n
+    state = train_loop.init_state(jcfg, tcfg, dev)
+    step = train_steps.make_joint_train_step(jcfg)
+
+    def run(batches, waits=None):
+        """ms a step of the loop over ``batches``, each step synchronised."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while True:
+            t1 = time.perf_counter()
+            batch = next(batches, None)
+            if waits is not None:
+                waits.append((time.perf_counter() - t1) * 1e3)
+            if batch is None:
+                break
+            step(state, train_loop.device_batch(batch, dev))
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    waits = []
+    with dataset.Prefetcher(train_b(), 2) as batches:
+        run(batches, waits)  # also the warm-up
+    loop_ms = {"prefetch": [], "inline": []}
+    for tag in ("prefetch", "inline", "inline", "prefetch"):
+        if tag == "inline":
+            loop_ms[tag].append(run(iter(train_b())))
+        else:
+            with dataset.Prefetcher(train_b(), 2) as batches:
+                loop_ms[tag].append(run(batches))
+    print(f"  prefetch (phase 7's traffic, depth 2, {n} steps): next() "
+          f"waited {['%.2f' % x for x in waits[:-1]]} ms (mean after the "
+          f"first {mean(waits[1:-1]):.3f}); collation alone "
+          f"{collate_ms:.2f} ms a batch; the loop's ms a step with the "
+          f"Prefetcher {['%.1f' % x for x in loop_ms['prefetch']]}, "
+          f"collating on the training thread "
+          f"{['%.1f' % x for x in loop_ms['inline']]} (in turns; {card()})")
+
+
+def dp_phase(state, state_d, dev, work) -> None:
+    """Phase 21: data parallelism on the card."""
+    jcfg = train_cfg("auto", "auto", "float32")
+    tcfg = TrainConfig()
+    batches = dp_batches()
+    dcfg = with_impls(flagship_config(VOCAB), "auto", "auto", "float32")
+    data = make_batch(16, SYNTH, np.random.default_rng(100))
+    bcfg = BeamSearchConfig(beam_size=BEAM, ctc_weight=0.3, max_steps=STEPS,
+                            early_exit=True)
+    calls = [(dp_phases.joint_steps, (jcfg, tcfg, state, state_d, batches),
+              {}),
+             (dp_phases.beam_decode, (dcfg, state, data["noisy_wav"],
+                                      data["wav_lengths"], bcfg), {})]
+    # two ranks on one card take gloo (NCCL refuses them); one a card NCCL
+    shared = "cuda:0" if dev.type == "cuda" else "cpu"
+    print(f"  (1-2) two gloo ranks on {shared}: {DP_STEPS} float32 joint "
+          f"steps of phase 8's B=16 (8 rows a rank), then phase 5's B=16 "
+          f"decode with early exit, against one process")
+    t0 = time.perf_counter()
+    ranks = launch(dp_phases.run_all, make_mesh(2, 1, shared), calls,
+                   limit_s=DP_LIMIT_S)
+    ranks_s = time.perf_counter() - t0
+    one_train = dp_phases.joint_steps(None, jcfg, tcfg, state, state_d,
+                                      batches, device=str(dev))
+    one_dec = dp_phases.beam_decode(None, dcfg, state, data["noisy_wav"],
+                                    data["wav_lengths"], bcfg,
+                                    device=str(dev))
+    for r, (train, dec) in enumerate(ranks):
+        ran = dp_gate_launches(
+            f"phase 21 rank {r} train", train["launches"],
+            ("blstm_train", "gemm", "ctc_nll"),
+            ("blstm_train_plain", "gemm_plain", "ctc_nll_plain"))
+        ran.update(dp_gate_launches(
+            f"phase 21 rank {r} decode", dec["launches"],
+            (("blstm_infer_cluster", "blstm_infer_row_tiled"),
+             ("att_loc_step_utt", "att_loc_step_hyp"), "psi", "state"),
+            ("blstm_infer_plain", "att_plain", "psi_plain", "state_plain")))
+        by_route = {k: v for k, v in {**train["launches"],
+                                      **dec["launches"]}.items() if v}
+        print(f"  rank {r} launches {ran}; by kernel and route {by_route}")
+    dp_train_checks([t for t, _ in ranks], one_train)
+    dp_decode_checks([d for _, d in ranks], one_dec)
+    print(f"  the launch took {ranks_s:.1f} s (spawn, import, both ranks' "
+          "work time-sliced on one card: no speed of data parallelism)")
+
+    # (3) NCCL at world size 1, deterministic algorithms in both runs
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = dp_phases.joint_steps(None, jcfg, tcfg, state, state_d,
+                                      batches[:1], device=str(dev))
+        nccl = launch(dp_phases.joint_steps, make_mesh(1, 1, dev.type), jcfg,
+                      tcfg, state, state_d, batches[:1],
+                      limit_s=DP_LIMIT_S)[0]
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic = saved[2]
+    metrics_equal = nccl["metrics"] == plain["metrics"]
+    params_equal = all(torch.equal(nccl["params"][k], plain["params"][k])
+                       for k in plain["params"])
+    print(f"  (3) one {make_mesh(1, 1, dev.type).backend} rank, one step "
+          f"through the reduction: "
+          f"metrics bit-equal {metrics_equal}, parameters bit-equal "
+          f"{params_equal} (launches {nccl['launches']['blstm_train']} "
+          f"blstm_train, {nccl['launches']['gemm']} gemm)")
+    require(metrics_equal and params_equal,
+            "phase 21: the world-1 NCCL step differs from the step without "
+            "a mesh")
+    if dev.type == "cuda" and torch.cuda.device_count() >= 2:
+        ckpt = os.path.join(work, "dp_cli")
+        train_cli.main(["--mode", "joint", "--synthetic", "--ckpt-dir", ckpt,
+                        "--synthetic-utts", "32", "--batch-size", "16",
+                        "--epochs", "1", "--log-every", "1",
+                        "--mesh-data", "2"])
+        step = latest_step(ckpt)
+        print(f"  train.cli --mesh-data 2 over NCCL on 2 cards: step {step}")
+        require(step == 2, f"train.cli --mesh-data 2 ended at step {step}")
+    else:
+        print("  train.cli --mesh-data 2 over NCCL: not run (one card; it "
+              "needs two)")
+
+    # (4) the Prefetcher
+    prefetch_report(dev, os.path.join(work, "prefetch"))
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -4267,7 +4537,7 @@ def main() -> int:
 
 
 def later_phases(state, state_d, dev, work, phase4_ms) -> dict:
-    """Phases 7-20; returns the launches of the kernels phases 7-15
+    """Phases 7-21; returns the launches of the kernels phases 7-15
     hold."""
     # 7. entry point
     print("train CLI (--mode joint --synthetic, default model, float32):")
@@ -4347,6 +4617,14 @@ def later_phases(state, state_d, dev, work, phase4_ms) -> dict:
     t0 = time.perf_counter()
     interchange_phase(state, state_d, dev, work, ckpt)
     print(f"  phase 20: {time.perf_counter() - t0:.1f} s")
+
+    # 21. data parallelism
+    print("data parallelism (two gloo ranks on card 0 against one process: "
+          f"{DP_STEPS} float32 joint steps and a decode; a world-1 NCCL step; "
+          "the Prefetcher on phase 7's traffic):")
+    t0 = time.perf_counter()
+    dp_phase(state, state_d, dev, work)
+    print(f"  phase 21: {time.perf_counter() - t0:.1f} s")
 
     return {"blstm_train_gx": cli_launches["blstm_train_gx"],
             "fbank_fused": clean_launches["fbank_fused"],

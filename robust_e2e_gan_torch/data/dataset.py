@@ -10,15 +10,17 @@ of precomputed feats.scp matrices, with utterance lengths from a Kaldi
 length map, a header-only probe of each ark entry, or an index cache keyed
 by the scp's fingerprint) and ``BucketBatcher`` (length-sorted batches
 padded to a length bucket, labels padded with ``ignore_id``, an optional
-padded final batch, per-speaker CMVN stats with each batch). Batches are
-read with numpy, the JAX package's own path when its native loader is not
-built. The prefetch thread is not ported yet (ROADMAP queue 1,
-Prefetcher).
+padded final batch, per-speaker CMVN stats with each batch) and
+``Prefetcher`` (a host thread that collates the next batches while the
+training thread steps). Batches are read with numpy, the JAX package's own
+path when its native loader is not built.
 """
 from __future__ import annotations
 
 import json
 import os
+import queue
+import threading
 import warnings
 from dataclasses import dataclass
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
@@ -479,3 +481,75 @@ class BucketBatcher:
             self.rng.shuffle(order)
         for bi in order:
             yield self._collate(self.batches[bi])
+
+
+class Prefetcher:
+    """Collate batches on a background thread, ahead of the consumer
+    (JAX ``data/dataset.py::Prefetcher``).
+
+    At most ``depth`` batches wait in the queue (``depth=0``: no bound, as
+    ``queue.Queue(maxsize=0)``). An error of the worker is raised by the
+    next ``next()``. ``close()`` frees a worker blocked on a full queue
+    without draining the iterator; the ``with`` form closes on exit. The
+    thread only collates host arrays: moving a batch to the device stays
+    with the consumer."""
+
+    _DONE = object()
+
+    def __init__(self, it: Iterator, depth: int = 2):
+        self.q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self.err: Optional[BaseException] = None
+        self._stop = threading.Event()
+
+        def put(item) -> bool:
+            # bounded by _stop, so close() can always free the worker
+            while not self._stop.is_set():
+                try:
+                    self.q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def work():
+            try:
+                for item in it:
+                    if not put(item):
+                        return
+            except BaseException as e:  # raised by the consumer's next()
+                self.err = e
+            finally:
+                # the end marker must reach a consumer even when the queue
+                # is full at this moment
+                put(self._DONE)
+
+        self.t = threading.Thread(target=work, name="prefetch", daemon=True)
+        self.t.start()
+
+    def close(self) -> None:
+        """Stop the worker without draining its iterator."""
+        self._stop.set()
+        while True:  # free a worker blocked in put()
+            try:
+                self.q.get_nowait()
+            except queue.Empty:
+                break
+        self.t.join(timeout=5.0)
+
+    def __enter__(self) -> "Prefetcher":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.close()
+        return False
+
+    def __iter__(self) -> "Prefetcher":
+        return self
+
+    def __next__(self):
+        item = self.q.get()
+        if item is self._DONE:
+            if self.err is not None:
+                raise self.err
+            raise StopIteration
+        return item

@@ -22,10 +22,17 @@ waveform scp (``--noisy-scp``) or a Kaldi feats.scp (``--feats-scp``, for
 an experiment trained on precomputed log-mel or spectra), each with a
 Kaldi ``text`` file (``--text``). An experiment trained with global CMVN
 reads ``<ckpt-dir>/cmvn.ark``; one with speaker CMVN needs ``--utt2spk``
-(stats from ``--cmvn-ark`` or ``<ckpt-dir>/cmvn.ark``). ``--mesh-data >
-1`` and the staged and chunked schedules raise ``NotImplementedError``
-naming their ROADMAP item (``--pipelined auto`` resolves to sequential,
-as it does in the JAX package off the TPU).
+(stats from ``--cmvn-ark`` or ``<ckpt-dir>/cmvn.ark``).
+
+``--mesh-data N`` (N > 1) decodes over N data-parallel ranks, one process
+each (``parallel/``; one card each with ``--device cuda``, gloo ranks with
+``--device cpu``): each rank decodes its rows of every batch whose size
+divides over N, rank 0 alone a batch that does not (as the JAX CLI places
+a ragged batch on one device), and rank 0 gathers the rows and writes
+every output, byte for byte what one process writes. The staged and
+chunked schedules raise ``NotImplementedError`` naming their ROADMAP item
+(``--pipelined auto`` resolves to sequential, as it does in the JAX
+package off the TPU).
 
   python -m robust_e2e_gan_torch.decode.cli \\
       --manifest data/eval.jsonl --ckpt-dir exp/joint \\
@@ -54,6 +61,7 @@ from robust_e2e_gan_torch.decode.beam import make_beam_searcher
 from robust_e2e_gan_torch.models.e2e import add_sos_eos
 from robust_e2e_gan_torch.ops.ctc import ctc_greedy_decode
 from robust_e2e_gan_torch.ops.editdistance import score_texts, wer_details
+from robust_e2e_gan_torch.parallel import launch, make_mesh, sharding
 from robust_e2e_gan_torch.train.loop import init_state, resolve_device
 from robust_e2e_gan_torch.utils import checkpoint as ckpt_lib
 
@@ -114,7 +122,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "<ckpt-dir>/cmvn.ark)")
     p.add_argument("--length-buckets", default="32000,64000,112000,160000")
     p.add_argument("--mesh-data", type=int, default=0,
-                   help="data-parallel serving: not ported yet")
+                   help="data-parallel serving ranks (0/1: one process)")
     p.add_argument("--pipelined", choices=("auto", "on", "off", "chunked"),
                    default="auto",
                    help="serving schedule: auto and off decode batch after "
@@ -132,10 +140,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    if args.mesh_data > 1:
-        raise NotImplementedError(
-            "--mesh-data: data-parallel serving is not ported yet "
-            "(ROADMAP queue 1, data parallel)")
     if args.pipelined in ("on", "chunked"):
         raise NotImplementedError(
             f"--pipelined {args.pipelined}: the staged schedule is not "
@@ -258,13 +262,68 @@ def _load_lm(lm_dir: str, serving_impls: str, device):
     return forced.to(device).eval()
 
 
+def _decode_rows(args, searcher, model, e2e, batch, rows: slice, inputs,
+                 device) -> list:
+    """The host arrays of one batch's ``rows``: best tokens, then (beam
+    search with ``--nbest``) every hypothesis's tokens, lengths and
+    scores, then (``--dump-attention``) the teacher-forced attention maps
+    and encoded lengths; each empty where not asked for."""
+    wav, lens = (torch.from_numpy(batch[k][rows]).to(device) for k in inputs)
+    cmvn_batch = None
+    if "cmvn_mean" in batch:
+        cmvn_batch = tuple(torch.from_numpy(batch[k][rows]).to(device)
+                           for k in ("cmvn_mean", "cmvn_inv_std"))
+    n = wav.shape[0]
+    empty = np.zeros((n, 0), np.float32)
+    bt = bl = bs = atts = hlens = empty
+    if args.greedy:
+        with torch.inference_mode():
+            _, _, enc_lens, ctc_logits, _ = searcher.encode(wav, lens,
+                                                            cmvn_batch)
+            toks = ctc_greedy_decode(ctc_logits, enc_lens,
+                                     e2e.blank_id).cpu().numpy()
+    else:
+        res = searcher(wav, lens, cmvn_batch)
+        toks = res.tokens.cpu().numpy()
+        if args.nbest > 0:
+            bt = res.beam_tokens.cpu().numpy()
+            bl = res.beam_lengths.cpu().numpy()
+            bs = res.beam_scores.cpu().numpy()
+    if args.dump_attention:
+        labels = torch.from_numpy(batch["labels"][rows]).to(device)
+        with torch.inference_mode():
+            hs, hmask, enc_lens, _, _ = searcher.encode(wav, lens,
+                                                        cmvn_batch)
+            ys_in, _, _ = add_sos_eos(labels, e2e.sos_id, e2e.eos_id,
+                                      e2e.ignore_id)
+            _, att = model.asr.decoder(hs, hmask, ys_in)
+        atts = att.float().cpu().numpy()
+        hlens = enc_lens.cpu().numpy()
+    return [toks, bt, bl, bs, atts, hlens]
+
+
 def main(argv: Optional[list] = None) -> None:
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
-    device = resolve_device(args.device)  # raises before any output
+    resolve_device(args.device)  # raises before any output
+    if args.mesh_data > 1:
+        mesh = make_mesh(args.mesh_data, 1, args.device)
+        print(f"data-parallel decode over {args.mesh_data} ranks "
+              f"({mesh.backend})", flush=True)
+        launch(_decode, mesh, args)
+    else:
+        _decode(None, args)
+
+
+def _decode(mesh, args) -> None:
+    """Decode and score the parsed flags' dataset: in this process, or as
+    one rank of ``mesh``."""
+    main_rank = mesh is None or mesh.is_main
+    device = resolve_device(args.device if mesh is None else mesh.device)
     model, jcfg, tok, step, input_kind, log_domain = load_experiment(
         args.ckpt_dir, args.which, args.serving_impls, device)
-    print(f"restored step {step} from {args.ckpt_dir} ({args.which})")
+    if main_rank:
+        print(f"restored step {step} from {args.ckpt_dir} ({args.which})")
 
     ds = dataset_of(args, tok, input_kind)
     buckets = tuple(int(x) for x in args.length_buckets.split(",") if x)
@@ -283,8 +342,9 @@ def main(argv: Optional[list] = None) -> None:
     lm = None
     if args.lm_dir and args.lm_weight != 0.0:
         lm = _load_lm(args.lm_dir, args.serving_impls, device)
-        print(f"RNNLM shallow fusion from {args.lm_dir} "
-              f"(weight {args.lm_weight})")
+        if main_rank:
+            print(f"RNNLM shallow fusion from {args.lm_dir} "
+                  f"(weight {args.lm_weight})")
     use_enh = not args.no_enhancer
     searcher = make_beam_searcher(model, jcfg.e2e, bcfg, use_enhancer=use_enh,
                                   lm=lm, input_kind=input_kind,
@@ -294,50 +354,33 @@ def main(argv: Optional[list] = None) -> None:
               else ("noisy_wav", "wav_lengths"))
 
     out_dir = args.out or os.path.join(args.ckpt_dir, "decode")
-    os.makedirs(out_dir, exist_ok=True)
+    if main_rank:
+        os.makedirs(out_dir, exist_ok=True)
     refs, hyps, lines, nbest_rows = [], [], [], []
     ref_texts, hyp_texts = [], []
     for batch in batcher.epoch(shuffle=False):
-        wav, lens = (torch.from_numpy(batch[k]).to(device) for k in inputs)
-        cmvn_batch = None
-        if "cmvn_mean" in batch:
-            cmvn_batch = tuple(torch.from_numpy(batch[k]).to(device)
-                               for k in ("cmvn_mean", "cmvn_inv_std"))
-        if args.greedy:
-            with torch.inference_mode():
-                _, _, hlens, ctc_logits, _ = searcher.encode(wav, lens,
-                                                             cmvn_batch)
-                toks = ctc_greedy_decode(ctc_logits, hlens,
-                                         e2e.blank_id).cpu().numpy()
-        else:
-            res = searcher(wav, lens, cmvn_batch)
-            toks = res.tokens.cpu().numpy()
-            if args.nbest > 0:
-                bt = res.beam_tokens.cpu().numpy()
-                bl = res.beam_lengths.cpu().numpy()
-                bs = res.beam_scores.cpu().numpy()
-                order = np.argsort(-bs, axis=1)
-                for j, uid in enumerate(batch["utt_ids"]):
-                    entries = []
-                    for k in order[j][:args.nbest]:
-                        htoks = [int(x) for x in bt[j, k, :bl[j, k]]
-                                 if x != -1]
-                        entries.append({
-                            "tokens": htoks,
-                            "text": tok.decode(htoks) if tok else None,
-                            "score": float(bs[j, k]),
-                        })
-                    nbest_rows.append({"utt_id": uid, "nbest": entries})
+        shard, rows = sharding.serving_split(len(batch[inputs[0]]), mesh)
+        if rows is None:
+            continue
+        arrays = sharding.gather_rows(_decode_rows(
+            args, searcher, model, e2e, batch, rows, inputs, device), shard)
+        if not main_rank:
+            continue
+        toks, bt, bl, bs, atts, hlens = arrays
+        if args.nbest > 0 and not args.greedy:
+            order = np.argsort(-bs, axis=1)
+            for j, uid in enumerate(batch["utt_ids"]):
+                entries = []
+                for k in order[j][:args.nbest]:
+                    htoks = [int(x) for x in bt[j, k, :bl[j, k]] if x != -1]
+                    entries.append({
+                        "tokens": htoks,
+                        "text": tok.decode(htoks) if tok else None,
+                        "score": float(bs[j, k]),
+                    })
+                nbest_rows.append({"utt_id": uid, "nbest": entries})
         batch_hyps = [[int(x) for x in row if x != -1] for row in toks]
         if args.dump_attention:
-            labels = torch.from_numpy(batch["labels"]).to(device)
-            with torch.inference_mode():
-                hs, hmask, hlens, _, _ = searcher.encode(wav, lens,
-                                                         cmvn_batch)
-                ys_in, _, _ = add_sos_eos(labels, e2e.sos_id, e2e.eos_id,
-                                          e2e.ignore_id)
-                _, atts = model.asr.decoder(hs, hmask, ys_in)
-            atts, hlens = atts.float().cpu().numpy(), hlens.cpu().numpy()
             os.makedirs(os.path.join(out_dir, "att"), exist_ok=True)
             for j, uid in enumerate(batch["utt_ids"]):
                 n_lab = int(np.sum(batch["labels"][j] != -1)) + 1
@@ -353,6 +396,8 @@ def main(argv: Optional[list] = None) -> None:
             hyp_texts.append(text)
             lines.append(f"{uid} {text}")
 
+    if not main_rank:
+        return
     if nbest_rows:
         with open(os.path.join(out_dir, "nbest.jsonl"), "w") as f:
             f.write("\n".join(json.dumps(r) for r in nbest_rows) + "\n")

@@ -29,6 +29,7 @@ from robust_e2e_gan_torch.models.attention import (
 )
 from robust_e2e_gan_torch.models.layers import Dense, Embed
 from robust_e2e_gan_torch.models.rnn import LSTMCell
+from robust_e2e_gan_torch.parallel.sharding import mean_denominator, rows_rand
 from robust_e2e_gan_torch.utils.impl import kernel_enabled
 
 
@@ -139,7 +140,7 @@ class Decoder(nn.Module):
         for i in range(s):
             tok = ys_in[:, i].to(torch.int32)
             if p > 0.0:
-                draw = torch.rand((b,), generator=gen, device=tok.device) < p
+                draw = rows_rand((b,), gen, tok.device) < p
                 prev = carry[3]
                 tok = torch.where(draw & (prev >= 0), prev, tok)
             carry, (lg, att) = self.step_mod(carry, tok, enc, enc_proj,
@@ -160,7 +161,8 @@ def decoder_cross_entropy(logits: torch.Tensor, ys_out: torch.Tensor,
                           ignore_id: int = -1, label_smoothing: float = 0.0
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked cross entropy with label smoothing, normalised per valid
-    token -> (loss, accuracy)."""
+    token -> (loss, accuracy). Under a data mesh the valid tokens are
+    counted over the global batch (``parallel/sharding.py``)."""
     valid = (ys_out != ignore_id).float()
     targets = torch.clamp_min(ys_out, 0).long()
     lp = torch.log_softmax(logits.float(), dim=-1)
@@ -168,7 +170,7 @@ def decoder_cross_entropy(logits: torch.Tensor, ys_out: torch.Tensor,
     if label_smoothing > 0.0:
         smooth = -lp.mean(dim=-1)
         nll = (1.0 - label_smoothing) * nll + label_smoothing * smooth
-    denom = torch.clamp_min(valid.sum(), 1.0)
+    denom = mean_denominator(valid.sum())
     loss = (nll * valid).sum() / denom
     pred = torch.argmax(logits, dim=-1)
     acc = ((pred == targets).float() * valid).sum() / denom

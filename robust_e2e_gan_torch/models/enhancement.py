@@ -20,6 +20,7 @@ from torch import nn
 from robust_e2e_gan_torch.config import DiscriminatorConfig, EnhancerConfig
 from robust_e2e_gan_torch.models.layers import Conv2d, Dense
 from robust_e2e_gan_torch.models.rnn import BLSTM
+from robust_e2e_gan_torch.parallel.sharding import mean_denominator
 
 
 class EnhanceNet(nn.Module):
@@ -129,7 +130,8 @@ def enhancement_loss(enhanced: torch.Tensor, clean: torch.Tensor,
                      frame_mask: Optional[torch.Tensor] = None,
                      kind: str = "l2", compress: bool = True) -> torch.Tensor:
     """Reconstruction term L_enh(enhanced, clean), on log1p-compressed
-    spectra by default, averaged over valid frames and bins."""
+    spectra by default, averaged over valid frames and bins (under a data
+    mesh, the valid frames of the global batch)."""
     if compress:
         enhanced = torch.log1p(torch.clamp_min(enhanced, 0.0))
         clean = torch.log1p(torch.clamp_min(clean, 0.0))
@@ -138,4 +140,4 @@ def enhancement_loss(enhanced: torch.Tensor, clean: torch.Tensor,
     if frame_mask is None:
         return per.mean()
     m = frame_mask[..., None].to(per.dtype)
-    return (per * m).sum() / torch.clamp_min(m.sum() * per.shape[-1], 1.0)
+    return (per * m).sum() / mean_denominator(m.sum() * per.shape[-1])

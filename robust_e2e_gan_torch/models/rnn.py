@@ -28,6 +28,7 @@ from robust_e2e_gan_torch.ops.blstm_train import (
     blstm_train_gx,
     train_kernel_for,
 )
+from robust_e2e_gan_torch.parallel.sharding import rows_rand
 from robust_e2e_gan_torch.utils.impl import kernel_enabled
 
 
@@ -115,9 +116,10 @@ class BLSTM(nn.Module):
 def dropout(x: torch.Tensor, rate: float,
             gen: Optional[torch.Generator]) -> torch.Tensor:
     """flax ``Dropout``: keep with probability 1 - rate, scaled by
-    1 / (1 - rate); the draws come from ``gen``."""
+    1 / (1 - rate); the draws come from ``gen`` (under a data mesh, the
+    rank's rows of the global batch's draw)."""
     keep = 1.0 - rate
-    draw = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    draw = rows_rand(x.shape, gen, x.device) < keep
     return torch.where(draw, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 

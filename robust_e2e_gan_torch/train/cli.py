@@ -36,10 +36,16 @@ stats from ``--cmvn-ark``, ``--cmvn speaker`` from a speaker-keyed
 ``--cmvn-ark`` and ``--utt2spk``; the ark is copied into the run dir as
 ``cmvn.ark`` for decoding. ``--init-from`` takes a run dir of the port
 or of the JAX package (its best parameters); resuming a JAX run in
-``--ckpt-dir`` raises ``NotImplementedError`` (ROADMAP 'Not to port'), as
-does ``--mesh-data > 1``, naming its ROADMAP item. ``--remat`` and
-``--scan-unroll`` are XLA scheduling knobs, accepted and without effect;
-``--prefetch-depth`` likewise (batches are read on the training thread).
+``--ckpt-dir`` raises ``NotImplementedError`` (ROADMAP 'Not to port').
+``--mesh-data N`` (N > 1) trains over N data-parallel ranks, one process
+each (``parallel/``): one card each with ``--device cuda`` (NCCL; N cards
+needed), gloo ranks with ``--device cpu``. Every rank reads the same
+global batches, which must divide over N, and keeps its rows; this
+process writes the run dir's config before the ranks start, and rank 0
+the checkpoints and logs. ``--mode lm`` ignores the flag, as the JAX CLI
+does. ``--prefetch-depth`` batches are collated ahead on a host thread.
+``--remat`` and ``--scan-unroll`` are XLA scheduling knobs, accepted and
+without effect.
 ``--gate-storage compute`` rounds the plain BLSTM frame loop's gate
 projections to the compute dtype (``--lstm-impl scan``), as the JAX scan
 does; the kernels ignore it.
@@ -169,12 +175,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--init-from", help="warm-start params from this ckpt dir")
     p.add_argument("--no-resume", action="store_true")
     p.add_argument("--mesh-data", type=int, default=0,
-                   help="data-parallel mesh size: not ported yet")
+                   help="data-parallel ranks (0/1: one process)")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--save-every-steps", type=int, default=0,
                    help="mid-epoch checkpoint every N steps (0 = per epoch)")
     p.add_argument("--prefetch-depth", type=int, default=2,
-                   help="no effect here")
+                   help="host batches collated ahead on a background "
+                        "thread")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where to train: the GPU (raises without one) or, "
                         "when asked, the CPU")
@@ -391,10 +398,6 @@ def _lm_main(args) -> None:
 
 
 def _refuse_unported(args) -> None:
-    if args.mesh_data > 1:
-        raise NotImplementedError(
-            "--mesh-data: data parallelism is not ported yet "
-            "(ROADMAP queue 1, data parallel)")
     if not args.no_resume and ckpt_lib.is_jax_checkpoint(args.ckpt_dir):
         raise NotImplementedError(
             f"{args.ckpt_dir}: {ckpt_lib.JAX_RESUME}")
@@ -406,15 +409,16 @@ def _input_kind(args) -> str:
     return "feats" if args.feats_kind == "mel" else "spec"
 
 
-def _cmvn_stats(args):
+def _cmvn_stats(args, copy: bool = True):
     """The global (mean, inv_std) for ``--cmvn global``; for ``global``
-    and ``speaker`` the stats ark is copied into the run dir, where
-    ``decode.cli`` finds it."""
+    and ``speaker`` the stats ark is copied into the run dir (unless
+    ``copy`` is False), where ``decode.cli`` finds it."""
     if args.cmvn not in ("global", "speaker"):
         return None
     if not args.cmvn_ark:
         raise SystemExit(f"--cmvn {args.cmvn} requires --cmvn-ark")
-    shutil.copy(args.cmvn_ark, os.path.join(args.ckpt_dir, "cmvn.ark"))
+    if copy:
+        shutil.copy(args.cmvn_ark, os.path.join(args.ckpt_dir, "cmvn.ark"))
     if args.cmvn == "speaker":
         return None  # the per-utterance stats ride each batch
     from robust_e2e_gan_torch.data.cmvn import (
@@ -434,6 +438,16 @@ def main(argv: Optional[list] = None) -> None:
     if args.mode == "lm":
         _lm_main(args)
         return
+    mesh = None
+    if args.mesh_data > 1:
+        from robust_e2e_gan_torch.parallel import (
+            local_batch_size,
+            make_mesh,
+        )
+
+        # both raise before anything is written
+        mesh = make_mesh(args.mesh_data, 1, args.device)
+        local_batch_size(args.batch_size, mesh)
     factories = (_synthetic_factories if args.synthetic
                  else _corpus_factories)
     train_b, dev_b, vocab, tok = factories(args)
@@ -448,7 +462,28 @@ def main(argv: Optional[list] = None) -> None:
     if tok is not None:
         tok.save(os.path.join(args.ckpt_dir, "tokenizer.json"))
     cmvn_stats = _cmvn_stats(args)
+    if mesh is None:
+        _run(args, jcfg, tcfg, train_b, dev_b, cmvn_stats)
+    else:
+        from robust_e2e_gan_torch.parallel import launch
 
+        print(f"data-parallel training over {args.mesh_data} ranks "
+              f"({mesh.backend})", flush=True)
+        launch(_rank, mesh, args)
+
+
+def _rank(mesh, args) -> None:
+    """One rank of ``train.cli --mesh-data``: its own batchers, drawn from
+    the same seed as every other rank's."""
+    factories = (_synthetic_factories if args.synthetic
+                 else _corpus_factories)
+    train_b, dev_b, vocab, _ = factories(args)
+    jcfg, tcfg = configs_from_args(args, vocab)
+    _run(args, jcfg, tcfg, train_b, dev_b, _cmvn_stats(args, copy=False),
+         mesh)
+
+
+def _run(args, jcfg, tcfg, train_b, dev_b, cmvn_stats, mesh=None) -> None:
     from robust_e2e_gan_torch.train.loop import train
 
     train(jcfg, tcfg, train_b, dev_batches=dev_b, mode=args.mode,
@@ -457,7 +492,8 @@ def main(argv: Optional[list] = None) -> None:
           save_every_steps=args.save_every_steps,
           input_kind=_input_kind(args),
           log_domain=args.feats_kind == "log-spectrogram",
-          device=args.device)
+          device=args.device, mesh=mesh,
+          prefetch_depth=args.prefetch_depth)
 
 
 if __name__ == "__main__":

@@ -10,9 +10,18 @@ parameters, a run of the port or of the JAX package. The input kind
 (waveforms, precomputed log-mel features or precomputed spectra) is the
 caller's, or is read off the first batch's keys. Checkpoints are written
 off the training thread by ``utils/checkpoint.py::AsyncCheckpointer``, the
-last one durable before the loop returns. Batches are moved to the device
-on the training thread; the JAX package's host prefetch thread is not
-ported yet (ROADMAP queue 1, Prefetcher).
+last one durable before the loop returns. A ``data/dataset.py::Prefetcher``
+thread collates the next ``prefetch_depth`` host batches while a step
+runs; each batch is moved to the device on the training thread.
+
+Under a data mesh (``mesh``, one process a rank: ``parallel/``), every
+rank draws the same global batches from the same seed and keeps its rows
+(``shard_batch``), padded to the global batch's widths; the state is
+broadcast from rank 0 after any restore; the steps reduce gradients and
+metrics over the ranks, so dev metrics, and with them the best checkpoint
+and Adadelta's eps decay, are the same on every rank. Only rank 0 logs
+and writes checkpoints; every rank waits for the last save before it
+returns, and for any save in flight before it reads a resume.
 """
 
 from __future__ import annotations
@@ -25,7 +34,9 @@ import torch
 
 from robust_e2e_gan_torch.config import JointConfig, TrainConfig
 from robust_e2e_gan_torch.convert import from_flax, init_disc_params, init_params
+from robust_e2e_gan_torch.data.dataset import Prefetcher
 from robust_e2e_gan_torch.models.enhancement import Discriminator
+from robust_e2e_gan_torch.parallel import sharding
 from robust_e2e_gan_torch.pipeline import build_model
 from robust_e2e_gan_torch.train import steps as steps_lib
 from robust_e2e_gan_torch.utils import checkpoint as ckpt_lib
@@ -88,6 +99,8 @@ def train(
     input_kind: Optional[str] = None,
     log_domain: bool = False,
     device: Union[str, torch.device] = "cuda",
+    mesh: Optional[sharding.Mesh] = None,
+    prefetch_depth: int = 2,
 ) -> steps_lib.TrainState:
     """Run ``tcfg.num_epochs`` of the selected regime; returns the state.
 
@@ -100,11 +113,14 @@ def train(
     ``input_kind``: "wav", "feats" or "spec" (``log_domain``: log power
     spectra); None reads it off the first batch.
     ``device``: the GPU by default (raises without one); "cpu" only when
-    asked for.
+    asked for. ``mesh``: a joined data mesh (``parallel.launch``), whose
+    rank's device replaces ``device``. ``prefetch_depth``: host batches
+    collated ahead (0: no bound).
     """
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}")
-    device = resolve_device(device)
+    device = resolve_device(device if mesh is None else mesh.device)
+    main = mesh is None or mesh.is_main
     # drawn on every run, as the JAX loop draws it (a shared batcher's
     # shuffle moves on by one epoch): a batch of features is "feats"
     # ("spec" is only ever asked for), and sizes a feats run's discriminator
@@ -116,6 +132,7 @@ def train(
 
     start_epoch = 0
     best_acc = -float("inf")
+    sharding.barrier(mesh)  # no rank reads while a save is in flight
     if init_from and ckpt_lib.has_checkpoint(init_from, "best"):
         ckpt_lib.restore_checkpoint(init_from, state, "best", params_only=True)
     if resume and ckpt_lib.has_checkpoint(tcfg.checkpoint_dir):
@@ -124,63 +141,76 @@ def train(
         start_epoch = int(extra.get("epoch", -1)) + int(
             bool(extra.get("epoch_complete", True)))
         best_acc = float(extra.get("best_acc", best_acc))
+    sharding.shard_train_state(state, mesh)
 
     if mode == "asr":
         step_fn = steps_lib.make_asr_pretrain_step(
-            use_enhancer=False, input_kind=input_kind, log_domain=log_domain)
+            use_enhancer=False, input_kind=input_kind, log_domain=log_domain,
+            mesh=mesh)
     else:
         step_fn = steps_lib.make_joint_train_step(
             jcfg, with_asr=(mode == "joint"), input_kind=input_kind,
-            log_domain=log_domain)
+            log_domain=log_domain, mesh=mesh)
     eval_fn = steps_lib.make_eval_step(use_enhancer=(mode != "asr"),
                                        input_kind=input_kind,
-                                       log_domain=log_domain)
+                                       log_domain=log_domain, mesh=mesh)
 
-    logger = MetricLogger(log_dir, name=mode)
+    def to_device(batch):
+        rows = sharding.shard_batch(
+            {k: batch[k] for k in BATCH_KEYS if k in batch}, mesh)
+        return device_batch(rows, device)
+
+    logger = MetricLogger(log_dir if main else None, name=mode)
     timer = StepTimer()
     # the host snapshot on this thread, the write on the saver's
     saver = ckpt_lib.AsyncCheckpointer()
 
+    def log(*args, **kw):
+        if main:
+            logger.log(*args, **kw)
+
     def save(epoch, complete, metric=None):
-        saver.save(
-            tcfg.checkpoint_dir, state, state.step, metric=metric, keep=3,
-            extra={"epoch": epoch, "epoch_complete": complete,
-                   "best_acc": best_acc})
+        if main:
+            saver.save(
+                tcfg.checkpoint_dir, state, state.step, metric=metric,
+                keep=3, extra={"epoch": epoch, "epoch_complete": complete,
+                               "best_acc": best_acc})
 
     # leaving the saver's block waits for the last write, also where a
     # step raises
     try:
         with saver:
             for epoch in range(start_epoch, tcfg.num_epochs):
-                for batch in train_batches():
-                    timer.tic()
-                    metrics = step_fn(state, device_batch(batch, device))
-                    if state.step % tcfg.log_every == 0:
-                        logger.log(state.step, metrics,
-                                   prefix=f"epoch {epoch} ")
-                    if (save_every_steps
-                            and state.step % save_every_steps == 0):
-                        save(epoch, False)
-                    timer.toc()
-                print(f"[{mode}] epoch {epoch}: {timer.mean_ms:.1f} ms/step "
-                      f"(host clock, last {len(timer.times)} steps)",
-                      flush=True)
+                # leaving the block frees the thread, also where a step
+                # raises
+                with Prefetcher(train_batches(), prefetch_depth) as batches:
+                    for batch in batches:
+                        timer.tic()
+                        metrics = step_fn(state, to_device(batch))
+                        if state.step % tcfg.log_every == 0:
+                            log(state.step, metrics, prefix=f"epoch {epoch} ")
+                        if (save_every_steps
+                                and state.step % save_every_steps == 0):
+                            save(epoch, False)
+                        timer.toc()
+                if main:
+                    print(f"[{mode}] epoch {epoch}: {timer.mean_ms:.1f} "
+                          f"ms/step (host clock, last {len(timer.times)} "
+                          "steps)", flush=True)
 
                 dev_acc = None
                 if dev_batches is not None:
                     sums: Dict[str, float] = {}
                     n = 0
                     for batch in dev_batches():
-                        m = eval_fn(state.model,
-                                    device_batch(batch, device))
+                        m = eval_fn(state.model, to_device(batch))
                         for k, v in m.items():
                             sums[k] = sums.get(k, 0.0) + float(v)
                         n += 1
                     if n:
                         dev = {k: v / n for k, v in sums.items()}
                         dev_acc = dev["acc"]
-                        logger.log(state.step, dev,
-                                   prefix=f"DEV epoch {epoch} ")
+                        log(state.step, dev, prefix=f"DEV epoch {epoch} ")
 
                 if dev_acc is not None:
                     if dev_acc > best_acc:
@@ -188,9 +218,11 @@ def train(
                     elif tcfg.optimizer == "adadelta":
                         for opt in (state.opt_g, state.opt_d):
                             steps_lib.decay_adadelta_eps(opt, tcfg.eps_decay)
-                        print(f"[{mode}] dev plateau at epoch {epoch}: "
-                              f"eps *= {tcfg.eps_decay}", flush=True)
+                        if main:
+                            print(f"[{mode}] dev plateau at epoch {epoch}: "
+                                  f"eps *= {tcfg.eps_decay}", flush=True)
                 save(epoch, True, dev_acc)
     finally:
         logger.close()
+    sharding.barrier(mesh)  # the last save is durable on every rank's return
     return state

@@ -19,12 +19,19 @@ frontend), "feats" (precomputed log-mel, Kaldi feats.scp: ASR only) or
 "spec" (precomputed power spectra through the enhancer, linear or, with
 ``log_domain``, Kaldi's log power). Speaker-CMVN stats ride the batch as
 "cmvn_mean"/"cmvn_inv_std".
+
+With a data mesh (``mesh``, ``parallel/sharding.py``) a step runs on the
+rank's rows of the global batch inside ``data_parallel(mesh)``: each
+optimizer averages its gradients over the ranks before the clip (the JAX
+step's ``psum``), the loss terms that divide by a count over the batch
+(valid tokens, valid frames) take that count over the global batch, and
+the metrics are the global batch's on every rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -36,6 +43,7 @@ from robust_e2e_gan_torch.models.enhancement import (
     adversarial_losses,
     enhancement_loss,
 )
+from robust_e2e_gan_torch.parallel import sharding
 from robust_e2e_gan_torch.pipeline import RobustE2E
 
 Batch = Dict[str, torch.Tensor]
@@ -83,9 +91,10 @@ class Optimizer:
 
     def step(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """Clip ``grads`` (one per parameter; None for an unused one),
-        apply them, and return the unclipped global norm."""
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(self.params, grads)]
+        apply them, and return the unclipped global norm. Under an active
+        data mesh the gradients are first averaged over the ranks."""
+        grads = sharding.all_mean([torch.zeros_like(p) if g is None else g
+                                   for p, g in zip(self.params, grads)])
         norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
         max_norm = self.tcfg.grad_clip
         for p, g in zip(self.params, grads):
@@ -257,44 +266,52 @@ def _asr_out(model: RobustE2E, batch: Batch, input_kind: str,
 
 def make_asr_pretrain_step(use_enhancer: bool = False,
                            input_kind: str = "wav",
-                           log_domain: bool = False) -> Callable:
+                           log_domain: bool = False,
+                           mesh: Optional[sharding.Mesh] = None) -> Callable:
     """Clean-ASR pretraining: ``step(state, batch) -> metrics``."""
     _check_input_kind(input_kind)
 
+    @sharding.data_parallel(mesh)
     def step_fn(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
         out = _asr_out(state.model, batch, input_kind, use_enhancer,
                        log_domain, "clean_wav", deterministic=False,
                        rngs=state.rngs)
         norm = state.opt_g.step(_grads(out["loss"], state.opt_g.params))
         state.step += 1
-        return {"loss": out["loss"].detach(),
-                "loss_ctc": out["loss_ctc"].detach(),
-                "loss_att": out["loss_att"].detach(),
-                "acc": out["acc"].detach(), "grad_norm": norm}
+        return sharding.mean_metrics({
+            "loss": out["loss"].detach(),
+            "loss_ctc": out["loss_ctc"].detach(),
+            "loss_att": out["loss_att"].detach(),
+            "acc": out["acc"].detach(), "grad_norm": norm})
 
     return step_fn
 
 
 def make_eval_step(use_enhancer: bool = True, input_kind: str = "wav",
-                   log_domain: bool = False) -> Callable:
+                   log_domain: bool = False,
+                   mesh: Optional[sharding.Mesh] = None) -> Callable:
     """Dev-eval forward: ``eval(model, batch) -> ASR metrics``, on the
     enhanced noisy speech when ``use_enhancer`` (the quantity the reference
-    tracked for eps decay and the best checkpoint)."""
+    tracked for eps decay and the best checkpoint); under ``mesh``, the
+    global batch's metrics on every rank."""
     _check_input_kind(input_kind)
     wav = "noisy_wav" if use_enhancer else "clean_wav"
 
     @torch.no_grad()
+    @sharding.data_parallel(mesh)
     def eval_fn(model: RobustE2E, batch: Batch) -> Dict[str, torch.Tensor]:
         out = _asr_out(model, batch, input_kind, use_enhancer, log_domain,
                        wav)
-        return {k: out[k] for k in ("loss", "loss_ctc", "loss_att", "acc")}
+        return sharding.mean_metrics(
+            {k: out[k] for k in ("loss", "loss_ctc", "loss_att", "acc")})
 
     return eval_fn
 
 
 def make_joint_train_step(jcfg: JointConfig, with_asr: bool = True,
                           input_kind: str = "wav",
-                          log_domain: bool = False) -> Callable:
+                          log_domain: bool = False,
+                          mesh: Optional[sharding.Mesh] = None) -> Callable:
     """One alternating adversarial update, ``step(state, batch) ->
     metrics``: the D-step on the generator's deterministic output (no
     gradient to G), then the G-step against the updated D, with loss
@@ -309,6 +326,7 @@ def make_joint_train_step(jcfg: JointConfig, with_asr: bool = True,
             "masks: precomputed log-mel features train --mode asr only")
     loss_type = jcfg.discriminator.loss_type
 
+    @sharding.data_parallel(mesh)
     def step_fn(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
         model, disc = state.model, state.discriminator
         if input_kind == "spec":
@@ -349,6 +367,7 @@ def make_joint_train_step(jcfg: JointConfig, with_asr: bool = True,
         if with_asr:
             metrics.update(loss_asr=out["loss"], loss_ctc=out["loss_ctc"],
                            loss_att=out["loss_att"], acc=out["acc"])
-        return {k: v.detach() for k, v in metrics.items()}
+        return sharding.mean_metrics({k: v.detach()
+                                      for k, v in metrics.items()})
 
     return step_fn

@@ -2024,3 +2024,52 @@ def test_async_snapshot_of_a_cuda_state(dev, tmp_path):
     got_acc = [s["square_avg"] for s in saved["opt_g"]["opt"]["state"]
                .values()]
     assert all(torch.equal(a, b) for a, b in zip(got_acc, want_acc))
+
+
+def test_two_gloo_ranks_on_one_card_step_as_one_process(dev):
+    """``chip_smoke.py`` phase 21's two-rank train step: two gloo ranks on
+    cuda:0 take 8 rows each of a float32 B=16 batch of the flagship
+    (shards with different token counts) through one joint step on the
+    kernels; the metrics, both gradient norms included, equal one
+    process's at rtol 2e-4 / atol 2e-5 (``tests/test_parallel.py:93-96``),
+    and every rank launches ``blstm_train``, ``gemm`` and ``ctc_nll`` and
+    no plain version."""
+    import dataclasses
+
+    import numpy as np
+
+    from robust_e2e_gan_torch.config import TrainConfig
+    from robust_e2e_gan_torch.configs import flagship_config
+    from robust_e2e_gan_torch.convert import (
+        from_flax,
+        init_disc_params,
+        init_params,
+    )
+    from robust_e2e_gan_torch.data.synthetic import SyntheticConfig, make_batch
+    from robust_e2e_gan_torch.parallel import launch, make_mesh
+    from robust_e2e_gan_torch.tools import dp_phases
+
+    jcfg = flagship_config(52)
+    jcfg = dataclasses.replace(
+        jcfg, e2e=dataclasses.replace(
+            jcfg.e2e, ctc_impl="auto", encoder=dataclasses.replace(
+                jcfg.e2e.encoder, lstm_impl="auto")),
+        enhancer=dataclasses.replace(jcfg.enhancer, lstm_impl="auto"))
+    state_g = from_flax(init_params(jcfg, seed=0))
+    state_d = from_flax(init_disc_params(jcfg.discriminator, seed=1))
+    synth = SyntheticConfig(vocab_size=52, min_tokens=20, max_tokens=24)
+    batch = make_batch(16, synth, np.random.default_rng(100))
+    batch["labels"][8:, synth.min_tokens:] = -1
+    args = (jcfg, TrainConfig(), state_g, state_d, [batch])
+    ranks = launch(dp_phases.joint_steps, make_mesh(2, 1, "cuda:0"), *args,
+                   limit_s=600.0)
+    one = dp_phases.joint_steps(None, *args, device="cuda")
+    for rank in ranks:
+        for k, want in one["metrics"][0].items():
+            np.testing.assert_allclose(rank["metrics"][0][k], want,
+                                       rtol=2e-4, atol=2e-5, err_msg=k)
+        launched = rank["launches"]
+        assert all(launched[k] > 0 for k in ("blstm_train", "gemm",
+                                             "ctc_nll")), launched
+        assert not any(launched[k] for k in (
+            "blstm_train_plain", "gemm_plain", "ctc_nll_plain")), launched

@@ -4,8 +4,10 @@ same parameters decode to the same ``hyp.txt``, ``wer.json`` and n-best
 lists, with ``--serving-impls fused`` and ``xla``, a ragged final batch and
 ``--greedy``; the Kaldi sources and speaker CMVN decode as the manifest
 and global CMVN they stand for, and refuse what the JAX CLI refuses with
-its message; the flags of unported paths raise, and without ``--device
-cpu`` the CLI raises where there is no GPU."""
+its message; ``--mesh-data 2`` decodes over two gloo ranks to the files
+of one process and of the JAX CLI's ``--mesh-data 2``; the flags of
+unported paths raise, and without ``--device cpu`` the CLI raises where
+there is no GPU."""
 
 import dataclasses
 import json
@@ -39,6 +41,7 @@ from robust_e2e_gan_torch.data.synthetic import (  # noqa: E402
 )
 from robust_e2e_gan_torch.decode import cli  # noqa: E402
 from robust_e2e_gan_torch.ops import att_dec  # noqa: E402
+from robust_e2e_gan_torch.parallel import launcher  # noqa: E402
 from robust_e2e_gan_torch.train.loop import init_state  # noqa: E402
 from robust_e2e_gan_torch.utils import checkpoint as ckpt_lib  # noqa: E402
 
@@ -241,15 +244,14 @@ def _decoded(exp, ckpt, out, *extra):
 @pytest.mark.parametrize("flag", [
     ["--noisy-scp", "x.scp", "--text", "text"], ["--feats-scp", "f.scp"],
     ["--utt2num-frames", "u"], ["--index-cache", "c"], ["--utt2spk", "u"],
-    ["--cmvn-ark", "c.ark"], ["--mesh-data", "2"], ["--pipelined", "on"],
+    ["--cmvn-ark", "c.ark"], ["--pipelined", "on"],
     ["--pipelined", "chunked"]], ids=lambda f: f[0] + f[-1])
 def test_unported_flags_raise(exp, kaldi, monkeypatch, tmp_path, flag):
-    """The flags of the paths that stay unported (data-parallel serving,
-    the staged and chunked schedules) raise; the Kaldi flags do what the
-    JAX CLI's do: the same SystemExit, or a decode equal to the one it
-    stands for."""
+    """The flags of the paths that stay unported (the staged and chunked
+    schedules) raise; the Kaldi flags do what the JAX CLI's do: the same
+    SystemExit, or a decode equal to the one it stands for."""
     name = flag[0]
-    if name in ("--mesh-data", "--pipelined"):
+    if name == "--pipelined":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main(["--ckpt-dir", str(tmp_path), "--manifest", "m.jsonl",
                       "--device", "cpu", *flag])
@@ -304,6 +306,53 @@ def test_unported_flags_raise(exp, kaldi, monkeypatch, tmp_path, flag):
         msg = _port_exit(argv)
         assert msg == _jax_exit(monkeypatch, argv, cmvn="speaker")
         assert "--utt2spk" in msg
+
+
+@pytest.fixture
+def one_thread():
+    """One torch thread here, and so one a rank: beside the suite's other
+    workers, thread hand-offs would cost more than the arithmetic."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("batch", ["4", "3"])
+def test_mesh_data_decodes_as_one_process(exp, monkeypatch, batch,
+                                          one_thread):
+    """``--mesh-data 2``: two gloo ranks decode the rows of each batch that
+    divides over them (batches of 4), rank 0 alone each that does not
+    (batches of 3); ``hyp.txt`` and ``wer.json`` are byte-identical to one
+    process's (and, at 4, to the JAX CLI's ``--mesh-data 2``), the n-best
+    lists hold the same hypotheses and the attention maps are the same."""
+    monkeypatch.setattr(launcher, "DEFAULT_LIMIT_S", 300.0)
+    extra = ("--batch-size", batch, "--nbest", "2", "--dump-attention")
+    one = _decode(exp, "port", f"one_{batch}", *extra)
+    got = _decode(exp, "port", f"mesh_{batch}", "--mesh-data", "2", *extra)
+    names = ("hyp.txt", "wer.json")
+    want = [_read(os.path.join(one, n)) for n in names]
+    assert [_read(os.path.join(got, n)) for n in names] == want
+    if batch == "4":
+        jax = _decode(exp, "jax", "jax_mesh", "--mesh-data", "2",
+                      "--batch-size", batch)
+        assert [_read(os.path.join(jax, n)) for n in names] == want
+    rows = [[json.loads(line) for line in _read(os.path.join(d, "nbest.jsonl"))
+             .splitlines()] for d in (got, one)]
+    for g, w in zip(*rows):
+        assert g["utt_id"] == w["utt_id"]
+        assert [e["tokens"] for e in g["nbest"]] == [
+            e["tokens"] for e in w["nbest"]]
+        np.testing.assert_allclose([e["score"] for e in g["nbest"]],
+                                   [e["score"] for e in w["nbest"]],
+                                   rtol=1e-5, atol=1e-5)
+    assert sorted(os.listdir(os.path.join(got, "att"))) == [
+        f"u{i}.npy" for i in range(N_UTTS)]
+    for i in range(N_UTTS):
+        np.testing.assert_allclose(
+            np.load(os.path.join(got, "att", f"u{i}.npy")),
+            np.load(os.path.join(one, "att", f"u{i}.npy")),
+            rtol=1e-5, atol=1e-6)
 
 
 def test_precomputed_feature_experiment_raises(exp, monkeypatch, tmp_path):

@@ -4,9 +4,10 @@ restores from its experiment dir, handed to the JAX CLI's program in place
 of its own restore, enhance the same manifest (a ragged final batch
 included) to arks and scps with the same keys, frame counts and values in
 both domains, which each package's ``kaldi_io`` reads; a Kaldi wav.scp
-enhances as the manifest it was made from; the flags of unported paths
-raise, and without ``--device cpu`` the CLI raises where there is no
-GPU."""
+enhances as the manifest it was made from; ``--mesh-data 2`` enhances
+over two gloo ranks to one process's features and the JAX CLI's
+``--mesh-data 2``; a Kaldi flag without its pair raises, and without
+``--device cpu`` the CLI raises where there is no GPU."""
 
 import dataclasses
 import json
@@ -34,6 +35,7 @@ from robust_e2e_gan_torch.data.synthetic import (  # noqa: E402
 )
 from robust_e2e_gan_torch.decode import enhance_cli  # noqa: E402
 from robust_e2e_gan_torch.ops import blstm  # noqa: E402
+from robust_e2e_gan_torch.parallel import launcher  # noqa: E402
 from robust_e2e_gan_torch.train.loop import init_state  # noqa: E402
 from robust_e2e_gan_torch.utils import checkpoint as ckpt_lib  # noqa: E402
 
@@ -101,23 +103,58 @@ def test_enhance_cli_matches_jax(exp, monkeypatch, domain, dim):
 
 
 @pytest.mark.parametrize("flag", [["--noisy-scp", "wav.scp"],
-                                  ["--text", "text"], ["--mesh-data", "2"]],
-                         ids=lambda f: f[0])
+                                  ["--text", "text"]], ids=lambda f: f[0])
 def test_unported_flags_raise(exp, monkeypatch, tmp_path, flag):
-    """``--mesh-data`` stays unported; a Kaldi flag without its pair
-    raises the JAX CLI's SystemExit, before anything is written."""
+    """A Kaldi flag without its pair raises the JAX CLI's SystemExit,
+    before anything is written."""
     argv = ["--ckpt-dir", exp["port"], "--out", str(tmp_path / "e"), *flag]
-    if flag[0] == "--mesh-data":
-        with pytest.raises(NotImplementedError, match="data parallel"):
-            enhance_cli.main(argv + ["--device", "cpu"])
-    else:
-        with pytest.raises(SystemExit) as port:
-            enhance_cli.main(argv + ["--device", "cpu"])
-        with pytest.raises(SystemExit) as jax_exit:
-            _jax_enhance(exp, monkeypatch, argv)
-        assert str(port.value) == str(jax_exit.value) == (
-            "need --manifest or --noisy-scp/--text")
+    with pytest.raises(SystemExit) as port:
+        enhance_cli.main(argv + ["--device", "cpu"])
+    with pytest.raises(SystemExit) as jax_exit:
+        _jax_enhance(exp, monkeypatch, argv)
+    assert str(port.value) == str(jax_exit.value) == (
+        "need --manifest or --noisy-scp/--text")
     assert not os.listdir(tmp_path)
+
+
+@pytest.fixture
+def one_thread():
+    """One torch thread here, and so one a rank: beside the suite's other
+    workers, thread hand-offs would cost more than the arithmetic."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("batch", ["4", "3"])
+def test_mesh_data_enhances_as_one_process(exp, monkeypatch, batch,
+                                           one_thread):
+    """``--mesh-data 2``: two gloo ranks enhance the rows of each batch
+    that divides over them (batches of 4), rank 0 alone each that does not
+    (batches of 3); the features equal one process's at rtol/atol 1e-5
+    (``tests/test_cli.py:606-610``), and at 4 the JAX CLI's ``--mesh-data
+    2`` at the tolerance of ``test_enhance_cli_matches_jax``."""
+    monkeypatch.setattr(launcher, "DEFAULT_LIMIT_S", 300.0)
+    argv = ["--manifest", exp["manifest"], "--ckpt-dir", exp["port"],
+            "--batch-size", batch, "--length-buckets", "16000"]
+    out = {w: str(exp["root"] / f"{w}_mesh_{batch}")
+           for w in ("one", "mesh", "jax")}
+    enhance_cli.main(argv + ["--out", out["one"], "--device", "cpu"])
+    enhance_cli.main(argv + ["--out", out["mesh"], "--mesh-data", "2",
+                             "--device", "cpu"])
+    want = dict(kaldi_io.read_mat_scp(out["one"] + ".scp"))
+    got = dict(kaldi_io.read_mat_scp(out["mesh"] + ".scp"))
+    assert list(got) == list(want)
+    assert sorted(got) == [f"u{i}" for i in range(N_UTTS)]
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-5)
+    if batch == "4":
+        _jax_enhance(exp, monkeypatch, argv + ["--out", out["jax"],
+                                               "--mesh-data", "2"])
+        jax = dict(jax_kio.read_mat_scp(out["jax"] + ".scp"))
+        for k in want:
+            np.testing.assert_allclose(got[k], jax[k], rtol=1e-4, atol=1e-5)
 
 
 def test_enhance_cli_from_a_wav_scp(exp, monkeypatch, tmp_path):

@@ -3,7 +3,9 @@ the JAX package's on the CPU: the same train batches epoch after epoch,
 the same dev batches, the same ``tokenizer.json`` and the same ``--mode
 lm`` label batches; a run trains, resumes, and its experiment decodes
 through ``decode.cli`` to word and char rates that ``score_cli`` gives
-again from ``hyp.txt``."""
+again from ``hyp.txt``; ``--mesh-data 2`` trains over two gloo ranks to
+the checkpoint of one process, and a mesh the batch or the cards cannot
+hold raises before anything is written."""
 
 import json
 import os
@@ -24,6 +26,7 @@ from robust_e2e_gan_torch.data.synthetic import (  # noqa: E402
 )
 from robust_e2e_gan_torch.decode import cli as decode_cli  # noqa: E402
 from robust_e2e_gan_torch.decode import score_cli  # noqa: E402
+from robust_e2e_gan_torch.parallel import launcher  # noqa: E402
 from robust_e2e_gan_torch.train import cli  # noqa: E402
 
 ALPHABET = "abcdefghij"
@@ -170,3 +173,78 @@ def test_cli_without_a_source_exits_as_jax(tmp_path):
         cli.main(argv + ["--device", "cpu"])
     assert str(got.value) == str(want.value)
     assert not os.listdir(tmp_path)
+
+
+def test_cli_mesh_data_trains_as_one_process(corpus, tmp_path, monkeypatch,
+                                             one_thread):
+    """``--mesh-data 2`` on a manifest of 8 utterances (batches of 4, two
+    rows a rank): the run dir of one process, its parameters within the
+    float32 summation order of the two halves' gradients (Adadelta's
+    first updates are ~4.5e-4 * sign(g): ``test_torch_train_step.py``'s
+    1e-6), the same steps, best and dev metric, the same tokenizer byte
+    for byte and the same config but for its run dir."""
+    monkeypatch.setattr(launcher, "DEFAULT_LIMIT_S", 300.0)
+    lines = (corpus["root"] / "manifest.jsonl").read_text().splitlines()
+    eighth = {**json.loads(lines[0]), "utt_id": "u7"}
+    manifest = tmp_path / "eight.jsonl"
+    manifest.write_text("\n".join(lines + [json.dumps(eighth)]))
+    manifest = str(manifest)
+    # the .npy paths are relative to the manifest's dir
+    for line in lines:
+        e = json.loads(line)
+        for k in ("noisy", "clean"):
+            (tmp_path / e[k]).symlink_to(corpus["root"] / e[k])
+    runs = {}
+    for tag, extra in (("one", []), ("mesh", ["--mesh-data", "2"])):
+        runs[tag] = str(tmp_path / tag)
+        cli.main(["--mode", "joint", "--train-manifest", manifest,
+                  "--dev-manifest", manifest, "--ckpt-dir", runs[tag],
+                  "--epochs", "1", *TINY, *extra])
+    metas = []
+    for run in runs.values():
+        with open(os.path.join(run, "checkpoints.json")) as f:
+            metas.append(json.load(f))
+    one, mesh = metas
+    assert mesh["latest"]["step"] == one["latest"]["step"] == 2
+    assert mesh["best"]["step"] == one["best"]["step"]
+    np.testing.assert_allclose(mesh["best"]["metric"], one["best"]["metric"],
+                               rtol=1e-5)
+    with open(os.path.join(runs["one"], "tokenizer.json"), "rb") as a, open(
+            os.path.join(runs["mesh"], "tokenizer.json"), "rb") as b:
+        assert a.read() == b.read()
+    configs = []
+    for run in runs.values():
+        with open(os.path.join(run, "config.json")) as f:
+            saved = json.load(f)
+        assert saved["train"].pop("checkpoint_dir") == run
+        configs.append(saved)
+    assert configs[0] == configs[1]
+    saved = [torch.load(os.path.join(run, "ckpt_2.pt"), weights_only=False)
+             for run in runs.values()]
+    for module in ("model", "discriminator"):
+        for k, w in saved[0][module].items():
+            np.testing.assert_allclose(saved[1][module][k].numpy(),
+                                       w.numpy(), rtol=0, atol=1e-6,
+                                       err_msg=f"{module}.{k}")
+    assert saved[1]["step"] == saved[0]["step"]
+
+
+@pytest.mark.parametrize("mesh,device,message", [
+    ("3", "cpu", "global batch 4 % data axis 3 != 0"),
+    ("2", "cuda", "mesh (2,1) needs 2 devices, have 1"),
+], ids=["batch", "cards"])
+def test_cli_mesh_data_refusals_write_nothing(corpus, tmp_path, monkeypatch,
+                                              mesh, device, message):
+    """A global batch that does not divide over the ranks raises the JAX
+    package's message, as more ranks than cards do, before any rank
+    starts or any file is written."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(launcher, "launch", None)
+    ckpt = tmp_path / "exp"
+    with pytest.raises(ValueError) as exc:
+        cli.main(["--mode", "joint", "--train-manifest", corpus["manifest"],
+                  "--ckpt-dir", str(ckpt), *TINY, "--mesh-data", mesh,
+                  "--device", device])
+    assert str(exc.value) == message
+    assert not ckpt.exists()
