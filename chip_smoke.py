@@ -9,7 +9,8 @@ Phases, each of which exits non-zero on failure:
 1. device: a CUDA device must be present; prints the card's name and
    power limit as nvidia-smi reports them;
 2. build: compiles the CUDA kernels of robust_e2e_gan_torch/csrc from the
-   checkout (nvcc, sm_90a) and prints the seconds it took;
+   checkout (nvcc, sm_90a) and the host library of csrc/host (g++), and
+   prints the seconds each took;
 3. kernel parity: each kernel's wrapper against its plain PyTorch version
    on the card, at the shapes of the main path (B utterances of ~7 s, beam
    8, ~694 STFT frames, ~174 encoder frames, vocab 52; the W_x-resident
@@ -265,7 +266,32 @@ Phases, each of which exits non-zero on failure:
     and ``train.cli --mesh-data 2`` over NCCL where two cards exist; (4)
     the ms the training thread waits in a depth-2 ``Prefetcher``'s
     ``next()`` on phase 7's traffic, the collation ms alone, and the
-    loop's ms a step with and without it in turns, reported.
+    loop's ms a step with and without it in turns, reported;
+22. the host-side overlap: (1) the host library (``csrc/host``, built by
+    g++ at phase 2, its seconds and the compiler's version printed): a
+    ``.npy`` manifest of 8 batches of B=32 of the train cell's traffic
+    collated by the C++ reader and by numpy (bit-equal), one
+    CM-compressed feature batch (within ulps of numpy, printed),
+    ``wer_details`` on 1,024 utterances of ~50 tokens (equal to the
+    Python scorer), each timed in turns, and the loop's ms a step over
+    2 of the manifest's batches a run on phase 7's model with a depth-2
+    ``Prefetcher``, collated by each reader in turns, reported, not gated;
+    (2) the staged
+    searcher (``make_pipelined_beam_searcher``: each next batch's copy and
+    encode on a side stream under this batch's beam loop) against the
+    sequential one on the same host batches: phase 4's traffic with early
+    exit on and off, timed in turns, with a profiled pass of two batches
+    of each (the device's busy share, each stream's busy ms and the ms two
+    streams ran at once); then phase 9's clean decode with the LM and the
+    fused frontend, phase 13's fused step, and two B=16 batches through
+    phase 15's wide float32 encoder (random weights drawn on the card)
+    with the fused step (the grid recurrence on the side stream, the fused
+    step on the current one: two cooperative grids, and the ms they ran at
+    once); each gated on identical tokens and best scores within 1e-5
+    relative; (3) ``decode.cli --pipelined on`` on phase 7's experiment (2
+    batches of 16, 24 steps, the default impls and ``--serving-impls
+    fused``): ``hyp.txt``, ``wer.json`` and ``nbest.jsonl`` byte-identical
+    to ``--pipelined off``'s.
 
 Each phase after 15 prints its seconds. The line before the last is a JSON object of the 22 kernels (``gemm``
 the products of one row-6 call, with phase 6's launches; the
@@ -330,6 +356,7 @@ from robust_e2e_gan_torch.data.synthetic import (
 from robust_e2e_gan_torch.decode.beam import (
     beam_search_from_encoder,
     make_beam_searcher,
+    make_pipelined_beam_searcher,
 )
 from robust_e2e_gan_torch.models.encoder import subsampled_frames
 from robust_e2e_gan_torch.models.enhancement import (
@@ -351,6 +378,7 @@ from robust_e2e_gan_torch.ops import (
     blstm_train,
     ctc,
     ctc_prefix,
+    editdistance,
     fbank_fused,
     lm_step,
 )
@@ -369,6 +397,7 @@ from robust_e2e_gan_torch.tools import (
     verify_drive,
 )
 from robust_e2e_gan_torch.utils import checkpoint as ckpt_lib
+from robust_e2e_gan_torch.utils import native
 from robust_e2e_gan_torch.utils.build import build
 from robust_e2e_gan_torch.utils.impl import device_limits
 
@@ -4464,6 +4493,410 @@ def dp_phase(state, state_d, dev, work) -> None:
     prefetch_report(dev, os.path.join(work, "prefetch"))
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the host-side overlap
+# ---------------------------------------------------------------------------
+
+HOST_BATCH = 32
+HOST_BATCHES = 8
+LOOP_STEPS = 2  # of the manifest's batches, a timed run of the loop
+WER_UTTS = 1024
+STAGED_RTOL = 1e-5
+CLI_STAGED_BATCH = 16
+
+
+def in_turns_ms(fns):
+    """({tag: [ms of each call]}, {tag: its first call's result}), the
+    callables timed in turns (A, B, B, A), each ending in a
+    synchronise."""
+    tags = list(fns)
+    ms, first = {tag: [] for tag in tags}, {}
+    for tag in tags + tags[::-1]:
+        out, t = timed(fns[tag])
+        first.setdefault(tag, out)
+        ms[tag].append(t)
+    return ms, first
+
+
+def fmt_ms(ms: dict, per: int = 1) -> str:
+    return "; ".join(f"{tag} {['%.2f' % (x / per) for x in xs]}"
+                     for tag, xs in ms.items())
+
+
+def collation_report(work):
+    """(1a) B=32 batches of the train cell's traffic from a ``.npy``
+    manifest, the C++ reader against the numpy one; one CM-compressed
+    feature batch; ``wer_details`` on 1,024 utterances. Returns the
+    manifest."""
+    root = os.path.join(work, "host")
+    os.makedirs(root)
+    manifest, tok = write_manifest(root, HOST_BATCH * HOST_BATCHES,
+                                   TRAIN_SYNTH, seed=22)
+    ds = dataset.AudioTextDataset.from_jsonl(manifest, tokenizer=tok)
+    batcher = dataset.BucketBatcher(ds, HOST_BATCH,
+                                    (TRAIN_SYNTH.max_samples,))
+
+    def collate():
+        return list(batcher.epoch(shuffle=False))
+
+    def collate_plain():
+        with dataset._force_plain_collation():
+            return collate()
+
+    ms, runs = in_turns_ms({"native": collate, "plain": collate_plain})
+    got, want = runs["native"], runs["plain"]
+    same = len(got) == len(want) == HOST_BATCHES and all(
+        g.keys() == w.keys() and all(
+            np.array_equal(g[k], w[k]) and (k == "utt_ids"
+                                            or g[k].dtype == w[k].dtype)
+            for k in g) for g, w in zip(got, want))
+    print(f"  (1a) .npy manifest, {HOST_BATCHES} batches of B={HOST_BATCH} "
+          f"padded to {TRAIN_SYNTH.max_samples} samples: native bit-equal "
+          f"to plain {same}; ms a batch (in turns) "
+          f"{fmt_ms(ms, HOST_BATCHES)}")
+    require(same, "phase 22: the native .npy batches differ from numpy's")
+
+    rng = np.random.default_rng(22)
+    t = num_frames(TRAIN_SYNTH.max_samples, FrontendConfig())
+    mats = {f"c{i}": (3 * rng.standard_normal((t - i, 80)) - 5).astype(
+        np.float32) for i in range(HOST_BATCH)}
+    scp = os.path.join(root, "feats_cm.scp")
+    kaldi_io.write_ark_scp(iter(mats.items()), os.path.join(
+        root, "feats_cm.ark"), scp, compress=1)
+    entries = list(kaldi_io.read_scp_index(scp).values())
+    fns = {"native": lambda: native.native_load_kaldi_feats_batch(
+               entries, t, 80),
+           "plain": lambda: dataset.load_kaldi_feats_batch_plain(
+               entries, t, 80)}
+    ms, runs = in_turns_ms(fns)
+    (a, _), (b, _) = runs["native"], runs["plain"]
+    ulps = max(float(np.abs(x - y).max() / np.spacing(np.abs(y).max()))
+               for x, y in zip(a, b))
+    print(f"  (1b) one CM-compressed feats batch ({HOST_BATCH} x {t} x 80): "
+          f"native within {ulps:.2f} ulps of each matrix's largest "
+          f"magnitude of plain; ms (in turns) {fmt_ms(ms)}")
+
+    refs = [rng.integers(3, 52, size=int(rng.integers(45, 56))).tolist()
+            for _ in range(WER_UTTS)]
+    hyps = []
+    for r in refs:
+        h = list(r)
+        for _ in range(int(rng.integers(0, 6))):
+            j = int(rng.integers(0, len(h)))
+            h[j:j + 1] = [[], [int(rng.integers(3, 52))],
+                          [h[j], int(rng.integers(3, 52))]][j % 3]
+        hyps.append(h)
+    fns = {"native": lambda: editdistance.wer_details(refs, hyps),
+           "plain": lambda: editdistance.wer_details_plain(refs, hyps)}
+    ms, runs = in_turns_ms(fns)
+    same = runs["native"] == runs["plain"]
+    print(f"  (1c) wer_details on {WER_UTTS} utterances of ~50 tokens: "
+          f"native equal to plain {same}; ms (in turns) {fmt_ms(ms)}")
+    require(same, "phase 22: the native corpus scorer differs from plain")
+    return manifest
+
+
+def loader_loop_report(manifest, work, dev) -> None:
+    """(1d) The loop's ms a step over the manifest's batches on phase 7's
+    model (train.cli's default, float32) with a depth-2 ``Prefetcher``,
+    collated by the C++ readers and by numpy, in turns (A, B, B, A)."""
+    args = train_cli.build_parser().parse_args(
+        ["--mode", "joint", "--train-manifest", manifest, "--ckpt-dir",
+         os.path.join(work, "host_run"), "--batch-size", str(HOST_BATCH),
+         "--length-buckets", str(TRAIN_SYNTH.max_samples)])
+    train_b, _, vocab, _ = train_cli._corpus_factories(args)
+    jcfg, tcfg = train_cli.configs_from_args(args, vocab)
+    state = train_loop.init_state(jcfg, tcfg, dev)
+    step = train_steps.make_joint_train_step(jcfg)
+
+    def run(plain: bool, steps: int) -> float:
+        ctx = (dataset._force_plain_collation() if plain
+               else contextlib.nullcontext())
+        with ctx, dataset.Prefetcher(train_b(), 2) as batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                check_metrics(step(state, train_loop.device_batch(
+                    next(batches), dev)))
+                torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    run(False, 1)  # warm-up
+    ms = {"native": [], "plain": []}
+    for tag in ("native", "plain", "plain", "native"):
+        ms[tag].append(run(tag == "plain", LOOP_STEPS))
+    print(f"  (1d) the loop over {LOOP_STEPS} of them a run, train.cli's "
+          f"default model (f32), depth-2 Prefetcher: ms a step (in turns) "
+          f"{fmt_ms(ms)}; {card()}")
+
+
+def merged(intervals):
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def measure_ms(intervals) -> float:
+    return sum(b - a for a, b in merged(intervals)) / 1e3
+
+
+def intersect(x, y):
+    """The intersection of two unions of intervals."""
+    x, y, out, i, j = merged(x), merged(y), [], 0, 0
+    while i < len(x) and j < len(y):
+        a, b = max(x[i][0], y[j][0]), min(x[i][1], y[j][1])
+        if a < b:
+            out.append([a, b])
+        if x[i][1] < y[j][1]:
+            i += 1
+        else:
+            j += 1
+    return out
+
+
+def stream_rows(fn):
+    """fn once under torch.profiler, the device's activity alone: [(stream,
+    name, start us, end us)] of its device rows."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.device_resource_id, e.name, e.time_range.start,
+             e.time_range.end) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def overlap_report(rows, wall_ms, tag) -> float:
+    """Print the device's busy ms (any stream) and share of ``wall_ms``,
+    each stream's busy ms and the ms in which two streams ran at once;
+    return the latter."""
+    by_stream = {}
+    for stream, _, a, b in rows:
+        by_stream.setdefault(stream, []).append((a, b))
+    busy = measure_ms([(a, b) for _, _, a, b in rows])
+    streams = sorted(by_stream, key=lambda k: -measure_ms(by_stream[k]))
+    both = []
+    for i, x in enumerate(streams):
+        for y in streams[i + 1:]:
+            both += intersect(by_stream[x], by_stream[y])
+    overlap = measure_ms(both)
+    print(f"    {tag}: device busy {busy:.1f} ms of an unprofiled "
+          f"{wall_ms:.1f} ms (busy share {busy / wall_ms:.3f}); by stream "
+          + ", ".join(f"{k}: {measure_ms(by_stream[k]):.1f} ms"
+                      for k in streams)
+          + f"; two streams at once {overlap:.2f} ms")
+    return overlap
+
+
+def host_batches(b, n, seed0=0, synth=SYNTH):
+    """{"noisy_wav" and "clean_wav": ``n`` batches of ``b`` as CPU tensors,
+    as a decode CLI hands them to its searcher}."""
+    out = {"noisy_wav": [], "clean_wav": []}
+    for seed in range(seed0, seed0 + n):
+        data = make_batch(b, synth, np.random.default_rng(seed))
+        for wav, batches in out.items():
+            batches.append((torch.from_numpy(data[wav]),
+                            torch.from_numpy(data["wav_lengths"])))
+    return out
+
+
+def read_result(res):
+    """What a consumer reads of a BeamResult: on the host."""
+    return res.tokens.cpu(), res.beam_tokens.cpu(), res.scores.cpu()
+
+
+def sequential_pass(search, batches, dev):
+    return [read_result(search(w.to(dev), n.to(dev))) for w, n in batches]
+
+
+def staged_pass(run, batches):
+    return [read_result(r) for r in run(iter(batches))]
+
+
+def staged_checks(got, want, where) -> bool:
+    """Tokens identical and best scores within STAGED_RTOL; returns
+    whether every result is bit-equal."""
+    require(len(got) == len(want), f"{where}: {len(got)} results, "
+                                   f"{len(want)} batches")
+    same = all(torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+               for g, w in zip(got, want))
+    rel = max(float(((g[2] - w[2]).abs() / w[2].abs().clamp_min(1e-6))
+                    .max()) for g, w in zip(got, want))
+    bit = all(torch.equal(g[2], w[2]) for g, w in zip(got, want)) and same
+    print(f"    {where}: tokens identical {same}, best-score max rel diff "
+          f"{rel:.3e} (limit {STAGED_RTOL:g}), bit-equal {bit}")
+    require(same, f"{where}: the staged searcher's tokens differ")
+    require(rel <= STAGED_RTOL, f"{where}: the staged scores differ")
+    return bit
+
+
+def staged_ab(model, e2e, bcfg, batches, dev, tag, profile=True, **kw):
+    """The staged searcher against the sequential one on ``batches``:
+    gated, then timed in turns with a profiled pass of each over the first
+    two batches."""
+    seq = make_beam_searcher(model, e2e, bcfg, **kw)
+    run = make_pipelined_beam_searcher(model, e2e, bcfg, **kw)
+    fns = {"sequential": lambda: sequential_pass(seq, batches, dev),
+           "staged": lambda: staged_pass(run, batches)}
+    if not profile:
+        staged_checks(fns["staged"](), fns["sequential"](), tag)
+        return fns
+    n = len(batches)
+    ms, first = in_turns_ms(fns)
+    staged_checks(first["staged"], first["sequential"], tag)
+    print(f"    {tag}: ms a batch over {n} batches (in turns) "
+          f"{fmt_ms(ms, n)}")
+    two = batches[:2]
+    for name, fn in (("sequential", lambda: sequential_pass(seq, two, dev)),
+                     ("staged", lambda: staged_pass(run, two))):
+        overlap_report(stream_rows(fn), 2 * mean(ms[name]) / n,
+                       f"{tag}, {name}, a profiled pass of 2 batches "
+                       f"(against 2 x its mean ms a batch)")
+    return fns
+
+
+def random_model(jcfg, seed, dev):
+    """``jcfg``'s model with random weights drawn on the card from
+    ``seed``: N(0, 1 / fan-in) for each weight (its leading dims' product
+    the fan-in, as the flax layouts keep the output last), N(0, 0.02^2)
+    for each vector. Seconds, where ``init_params`` takes ~8 s of host
+    time for the wide encoder."""
+    model = build_model(jcfg).to(dev).eval()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            std = (0.02 if p.ndim == 1
+                   else (p.numel() // p.shape[-1]) ** -0.5)
+            p.normal_(0.0, std, generator=gen)
+    return model
+
+
+def staged_searcher_report(state, dev) -> None:
+    """(2) The staged searcher against the sequential one: phase 4's
+    traffic with early exit on and off; phase 9's clean decode with the LM
+    and the fused frontend; the fused step; a pair of B=16 batches through
+    phase 15's wide float32 encoder with the fused step."""
+    t0 = time.perf_counter()
+    kcfg = with_impls(flagship_config(VOCAB), "auto", "auto", "bfloat16")
+    model = load(kcfg, state, dev)
+    both = host_batches(BATCH, N_BATCHES)
+    batches = both["noisy_wav"]
+    for early_exit in (True, False):
+        bcfg = BeamSearchConfig(beam_size=BEAM, ctc_weight=0.3,
+                                max_steps=STEPS, early_exit=early_exit)
+        staged_ab(model, kcfg.e2e, bcfg, batches, dev,
+                  f"phase 4's traffic, early exit {early_exit}")
+
+    bcfg = BeamSearchConfig(beam_size=BEAM, ctc_weight=0.3, max_steps=STEPS,
+                            early_exit=False, lm_weight=LM_WEIGHT)
+    ccfg = clean_cfg("auto", "auto", "bfloat16")
+    reset_counts()
+    staged_ab(load(ccfg, state, dev), ccfg.e2e, bcfg,
+              both["clean_wav"], dev,
+              "phase 9's clean decode (LM, fused frontend)", profile=False,
+              use_enhancer=False, lm=make_lm("auto", dev))
+    ran = counts(("fbank_fused", "lm_step"))[0]
+    print(f"    launches {ran}, LM by route {dict(lm_step.LM_ROUTE_LAUNCHES)}"
+          f", frontend by route {dict(fbank_fused.FBANK_ROUTE_LAUNCHES)}")
+    require(ran["fbank_fused"] > 0 and ran["lm_step"] > 0,
+            f"phase 22: the clean decode's kernels did not launch: {ran}")
+
+    bcfg = BeamSearchConfig(beam_size=BEAM, ctc_weight=0.3, max_steps=STEPS,
+                            early_exit=False)
+    fcfg = with_step_impl(kcfg, "fused")
+    reset_counts()
+    staged_ab(load(fcfg, state, dev), fcfg.e2e, bcfg, batches, dev,
+              "phase 13's fused step", profile=False)
+    require(launch_count("att_dec_step") > 0,
+            "phase 22: the fused step did not launch")
+    print(f"    ({time.perf_counter() - t0:.1f} s so far)")
+
+    wcfg = with_step_impl(wide_config("float32"), "fused")
+    wide = random_model(wcfg, 3, dev)
+    reset_counts()
+    fns = staged_ab(wide, wcfg.e2e, bcfg,
+                    host_batches(16, 2, seed0=100)["noisy_wav"],
+                    dev, "phase 15's wide f32 encoder, fused step, B=16 x 2",
+                    profile=False)
+    ran = {"blstm_recurrence (grid)": blstm.GX_ROUTE_LAUNCHES["grid"],
+           "att_dec_step (utt)": att_dec.DEC_ROUTE_LAUNCHES["utt"]}
+    print(f"    cooperative launches {ran}")
+    require(all(ran.values()), f"phase 22: a cooperative grid of the wide "
+                               f"pass did not launch: {ran}")
+    rows = stream_rows(fns["staged"])
+    grid = [(a, b) for _, name, a, b in rows if "blstm_gx_grid" in name]
+    step = [(a, b) for _, name, a, b in rows if "att_dec_utt" in name]
+    both = intersect(grid, step)
+    overlap_report(rows, timed(fns["staged"])[1],
+                   "wide encoder, staged, profiled pass")
+    print(f"    the encode's grid recurrence ({len(grid)} launches, "
+          f"{measure_ms(grid):.2f} ms, on stream(s) "
+          f"{sorted({s for s, n, _, _ in rows if 'blstm_gx_grid' in n})}) "
+          f"and the loop's fused step ({len(step)} launches, "
+          f"{measure_ms(step):.2f} ms, on stream(s) "
+          f"{sorted({s for s, n, _, _ in rows if 'att_dec_utt' in n})}) "
+          f"ran at once for {measure_ms(both):.3f} ms in {len(both)} "
+          f"spans, the longest {max([b - a for a, b in both], default=0)} "
+          f"us")
+
+
+def staged_cli_report(ckpt, work) -> None:
+    """(3) ``decode.cli --pipelined on`` on phase 7's experiment, default
+    impls and ``--serving-impls fused``: its three files byte-identical
+    to ``--pipelined off``'s."""
+    root = os.path.join(work, "staged_cli")
+    os.makedirs(root)
+    manifest, tok = write_manifest(root, 2 * CLI_STAGED_BATCH,
+                                   SyntheticConfig(), seed=22)
+    tok.save(os.path.join(ckpt, "tokenizer.json"))
+    argv = ["--manifest", manifest, "--ckpt-dir", ckpt, "--batch-size",
+            str(CLI_STAGED_BATCH), "--beam-size", str(BEAM), "--max-steps",
+            str(STEPS // 2), "--nbest", "2"]
+    for impls in ("auto", "fused"):
+        secs, outs = {}, {}
+        for schedule in ("off", "on"):
+            outs[schedule] = os.path.join(root, f"{impls}_{schedule}")
+            t0 = time.perf_counter()
+            decode_cli.main(argv + ["--serving-impls", impls, "--pipelined",
+                                    schedule, "--out", outs[schedule]])
+            torch.cuda.synchronize()
+            secs[schedule] = time.perf_counter() - t0
+        same = {}
+        for name in ("hyp.txt", "wer.json", "nbest.jsonl"):
+            with open(os.path.join(outs["off"], name), "rb") as a, \
+                    open(os.path.join(outs["on"], name), "rb") as b:
+                same[name] = a.read() == b.read()
+        print(f"  (3) decode.cli --serving-impls {impls}, 2 batches of "
+              f"{CLI_STAGED_BATCH}: --pipelined on {secs['on']:.2f} s, off "
+              f"{secs['off']:.2f} s wall; byte-identical {same}")
+        require(all(same.values()),
+                f"phase 22: --pipelined on wrote other files: {same}")
+
+
+def host_overlap_phase(state, dev, work, ckpt, host_build_s) -> None:
+    """Phase 22: the C++ host loaders and scorer, and the staged decode."""
+    print(f"  (1) host library: built in {host_build_s:.2f} s at phase 2 by "
+          f"{native.compiler_version()}")
+    t0 = time.perf_counter()
+    manifest = collation_report(work)
+    t1 = time.perf_counter()
+    loader_loop_report(manifest, work, dev)
+    t2 = time.perf_counter()
+    print("  (2) the staged searcher (each next batch's copy and encode on "
+          "a side stream) against the sequential one:")
+    staged_searcher_report(state, dev)
+    t3 = time.perf_counter()
+    staged_cli_report(ckpt, work)
+    print(f"  phase 22 by part: (1a-c) {t1 - t0:.1f} s, (1d) {t2 - t1:.1f} s, "
+          f"(2) {t3 - t2:.1f} s, (3) {time.perf_counter() - t3:.1f} s")
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -4480,6 +4913,9 @@ def main() -> int:
 
     # 2. build
     print(f"build: {build():.1f} s")
+    host_build_s = native.build()
+    print(f"host library (csrc/host, {native.compiler_version()}): "
+          f"{host_build_s:.2f} s")
 
     jcfg = flagship_config(VOCAB)
     # make_batch pads every batch to SYNTH.max_samples
@@ -4522,7 +4958,8 @@ def main() -> int:
     # 7-20, in a scratch dir: phases 12 and 20 read phase 7's experiment
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        launches.update(later_phases(state, state_d, dev, work, phase4_ms))
+        launches.update(later_phases(state, state_d, dev, work, phase4_ms,
+                                     host_build_s))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = [
@@ -4536,8 +4973,8 @@ def main() -> int:
     return 0
 
 
-def later_phases(state, state_d, dev, work, phase4_ms) -> dict:
-    """Phases 7-21; returns the launches of the kernels phases 7-15
+def later_phases(state, state_d, dev, work, phase4_ms, host_build_s) -> dict:
+    """Phases 7-22; returns the launches of the kernels phases 7-15
     hold."""
     # 7. entry point
     print("train CLI (--mode joint --synthetic, default model, float32):")
@@ -4625,6 +5062,14 @@ def later_phases(state, state_d, dev, work, phase4_ms) -> dict:
     t0 = time.perf_counter()
     dp_phase(state, state_d, dev, work)
     print(f"  phase 21: {time.perf_counter() - t0:.1f} s")
+
+    # 22. the host-side overlap
+    print("host-side overlap (the C++ loaders and scorer against numpy and "
+          "Python; the staged decode against the sequential one; "
+          "decode.cli --pipelined on):")
+    t0 = time.perf_counter()
+    host_overlap_phase(state, dev, work, ckpt, host_build_s)
+    print(f"  phase 22: {time.perf_counter() - t0:.1f} s")
 
     return {"blstm_train_gx": cli_launches["blstm_train_gx"],
             "fbank_fused": clean_launches["fbank_fused"],

@@ -12,11 +12,16 @@ by the scp's fingerprint) and ``BucketBatcher`` (length-sorted batches
 padded to a length bucket, labels padded with ``ignore_id``, an optional
 padded final batch, per-speaker CMVN stats with each batch) and
 ``Prefetcher`` (a host thread that collates the next batches while the
-training thread steps). Batches are read with numpy, the JAX package's own
-path when its native loader is not built.
+training thread steps). As in the JAX package, a batch of ``.npy``
+waveforms and a batch of Kaldi feature matrices are read by the threaded
+C++ readers of ``utils/native.py``, which release the GIL for the whole
+read; Kaldi waveform scps are read with numpy. ``load_npy_batch_plain``
+and ``load_kaldi_feats_batch_plain`` are the numpy readers the tests hold
+them against (``_force_plain_collation`` makes a batcher use them).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import queue
@@ -28,6 +33,10 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from robust_e2e_gan_torch.data import kaldi_io
+from robust_e2e_gan_torch.utils.native import (
+    native_load_kaldi_feats_batch,
+    native_load_npy_batch,
+)
 
 
 class CharTokenizer:
@@ -359,6 +368,68 @@ class AudioTextDataset:
         return cls(utts, tokenizer)
 
 
+def load_npy_batch_plain(paths: Sequence[str], pad_to: int
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """``.npy`` waveforms read with numpy into a zero-padded (N, pad_to)
+    float32 batch, each cut at ``pad_to``: (batch, int32 lengths). The
+    plain version of ``utils/native.py::native_load_npy_batch``."""
+    out = np.zeros((len(paths), pad_to), np.float32)
+    lengths = np.zeros((len(paths),), np.int32)
+    for j, path in enumerate(paths):
+        x = np.load(path).astype(np.float32).reshape(-1)
+        n = min(len(x), pad_to)
+        out[j, :n] = x[:n]
+        lengths[j] = n
+    return out, lengths
+
+
+def load_kaldi_feats_batch_plain(entries: Sequence[Tuple[str, int]],
+                                 pad_to: int, dim: int
+                                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Kaldi feature matrices read with ``kaldi_io`` into a zero-padded (N,
+    pad_to, dim) float32 batch, each cut at ``pad_to`` rows: (batch, int32
+    row counts). The plain version of
+    ``utils/native.py::native_load_kaldi_feats_batch``."""
+    out = np.zeros((len(entries), pad_to, dim), np.float32)
+    lengths = np.zeros((len(entries),), np.int32)
+    for j, e in enumerate(entries):
+        mat = kaldi_io.read_mat_at(*e).astype(np.float32)
+        n = min(mat.shape[0], pad_to)
+        out[j, :n] = mat[:n]
+        lengths[j] = n
+    return out, lengths
+
+
+_plain_collation = False
+
+
+@contextlib.contextmanager
+def _force_plain_collation():
+    """Read every batch with the numpy readers inside the block, on every
+    thread: the tests and ``chip_smoke.py`` hold the C++ readers against
+    them and time them in turns."""
+    global _plain_collation
+    prev, _plain_collation = _plain_collation, True
+    try:
+        yield
+    finally:
+        _plain_collation = prev
+
+
+def _load_npy_batch(paths, pad_to):
+    if _plain_collation:
+        return load_npy_batch_plain(paths, pad_to)
+    out, n = native_load_npy_batch(paths, pad_to)
+    return out, np.minimum(n, pad_to).astype(np.int32)
+
+
+def _load_feats_batch(entries, pad_to, dim):
+    if _plain_collation:
+        return load_kaldi_feats_batch_plain(entries, pad_to, dim)
+    out, n = native_load_kaldi_feats_batch(entries, pad_to, dim)
+    return out, np.minimum(n, pad_to).astype(np.int32)
+
+
 def _bucket_for(n: int, buckets: Sequence[int]) -> int:
     for b in buckets:
         if n <= b:
@@ -440,33 +511,30 @@ class BucketBatcher:
             if not hasattr(self, "_feat_dim"):
                 self._feat_dim = kaldi_io.read_shape_at(
                     *utts[0].feats_ark)[1]
-
-            def load_batch(entries):
-                m = np.zeros((b, pad_to, self._feat_dim), np.float32)
-                ls = np.zeros((b,), np.int32)
-                for j, e in enumerate(entries):
-                    mat = kaldi_io.read_mat_at(*e).astype(np.float32)
-                    n = min(mat.shape[0], pad_to)
-                    m[j, :n] = mat[:n]
-                    ls[j] = n
-                return m, ls
-
-            feats, flens = load_batch([u.feats_ark for u in utts])
+            feats, flens = _load_feats_batch([u.feats_ark for u in utts],
+                                             pad_to, self._feat_dim)
             batch = {"feats": feats, "feat_lengths": flens,
                      "labels": labels, "utt_ids": ids[:n_real]}
             if all(u.clean_feats_ark is not None for u in utts):
-                batch["clean_feats"], _ = load_batch(
-                    [u.clean_feats_ark for u in utts])
+                batch["clean_feats"], _ = _load_feats_batch(
+                    [u.clean_feats_ark for u in utts], pad_to,
+                    self._feat_dim)
         else:
-            noisy = np.zeros((b, pad_to), np.float32)
-            clean = np.zeros((b, pad_to), np.float32)
-            lengths = np.zeros((b,), np.int32)
-            for j, u in enumerate(utts):
-                nw, cw = u.load()
-                n = min(len(nw), pad_to)
-                noisy[j, :n] = nw[:n]
-                clean[j, :n] = cw[:n]
-                lengths[j] = n
+            if all(u.noisy_path is not None for u in utts):
+                noisy, lengths = _load_npy_batch(
+                    [u.noisy_path for u in utts], pad_to)
+                clean, _ = _load_npy_batch(
+                    [u.clean_path or u.noisy_path for u in utts], pad_to)
+            else:  # Kaldi waveform scps: numpy
+                noisy = np.zeros((b, pad_to), np.float32)
+                clean = np.zeros((b, pad_to), np.float32)
+                lengths = np.zeros((b,), np.int32)
+                for j, u in enumerate(utts):
+                    nw, cw = u.load()
+                    n = min(len(nw), pad_to)
+                    noisy[j, :n] = nw[:n]
+                    clean[j, :n] = cw[:n]
+                    lengths[j] = n
             batch = {"noisy_wav": noisy, "clean_wav": clean,
                      "wav_lengths": lengths, "labels": labels,
                      "utt_ids": ids[:n_real]}

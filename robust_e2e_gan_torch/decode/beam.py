@@ -17,8 +17,11 @@ never waits for the device inside it; ``early_exit=True`` reads
 or the per-utterance ``prefix_psi_utt`` ("pallas"), and in every kernel
 mode ``prefix_state_step``, which computes the ``prefix_state_for_token``
 that JAX pairs with both, with the gathers by parent and the selects
-around it; "twopass" runs the plain versions. The scan and parallel
-prefix forms and the pipelined searchers are not ported.
+around it; "twopass" runs the plain versions.
+``make_pipelined_beam_searcher`` is the cross-batch staged schedule: the
+next batch's encode on a side CUDA stream under this batch's beam loop.
+The scan and parallel prefix forms and the chunked schedule are not
+ported.
 """
 
 from __future__ import annotations
@@ -236,6 +239,37 @@ def beam_search_from_encoder(
     )
 
 
+def _search_parts(model, ecfg: E2EConfig, bcfg: BeamSearchConfig,
+                  use_enhancer: bool, lm, input_kind: str, log_domain: bool):
+    """(encode, decode), the two halves of the serving search (JAX
+    ``_bind_search_parts``): ``encode(wav, wav_lengths, cmvn_batch=None)
+    -> (hs, hmask, hlens, ctc_logits, enc_proj)`` and ``decode(enc) ->
+    BeamResult``. ``make_beam_searcher`` runs them one after the other;
+    ``make_pipelined_beam_searcher`` staggers them across batches."""
+    lm_step_fn = lm_init_fn = None
+    if lm is not None and bcfg.lm_weight != 0.0:
+        lm_step_fn, lm_init_fn = lm.step, lm.initial_carry
+
+    def encode(wav, wav_lengths, cmvn_batch=None):
+        if input_kind == "feats":
+            return model.encode_for_decode_feats(wav, wav_lengths,
+                                                 cmvn_batch=cmvn_batch)
+        if input_kind == "spec":
+            return model.encode_for_decode_spec(
+                wav, wav_lengths, use_enhancer, cmvn_batch=cmvn_batch,
+                log_domain=log_domain)
+        return model.encode_for_decode(wav, wav_lengths, use_enhancer,
+                                       cmvn_batch=cmvn_batch)
+
+    def decode(enc) -> BeamResult:
+        hs, hmask, hlens, ctc_logits, enc_proj = enc
+        return beam_search_from_encoder(
+            model.decoder_step, model.decoder_initial_carry, hs, hmask,
+            hlens, enc_proj, ctc_logits, ecfg, bcfg, lm_step_fn, lm_init_fn)
+
+    return encode, decode
+
+
 def make_beam_searcher(model, ecfg: E2EConfig, bcfg: BeamSearchConfig,
                        use_enhancer: bool = True, lm=None,
                        input_kind: str = "wav",
@@ -253,28 +287,118 @@ def make_beam_searcher(model, ecfg: E2EConfig, bcfg: BeamSearchConfig,
     is its encoder pass alone (the greedy decode and the attention maps
     read it). There is no batch padding: the TPU lane-packing rule of the
     JAX package does not apply."""
-    lm_step_fn = lm_init_fn = None
-    if lm is not None and bcfg.lm_weight != 0.0:
-        lm_step_fn, lm_init_fn = lm.step, lm.initial_carry
-
-    def encode(wav, wav_lengths, cmvn_batch):
-        if input_kind == "feats":
-            return model.encode_for_decode_feats(wav, wav_lengths,
-                                                 cmvn_batch=cmvn_batch)
-        if input_kind == "spec":
-            return model.encode_for_decode_spec(
-                wav, wav_lengths, use_enhancer, cmvn_batch=cmvn_batch,
-                log_domain=log_domain)
-        return model.encode_for_decode(wav, wav_lengths, use_enhancer,
-                                       cmvn_batch=cmvn_batch)
+    encode, decode = _search_parts(model, ecfg, bcfg, use_enhancer, lm,
+                                   input_kind, log_domain)
 
     @torch.inference_mode()
     def search(wav, wav_lengths, cmvn_batch=None) -> BeamResult:
-        hs, hmask, hlens, ctc_logits, enc_proj = encode(wav, wav_lengths,
-                                                        cmvn_batch)
-        return beam_search_from_encoder(
-            model.decoder_step, model.decoder_initial_carry, hs, hmask,
-            hlens, enc_proj, ctc_logits, ecfg, bcfg, lm_step_fn, lm_init_fn)
+        return decode(encode(wav, wav_lengths, cmvn_batch))
 
     search.encode = encode
     return search
+
+
+def _leaves(batch) -> list:
+    """The arrays of a (wav, wav_lengths[, cmvn_batch]) tuple."""
+    out = []
+    for x in batch:
+        if isinstance(x, (tuple, list)):
+            out.extend(x)
+        elif x is not None:
+            out.append(x)
+    return out
+
+
+def make_pipelined_beam_searcher(model, ecfg: E2EConfig,
+                                 bcfg: BeamSearchConfig,
+                                 use_enhancer: bool = True, lm=None,
+                                 input_kind: str = "wav",
+                                 log_domain: bool = False) -> Callable:
+    """Cross-batch staged serving (JAX ``make_pipelined_beam_searcher``):
+    batch i+1's copy to the device and its encode are issued before batch
+    i's beam loop, so the card can run them while the loop's host waits.
+
+    Returns ``run(batches)``: ``batches`` iterates (wav, wav_lengths[,
+    cmvn_batch]) tuples, host arrays or tensors, with the arguments of
+    ``make_beam_searcher``'s ``search``; it yields one ``BeamResult`` a
+    batch, in order, each the sequential searcher's. A change of any
+    input's shape flushes the staged batch before the new one is staged,
+    as the JAX ``run`` does. An empty stream yields nothing.
+
+    On a CUDA model the copy and the encode run on a side stream of its
+    device and each beam loop on the current stream: the side stream waits
+    for the current one before each encode, so memory freed there is never
+    reused under it; an event recorded after the encode holds the current
+    stream until it is done; every encode output is marked in use by the
+    current stream (``record_stream``). A host input is copied from pinned
+    memory, so the host does not wait for the copy. Each stream keeps its
+    own grid-barrier counters for the cooperative kernels
+    (``utils/impl.py::grid_barrier``). On the CPU the same calls run in
+    the same order, without streams."""
+    encode, decode = _search_parts(model, ecfg, bcfg, use_enhancer, lm,
+                                   input_kind, log_domain)
+    dev = next(model.parameters()).device
+    # one side stream for every run: its cuBLAS workspace and grid-barrier
+    # counters are made once
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+
+    def to_device(x, side):
+        if x is None:
+            return None
+        if isinstance(x, (tuple, list)):
+            return tuple(to_device(y, side) for y in x)
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(x)
+        if x.device == dev:
+            if side is not None:
+                x.record_stream(side)
+            return x
+        if side is not None:
+            x = x.pin_memory()
+        return x.to(dev, non_blocking=True)
+
+    @torch.inference_mode()
+    def stage(batch, side):
+        """Issue one batch's copy and encode: (enc, the encode's event)."""
+        if side is None:
+            return encode(*(to_device(x, None) for x in batch)), None
+        cur = torch.cuda.current_stream(dev)
+        with torch.cuda.stream(side):
+            side.wait_stream(cur)
+            enc = encode(*(to_device(x, side) for x in batch))
+            done = torch.cuda.Event()
+            done.record(side)
+        return enc, done
+
+    @torch.inference_mode()
+    def finish(enc, done) -> BeamResult:
+        """The beam loop of one staged batch, on the current stream."""
+        if done is not None:
+            cur = torch.cuda.current_stream(dev)
+            cur.wait_event(done)
+            for t in enc:
+                t.record_stream(cur)
+        return decode(enc)
+
+    def run(batches):
+        staged, staged_shape = None, None
+        try:
+            for batch in batches:
+                shape = [tuple(x.shape) for x in _leaves(batch)]
+                if staged is not None and shape != staged_shape:
+                    yield finish(*staged)
+                    staged = None
+                nxt = stage(batch, side)
+                if staged is not None:
+                    yield finish(*staged)
+                staged, staged_shape = nxt, shape
+            if staged is not None:
+                yield finish(*staged)
+        finally:
+            # a stream abandoned with a batch staged leaves the side
+            # stream's work (and what it cached) ordered before what the
+            # current stream runs next
+            if side is not None:
+                torch.cuda.current_stream(dev).wait_stream(side)
+
+    return run

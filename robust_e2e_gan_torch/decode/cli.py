@@ -29,10 +29,16 @@ each (``parallel/``; one card each with ``--device cuda``, gloo ranks with
 ``--device cpu``): each rank decodes its rows of every batch whose size
 divides over N, rank 0 alone a batch that does not (as the JAX CLI places
 a ragged batch on one device), and rank 0 gathers the rows and writes
-every output, byte for byte what one process writes. The staged and
-chunked schedules raise ``NotImplementedError`` naming their ROADMAP item
-(``--pipelined auto`` resolves to sequential, as it does in the JAX
-package off the TPU).
+every output, byte for byte what one process writes.
+
+``--pipelined on`` decodes with the cross-batch staged schedule
+(``decode/beam.py::make_pipelined_beam_searcher``: the next batch's copy
+and encode on a side CUDA stream under this batch's beam loop), to the
+same files; with ``--mesh-data`` each rank stages its own rows.
+``--greedy`` and ``--dump-attention`` stay sequential, as in the JAX
+package, and ``--pipelined auto`` resolves to sequential, as it does
+there off the TPU. ``--pipelined chunked`` raises
+``NotImplementedError`` (ROADMAP, "Not to port").
 
   python -m robust_e2e_gan_torch.decode.cli \\
       --manifest data/eval.jsonl --ckpt-dir exp/joint \\
@@ -57,7 +63,10 @@ from robust_e2e_gan_torch.data.dataset import (
     BucketBatcher,
     load_tokenizer,
 )
-from robust_e2e_gan_torch.decode.beam import make_beam_searcher
+from robust_e2e_gan_torch.decode.beam import (
+    make_beam_searcher,
+    make_pipelined_beam_searcher,
+)
 from robust_e2e_gan_torch.models.e2e import add_sos_eos
 from robust_e2e_gan_torch.ops.ctc import ctc_greedy_decode
 from robust_e2e_gan_torch.ops.editdistance import score_texts, wer_details
@@ -125,8 +134,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="data-parallel serving ranks (0/1: one process)")
     p.add_argument("--pipelined", choices=("auto", "on", "off", "chunked"),
                    default="auto",
-                   help="serving schedule: auto and off decode batch after "
-                        "batch; on and chunked are not ported")
+                   help="serving schedule: on = cross-batch staged (batch "
+                        "i+1's copy and encode on a side CUDA stream under "
+                        "batch i's beam loop; greedy and --dump-attention "
+                        "stay sequential); auto and off decode batch after "
+                        "batch; chunked is not ported")
     p.add_argument("--nbest", type=int, default=0,
                    help="also write the top-N beam hypotheses per utterance "
                         "to nbest.jsonl")
@@ -140,12 +152,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    if args.pipelined in ("on", "chunked"):
+    if args.pipelined == "chunked":
         raise NotImplementedError(
-            f"--pipelined {args.pipelined}: the staged schedule is not "
-            "ported yet (ROADMAP queue 1, the cross-batch staged "
-            "schedule) and the chunked one is not to be ported (ROADMAP "
-            "'Not to port')")
+            "--pipelined chunked: the chunked schedule is not to be ported "
+            "(ROADMAP 'Not to port'); --pipelined on stages whole batches")
 
 
 def with_serving_impls(jcfg: JointConfig, serving_impls: str) -> JointConfig:
@@ -262,33 +272,51 @@ def _load_lm(lm_dir: str, serving_impls: str, device):
     return forced.to(device).eval()
 
 
+def _host_inputs(batch, rows: slice, inputs) -> tuple:
+    """(wav, lengths, cmvn_batch or None) of one batch's ``rows``, as CPU
+    tensors."""
+    wav, lens = (torch.from_numpy(batch[k][rows]) for k in inputs)
+    cmvn_batch = None
+    if "cmvn_mean" in batch:
+        cmvn_batch = tuple(torch.from_numpy(batch[k][rows])
+                           for k in ("cmvn_mean", "cmvn_inv_std"))
+    return wav, lens, cmvn_batch
+
+
+def _beam_arrays(args, res) -> list:
+    """The host arrays of a beam search's result: best tokens, then (with
+    ``--nbest``) every hypothesis's tokens, lengths and scores, then the
+    two of ``--dump-attention``; each empty where not asked for."""
+    toks = res.tokens.cpu().numpy()
+    empty = np.zeros((toks.shape[0], 0), np.float32)
+    bt = bl = bs = empty
+    if args.nbest > 0:
+        bt = res.beam_tokens.cpu().numpy()
+        bl = res.beam_lengths.cpu().numpy()
+        bs = res.beam_scores.cpu().numpy()
+    return [toks, bt, bl, bs, empty, empty]
+
+
 def _decode_rows(args, searcher, model, e2e, batch, rows: slice, inputs,
                  device) -> list:
     """The host arrays of one batch's ``rows``: best tokens, then (beam
     search with ``--nbest``) every hypothesis's tokens, lengths and
     scores, then (``--dump-attention``) the teacher-forced attention maps
     and encoded lengths; each empty where not asked for."""
-    wav, lens = (torch.from_numpy(batch[k][rows]).to(device) for k in inputs)
-    cmvn_batch = None
-    if "cmvn_mean" in batch:
-        cmvn_batch = tuple(torch.from_numpy(batch[k][rows]).to(device)
-                           for k in ("cmvn_mean", "cmvn_inv_std"))
-    n = wav.shape[0]
-    empty = np.zeros((n, 0), np.float32)
-    bt = bl = bs = atts = hlens = empty
+    wav, lens, cmvn_batch = _host_inputs(batch, rows, inputs)
+    wav, lens = wav.to(device), lens.to(device)
+    if cmvn_batch is not None:
+        cmvn_batch = tuple(x.to(device) for x in cmvn_batch)
     if args.greedy:
         with torch.inference_mode():
             _, _, enc_lens, ctc_logits, _ = searcher.encode(wav, lens,
                                                             cmvn_batch)
             toks = ctc_greedy_decode(ctc_logits, enc_lens,
                                      e2e.blank_id).cpu().numpy()
+        empty = np.zeros((toks.shape[0], 0), np.float32)
+        out = [toks, empty, empty, empty, empty, empty]
     else:
-        res = searcher(wav, lens, cmvn_batch)
-        toks = res.tokens.cpu().numpy()
-        if args.nbest > 0:
-            bt = res.beam_tokens.cpu().numpy()
-            bl = res.beam_lengths.cpu().numpy()
-            bs = res.beam_scores.cpu().numpy()
+        out = _beam_arrays(args, searcher(wav, lens, cmvn_batch))
     if args.dump_attention:
         labels = torch.from_numpy(batch["labels"][rows]).to(device)
         with torch.inference_mode():
@@ -297,9 +325,8 @@ def _decode_rows(args, searcher, model, e2e, batch, rows: slice, inputs,
             ys_in, _, _ = add_sos_eos(labels, e2e.sos_id, e2e.eos_id,
                                       e2e.ignore_id)
             _, att = model.asr.decoder(hs, hmask, ys_in)
-        atts = att.float().cpu().numpy()
-        hlens = enc_lens.cpu().numpy()
-    return [toks, bt, bl, bs, atts, hlens]
+        out[4:] = att.float().cpu().numpy(), enc_lens.cpu().numpy()
+    return out
 
 
 def main(argv: Optional[list] = None) -> None:
@@ -346,24 +373,54 @@ def _decode(mesh, args) -> None:
             print(f"RNNLM shallow fusion from {args.lm_dir} "
                   f"(weight {args.lm_weight})")
     use_enh = not args.no_enhancer
-    searcher = make_beam_searcher(model, jcfg.e2e, bcfg, use_enhancer=use_enh,
-                                  lm=lm, input_kind=input_kind,
-                                  log_domain=log_domain)
+    parts = (model, jcfg.e2e, bcfg)
+    kw = dict(use_enhancer=use_enh, lm=lm, input_kind=input_kind,
+              log_domain=log_domain)
+    staged = (args.pipelined == "on" and not args.greedy
+              and not args.dump_attention)
+    if staged:
+        run = make_pipelined_beam_searcher(*parts, **kw)
+        if main_rank:
+            print("pipelined serving schedule (cross-batch staged)")
+    else:
+        searcher = make_beam_searcher(*parts, **kw)
     e2e = jcfg.e2e
     inputs = (("feats", "feat_lengths") if input_kind in ("feats", "spec")
               else ("noisy_wav", "wav_lengths"))
+
+    def owned():
+        """(batch, the mesh its rows are split over, this rank's rows) of
+        each batch this rank decodes."""
+        for batch in batcher.epoch(shuffle=False):
+            shard, rows = sharding.serving_split(len(batch[inputs[0]]), mesh)
+            if rows is not None:
+                yield batch, shard, rows
+
+    def results():
+        """(batch, shard, this rank's host arrays) of each of them."""
+        if not staged:
+            for batch, shard, rows in owned():
+                yield batch, shard, _decode_rows(
+                    args, searcher, model, e2e, batch, rows, inputs, device)
+            return
+        metas = []
+
+        def host_batches():
+            for batch, shard, rows in owned():
+                metas.append((batch, shard))
+                yield _host_inputs(batch, rows, inputs)
+
+        for res in run(host_batches()):
+            batch, shard = metas.pop(0)
+            yield batch, shard, _beam_arrays(args, res)
 
     out_dir = args.out or os.path.join(args.ckpt_dir, "decode")
     if main_rank:
         os.makedirs(out_dir, exist_ok=True)
     refs, hyps, lines, nbest_rows = [], [], [], []
     ref_texts, hyp_texts = [], []
-    for batch in batcher.epoch(shuffle=False):
-        shard, rows = sharding.serving_split(len(batch[inputs[0]]), mesh)
-        if rows is None:
-            continue
-        arrays = sharding.gather_rows(_decode_rows(
-            args, searcher, model, e2e, batch, rows, inputs, device), shard)
+    for batch, shard, arrays in results():
+        arrays = sharding.gather_rows(arrays, shard)
         if not main_rank:
             continue
         toks, bt, bl, bs, atts, hlens = arrays

@@ -1,9 +1,13 @@
 """WER/CER scoring: Levenshtein edit distance, on the host.
 
-Port of ``robust_e2e_gan_tpu/ops/editdistance.py`` in pure Python, the JAX
-package's own form when its C++ binding is not built (the binding is not
-ported yet): ``edit_distance``, ``wer_details``, ``bootstrap_wer_ci``,
-``score_texts`` and ``align_stats``.
+Port of ``robust_e2e_gan_tpu/ops/editdistance.py``: ``edit_distance``,
+``wer_details``, ``bootstrap_wer_ci``, ``score_texts`` and
+``align_stats``. As in the JAX package, ``edit_distance`` (and so
+``bootstrap_wer_ci``) scores a pair with the C++ distance of
+``utils/native.py`` and ``wer_details`` (and so ``score_texts``) a corpus
+with its threaded corpus call; ``align_stats``' backtrace stays in Python.
+``edit_distance_plain`` and ``wer_details_plain`` are the Python versions
+the tests hold them against.
 """
 
 from __future__ import annotations
@@ -12,9 +16,19 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from robust_e2e_gan_torch.utils.native import (
+    native_edit_distance,
+    native_edit_distance_corpus,
+)
+
 
 def edit_distance(ref: Sequence, hyp: Sequence) -> int:
     """Levenshtein distance between two token sequences."""
+    return native_edit_distance(ref, hyp)
+
+
+def edit_distance_plain(ref: Sequence, hyp: Sequence) -> int:
+    """``edit_distance`` in Python: the two-row recursion."""
     n, m = len(ref), len(hyp)
     if n == 0:
         return m
@@ -37,8 +51,20 @@ def wer_details(refs: List[Sequence], hyps: List[Sequence]
     character sequences alike."""
     if len(refs) != len(hyps):
         raise ValueError("refs and hyps must have equal length")
+    return _rates(native_edit_distance_corpus(refs, hyps)[1], refs)
+
+
+def wer_details_plain(refs: List[Sequence], hyps: List[Sequence]
+                      ) -> Dict[str, float]:
+    """``wer_details`` with ``edit_distance_plain``."""
+    if len(refs) != len(hyps):
+        raise ValueError("refs and hyps must have equal length")
+    return _rates(sum(edit_distance_plain(r, h) for r, h in zip(refs, hyps)),
+                  refs)
+
+
+def _rates(errs: int, refs: List[Sequence]) -> Dict[str, float]:
     total = sum(len(r) for r in refs)
-    errs = sum(edit_distance(r, h) for r, h in zip(refs, hyps))
     return {
         "errors": float(errs),
         "ref_tokens": float(total),

@@ -160,3 +160,56 @@ def test_per_utterance_prefix_search_matches_jax():
     np.testing.assert_allclose(got.beam_scores.numpy(),
                                np.asarray(want.beam_scores), rtol=1e-4,
                                atol=1e-3)
+
+
+def test_pipelined_searcher_matches_sequential():
+    """``make_pipelined_beam_searcher`` (batch i+1's encode issued before
+    batch i's beam loop; on the CPU the same calls in the same order, no
+    streams) yields the sequential searcher's results, in order: one batch
+    (stage and flush only), three batches, a mid-stream shape change
+    (flush and stage anew) and an empty stream (JAX
+    ``tests/test_beam.py:670-721``). Its tokens are the JAX staged
+    searcher's on the same batches."""
+    from robust_e2e_gan_tpu.decode.beam import (
+        make_pipelined_beam_searcher as jax_make_pipelined,
+    )
+    from robust_e2e_gan_torch.decode.beam import make_pipelined_beam_searcher
+
+    jcfg = tiny_config()
+    params = init_params(jcfg, 7)
+    model = build_model(jcfg)
+    model.load_state_dict(from_flax(params))
+    bcfg = BeamSearchConfig(beam_size=3, ctc_weight=0.3, max_steps=8)
+    scfg = SyntheticConfig(vocab_size=12, min_tokens=2, max_tokens=4)
+    rng = np.random.default_rng(11)
+    batches = []
+    for _ in range(3):
+        b = make_batch(2, scfg, rng)
+        batches.append((b["noisy_wav"], b["wav_lengths"]))
+    b_long = make_batch(2, scfg, rng,
+                        pad_to_samples=2 * batches[0][0].shape[1])
+    mixed = batches[:2] + [(b_long["noisy_wav"], b_long["wav_lengths"])]
+    seq = make_beam_searcher(model, jcfg.e2e, bcfg, use_enhancer=True)
+    pipe = make_pipelined_beam_searcher(model, jcfg.e2e, bcfg,
+                                        use_enhancer=True)
+    for stream in (batches[:1], batches, mixed):
+        want = [seq(torch.from_numpy(w), torch.from_numpy(n))
+                for w, n in stream]
+        got = list(pipe(iter(stream)))
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            for name in w._fields:  # the same calls: bit for bit
+                assert torch.equal(getattr(g, name), getattr(w, name)), name
+    assert list(pipe(iter([]))) == []
+
+    # the JAX staged program once (stage, staged step, flush): compiles
+    # are the cost here
+    jax_pipe = jax_make_pipelined(JaxRobustE2E(_jax(jcfg)), _jax(jcfg.e2e),
+                                  _jax(bcfg), use_enhancer=True)
+    want = list(jax_pipe(params, [(jnp.asarray(w), jnp.asarray(n))
+                                  for w, n in batches[:2]]))
+    assert len(want) == 2
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.tokens.numpy(), np.asarray(w.tokens))
+        np.testing.assert_allclose(g.scores.numpy(), np.asarray(w.scores),
+                                   rtol=1e-3)

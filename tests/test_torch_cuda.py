@@ -2073,3 +2073,87 @@ def test_two_gloo_ranks_on_one_card_step_as_one_process(dev):
                                              "ctc_nll")), launched
         assert not any(launched[k] for k in (
             "blstm_train_plain", "gemm_plain", "ctc_nll_plain")), launched
+
+
+def test_host_library_builds_on_the_card_machine(dev):
+    """``utils/native.py`` builds ``csrc/host`` with this machine's g++ and
+    its readers and scorer run: a ``.npy`` batch equal to numpy's, an edit
+    distance."""
+    import tempfile
+
+    import numpy as np
+
+    from robust_e2e_gan_torch.data import dataset
+    from robust_e2e_gan_torch.utils import native
+
+    native.build()
+    assert native.compiler_version()
+    assert native.native_edit_distance(list("kitten"), list("sitting")) == 3
+    with tempfile.TemporaryDirectory() as d:
+        paths = []
+        for i, n in enumerate((300, 500)):
+            paths.append(f"{d}/{i}.npy")
+            np.save(paths[-1], np.arange(n, dtype=np.float32))
+        got, lens = native.native_load_npy_batch(paths, 400)
+        want, _ = dataset.load_npy_batch_plain(paths, 400)
+    assert lens.tolist() == [300, 500]
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("early_exit", [True, False], ids=["exit", "all"])
+@pytest.mark.parametrize("step_impl", ["auto", "fused"])
+def test_pipelined_searcher_matches_sequential(dev, step_impl, early_exit):
+    """The staged searcher on the card (each encode on a side stream under
+    the previous batch's beam loop, host batches copied from pinned
+    memory) against the sequential one on the same host batches: three
+    batches and a shape change; tokens identical, scores within 1e-5
+    relative; the fused step's cooperative launches on the current stream
+    beside the encodes on the side one."""
+    import dataclasses
+
+    import numpy as np
+
+    from robust_e2e_gan_torch.config import BeamSearchConfig
+    from robust_e2e_gan_torch.configs import tiny_config
+    from robust_e2e_gan_torch.convert import from_flax, init_params
+    from robust_e2e_gan_torch.data.synthetic import SyntheticConfig, make_batch
+    from robust_e2e_gan_torch.decode.beam import (
+        make_beam_searcher,
+        make_pipelined_beam_searcher,
+    )
+    from robust_e2e_gan_torch.ops import att_dec
+    from robust_e2e_gan_torch.pipeline import build_model
+
+    jcfg = tiny_config(12)
+    e2e = jcfg.e2e
+    jcfg = dataclasses.replace(
+        jcfg, e2e=dataclasses.replace(
+            e2e, encoder=dataclasses.replace(e2e.encoder, lstm_impl="auto"),
+            decoder=dataclasses.replace(e2e.decoder, step_impl=step_impl)),
+        enhancer=dataclasses.replace(jcfg.enhancer, lstm_impl="auto"))
+    model = build_model(jcfg)
+    model.load_state_dict(from_flax(init_params(jcfg, seed=0)))
+    model.to(dev).eval()
+    bcfg = BeamSearchConfig(beam_size=4, ctc_weight=0.3, max_steps=12,
+                            early_exit=early_exit)
+    synth = SyntheticConfig(vocab_size=12, min_tokens=2, max_tokens=4)
+    rng = np.random.default_rng(5)
+    stream = []
+    for pad in (None, None, None, 2):
+        b = make_batch(8, synth, rng, pad_to_samples=(
+            None if pad is None else pad * stream[0][0].shape[1]))
+        stream.append((torch.from_numpy(b["noisy_wav"]),
+                       torch.from_numpy(b["wav_lengths"])))
+    seq = make_beam_searcher(model, jcfg.e2e, bcfg)
+    want = [seq(w.to(dev), n.to(dev)) for w, n in stream]
+    launches = att_dec.att_dec_step.launches
+    got = list(make_pipelined_beam_searcher(model, jcfg.e2e, bcfg)(
+        iter(stream)))
+    torch.cuda.synchronize()
+    if step_impl == "fused":
+        assert att_dec.att_dec_step.launches > launches
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g.tokens, w.tokens)
+        assert torch.equal(g.beam_tokens, w.beam_tokens)
+        torch.testing.assert_close(g.scores, w.scores, rtol=1e-5, atol=0)

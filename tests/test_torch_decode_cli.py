@@ -5,9 +5,11 @@ lists, with ``--serving-impls fused`` and ``xla``, a ragged final batch and
 ``--greedy``; the Kaldi sources and speaker CMVN decode as the manifest
 and global CMVN they stand for, and refuse what the JAX CLI refuses with
 its message; ``--mesh-data 2`` decodes over two gloo ranks to the files
-of one process and of the JAX CLI's ``--mesh-data 2``; the flags of
-unported paths raise, and without ``--device cpu`` the CLI raises where
-there is no GPU."""
+of one process and of the JAX CLI's ``--mesh-data 2``; ``--pipelined
+on`` (the staged schedule) decodes to the files of ``--pipelined off``
+and of the JAX CLI's ``--pipelined on``, alone and over two ranks;
+``--pipelined chunked`` raises, and without ``--device cpu`` the CLI
+raises where there is no GPU."""
 
 import dataclasses
 import json
@@ -41,7 +43,8 @@ from robust_e2e_gan_torch.data.synthetic import (  # noqa: E402
 )
 from robust_e2e_gan_torch.decode import cli  # noqa: E402
 from robust_e2e_gan_torch.ops import att_dec  # noqa: E402
-from robust_e2e_gan_torch.parallel import launcher  # noqa: E402
+from robust_e2e_gan_torch.parallel import launcher, make_mesh  # noqa: E402
+from robust_e2e_gan_torch.tools import dp_phases  # noqa: E402
 from robust_e2e_gan_torch.train.loop import init_state  # noqa: E402
 from robust_e2e_gan_torch.utils import checkpoint as ckpt_lib  # noqa: E402
 
@@ -247,15 +250,34 @@ def _decoded(exp, ckpt, out, *extra):
     ["--cmvn-ark", "c.ark"], ["--pipelined", "on"],
     ["--pipelined", "chunked"]], ids=lambda f: f[0] + f[-1])
 def test_unported_flags_raise(exp, kaldi, monkeypatch, tmp_path, flag):
-    """The flags of the paths that stay unported (the staged and chunked
-    schedules) raise; the Kaldi flags do what the JAX CLI's do: the same
-    SystemExit, or a decode equal to the one it stands for."""
+    """The flag of the path that stays unported (the chunked schedule)
+    raises; ``--pipelined on`` decodes to the files of ``--pipelined off``
+    and of the JAX CLI's ``--pipelined on``; the Kaldi flags do what the
+    JAX CLI's do: the same SystemExit, or a decode equal to the one it
+    stands for."""
     name = flag[0]
-    if name == "--pipelined":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if flag == ["--pipelined", "chunked"]:
+        with pytest.raises(NotImplementedError, match="'Not to port'"):
             cli.main(["--ckpt-dir", str(tmp_path), "--manifest", "m.jsonl",
                       "--device", "cpu", *flag])
         assert not os.listdir(tmp_path)
+    elif name == "--pipelined":  # on: two batches, the second padded
+        src = ["--manifest", exp["manifest"], "--serving-impls", "xla"]
+        got = _decoded(exp, exp["port"], "staged", *src, *flag)
+        assert got == _decoded(exp, exp["port"], "sequential", *src,
+                               "--pipelined", "off")
+        jax_out = _decode(exp, "jax", "jax_staged", "--serving-impls",
+                          "xla", "--nbest", "2", *flag)
+        want = [_read(os.path.join(jax_out, n))
+                for n in ("hyp.txt", "wer.json", "nbest.jsonl")]
+        assert got[:2] == want[:2]
+        for g, w in zip(*[[json.loads(line) for line in f.splitlines()]
+                          for f in (got[2], want[2])]):
+            assert [e["tokens"] for e in g["nbest"]] == [
+                e["tokens"] for e in w["nbest"]]
+            np.testing.assert_allclose([e["score"] for e in g["nbest"]],
+                                       [e["score"] for e in w["nbest"]],
+                                       rtol=1e-4, atol=1e-3)
     elif name == "--noisy-scp":
         # a wav.scp with its text decodes as the JAX CLI decodes it, and as
         # the manifest it was made from
@@ -308,28 +330,48 @@ def test_unported_flags_raise(exp, kaldi, monkeypatch, tmp_path, flag):
         assert "--utt2spk" in msg
 
 
-@pytest.fixture
-def one_thread():
-    """One torch thread here, and so one a rank: beside the suite's other
-    workers, thread hand-offs would cost more than the arithmetic."""
+MESH_DECODES = {  # tag -> flags of a --mesh-data 2 decode
+    "4": ("--batch-size", "4", "--nbest", "2", "--dump-attention"),
+    "3": ("--batch-size", "3", "--nbest", "2", "--dump-attention"),
+    "4_staged": ("--batch-size", "4", "--nbest", "2", "--pipelined", "on"),
+}
+
+
+@pytest.fixture(scope="module")
+def mesh_decodes(exp):
+    """Every ``--mesh-data 2`` decode of this file in one launch of two
+    gloo ranks: each argv goes through ``cli.main`` up to its launch, and
+    one launch runs every rank's ``_decode`` of them in turn. One torch
+    thread a rank: beside the suite's other workers, thread hand-offs
+    would cost more than the arithmetic."""
+    calls = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cli, "launch", lambda fn, mesh, args: calls.append(
+            (fn, (args,), {})))
+        for tag, extra in MESH_DECODES.items():
+            _decode(exp, "port", f"mesh_{tag}", "--mesh-data", "2", *extra)
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+    try:
+        launcher.launch(dp_phases.run_all, make_mesh(2, 1, "cpu"), calls,
+                        limit_s=300.0)
+    finally:
+        torch.set_num_threads(n)
+    return {tag: str(exp["root"] / f"mesh_{tag}") for tag in MESH_DECODES}
 
 
 @pytest.mark.parametrize("batch", ["4", "3"])
-def test_mesh_data_decodes_as_one_process(exp, monkeypatch, batch,
-                                          one_thread):
+def test_mesh_data_decodes_as_one_process(exp, mesh_decodes, batch):
     """``--mesh-data 2``: two gloo ranks decode the rows of each batch that
     divides over them (batches of 4), rank 0 alone each that does not
     (batches of 3); ``hyp.txt`` and ``wer.json`` are byte-identical to one
     process's (and, at 4, to the JAX CLI's ``--mesh-data 2``), the n-best
-    lists hold the same hypotheses and the attention maps are the same."""
-    monkeypatch.setattr(launcher, "DEFAULT_LIMIT_S", 300.0)
-    extra = ("--batch-size", batch, "--nbest", "2", "--dump-attention")
+    lists hold the same hypotheses and the attention maps are the same. At
+    4, ``--pipelined on`` stages each rank's rows: its files are the
+    sequential ranks', byte for byte."""
+    extra = MESH_DECODES[batch]
     one = _decode(exp, "port", f"one_{batch}", *extra)
-    got = _decode(exp, "port", f"mesh_{batch}", "--mesh-data", "2", *extra)
+    got = mesh_decodes[batch]
     names = ("hyp.txt", "wer.json")
     want = [_read(os.path.join(one, n)) for n in names]
     assert [_read(os.path.join(got, n)) for n in names] == want
@@ -337,6 +379,10 @@ def test_mesh_data_decodes_as_one_process(exp, monkeypatch, batch,
         jax = _decode(exp, "jax", "jax_mesh", "--mesh-data", "2",
                       "--batch-size", batch)
         assert [_read(os.path.join(jax, n)) for n in names] == want
+        staged = mesh_decodes["4_staged"]
+        for n in names + ("nbest.jsonl",):
+            assert _read(os.path.join(staged, n)) == _read(
+                os.path.join(got, n)), n
     rows = [[json.loads(line) for line in _read(os.path.join(d, "nbest.jsonl"))
              .splitlines()] for d in (got, one)]
     for g, w in zip(*rows):

@@ -84,18 +84,6 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(autouse=True)
-def jax_numpy_reader(monkeypatch):
-    """The JAX package reads Kaldi feature batches with numpy, its own path
-    when its C++ reader is not built, and the port's: the C++ reader
-    decodes CM-compressed matrices to within an ulp of it, not bit for
-    bit."""
-    from robust_e2e_gan_tpu.utils import native
-
-    monkeypatch.setattr(native, "native_load_kaldi_feats_batch",
-                        lambda *a, **kw: None)
-
-
 def _jax(cfg):
     """The JAX package's config of the same class name and field values."""
     return jax_config.from_dict(getattr(jax_config, type(cfg).__name__),
@@ -196,6 +184,8 @@ DATASETS = {
         p["spec.scp"], p["text"], clean_scp=p["clean_spec.scp"]),
         FRAME_BUCKETS),
 }
+# the port's numpy reader against the JAX package's numpy path
+DATASETS["feats_compressed_plain"] = DATASETS["feats_compressed"]
 
 
 def _assert_batches_equal(got, want):
@@ -212,8 +202,20 @@ def _assert_batches_equal(got, want):
 @pytest.mark.parametrize("name", list(DATASETS))
 def test_kaldi_datasets_and_batches_match_jax(corpus, tmp_path, monkeypatch,
                                               name):
+    """Either package's dataset and batches of each source, equal: the
+    feature batches read by both packages' C++ readers, and in the
+    ``_plain`` case by the port's numpy reader and the JAX package's numpy
+    path."""
+    from robust_e2e_gan_tpu.utils import native as jax_native
+
     build, buckets = DATASETS[name]
     p = corpus["paths"]
+    if name.endswith("_plain"):
+        monkeypatch.setattr(jax_native, "native_load_kaldi_feats_batch",
+                            lambda *a, **kw: None)
+        monkeypatch.setattr(dataset, "_plain_collation", True)
+    else:
+        assert jax_native.get_lib() is not None  # its reader, not numpy
     cache = {t: str(tmp_path / f"{t}.json") for t in ("port", "jax")}
     got = build(dataset, p, cache["port"])
     want = build(jax_dataset, p, cache["jax"])
