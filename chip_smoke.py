@@ -291,7 +291,36 @@ Phases, each of which exits non-zero on failure:
     relative; (3) ``decode.cli --pipelined on`` on phase 7's experiment (2
     batches of 16, 24 steps, the default impls and ``--serving-impls
     fused``): ``hyp.txt``, ``wer.json`` and ``nbest.jsonl`` byte-identical
-    to ``--pipelined off``'s.
+    to ``--pipelined off``'s;
+23. the paper-claim protocol at the reference scale (the JAX script's
+    ``jcfg_for("reference")``: 36.3 M parameters, 2 x 512 enhancer, VGG +
+    3 x 512 BLSTMP at 80 mels, 512-wide attention and decoder, bfloat16;
+    random weights from seed 0; the hard task, B=32): (1) 6 joint steps
+    (Adam 3e-4, warmup 600), every training BLSTM layer on the resident
+    frame loops, every product on ``gemm.cu``'s tensor-core kernel, the
+    CTC loss on ``ctc_nll``, the D-step's enhancer forward on the
+    row-tiled inference BLSTM (the cluster plan stops at H = 256), ms a
+    step; (2) 64 eval utterances decoded in bfloat16 (beam 4, 29 steps, no
+    early exit): 5 row-tiled BLSTM launches and every attention, psi and
+    state launch on route "utt", then the float32 kernel path against the
+    plain path at B=16 (best scores within 1e-3 relative, hypotheses
+    identical or a near tie); (3) row 1a's row-tiled kernel at encoder
+    layer 0 (B=64, T=70, D=2,560, H=512) against its plain version, timed
+    in turns with cuDNN's LSTM, with its bound; (4)
+    ``tools/adversarial_benefit.py::main`` at the reference scale (4 + 2
+    x 2 + 2 steps, ``save_every=3``, 16 eval utterances, one route batch)
+    uncut, then cut before global step 6 and run again in its checkpoint
+    dir: the restored state bit-equal to the state at its save, the
+    resumed stream bit-equal to the uncut run's, the no-enhancement
+    decode reused from the sidecar, every summary key present, the
+    cluster route reported not run; the uncut and resumed rates printed
+    side by side; (5) the kernels at the reference widths against their
+    plain versions in bfloat16 (phase 3's limits): the training BLSTM on
+    its resident route, forward and every gradient, at the enhancer's
+    layer 0 (B=32, T=279, D=257, H=512) and the encoder's (B=32, T=70,
+    D=2,560, H=512), every product on ``gemm.cu``'s tensor-core kernel;
+    the CTC loss and its gradient at V=32 (also float32); the attention
+    step's utt route at B=64, K=4, A=512.
 
 Each phase after 15 prints its seconds. The line before the last is a JSON object of the 22 kernels (``gemm``
 the products of one row-6 call, with phase 6's launches; the
@@ -315,6 +344,7 @@ from __future__ import annotations
 import contextlib
 import csv
 import dataclasses
+import hashlib
 import json
 import os
 import shutil
@@ -349,6 +379,7 @@ from robust_e2e_gan_torch.convert import (
 )
 from robust_e2e_gan_torch.data.synthetic import (
     SyntheticConfig,
+    labels_to_list,
     make_batch,
     sample_transcript,
     synth_utterance,
@@ -3122,6 +3153,9 @@ def drive_phase(dev) -> dict:
     print(f"  WER greedy {w['greedy']:.4f}, beam {w['beam']:.4f}, bf16 beam "
           f"{w['beam_bf16']:.4f} (16 utterances)")
     for name, r in out["routes"].items():
+        if "not_run" in r:
+            print(f"  bf16 {name}: not run: {r['not_run']}")
+            continue
         print(f"  bf16 {name}: WER {r['wer']:.4f}, token-identical "
               f"{r['identical']}/{r['n']} ({r['identical'] / r['n']:.4f})")
     print("  seconds by section "
@@ -4897,6 +4931,360 @@ def host_overlap_phase(state, dev, work, ckpt, host_build_s) -> None:
           f"(2) {t3 - t2:.1f} s, (3) {time.perf_counter() - t3:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the paper-claim protocol at the reference scale
+# ---------------------------------------------------------------------------
+
+# the JAX record's reference-scale recipe (results/adversarial_benefit_
+# reference*.json): Adam 3e-4, 600 warmup steps, batches of 32
+REF_TCFG = dict(optimizer="adam", learning_rate=3e-4, warmup_steps=600,
+                batch_size=32, seed=0)
+REF_STEPS = 6
+REF_DECODE = 64
+REF_PARITY = 16
+# (4): 4 + 2 x 2 + 2 = 10 global steps, saved after steps 3, 6 and 9; the
+# cut comes before global step 6, right after the second save
+REF_RESUME = dict(scale="reference", steps_a=4, steps_c=2, bs=32, lr=3e-4,
+                  warmup=600, save_every=3, eval_utts=16, route_batches=1,
+                  check_claim=False)
+REF_CUT = 6
+# what the reference model's 6 joint steps must launch and must not: the
+# frame loops (resident), gemm.cu's products and the CTC loss, the
+# D-step's enhancer forward on the row-tiled inference BLSTM (the cluster
+# plan stops at H = 256 in bfloat16)
+REF_JOINT = (("blstm_train", "gemm", "ctc_nll", "blstm_infer_row_tiled"),
+             ("blstm_infer", "blstm_train_gx"), True)
+
+
+class Cut(Exception):
+    pass
+
+
+def reference_steps(jcfg, state, stream, rng, dev) -> None:
+    """Phase 23 (1): ``REF_STEPS`` joint steps of the reference model at
+    B=32 on the hard-task stream, their launches checked."""
+    step = train_steps.make_joint_train_step(jcfg, with_asr=True)
+    seconds = {}
+    watch = section_watch("phase 23", {"joint": REF_JOINT}, seconds,
+                          ("joint",))
+    batches = [train_loop.device_batch(stream.batch(REF_TCFG["batch_size"],
+                                                    rng), dev)
+               for _ in range(REF_STEPS)]
+    times = []
+    with watch("joint"):
+        for batch in batches:
+            metrics, ms = timed(lambda: step(state, batch))
+            check_metrics(metrics)
+            times.append(ms)
+        gemm_routes = dict(blstm_train.GEMM_ROUTE_LAUNCHES)
+        infer_routes = dict(blstm.INFER_ROUTE_LAUNCHES)
+    n_enh = jcfg.enhancer.num_layers
+    print(f"  blstm_infer launches by route {infer_routes}; gemm launches "
+          f"by route {gemm_routes}")
+    require(infer_routes == {"cluster": 0, "row_tiled": n_enh * REF_STEPS},
+            f"phase 23: the D-step's enhancer forward did not take the "
+            f"row-tiled route at every step: {infer_routes}")
+    require(gemm_routes["simt"] == 0 and gemm_routes["tc"] > 0,
+            f"phase 23: not every product took the tensor-core kernel: "
+            f"{gemm_routes}")
+    warm = mean(times[1:])
+    print(f"  (1) {REF_STEPS} joint steps B={REF_TCFG['batch_size']}: ms "
+          f"{['%.1f' % t for t in times]}; {warm:.1f} ms/step over the last "
+          f"{REF_STEPS - 1} (host clock ending in torch.cuda.synchronize(); "
+          f"{card()}); metrics " + " ".join(
+              f"{k}={float(v):.4g}" for k, v in metrics.items()))
+
+
+def reference_decode(jcfg, params, dev) -> None:
+    """Phase 23 (2): ``REF_DECODE`` eval utterances in bfloat16 (beam 4,
+    ``max_label_len + 2`` steps, no early exit), every launch on its
+    route; then the kernel path against the plain path in float32 at
+    B=16."""
+    scfg = adversarial_benefit.SCFG
+    bcfg = dataclasses.replace(adversarial_benefit.beam_config(scfg),
+                               early_exit=False)
+    steps = bcfg.max_steps
+    stream = adversarial_benefit.Stream(scfg)
+    data = stream.batch(REF_DECODE, np.random.default_rng(
+        adversarial_benefit.EVAL_SEED))
+    wav = torch.from_numpy(data["noisy_wav"]).to(dev)
+    lens = torch.from_numpy(data["wav_lengths"]).to(dev)
+    model = load(jcfg, params, dev)
+    search = make_beam_searcher(model, jcfg.e2e, bcfg, use_enhancer=True)
+    search(wav, lens)  # warm-up
+    reset_counts()
+    res, ms = timed(lambda: search(wav, lens))
+    require(bool(torch.isfinite(res.scores).all())
+            and res.tokens.shape == (REF_DECODE, steps),
+            f"phase 23: decode result {tuple(res.tokens.shape)}")
+    launched, plain_calls = counts(KERNELS)
+    routes = dict(blstm.INFER_ROUTE_LAUNCHES)
+    n_layers = jcfg.enhancer.num_layers + jcfg.e2e.encoder.num_layers
+    print(f"  blstm_infer launches by route {routes}")
+    require(routes == {"cluster": 0, "row_tiled": n_layers},
+            f"phase 23: the decode's BLSTM launches {routes}, not "
+            f"{n_layers} on the row-tiled route")
+    require_utt_attention("phase 23", steps)
+    require_utt_prefix("phase 23", steps, steps)
+    require(not any(plain_calls.values()),
+            f"phase 23: a plain version ran: {plain_calls}")
+    refs = labels_to_list(data["labels"])
+    wer = editdistance.wer_details(refs, verify_drive.token_lists(
+        res.tokens))["error_rate"]
+    print(f"  (2) bf16 decode of {REF_DECODE} eval utterances, beam "
+          f"{bcfg.beam_size}, {steps} steps: {ms:.1f} ms "
+          f"({REF_DECODE * 1e3 / ms:.2f} utt/s; {card()}); TER {wer:.4f} "
+          f"after {REF_STEPS} steps")
+
+    wav, lens = wav[:REF_PARITY], lens[:REF_PARITY]
+    out = {}
+    for tag, lstm_impl, score, prefix in (("kernel", "auto", "auto", "auto"),
+                                          ("plain", "scan", "xla", "twopass")):
+        cfg = with_impls(jcfg, lstm_impl, score, "float32")
+        searcher = make_beam_searcher(
+            load(cfg, params, dev), cfg.e2e,
+            dataclasses.replace(bcfg, prefix_impl=prefix))
+        reset_counts()
+        out[tag] = searcher(wav, lens)
+        if tag == "kernel":
+            launched = launched_now()
+            print(f"  float32 kernel path launches {launched}")
+            require(launched.get("blstm_infer_row_tiled") == n_layers,
+                    f"phase 23: float32 BLSTM launches {launched}")
+    rel, same = compare_results(out["kernel"], out["plain"],
+                                "phase 23 float32")
+    print(f"  float32 B={REF_PARITY}: best-score max rel diff {rel:.3e} "
+          f"(limit 1e-3); best hypotheses token-identical {same}/"
+          f"{REF_PARITY} (any other a near tie)")
+    require(rel <= 1e-3, "phase 23: the kernel and plain paths disagree")
+
+
+def reference_row_1a(jcfg, dev) -> dict:
+    """Phase 23 (3): row 1a's row-tiled kernel at the reference encoder's
+    layer 0 (B=64, T=70, D=2,560, H=512, bfloat16) against its plain
+    version, timed in turns with cuDNN's LSTM from x."""
+    enc = jcfg.e2e.encoder
+    b = 64
+    t = subsampled_frames(num_frames(adversarial_benefit.PAD_TO,
+                                     jcfg.e2e.frontend))
+    d = subsampled_frames(enc.input_dim) * enc.vgg_channels[-1]
+    h, dt = enc.hidden_dim, torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    x, wx, wh, bias, lengths, _ = train_inputs(gen, b, t, d, h, dt, dev)
+    x = x.to(dt)
+    require(blstm.card_infer_route(b, d, h, dt, dev.index or 0) is None,
+            "phase 23: the cluster plan fits H=512")
+
+    def kernel():
+        return blstm.blstm_infer(x, lengths, wx, wh, bias)
+
+    def plain():
+        return blstm.blstm_infer_plain(x, lengths, wx, wh, bias)
+
+    want = plain()
+    reset_counts()
+    err, ok = compare(f"blstm_infer row_tiled B={b} T={t} D={d} H={h} {dt}",
+                      [kernel()], [want], scale_atol=2e-2)
+    require(ok and blstm.INFER_ROUTE_LAUNCHES["row_tiled"] == 1,
+            f"phase 23: row 1a at H={h}: {blstm.INFER_ROUTE_LAUNCHES}")
+    ms, lib_ms = cuda_ms_in_turns(
+        [kernel, lstm_library_fn(x, lengths, h, train=False)], 3)
+    print(f"  (3) row 1a row-tiled at the reference encoder layer 0 "
+          f"(valid frames {int(lengths.sum())}; {card()}):")
+    return entry("blstm_infer_row_tiled H=512", err, ms, cuda_ms(plain, 1),
+                 2 * int(lengths.sum()) * 2 * 4 * h * (d + h),
+                 nbytes(x, wx, wh, bias, lengths, want), dt, lib_ms)
+
+
+def stream_digest(batch) -> str:
+    digest = hashlib.sha256()
+    for k in sorted(batch):
+        digest.update(batch[k].tobytes())
+    return digest.hexdigest()
+
+
+def same_tree(a, b) -> bool:
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(same_tree, a, b))
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
+def reference_resume(dev, work) -> None:
+    """Phase 23 (4): ``tools/adversarial_benefit.py::main`` at the
+    reference scale (``REF_RESUME``) uncut, then cut before global step
+    ``REF_CUT`` in another checkpoint dir and run again there: the
+    restored state bit-equal to the state at its save, the resumed stream
+    bit-equal to the uncut run's, the decoded stage reused, every summary
+    key present."""
+    def run(ckpt_dir, cut=None, resumed=False):
+        seen, snap = {}, {}
+
+        def hook(gstep, batch, state):
+            if gstep == cut or (resumed and not snap):
+                snap[gstep] = ckpt_lib.host_snapshot(state.state_dict())
+            if gstep == cut:
+                raise Cut
+            seen[gstep] = stream_digest(batch)
+
+        t0 = time.perf_counter()
+        try:
+            out = adversarial_benefit.main(device=dev, ckpt_dir=ckpt_dir,
+                                           step_hook=hook, **REF_RESUME)
+        except Cut:
+            out = None
+        return out, seen, snap, time.perf_counter() - t0
+
+    uncut, useen, _, us = run(os.path.join(work, "ref_uncut"))
+    cut_dir = os.path.join(work, "ref_cut")
+    _, _, cut_snap, cs = run(cut_dir, cut=REF_CUT)
+    resumed, rseen, rsnap, rs = run(cut_dir, resumed=True)
+    require(ckpt_lib.read_extra(cut_dir)["global_step"] == 8,
+            "phase 23: the resumed run's last save")
+    restored = same_tree(cut_snap[REF_CUT], rsnap[REF_CUT])
+    stream_same = sorted(rseen) == list(range(REF_CUT, 10)) and all(
+        rseen[g] == useen[g] for g in rseen)
+    keys = [k for k in BENEFIT_KEYS if k not in ("noisy_wer_joint_plus_lm",
+                                                 "lm_ppl")] + ["resume"]
+    missing = [k for k in keys if k not in resumed]
+    rates = {k: (uncut[k], resumed[k]) for k in (
+        "noisy_wer_no_enhancement", "noisy_wer_cascade_enhancement",
+        "noisy_wer_joint_adversarial", "token_error_rates")}
+    print(f"  (4) --scale reference {REF_RESUME['steps_a']} "
+          f"{REF_RESUME['steps_c']}, --save-every {REF_RESUME['save_every']}"
+          f": uncut {us:.1f} s, cut before global step {REF_CUT} {cs:.1f} s, "
+          f"resumed {rs:.1f} s; restored state bit-equal to its save "
+          f"{restored}; resumed stream bit-equal {stream_same}; stages "
+          f"reused {resumed['resume']['stages_reused']}; steps run "
+          f"{resumed['resume']['steps_run']}")
+    for k, (a, b) in rates.items():
+        print(f"    {k}: uncut {a}, resumed {b}")
+    print(f"    rates bit-equal: {all(a == b for a, b in rates.values())}; "
+          f"routes {json.dumps(resumed['routes'])}")
+    require(restored, "phase 23: the restored state differs from its save")
+    require(stream_same, "phase 23: the resumed stream differs")
+    require(resumed["resume"]["stages_reused"] == ["noisy_raw"],
+            f"phase 23: stages reused {resumed['resume']}")
+    require(not missing, f"phase 23: the summary lacks {missing}")
+    require(all(np.isfinite(adversarial_benefit.finite_wers(resumed))),
+            "phase 23: a rate is not finite")
+    require(resumed["routes"]["blstm cluster"] == {
+        "not_run": "ops/blstm.py::cluster_plan does not fit H=512 at B=32"},
+        f"phase 23: route gates {resumed['routes']}")
+
+
+def reference_kernel_parity(jcfg, dev) -> None:
+    """Phase 23 (5): the kernels of the reference model's training and
+    decode against their plain versions at its widths, bfloat16: the
+    training BLSTM (forward and every gradient, so ``gemm.cu``'s products
+    too) at the enhancer's and the encoder's layer 0 at B=32, on the route
+    its plan gives (resident); the CTC loss and its gradient at V=32 in
+    both dtypes; the attention step's utt route at A=512 at the decode's
+    B=64. Phase 3's limits."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    f32, bf16 = torch.float32, torch.bfloat16
+    b = REF_TCFG["batch_size"]
+    enc, acfg = jcfg.e2e.encoder, jcfg.e2e.attention
+    t_enh = num_frames(adversarial_benefit.PAD_TO, jcfg.e2e.frontend)
+    t_enc = subsampled_frames(t_enh)
+    d_enc = subsampled_frames(enc.input_dim) * enc.vgg_channels[-1]
+    out_tol, g_tol = grad_tols(bf16)
+    ok_all = True
+    for tag, t, d, h in (("enhancer0", t_enh, jcfg.enhancer.input_dim,
+                          jcfg.enhancer.hidden_dim),
+                         ("encoder0", t_enc, d_enc, enc.hidden_dim)):
+        x, wx, wh, bias, lengths, dy = train_inputs(gen, b, t, d, h, bf16,
+                                                    dev)
+
+        def run(fn, x=x, wx=wx, wh=wh, bias=bias, lengths=lengths, dy=dy):
+            return with_grads(lambda *a: fn(a[0], lengths, *a[1:]),
+                              [x, wx, wh, bias], dy)
+
+        want = run(blstm_train.blstm_train_plain)
+        reset_counts()
+        got = run(blstm_train.blstm_train)
+        require_resident(f"phase 23 {tag}")
+        gemm_routes = dict(blstm_train.GEMM_ROUTE_LAUNCHES)
+        require(gemm_routes["simt"] == 0 and gemm_routes["tc"] > 0,
+                f"phase 23 {tag}: products by route {gemm_routes}")
+        for name, g, w in zip(("y", "dx", "dwx", "dwh", "dbias"), got, want):
+            ok_all &= compare(
+                f"blstm_train resident {tag} {name} B={b} T={t} D={d} H={h} "
+                f"{bf16}", [g], [w], **(out_tol if name == "y" else g_tol))[1]
+
+    v, s_len = adversarial_benefit.VOCAB, adversarial_benefit.SCFG.max_label_len
+    logits = 3 * torch.randn((b, t_enc, v), generator=gen, device=dev)
+    labels = torch.randint(2, v, (b, s_len), generator=gen, device=dev)
+    label_lengths = torch.randint(s_len // 2, s_len + 1, (b,), generator=gen,
+                                  device=dev)
+    logit_lengths = torch.randint(t_enc - 12, t_enc + 1, (b,), generator=gen,
+                                  device=dev)
+
+    def run_ctc(impl, lg):
+        lg = lg.detach().requires_grad_()
+        loss = ctc.ctc_loss(lg, logit_lengths, labels, label_lengths,
+                            impl=impl, reduction="none")
+        return [loss, torch.autograd.grad(loss.sum(), lg)[0]]
+
+    for dt in (f32, bf16):
+        reset_counts()
+        got = run_ctc("auto", logits.to(dt))
+        require(launch_count("ctc_nll") == 2,
+                f"phase 23: ctc_nll launched {launch_count('ctc_nll')} times")
+        ok_all &= compare(
+            f"ctc_nll loss+grad B={b} T={t_enc} S={s_len} V={v} {dt}", got,
+            run_ctc("scan", logits.to(dt)),
+            **(dict(atol=1e-4) if dt == f32 else dict(scale_atol=2e-2)))[1]
+
+    beam = adversarial_benefit.beam_config(adversarial_benefit.SCFG).beam_size
+    args = att_inputs(gen, REF_DECODE, beam, t_enc, acfg.conv_channels,
+                      acfg.dim, enc.proj_dim, bf16, dev)
+    reset_counts()
+    got = on_att_route("utt", att.att_loc_step)(*args, acfg.sharpening)
+    require_utt_attention("phase 23", 1)
+    ok_all &= compare(
+        f"att_loc_step utt B={REF_DECODE} K={beam} T={t_enc} "
+        f"C={acfg.conv_channels} A={acfg.dim} E={enc.proj_dim} {bf16}", got,
+        att.att_loc_step_plain(*args, acfg.sharpening), scale_atol=2e-2)[1]
+    print("  (5) the training BLSTM, the CTC loss and the utt attention at "
+          "the reference widths against their plain versions")
+    require(ok_all, "phase 23: a kernel disagrees with its plain version at "
+            "the reference widths")
+
+
+def reference_phase(dev, work) -> None:
+    """Phase 23: the reference-scale model through the kernels."""
+    jcfg = verify_drive.kernel_config(adversarial_benefit.jcfg_for(
+        "reference"))
+    tcfg = dataclasses.replace(adversarial_benefit.TCFG, **REF_TCFG)
+    t0 = time.perf_counter()
+    state = train_loop.init_state(jcfg, tcfg, dev)
+    n = sum(p.numel() for p in state.model.parameters())
+    print(f"  reference model: {n / 1e6:.1f} M parameters, bf16 compute; "
+          f"init {time.perf_counter() - t0:.1f} s")
+    stream = adversarial_benefit.Stream(adversarial_benefit.SCFG)
+    rng = np.random.default_rng(0)
+    t = [time.perf_counter()]
+    reference_steps(jcfg, state, stream, rng, dev)
+    t.append(time.perf_counter())
+    reference_decode(jcfg, state.model.state_dict(), dev)
+    t.append(time.perf_counter())
+    del state
+    reference_row_1a(jcfg, dev)
+    t.append(time.perf_counter())
+    reference_resume(dev, work)
+    t.append(time.perf_counter())
+    reference_kernel_parity(jcfg, dev)
+    t.append(time.perf_counter())
+    print("  phase 23 by part: " + ", ".join(
+        f"({i + 1}) {b - a:.1f} s" for i, (a, b) in enumerate(zip(t, t[1:]))))
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -4955,7 +5343,7 @@ def main() -> int:
     launches["fbank_fused_bwd"] = bwd_launches
     launches["ctc_alpha"] = alpha_launches
 
-    # 7-20, in a scratch dir: phases 12 and 20 read phase 7's experiment
+    # 7-23, in a scratch dir: phases 12 and 20 read phase 7's experiment
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches.update(later_phases(state, state_d, dev, work, phase4_ms,
@@ -4974,7 +5362,7 @@ def main() -> int:
 
 
 def later_phases(state, state_d, dev, work, phase4_ms, host_build_s) -> dict:
-    """Phases 7-22; returns the launches of the kernels phases 7-15
+    """Phases 7-23; returns the launches of the kernels phases 7-15
     hold."""
     # 7. entry point
     print("train CLI (--mode joint --synthetic, default model, float32):")
@@ -5070,6 +5458,14 @@ def later_phases(state, state_d, dev, work, phase4_ms, host_build_s) -> dict:
     t0 = time.perf_counter()
     host_overlap_phase(state, dev, work, ckpt, host_build_s)
     print(f"  phase 22: {time.perf_counter() - t0:.1f} s")
+
+    # 23. the paper-claim protocol at the reference scale
+    print("paper-claim protocol at the reference scale (36.3 M parameters, "
+          "bf16: joint steps, a decode, row 1a at H=512, a cut and "
+          "resumed run of tools/adversarial_benefit.py):")
+    t0 = time.perf_counter()
+    reference_phase(dev, work)
+    print(f"  phase 23: {time.perf_counter() - t0:.1f} s")
 
     return {"blstm_train_gx": cli_launches["blstm_train_gx"],
             "fbank_fused": clean_launches["fbank_fused"],

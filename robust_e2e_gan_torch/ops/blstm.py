@@ -35,7 +35,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -261,16 +261,33 @@ def _clusters_at_once(index: int, c: int) -> int:
     return n.value
 
 
+def infer_route(b: int, d: int, h: int, itemsize: int, n_sm: int,
+                smem_optin: int, clusters_at_once: Callable[[int], int]):
+    """The cluster plan ``blstm_infer`` launches a layer with on a card of
+    ``n_sm`` SMs and ``smem_optin`` bytes, or None for the row-tiled
+    kernel: ``cluster_plan``, asked again at the ``clusters_at_once(C)``
+    clusters of its C blocks that the card runs at once."""
+    plan = cluster_plan(b, d, h, itemsize, n_sm, smem_optin)
+    if plan is None:
+        return None
+    return cluster_plan(b, d, h, itemsize, n_sm, smem_optin,
+                        max_clusters=clusters_at_once(plan[0]))
+
+
+def card_infer_route(b: int, d: int, h: int, dtype: torch.dtype,
+                     index: int):
+    """``infer_route`` of a layer on card ``index``."""
+    return infer_route(b, d, h, torch.finfo(dtype).bits // 8,
+                       *device_limits(index),
+                       functools.partial(_clusters_at_once, index))
+
+
 def _cluster(b: int, d: int, h: int, wh: torch.Tensor):
     """The cluster plan of this layer on wh's card, or None for the
     row-tiled kernel."""
     if _forced_infer_route == "row_tiled":
         return None
-    index = wh.device.index
-    plan = cluster_plan(b, d, h, wh.element_size(), *device_limits(index))
-    if plan is not None:
-        plan = cluster_plan(b, d, h, wh.element_size(), *device_limits(index),
-                            max_clusters=_clusters_at_once(index, plan[0]))
+    plan = card_infer_route(b, d, h, wh.dtype, wh.device.index)
     check(plan is not None or _forced_infer_route is None,
           f"the cluster route does not fit B={b} D={d} H={h} {wh.dtype}")
     return plan

@@ -4,7 +4,8 @@ enhancement and a cascade of a separately trained enhancer and a clean ASR.
     python -m robust_e2e_gan_torch.tools.adversarial_benefit [steps_a]
         [steps_c] [--lm] [--seed N] [--eval-utts N]
         [--optimizer adam|adadelta] [--scale toy|reference] [--lr LR]
-        [--warmup W] [--bs B] [--out f.json] [--device cuda|cpu]
+        [--warmup W] [--bs B] [--ckpt-dir D [--save-every N]]
+        [--out f.json] [--device cuda|cpu]
 
 Port of ``scripts/adversarial_benefit.py`` with its constants (``SCFG``,
 ``jcfg_for``, ``TCFG``, ``PAD_TO``, the cascade's loss weights) and its
@@ -40,6 +41,20 @@ the joint word WER below both baselines'; a failed gate raises
 ``watch(name)`` ("asr", "no_enhancement", "gan", "cascade", "joint",
 "joint_decode", "lm", "lm_decode", "routes"), as ``verify_drive.main``
 does.
+
+With ``--ckpt-dir`` the run resumes as the JAX script's does
+(``Progress``): one global step counts through the three stages; every
+``--save-every`` steps the state (both modules, both optimizers, the
+torch generators) is saved with the run args and the training stream's
+generator state; the decoded stages' results go to the
+``partial_results.json`` sidecar. Run again with the same args, the
+tool restores the latest checkpoint, skips the batches its state took
+without making them again, reuses the decoded stages and trains the LM
+again; other args are refused, and so is a JAX checkpoint. A resumed
+stage's ms per step counts the steps it ran, and a stage it skipped whole
+has none (null). A run resumes only while its checkpoint directory
+lives: a job that starts from a fresh copy of the repository starts the
+run again.
 """
 
 from __future__ import annotations
@@ -49,7 +64,9 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
+import tempfile
 import time
 from typing import Callable, Dict, Iterator, List, Optional
 
@@ -98,6 +115,7 @@ from robust_e2e_gan_torch.train.steps import (
     make_asr_pretrain_step,
     make_joint_train_step,
 )
+from robust_e2e_gan_torch.utils import checkpoint as ckpt
 from robust_e2e_gan_torch.utils.build import build
 
 # the hard task: 32-token vocabulary, multi-word transcripts, duration
@@ -113,6 +131,8 @@ LM_BATCH = 64
 LM_WEIGHT = 0.3
 EVAL_SEED = 999
 BOOTSTRAP = 1000
+# the resume sidecar of each decoded stage's result, in the checkpoint dir
+PARTIAL = "partial_results.json"
 
 
 def jcfg_for(scale: str) -> JointConfig:
@@ -183,10 +203,20 @@ class Stream:
         self.seconds += time.perf_counter() - t0
         return b
 
-    def batches(self, n: int, bs: int, rng: np.random.Generator
-                ) -> Iterator[Dict[str, np.ndarray]]:
-        for _ in range(n):
-            yield self.batch(bs, rng)
+    def batches(self, n: int, bs: int, rng: np.random.Generator,
+                skip_first: int = 0, synth_skipped: bool = True
+                ) -> Iterator[Optional[Dict[str, np.ndarray]]]:
+        """``n`` batches; the first ``skip_first`` are yielded as None, and
+        still made unless ``synth_skipped`` is False, so that ``rng``
+        advances as it did in the run being resumed (the caller that
+        restored ``rng``'s state passes False)."""
+        for i in range(n):
+            if i < skip_first:
+                if synth_skipped:
+                    self.batch(bs, rng)
+                yield None
+            else:
+                yield self.batch(bs, rng)
 
     def labels(self, bs: int, rng: np.random.Generator) -> np.ndarray:
         """(bs, max_label_len) transcripts padded with -1: an LM batch."""
@@ -209,23 +239,145 @@ def card_line() -> Optional[str]:
     return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else None
 
 
-def run_stage(tag: str, state: TrainState, step_fn, batches, n_steps: int,
-              log_every: int, fmt: Callable, stream: Stream, dev) -> float:
-    """``n_steps`` of ``step_fn`` on ``batches``; returns the ms per step
-    (host clock ending in a device synchronisation, synthesis left
-    out)."""
+class Progress:
+    """The run's global step across the stages, its checkpoints and its
+    per-stage WER records (``scripts/adversarial_benefit.py:205-306``).
+
+    With a ``ckpt_dir`` the state is saved after every global step g with
+    (g + 1) % ``save_every`` == 0 (``save_checkpoint(..., keep=1)``, extra:
+    ``global_step`` g, ``run_args`` and ``rng_state``, the training
+    stream's bit-generator state ``rng``), and each decode's result goes
+    to ``partial_results.json`` (written atomically). ``restore`` resumes
+    from the latest checkpoint there. Without one it counts the steps."""
+
+    def __init__(self, rng: np.random.Generator,
+                 ckpt_dir: Optional[str] = None, save_every: int = 500,
+                 run_args: Optional[dict] = None):
+        self.ckpt_dir, self.save_every = ckpt_dir, save_every
+        self.run_args, self.rng = run_args, rng
+        self.gstep = 0
+        self.done = -1  # the last global step the restored state took
+        self.rng_restored = False
+        self.partial: Dict[str, dict] = {}
+        self.reused: List[str] = []
+        self.steps_run: Dict[str, int] = {}
+        self.save_seconds = 0.0
+        self.partial_path = (os.path.join(ckpt_dir, PARTIAL) if ckpt_dir
+                             else None)
+
+    def restore(self, state: TrainState) -> None:
+        """Load the latest checkpoint of ``ckpt_dir`` into ``state``, if
+        there is one: the run args must equal this run's (else
+        ``SystemExit`` naming each key that differs), the training
+        stream's generator takes its saved state, and the stages recorded
+        in the sidecar are reused. A JAX checkpoint raises
+        ``NotImplementedError`` (``JAX_RESUME``)."""
+        if not (self.ckpt_dir and ckpt.has_checkpoint(self.ckpt_dir)):
+            return
+        if ckpt.is_jax_checkpoint(self.ckpt_dir):
+            raise NotImplementedError(ckpt.JAX_RESUME)
+        extra = ckpt.read_extra(self.ckpt_dir)
+        saved_args = extra.get("run_args")
+        if saved_args is not None and saved_args != self.run_args:
+            diff = {k: (saved_args.get(k), v)
+                    for k, v in self.run_args.items()
+                    if saved_args.get(k) != v}
+            raise SystemExit(
+                f"[resume] relaunch args differ from the checkpointed run "
+                f"(ckpt vs now): {diff} — resuming would silently "
+                f"fast-forward against a different data stream/stage "
+                f"layout. Relaunch with the original args or use a fresh "
+                f"--ckpt-dir.")
+        if saved_args is None:
+            print("[resume] WARNING: checkpoint predates run-arg recording; "
+                  "cannot validate relaunch args match", flush=True)
+        _, done_step = ckpt.restore_checkpoint(self.ckpt_dir, state)
+        # saved at step g + 1 ("steps done") with global_step g
+        self.done = int(extra.get("global_step", done_step - 1))
+        if "rng_state" in extra:
+            self.rng.bit_generator.state = extra["rng_state"]
+            self.rng_restored = True
+            print("[resume] rng state restored (skipping batch "
+                  "resynthesis)", flush=True)
+        if os.path.exists(self.partial_path):
+            try:
+                with open(self.partial_path) as f:
+                    self.partial = json.load(f)
+            except ValueError:  # a truncated sidecar: decode again
+                print(f"[resume] WARNING: corrupt {PARTIAL}; ignoring "
+                      "(stages will re-decode)", flush=True)
+                self.partial = {}
+        print(f"[resume] restored global step {self.done}, stages done: "
+              f"{sorted(self.partial)}", flush=True)
+
+    def skip(self, n_steps: int) -> int:
+        """How many of the next stage's ``n_steps`` the restored state
+        already took."""
+        return min(max(self.done + 1 - self.gstep, 0), n_steps)
+
+    def stepped(self, state: TrainState) -> None:
+        """After global step ``gstep``'s update: save where it is due."""
+        if self.ckpt_dir and (self.gstep + 1) % self.save_every == 0:
+            t0 = time.perf_counter()
+            ckpt.save_checkpoint(
+                self.ckpt_dir, state, self.gstep + 1, keep=1,
+                extra={"global_step": self.gstep,
+                       "run_args": self.run_args,
+                       "rng_state": self.rng.bit_generator.state})
+            self.save_seconds += time.perf_counter() - t0
+
+    def stage_eval(self, key: str, fn: Callable[[], dict],
+                   label: str) -> dict:
+        """``fn()``'s decode once a run: a resumed run reuses the
+        sidecar's record of stage ``key``."""
+        if key in self.partial:
+            print(f"{label} (resumed): {self.partial[key]}", flush=True)
+            self.reused.append(key)
+            return self.partial[key]
+        out = fn()
+        print(f"{label}: {out}", flush=True)
+        self.partial[key] = out
+        if self.partial_path:
+            os.makedirs(self.ckpt_dir, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(dir=self.ckpt_dir, suffix=".tmp")
+            with os.fdopen(fd, "w") as f:
+                json.dump(self.partial, f)
+            os.replace(tmp, self.partial_path)
+        return out
+
+
+def run_stage(tag: str, state: TrainState, step_fn, n_steps: int, bs: int,
+              log_every: int, fmt: Callable, stream: Stream, dev,
+              progress: Progress, step_hook=None) -> Optional[float]:
+    """``n_steps`` of ``step_fn`` on batches of ``bs`` from the training
+    stream, those the restored state took skipped; returns the ms per step
+    that ran (host clock ending in a device synchronisation, synthesis and
+    checkpoint writes left out), None where the restore skipped them all."""
     synchronize(dev)
     t0, synth0 = time.perf_counter(), stream.seconds
-    m = None
+    save0 = progress.save_seconds
+    m, ran = None, 0
+    batches = stream.batches(n_steps, bs, progress.rng,
+                             skip_first=progress.skip(n_steps),
+                             synth_skipped=not progress.rng_restored)
     for i, b in enumerate(batches):
-        m = step_fn(state, device_batch(b, dev))
-        if i % log_every == 0:
-            print(f"[{tag}] step {i} " + fmt(m), flush=True)
+        if b is not None:
+            if step_hook is not None:
+                step_hook(progress.gstep, b, state)
+            m = step_fn(state, device_batch(b, dev))
+            ran += 1
+            if i % log_every == 0:
+                print(f"[{tag}] step {i} " + fmt(m), flush=True)
+            progress.stepped(state)
+        progress.gstep += 1
     synchronize(dev)
-    ms = ((time.perf_counter() - t0 - (stream.seconds - synth0))
-          / max(n_steps, 1) * 1e3)
-    if m is not None:
-        print(f"[{tag}] final {fmt(m)}; {ms:.2f} ms/step", flush=True)
+    progress.steps_run[tag] = ran
+    if not ran:
+        return None
+    ms = ((time.perf_counter() - t0 - (stream.seconds - synth0)
+           - (progress.save_seconds - save0)) / ran * 1e3)
+    print(f"[{tag}] final {fmt(m)}; {ms:.2f} ms/step over {ran} steps",
+          flush=True)
     return ms
 
 
@@ -279,23 +431,27 @@ def finite_wers(summary: dict) -> List[float]:
 
 def main(steps_a: int = 400, steps_c: int = 400, scale: str = "toy",
          with_lm: bool = False, lr: float = 1e-3, warmup: int = 0,
-         bs: int = 16, eval_utts: int = 64, out: Optional[str] = None,
+         bs: int = 16, eval_utts: int = 64, ckpt_dir: Optional[str] = None,
+         save_every: int = 500, out: Optional[str] = None,
          seed: int = 0, optimizer: str = "adam", device="cuda",
          lm_steps: int = 600, route_batches: int = ROUTE_BATCHES,
          check_claim: bool = True,
          watch: Optional[Callable[[str], contextlib.AbstractContextManager]]
-         = None) -> dict:
+         = None, step_hook=None) -> dict:
     """The protocol; returns its summary (written to ``out`` when
     given). ``check_claim`` False leaves out the ordering gate (a run too
-    short to train); the route gates always run."""
+    short to train); the route gates always run. ``ckpt_dir``: save every
+    ``save_every`` global steps and resume from there (``Progress``).
+    ``step_hook(global_step, host_batch, state)`` is called before each
+    training step the run takes (a cut or a record of the stream)."""
     watch = watch or (lambda name: contextlib.nullcontext())
     dev = resolve_device(device)
     if dev.type == "cuda":  # the kernels' build stays out of the timing
         print(f"build: {build():.1f} s", flush=True)
     card = card_line()
     print(f"device: {dev} ({card}) scale={scale} lr={lr} warmup={warmup} "
-          f"bs={bs} eval_utts={eval_utts} seed={seed} optimizer={optimizer}",
-          flush=True)
+          f"bs={bs} eval_utts={eval_utts} ckpt_dir={ckpt_dir} seed={seed} "
+          f"optimizer={optimizer}", flush=True)
     tcfg = dataclasses.replace(TCFG, optimizer=optimizer, learning_rate=lr,
                                warmup_steps=warmup, batch_size=bs, seed=seed)
     jcfg = kernel_config(jcfg_for(scale))
@@ -305,45 +461,55 @@ def main(steps_a: int = 400, steps_c: int = 400, scale: str = "toy",
     # parameters from seed, the discriminator's from seed + 1
     state = init_state(jcfg, tcfg, dev)
     model = state.model
+    # every value that shapes the stream, the stages, the parameters or
+    # the eval set: a resume must see the same (the JAX script's keys)
+    run_args = {"bs": bs, "steps_a": steps_a, "steps_c": steps_c,
+                "scale": scale, "eval_utts": eval_utts, "lr": lr,
+                "warmup": warmup, "seed": seed, "optimizer": optimizer}
+    progress = Progress(rng, ckpt_dir, save_every, run_args)
+    progress.restore(state)
     ms = {}
+
+    def stage(tag, step_fn, n_steps, log_every, fmt):
+        return run_stage(tag, state, step_fn, n_steps, bs, log_every, fmt,
+                         stream, dev, progress, step_hook)
 
     # (a) clean-ASR pretraining, then the no-enhancement baseline
     with watch("asr"):
-        ms["asr_pretrain"] = run_stage(
-            "asr", state, make_asr_pretrain_step(use_enhancer=False),
-            stream.batches(steps_a, bs, rng), steps_a, 100,
-            lambda m: f"acc={float(m['acc']):.3f}", stream, dev)
+        ms["asr_pretrain"] = stage(
+            "asr", make_asr_pretrain_step(use_enhancer=False), steps_a, 100,
+            lambda m: f"acc={float(m['acc']):.3f}")
     eval_rng = np.random.default_rng(EVAL_SEED)
     eval_b = stream.batch(eval_utts, eval_rng)
     with watch("no_enhancement"):
-        wer_raw = decode_wer(model, jcfg, eval_b, False, dev)
-    print(f"noisy WER, no enhancement (baseline): {wer_raw}", flush=True)
+        wer_raw = progress.stage_eval(
+            "noisy_raw", lambda: decode_wer(model, jcfg, eval_b, False, dev),
+            "noisy WER, no enhancement (baseline)")
 
     # (b) the enhancement GAN alone (no ASR term), then the cascade
     with watch("gan"):
-        ms["gan_pretrain"] = run_stage(
-            "gan", state, make_joint_train_step(jcfg_cascade(jcfg),
-                                                with_asr=False),
-            stream.batches(2 * steps_c, bs, rng), 2 * steps_c, 200,
+        ms["gan_pretrain"] = stage(
+            "gan", make_joint_train_step(jcfg_cascade(jcfg), with_asr=False),
+            2 * steps_c, 200,
             lambda m: (f"d={float(m['loss_d']):.3f} "
-                       f"enh={float(m['loss_enh']):.3f}"), stream, dev)
+                       f"enh={float(m['loss_enh']):.3f}"))
     with watch("cascade"):
-        wer_cascade = decode_wer(model, jcfg, eval_b, True, dev)
-    print(f"noisy WER, cascade (separate enhancer + clean ASR): "
-          f"{wer_cascade}", flush=True)
+        wer_cascade = progress.stage_eval(
+            "cascade", lambda: decode_wer(model, jcfg, eval_b, True, dev),
+            "noisy WER, cascade (separate enhancer + clean ASR)")
 
     # (c) joint adversarial fine-tuning from (a) + (b)
     with watch("joint"):
-        ms["joint"] = run_stage(
-            "joint", state, make_joint_train_step(jcfg, with_asr=True),
-            stream.batches(steps_c, bs, rng), steps_c, 100,
-            lambda m: (f"acc={float(m['acc']):.3f} "
-                       f"d={float(m['loss_d']):.3f}"), stream, dev)
+        ms["joint"] = stage(
+            "joint", make_joint_train_step(jcfg, with_asr=True), steps_c,
+            100, lambda m: (f"acc={float(m['acc']):.3f} "
+                            f"d={float(m['loss_d']):.3f}"))
     with watch("joint_decode"):
-        wer_joint = decode_wer(model, jcfg, eval_b, True, dev)
-    print(f"noisy WER, joint adversarial enhancement: {wer_joint}",
-          flush=True)
+        wer_joint = progress.stage_eval(
+            "joint", lambda: decode_wer(model, jcfg, eval_b, True, dev),
+            "noisy WER, joint adversarial enhancement")
 
+    # the LM is trained again on a resumed run, as in the JAX script
     wer_lm = lm_ppl = None
     if with_lm:
         with watch("lm"):
@@ -396,6 +562,12 @@ def main(steps_a: int = 400, steps_c: int = 400, scale: str = "toy",
         "device": str(dev),
         "card": card,
     }
+    if ckpt_dir:
+        summary["resume"] = {"restored_global_step": progress.done,
+                             "stages_reused": progress.reused,
+                             "steps_run": progress.steps_run,
+                             "checkpoint_write_seconds":
+                                 progress.save_seconds}
     if wer_lm is not None:
         summary["noisy_wer_joint_plus_lm"] = round(wer_lm["wer"], 4)
         summary["lm_ppl"] = round(lm_ppl, 2)
@@ -427,7 +599,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--warmup", type=int, default=0,
                     help="linear LR warmup steps (adam)")
     ap.add_argument("--bs", type=int, default=16)
-    ap.add_argument("--eval-utts", type=int, default=64)
+    ap.add_argument("--eval-utts", type=int, default=64,
+                    help="eval-set size (utterances); larger tightens the "
+                         "WER confidence interval")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint/resume directory: periodic atomic "
+                         "saves + per-stage WER records, so a preempted "
+                         "run restarts where it left off")
+    ap.add_argument("--save-every", type=int, default=500,
+                    help="checkpoint period in train steps (with --ckpt-dir)")
     ap.add_argument("--out", default=None, help="summary JSON path")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the initialisation and the training "
@@ -442,5 +622,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 if __name__ == "__main__":
     a = parse_args()
     main(a.steps_a, a.steps_c, scale=a.scale, with_lm=a.lm, lr=a.lr,
-         warmup=a.warmup, bs=a.bs, eval_utts=a.eval_utts, out=a.out,
+         warmup=a.warmup, bs=a.bs, eval_utts=a.eval_utts,
+         ckpt_dir=a.ckpt_dir, save_every=a.save_every, out=a.out,
          seed=a.seed, optimizer=a.optimizer, device=a.device)

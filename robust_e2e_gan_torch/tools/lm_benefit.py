@@ -47,6 +47,7 @@ from robust_e2e_gan_torch.config import (
 from robust_e2e_gan_torch.data.synthetic import hard_task
 from robust_e2e_gan_torch.tools.adversarial_benefit import (
     EVAL_SEED,
+    Progress,
     Stream,
     card_line,
     decode_wer,
@@ -102,8 +103,8 @@ def main(asr_steps: int = 700, lm_steps: int = 600, out: Optional[str] = None,
     with watch("asr"):
         ms["asr_pretrain"] = run_stage(
             "asr", state, make_asr_pretrain_step(use_enhancer=False),
-            stream.batches(asr_steps, BATCH, rng), asr_steps, 100,
-            lambda m: f"acc={float(m['acc']):.3f}", stream, dev)
+            asr_steps, BATCH, 100, lambda m: f"acc={float(m['acc']):.3f}",
+            stream, dev, Progress(rng))
 
     # the char RNNLM on transcripts alone
     with watch("lm"):

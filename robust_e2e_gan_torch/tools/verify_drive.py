@@ -21,7 +21,10 @@ drive's ``lstm_impl="scan"`` is its XLA scan; ``kernel_config`` sets
    per-utterance psi kernel, the inference BLSTM forced to its row-tiled
    and to its cluster route); gate: each WER within ``BF16_MARGIN`` of the
    default's; prints each route's token-identical share and, on the card,
-   its launches by route, and requires each route's kernel to have run;
+   its launches by route, and requires each route's kernel to have run
+   (the default's inference BLSTM on the route ``cluster_plan`` gives each
+   layer); a forced route whose plan does not fit the model (the cluster
+   route at H = 512) is not run and is reported with the plan's reason;
 4. the probes: an enhanced utterance, an all-ignore ASR loss and an
    utterance shorter than one frame are finite;
 5. ``drive_loop_and_data``: 8 ``.npy`` utterances through
@@ -44,7 +47,7 @@ import shutil
 import sys
 import tempfile
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,6 +73,7 @@ from robust_e2e_gan_torch.data.synthetic import (
 )
 from robust_e2e_gan_torch.decode.beam import make_beam_searcher
 from robust_e2e_gan_torch.models.enhancement import Discriminator
+from robust_e2e_gan_torch.models.rnn import BLSTM
 from robust_e2e_gan_torch.ops import att, att_dec, blstm, ctc_prefix
 from robust_e2e_gan_torch.ops.ctc import ctc_greedy_decode
 from robust_e2e_gan_torch.ops.editdistance import wer_details
@@ -134,17 +138,52 @@ def bf16_config(jcfg: JointConfig, step_impl: str = "auto") -> JointConfig:
 
 
 # name -> (decoder step_impl, prefix_impl, forced blstm_infer route or
-# None, the route launch that must run, the one that must not)
+# None, the route launches that must run, those that must not)
 ROUTES = {
-    "fused step": ("fused", "auto", None, "att_dec_step/utt",
-                   "att_loc_step/utt"),
-    "pallas prefix": ("auto", "pallas", None, "ctc_prefix_utt",
-                      "ctc_prefix_psi/utt"),
-    "blstm row_tiled": ("auto", "auto", "row_tiled", "blstm_infer/row_tiled",
-                        "blstm_infer/cluster"),
-    "blstm cluster": ("auto", "auto", "cluster", "blstm_infer/cluster",
-                      "blstm_infer/row_tiled"),
+    "fused step": ("fused", "auto", None, ("att_dec_step/utt",),
+                   ("att_loc_step/utt",)),
+    "pallas prefix": ("auto", "pallas", None, ("ctc_prefix_utt",),
+                      ("ctc_prefix_psi/utt",)),
+    "blstm row_tiled": ("auto", "auto", "row_tiled",
+                        ("blstm_infer/row_tiled",), ("blstm_infer/cluster",)),
+    "blstm cluster": ("auto", "auto", "cluster", ("blstm_infer/cluster",),
+                      ("blstm_infer/row_tiled",)),
 }
+
+
+def infer_layers(model, b: int) -> List[Tuple[int, int, torch.dtype]]:
+    """(D, H, dtype) of each BLSTM layer of ``model`` that a decode of
+    ``b`` rows runs in ``blstm_infer`` (the kernel path and ``ops/blstm.py::
+    infer_kernel_for``'s W_x-resident choice), in module order."""
+    return [(m.wx.shape[1], m.wh.shape[1], m.dtype)
+            for m in model.modules() if isinstance(m, BLSTM) and m.use_kernel
+            and blstm.infer_kernel_for(b, 1, m.wx.shape[1], m.wh.shape[1],
+                                       m.dtype) == "fused"]
+
+
+def cluster_fits(layers, b: int, dev: torch.device) -> Optional[List[bool]]:
+    """Whether ``blstm_infer`` takes its cluster route at each of
+    ``layers`` (``infer_layers``) in a decode of ``b`` rows on the card
+    ``dev`` (``ops/blstm.py::card_infer_route``, the wrapper's own rule);
+    None on the CPU, whose tensors take the plain version."""
+    if dev.type != "cuda":
+        return None
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return [blstm.card_infer_route(b, d, h, dt, index) is not None
+            for d, h, dt in layers]
+
+
+def route_misfit(name: str, layers, fits: Optional[List[bool]], b: int
+                 ) -> Optional[str]:
+    """Why route ``name`` of ``ROUTES`` cannot run on a model whose
+    inference BLSTM ``layers`` fit the cluster route as ``fits`` says at
+    ``b`` rows, or None where it can: a forced "cluster" needs the plan to
+    fit every layer (the wrapper raises where it does not)."""
+    if ROUTES[name][2] != "cluster" or fits is None or all(fits):
+        return None
+    hs = sorted({h for (_, h, _), fit in zip(layers, fits) if not fit})
+    return (f"ops/blstm.py::cluster_plan does not fit "
+            f"H={', '.join(map(str, hs))} at B={b}")
 
 
 def route_launches() -> Dict[str, int]:
@@ -240,16 +279,35 @@ def route_gates(jcfg, params, batches, dev, bcfg=BCFG) -> dict:
     """Section 3: the bfloat16 decode of ``batches`` with the beam config
     ``bcfg`` on the default routes and with each of ``ROUTES``' changes;
     each route's WER, token-identical share against the default and
-    launches by route."""
+    launches by route. On the card the default must launch the inference
+    BLSTM routes the plans give its layers (``cluster_fits``) and no
+    other, and a route whose plan does not fit the model
+    (``route_misfit``) is not run and is reported as ``{"not_run":
+    reason}``."""
     refs = [r for b in batches for r in token_lists(
         torch.from_numpy(b["labels"]))]
     inputs = [(torch.from_numpy(b["noisy_wav"]).to(dev),
                torch.from_numpy(b["wav_lengths"]).to(dev)) for b in batches]
+    rows = max(b["noisy_wav"].shape[0] for b in batches)
     out = {}
     for name, (step_impl, prefix_impl, infer_route, ran, not_ran) in (
             ("default", ("auto", "auto", None, None, None)),
             *ROUTES.items()):
+        if name != "default":
+            misfit = route_misfit(name, layers, fits, rows)
+            if misfit:
+                out[name] = {"not_run": misfit}
+                print(f"  {name}: not run: {misfit}")
+                continue
         model = serving_model(bf16_config(jcfg, step_impl), params, dev)
+        if name == "default":
+            layers = infer_layers(model, rows)
+            fits = cluster_fits(layers, rows, dev)
+            plan = {"cluster" if fit else "row_tiled" for fit in fits or ()}
+            ran = tuple(f"blstm_infer/{r}" for r in sorted(plan))
+            not_ran = tuple(f"blstm_infer/{r}"
+                            for r in blstm.INFER_ROUTE_LAUNCHES
+                            if r not in plan)
         search = make_beam_searcher(
             model, jcfg.e2e,
             dataclasses.replace(bcfg, prefix_impl=prefix_impl),
@@ -271,13 +329,17 @@ def route_gates(jcfg, params, batches, dev, bcfg=BCFG) -> dict:
         print(f"  {name}: WER {wer:.4f}, token-identical with the default "
               f"{same}/{len(hyps)}; launches by route {launches}")
         if dev.type == "cuda" and ran:
-            gate(launches.get(ran, 0) > 0 and not launches.get(not_ran, 0),
+            gate(all(launches.get(k, 0) > 0 for k in ran)
+                 and not any(launches.get(k, 0) for k in not_ran),
                  f"{name}: {ran} did not run alone: {launches}")
     for name in ROUTES:
+        if "not_run" in out[name]:
+            continue
         gate(abs(out[name]["wer"] - out["default"]["wer"]) <= BF16_MARGIN,
              f"{name}: WER {out[name]['wer']} beyond the bf16 default's "
              f"{out['default']['wer']} +- {BF16_MARGIN}")
-    return {k: {f: v[f] for f in ("wer", "identical", "n", "launches")}
+    return {k: v if "not_run" in v else
+            {f: v[f] for f in ("wer", "identical", "n", "launches")}
             for k, v in out.items()}
 
 
