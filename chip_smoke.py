@@ -1183,13 +1183,14 @@ def on_infer_route(route, fn):
 
 def blstm_infer_parity(gen, b, t_enh, t_enc, jcfg, dev):
     """Both routes of ``blstm_infer`` against its plain version at the
-    flagship's four BLSTM layers (float32: the row-tiled route, the only
-    one the plan gives float32; bfloat16: the cluster and the row-tiled
-    routes), and per layer in bfloat16 the times, taken in turns, of the
-    cluster route, the row-tiled route, the gate-stream route (the cuBLAS
-    projection, then ``csrc/blstm.cu``) and cuDNN's LSTM from x. Returns
-    (the entries of both kernels at enhancer layer 0, whether every layer
-    agreed)."""
+    flagship's four BLSTM layers and at one H = 512 layer, the reference
+    encoder's layer 0 at this batch (float32: the row-tiled route, the
+    only one the plan gives float32; bfloat16: the cluster and the
+    row-tiled routes), and per layer in bfloat16 the times, taken in
+    turns, of the cluster route, the row-tiled route, the gate-stream
+    route (the cuBLAS projection, then ``csrc/blstm.cu``) and cuDNN's LSTM
+    from x. Returns (the entries of both kernels at enhancer layer 0,
+    whether every layer agreed)."""
     f32, bf16 = torch.float32, torch.bfloat16
     enc = jcfg.e2e.encoder
     h_enh, h_enc = jcfg.enhancer.hidden_dim, enc.hidden_dim
@@ -1197,7 +1198,8 @@ def blstm_infer_parity(gen, b, t_enh, t_enc, jcfg, dev):
     layers = (("enhancer0", t_enh, jcfg.enhancer.input_dim, h_enh),
               ("enhancer1", t_enh, 2 * h_enh, h_enh),
               ("encoder0", t_enc, d_vgg, h_enc),
-              ("encoder1", t_enc, enc.proj_dim, h_enc))
+              ("encoder1", t_enc, enc.proj_dim, h_enc),
+              ("H=512 encoder0", t_enc, d_vgg, 512))
     names = ("cluster", "row-tiled", "projection + blstm_recurrence",
              "cuDNN LSTM")
     ok_all, rows, total = True, {}, [0.0] * len(names)
@@ -1219,10 +1221,11 @@ def blstm_infer_parity(gen, b, t_enh, t_enc, jcfg, dev):
             errs = {}
             if dt == bf16:
                 plan = blstm._cluster(b, d, h, wh)
+                at_once = blstm._clusters_at_once(wh.device.index, plan[0],
+                                                  plan[4])
                 print(f"    cluster plan (C, R, F, W_x resident, shared "
                       f"memory bytes) {plan}; clusters of {plan[0]} the "
-                      f"card runs at once: "
-                      f"{blstm._clusters_at_once(wh.device.index, plan[0])}")
+                      f"card runs at once: {at_once}")
             for route in (("row_tiled",) if dt == f32 else INFER_ROUTES):
                 got = on_infer_route(route, kernel)()
                 errs[route], ok = compare(
@@ -1237,8 +1240,9 @@ def blstm_infer_parity(gen, b, t_enh, t_enc, jcfg, dev):
                  lambda: blstm.blstm_recurrence(
                      input_projection(x, wx, bias, dt), wh, lengths),
                  lstm_library_fn(x, lengths, h, train=False)], 3)
-            for i, v in enumerate(ms):
-                total[i] += v
+            if not tag.startswith("H=512"):
+                for i, v in enumerate(ms):
+                    total[i] += v
             print(f"    {tag} {dt} (valid frames {int(lengths.sum())}), ms "
                   "in turns: " + ", ".join(
                       f"{n} {v:.3f}" for n, v in zip(names, ms)))
@@ -4950,10 +4954,10 @@ REF_RESUME = dict(scale="reference", steps_a=4, steps_c=2, bs=32, lr=3e-4,
 REF_CUT = 6
 # what the reference model's 6 joint steps must launch and must not: the
 # frame loops (resident), gemm.cu's products and the CTC loss, the
-# D-step's enhancer forward on the row-tiled inference BLSTM (the cluster
-# plan stops at H = 256 in bfloat16)
-REF_JOINT = (("blstm_train", "gemm", "ctc_nll", "blstm_infer_row_tiled"),
-             ("blstm_infer", "blstm_train_gx"), True)
+# D-step's enhancer forward on the inference BLSTM's cluster route (H =
+# 512 in bfloat16: clusters of 16 blocks)
+REF_JOINT = (("blstm_train", "gemm", "ctc_nll", "blstm_infer"),
+             ("blstm_infer_row_tiled", "blstm_train_gx"), True)
 
 
 class Cut(Exception):
@@ -4981,9 +4985,9 @@ def reference_steps(jcfg, state, stream, rng, dev) -> None:
     n_enh = jcfg.enhancer.num_layers
     print(f"  blstm_infer launches by route {infer_routes}; gemm launches "
           f"by route {gemm_routes}")
-    require(infer_routes == {"cluster": 0, "row_tiled": n_enh * REF_STEPS},
+    require(infer_routes == {"cluster": n_enh * REF_STEPS, "row_tiled": 0},
             f"phase 23: the D-step's enhancer forward did not take the "
-            f"row-tiled route at every step: {infer_routes}")
+            f"cluster route at every step: {infer_routes}")
     require(gemm_routes["simt"] == 0 and gemm_routes["tc"] > 0,
             f"phase 23: not every product took the tensor-core kernel: "
             f"{gemm_routes}")
@@ -5021,9 +5025,9 @@ def reference_decode(jcfg, params, dev) -> None:
     routes = dict(blstm.INFER_ROUTE_LAUNCHES)
     n_layers = jcfg.enhancer.num_layers + jcfg.e2e.encoder.num_layers
     print(f"  blstm_infer launches by route {routes}")
-    require(routes == {"cluster": 0, "row_tiled": n_layers},
+    require(routes == {"cluster": n_layers, "row_tiled": 0},
             f"phase 23: the decode's BLSTM launches {routes}, not "
-            f"{n_layers} on the row-tiled route")
+            f"{n_layers} on the cluster route")
     require_utt_attention("phase 23", steps)
     require_utt_prefix("phase 23", steps, steps)
     require(not any(plain_calls.values()),
@@ -5060,41 +5064,79 @@ def reference_decode(jcfg, params, dev) -> None:
 
 
 def reference_row_1a(jcfg, dev) -> dict:
-    """Phase 23 (3): row 1a's row-tiled kernel at the reference encoder's
-    layer 0 (B=64, T=70, D=2,560, H=512, bfloat16) against its plain
-    version, timed in turns with cuDNN's LSTM from x."""
-    enc = jcfg.e2e.encoder
-    b = 64
-    t = subsampled_frames(num_frames(adversarial_benefit.PAD_TO,
-                                     jcfg.e2e.frontend))
-    d = subsampled_frames(enc.input_dim) * enc.vgg_channels[-1]
-    h, dt = enc.hidden_dim, torch.bfloat16
+    """Phase 23 (3): row 1a at every inference BLSTM layer of the reference
+    model (H=512, bfloat16): the decode's five at B=64 (enhancer layers 0
+    and 1 at T=279, encoder layers 0-2 at T=70) and the D-step's two at
+    B=32. At each, the plan must take the cluster route (clusters of 16
+    blocks); the cluster route (run twice: bit-identical), the row-tiled
+    route and cuDNN's LSTM from x are timed in turns, both routes held
+    against the plain version within 2e-2 max|plain| and the cluster route
+    against the row-tiled one, and the cluster route must be the faster.
+    Returns each layer's entry of the cluster route."""
+    enc, enh = jcfg.e2e.encoder, jcfg.enhancer
+    t_enh = num_frames(adversarial_benefit.PAD_TO, jcfg.e2e.frontend)
+    t_enc = subsampled_frames(t_enh)
+    d_vgg = subsampled_frames(enc.input_dim) * enc.vgg_channels[-1]
+    enhancer = [("enhancer0", t_enh, enh.input_dim, enh.hidden_dim),
+                ("enhancer1", t_enh, 2 * enh.hidden_dim, enh.hidden_dim)]
+    layers = [(REF_DECODE, *lay) for lay in enhancer + [
+        ("encoder0", t_enc, d_vgg, enc.hidden_dim),
+        ("encoder1", t_enc, enc.proj_dim, enc.hidden_dim),
+        ("encoder2", t_enc, enc.proj_dim, enc.hidden_dim)]]
+    layers += [(REF_TCFG["batch_size"], f"D-step {tag}", t, d, h)
+               for tag, t, d, h in enhancer]
+    dt = torch.bfloat16
     gen = torch.Generator(device=dev)
     gen.manual_seed(23)
-    x, wx, wh, bias, lengths, _ = train_inputs(gen, b, t, d, h, dt, dev)
-    x = x.to(dt)
-    require(blstm.card_infer_route(b, d, h, dt, dev.index or 0) is None,
-            "phase 23: the cluster plan fits H=512")
+    print(f"  (3) row 1a at the reference model's layers, bf16 ({card()}):")
+    rows = {}
+    for b, tag, t, d, h in layers:
+        x, wx, wh, bias, lengths, _ = train_inputs(gen, b, t, d, h, dt, dev)
+        x = x.to(dt)
+        plan = blstm.card_infer_route(b, d, h, dt, dev.index or 0)
+        require(plan is not None,
+                f"phase 23: the cluster plan does not fit {tag} B={b} D={d}")
 
-    def kernel():
-        return blstm.blstm_infer(x, lengths, wx, wh, bias)
+        def kernel(x=x, wx=wx, wh=wh, bias=bias, lengths=lengths):
+            return blstm.blstm_infer(x, lengths, wx, wh, bias)
 
-    def plain():
-        return blstm.blstm_infer_plain(x, lengths, wx, wh, bias)
+        def plain(x=x, wx=wx, wh=wh, bias=bias, lengths=lengths):
+            return blstm.blstm_infer_plain(x, lengths, wx, wh, bias)
 
-    want = plain()
-    reset_counts()
-    err, ok = compare(f"blstm_infer row_tiled B={b} T={t} D={d} H={h} {dt}",
-                      [kernel()], [want], scale_atol=2e-2)
-    require(ok and blstm.INFER_ROUTE_LAUNCHES["row_tiled"] == 1,
-            f"phase 23: row 1a at H={h}: {blstm.INFER_ROUTE_LAUNCHES}")
-    ms, lib_ms = cuda_ms_in_turns(
-        [kernel, lstm_library_fn(x, lengths, h, train=False)], 3)
-    print(f"  (3) row 1a row-tiled at the reference encoder layer 0 "
-          f"(valid frames {int(lengths.sum())}; {card()}):")
-    return entry("blstm_infer_row_tiled H=512", err, ms, cuda_ms(plain, 1),
-                 2 * int(lengths.sum()) * 2 * 4 * h * (d + h),
-                 nbytes(x, wx, wh, bias, lengths, want), dt, lib_ms)
+        want = plain()
+        reset_counts()
+        got = [kernel(), kernel()]
+        launched = dict(blstm.INFER_ROUTE_LAUNCHES)
+        tiled = on_infer_route("row_tiled", kernel)()
+        name = f"{tag} B={b} T={t} D={d} H={h} {dt}"
+        err, ok = compare(f"blstm_infer cluster {name}", got[:1], [want],
+                          scale_atol=2e-2)
+        err_t, ok_t = compare(f"blstm_infer row_tiled {name}", [tiled],
+                              [want], scale_atol=2e-2)
+        _, ok_a = compare("    cluster vs row_tiled", got[:1], [tiled],
+                          scale_atol=2e-2)
+        same = torch.equal(got[0], got[1])
+        print(f"    plan (C, R, F, W_x resident, shared memory bytes) "
+              f"{plan}; launches {launched}; rerun bit-identical {same}")
+        require(ok and ok_t and ok_a and same
+                and launched == {"cluster": 2, "row_tiled": 0},
+                f"phase 23: row 1a at {name}")
+        ms = cuda_ms_in_turns(
+            [kernel, on_infer_route("row_tiled", kernel),
+             lstm_library_fn(x, lengths, h, train=False)], 3)
+        print(f"    {tag} (valid frames {int(lengths.sum())}), ms in turns: "
+              f"cluster {ms[0]:.3f}, row-tiled {ms[1]:.3f}, cuDNN "
+              f"{ms[2]:.3f}")
+        require(ms[0] < ms[1], f"phase 23: the cluster route is not faster "
+                f"than the row-tiled one at {name}")
+        flops = 2 * int(lengths.sum()) * 2 * 4 * h * (d + h)
+        moved = nbytes(x, wx, wh, bias, lengths, want)
+        rows[f"{tag} B={b}"] = entry(
+            f"blstm_infer H=512 {tag} B={b}", err, ms[0], cuda_ms(plain, 1),
+            flops, moved, dt, ms[2])
+        entry(f"blstm_infer_row_tiled H=512 {tag} B={b}", err_t, ms[1],
+              rows[f"{tag} B={b}"]["plain_ms"], flops, moved, dt, ms[2])
+    return rows
 
 
 def stream_digest(batch) -> str:
@@ -5172,9 +5214,10 @@ def reference_resume(dev, work) -> None:
     require(not missing, f"phase 23: the summary lacks {missing}")
     require(all(np.isfinite(adversarial_benefit.finite_wers(resumed))),
             "phase 23: a rate is not finite")
-    require(resumed["routes"]["blstm cluster"] == {
-        "not_run": "ops/blstm.py::cluster_plan does not fit H=512 at B=32"},
-        f"phase 23: route gates {resumed['routes']}")
+    require("not_run" not in resumed["routes"]["blstm cluster"]
+            and resumed["routes"]["default"]["launches"].get(
+                "blstm_infer/cluster"),
+            f"phase 23: route gates {resumed['routes']}")
 
 
 def reference_kernel_parity(jcfg, dev) -> None:

@@ -5,11 +5,12 @@
 // Replaces robust_e2e_gan_tpu/ops/blstm_pallas.py::blstm_infer in its
 // W_x-resident variant (_fused_kernel :90, pallas_call :403) wherever
 // ops/blstm.py::cluster_plan fits (bfloat16, H a multiple of 16 with at
-// most 32 hidden units a block); csrc/blstm_infer.cu, the "row-tiled"
-// route, takes the other layers. The contract is that kernel's: x
-// (B, T, D) rounded to bfloat16, x W_x + b accumulated in float32, h
-// rounded to bfloat16 for the recurrent product, the gates in float32,
-// out (B, T, 2H) bfloat16 with exact zeros on pad frames.
+// most 32 hidden units a block, up to H = 512 over 16 blocks);
+// csrc/blstm_infer.cu, the "row-tiled" route, takes the other layers. The
+// contract is that kernel's: x (B, T, D) rounded to bfloat16, x W_x + b
+// accumulated in float32, h rounded to bfloat16 for the recurrent
+// product, the gates in float32, out (B, T, 2H) bfloat16 with exact zeros
+// on pad frames.
 //
 // What bounds it on Hopper: the chain of T dependent frames. The JAX
 // kernel keeps W_x and W_h in VMEM for the whole sequence; the row-tiled
@@ -27,9 +28,19 @@
 // g0 o0 g1 o1 g2 o2 g3 o3), which the wrapper packs, so the accumulators
 // of an m16n8 tile pair give lane (g, t) all four gates of unit t for rows
 // g and g + 8 of each m-tile, and the cell update (c in registers) needs
-// no shared-memory round trip. The warp keeps its W_h columns in registers
-// as mma B fragments (64 a lane at H = 256) from the first frame to the
-// last.
+// no shared-memory round trip. The warp keeps the first 256 rows of its
+// W_h columns in registers as mma B fragments (64 a lane) from the first
+// frame to the last.
+//
+// H = 512 (the WIDE instantiation: 16 blocks of 32 units, a cluster size
+// past the portable 8 that an H100 allows on request). A warp's columns
+// are 512 rows, 128 registers a lane as fragments, which the 239 the
+// kernel already takes leave no room for: rows 256-511 of the block's 128
+// columns (64 KB) are loaded into shared memory once, 128-byte swizzled,
+// and read by ldmatrix in each frame's product as a second chain of
+// k-steps beside the registers' (two sums, added before the cell). To
+// leave room for them a chunk stages 64 (row, frame) pairs, not 128,
+// which halves gx and the x stages, and W_x always streams.
 //
 // A frame runs m-tile by m-tile: the group's 16-row halves are
 // independent recurrences, so one half's h travels to the peers while the
@@ -42,33 +53,34 @@
 // slice of the next h buffer. The h buffers are laid out by block (C
 // slices of R rows of NU + 8 units; the padding puts a matrix's eight rows
 // on distinct banks), so an m-tile's rows of a slice are one contiguous
-// run: lane 0 of warp j sends them to block j with one bulk copy from
-// shared memory to its shared memory (distributed shared memory), which
-// that block's mbarrier counts in (complete_tx). Other threads write the
-// rows that are valid at this frame to the output. No frame crosses a
+// run: lane l of warp j sends them to block j + 8 l with one bulk copy
+// from shared memory to its shared memory (distributed shared memory),
+// which that block's mbarrier counts in (complete_tx). Other threads write
+// the rows that are valid at this frame to the output. No frame crosses a
 // cluster-wide barrier, and nothing on the serial chain goes through L2 or
 // device memory except the output write. The h buffers and their
 // mbarriers are double-buffered by frame parity: a peer writes the buffer
 // this block read one frame earlier, which it can only do once it has
 // this block's h of that frame, sent after the read.
 //
-// A chunk of F = 8 / MT frames starts with the projection of the group's
-// R x F (row, frame) pairs onto the block's N columns (M = 128, N, K = D
-// padded to DW, a multiple of 16) on the tensor cores, in slices of 64
-// input columns. The copy engine (TMA) brings each slice: one box of the
-// group's R rows at the chunk's F frames from x, mapped as (columns, rows,
-// frames) so that it lands frame-major (the backward direction reads a
-// copy of x reversed per row by the wrapper, so its frames are one box
-// too), and W_x's slice of the block's columns where it streams (D = 512,
-// 2,560); where the plan fits it (D = 257), all of W_x's columns stay
-// resident.
+// A chunk of F = P / R frames (P = 128 pairs, 64 where WIDE) starts with
+// the projection of the group's R x F (row, frame) pairs onto the block's
+// N columns (M = P, N, K = D padded to DW, a multiple of 16) on the
+// tensor cores, in slices of 64 input columns. The copy engine (TMA)
+// brings each slice: one box of the group's R rows at the chunk's F frames
+// from x, mapped as (columns, rows, frames) so that it lands frame-major
+// (the backward direction reads a copy of x reversed per row by the
+// wrapper, so its frames are one box too), and W_x's slice of the block's
+// columns where it streams (D = 512, 2,560, and every D where WIDE); where
+// the plan fits it (D = 257), all of W_x's columns stay resident.
 // Boxes land 128-byte swizzled (a row's 16-byte chunk c at c ^ (row % 8)),
 // so ldmatrix reads them without bank conflicts. Slices are staged two
 // ahead, across chunk ends, so the next chunk's first slices land during
-// this chunk's frames. The 8 warps tile the projection 4 x 2 (32 pairs by
-// 64 columns) and leave gx + b in shared memory in the lane layout of the
-// frames' accumulators. The projection still runs between the frames;
-// overlapping it with them would take its time off the chain.
+// this chunk's frames. The 8 warps tile the projection P / 32 by 256 / P
+// (32 pairs by 4 N / (256 / P) columns each) and leave gx + b in shared
+// memory in the lane layout of the frames' accumulators. The projection
+// still runs between the frames; overlapping it with them would take its
+// time off the chain.
 //
 // Lengths: a cluster runs to the longest length among its own rows. A row
 // past its length keeps computing on whatever its frames hold but writes
@@ -99,6 +111,11 @@
 #define PHASE(n)
 #define PHASE_END
 #endif
+// 1 in the tool's second build: the H = 512 product's two chains of
+// k-steps run one after the other, with a mark between them
+#ifndef PHASE_SPLIT
+#define PHASE_SPLIT 0
+#endif
 
 namespace {
 
@@ -107,23 +124,29 @@ using rg::ldsm_x4;
 using rg::mma16816;
 using rg::smem_addr;
 
-constexpr int NT = 256;     // threads per block: 8 warps
-constexpr int PAIRS = 128;  // (row, frame) pairs of a chunk: R * F
-constexpr int DS = 64;      // input columns per projection slice (128 bytes)
-constexpr int PAD = 8;      // bf16 elements of padding of an h slice row
-constexpr int KMAX = 16;    // k-steps of the recurrent product: H <= 256
+constexpr int NT = 256;  // threads per block: 8 warps
+constexpr int DS = 64;   // input columns per projection slice (128 bytes)
+constexpr int PAD = 8;   // bf16 elements of padding of an h slice row
+constexpr int KMAX = 16; // k-steps of W_h a warp holds in registers: 256 rows
+constexpr int KW = 256;  // rows of W_h in shared memory where WIDE (H = 512)
+
+// (row, frame) pairs of a chunk, R * F: 64 where part of W_h takes shared
+// memory (H past the registers' 256 rows)
+__host__ __device__ constexpr int pairs_for(bool wide) { return wide ? 64 : 128; }
 
 // Dynamic shared memory of one block (ops/blstm.py::cluster_smem computes
-// the same): two x stages (PAIRS, DS), W_x's columns resident (ceil(DW /
-// DS), N, DS) or two staged slices (2, N, DS), all bfloat16 and 1024-byte
-// aligned for the swizzle; the chunk's gx (PAIRS, N) float32; two h
+// the same): two x stages (P, DS), W_x's columns resident (ceil(DW / DS),
+// N, DS) or two staged slices (2, N, DS), all bfloat16 and 1024-byte
+// aligned for the swizzle; the chunk's gx (P, N) float32; where H > 256,
+// W_h's rows past 256 of the block's columns (N, H - 256) bfloat16; two h
 // buffers (2, C, R, NU + PAD) bfloat16; R int32 lengths; seven 8-byte
 // mbarriers; 1 KB to align the base.
 size_t smem_bytes(int H, int C, int R, int DW, bool resident) {
-  const size_t N = 4 * (size_t)(H / C), nsl = (DW + DS - 1) / DS;
-  const size_t elems = 2 * (size_t)PAIRS * DS + (resident ? nsl : 2) * N * DS +
-                       2 * (size_t)C * R * (H / C + PAD);
-  return 1024 + elems * sizeof(bf16) + PAIRS * N * sizeof(float) + (size_t)R * sizeof(int) +
+  const bool wide = H > 16 * KMAX;
+  const size_t P = pairs_for(wide), N = 4 * (size_t)(H / C), nsl = (DW + DS - 1) / DS;
+  const size_t elems = 2 * P * DS + (resident ? nsl : 2) * N * DS +
+                       (wide ? N * (H - 16 * KMAX) : 0) + 2 * (size_t)C * R * (H / C + PAD);
+  return 1024 + elems * sizeof(bf16) + P * N * sizeof(float) + (size_t)R * sizeof(int) +
          7 * sizeof(uint64_t);
 }
 
@@ -231,7 +254,7 @@ __device__ __forceinline__ int swz(int row, int col) {
   return row * DS + ((((col >> 3) ^ row) & 7) << 3) + (col & 7);
 }
 
-template <int MT, bool RES, bool FULL>
+template <int MT, bool RES, bool FULL, bool WIDE>
 __global__ void __launch_bounds__(NT, 1)
 blstm_infer_cluster_kernel(const __grid_constant__ CUtensorMap x_fwd,  // (B, T, DW)
                            const __grid_constant__ CUtensorMap x_bwd,  // reversed per row
@@ -241,15 +264,22 @@ blstm_infer_cluster_kernel(const __grid_constant__ CUtensorMap x_fwd,  // (B, T,
                            const int* __restrict__ lengths,  // (B,)
                            bf16* __restrict__ out,           // (B, T, 2H)
                            int B, int T, int DW, int H, int NU) {
-  constexpr int R = 16 * MT;  // rows of a group
-  constexpr int F = 8 / MT;   // frames of a chunk: R * F = PAIRS
+  static_assert(!WIDE || (FULL && !RES), "H = 512: 32 units a block, W_x streamed");
+  constexpr int P = pairs_for(WIDE);  // (row, frame) pairs of a chunk
+  constexpr int R = 16 * MT;          // rows of a group
+  constexpr int F = P / R;            // frames of a chunk
+  // the projection's warp grid: PM groups of 32 pairs by PN column splits
+  // of GQ 16-column groups (at 32 units a block)
+  constexpr int PM = P / 32, PN = 8 / PM, GQ = 8 / PN;
+  constexpr bool kSplit = WIDE && PHASE_SPLIT;
   extern __shared__ unsigned char smem_raw[];
   const int N = 4 * NU, SR = NU + PAD, nsl = (DW + DS - 1) / DS;
   bf16* xs = reinterpret_cast<bf16*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
-                                     ~uintptr_t(1023));  // (2, PAIRS, DS)
-  bf16* wxs = xs + 2 * PAIRS * DS;                       // (nsl or 2, N, DS)
-  float* gxs = reinterpret_cast<float*>(wxs + (RES ? nsl : 2) * N * DS);  // (8, NU/4, 32, 8)
-  bf16* hb = reinterpret_cast<bf16*>(gxs + PAIRS * N);   // (2, C, R, SR)
+                                     ~uintptr_t(1023));  // (2, P, DS)
+  bf16* wxs = xs + 2 * P * DS;                           // (nsl or 2, N, DS)
+  float* gxs = reinterpret_cast<float*>(wxs + (RES ? nsl : 2) * N * DS);  // (P/16, NU/4, 32, 8)
+  bf16* whs = reinterpret_cast<bf16*>(gxs + P * N);      // WIDE: (N, KW) swizzled
+  bf16* hb = whs + (WIDE ? N * KW : 0);                  // (2, C, R, SR)
   int* len_s = reinterpret_cast<int*>(hb + 2 * gridDim.x * R * SR);  // (R,)
   uint64_t* bar = reinterpret_cast<uint64_t*>(len_s + R);  // (MT, 2) h by m-tile, parity
   uint64_t* full = bar + 2 * MT;                           // (2,) x stages
@@ -276,6 +306,17 @@ blstm_infer_cluster_kernel(const __grid_constant__ CUtensorMap x_fwd,  // (B, T,
     len_s[tid] = b < B ? min(max(lengths[b], 0), T) : 0;
   }
   for (int i = tid; i < C * R * SR; i += NT) hb[i] = __float2bfloat16(0.f);
+  if (WIDE) {
+    // W_h rows KMAX * 16 .. H - 1 of the block's columns, a 16-byte chunk
+    // c of column n's row at chunk c ^ (n % 8) (ldmatrix's eight rows on
+    // distinct banks)
+    const bf16* src = wh + (size_t)wrow * H + 16 * KMAX;
+    for (int i = tid; i < N * (KW / 8); i += NT) {
+      const int n = i / (KW / 8), ch = i % (KW / 8);
+      *reinterpret_cast<uint4*>(whs + n * KW + ((ch ^ (n & 7)) << 3)) =
+          *reinterpret_cast<const uint4*>(src + (size_t)n * H + ch * 8);
+    }
+  }
   if (tid == 0) {
     for (int i = 0; i < 2 * MT; ++i) mbar_init(bar + i, 1);
     mbar_init(full, 1);
@@ -297,8 +338,9 @@ blstm_infer_cluster_kernel(const __grid_constant__ CUtensorMap x_fwd,  // (B, T,
   const bool active = warp * 4 < NU;
   const int g = lane >> 2, t4 = lane & 3;
   const int ul = warp * 4 + t4;  // the unit within the block's slice
-  // the warp's W_h columns as mma B fragments, in registers for the whole
-  // launch: k-step kk, n-tile j: W_h[k = 16 kk + 2 t (+8)][n = 16 warp + 8 j + g]
+  // the first 256 rows of the warp's W_h columns as mma B fragments, in
+  // registers for the whole launch (where WIDE, shared memory holds the
+  // rest): k-step kk, n-tile j: W_h[k = 16 kk + 2 t (+8)][n = 16 warp + 8 j + g]
   const int ksteps = FULL ? KMAX : H / 16;
   uint32_t wb[KMAX][4];
   {
@@ -324,8 +366,12 @@ blstm_infer_cluster_kernel(const __grid_constant__ CUtensorMap x_fwd,  // (B, T,
   const int a_row = lane & 15, a_col = (lane >> 4) * 8;
   const int b_n = (lane >> 4) * 8 + (lane & 7), b_k = ((lane >> 3) & 1) * 8;
   // the projection's warp tile: m-tiles 2 pm, 2 pm + 1 (32 pairs), column
-  // groups 4 pn .. 4 pn + 3 (64 gate columns)
-  const int pm = warp & 3, pn = warp >> 2;
+  // groups GQ pn .. GQ pn + GQ - 1 (16 GQ gate columns)
+  const int pm = warp % PM, pn = warp / PM;
+  // WIDE: the warp's columns' rows of W_h in shared memory, read as
+  // ldmatrix B fragments like W_x's (k-step kk at rows 16 kk + b_k)
+  const bf16* whw = whs + (warp * 16 + b_n) * KW;
+  auto wh_at = [&](int kk) { return whw + (((2 * kk + (b_k >> 3)) ^ (lane & 7)) << 3); };
   // the frame's A: row a_row of m-tile m at k = 16 kk + a_col lies in
   // block k / NU's slice, unit k % NU
   auto h_at = [&](int buf, int m, int kk) -> const bf16* {
@@ -357,8 +403,8 @@ blstm_infer_cluster_kernel(const __grid_constant__ CUtensorMap x_fwd,  // (B, T,
     if (lane != 0 || warp > 1 || gs >= nslices) return;
     const int s0 = gs / nsl * F, d0 = gs % nsl * DS, buf = gs & 1;
     if (warp == 0) {
-      mbar_expect(full + buf, (PAIRS + (RES ? 0 : N)) * DS * 2);
-      tma_load_3d(xs + buf * PAIRS * DS, xmap, d0, row0, s0, full + buf);
+      mbar_expect(full + buf, (P + (RES ? 0 : N)) * DS * 2);
+      tma_load_3d(xs + buf * P * DS, xmap, d0, row0, s0, full + buf);
     } else if (!RES) {
       tma_load_2d(wxs + buf * N * DS, &wx_map, d0, wrow, full + buf);
     }
@@ -369,25 +415,25 @@ blstm_infer_cluster_kernel(const __grid_constant__ CUtensorMap x_fwd,  // (B, T,
 
   int gs = 0;
   for (int s0 = 0; s0 < steps; s0 += F) {
-    // ---- the chunk's projection gx = x W_x[:, cols] + b for its 128
+    // ---- the chunk's projection gx = x W_x[:, cols] + b for its P
     // pairs: this warp's tile, then into gxs in the lane layout of the
     // frames' accumulators
-    float acc[2][8][4];
+    float acc[2][2 * GQ][4];
 #pragma unroll
     for (int m = 0; m < 2; ++m) {
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < 2 * GQ; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
       }
     }
-    const int groups = FULL ? 4 : min(4, NU / 4 - 4 * pn);  // this warp's column groups
+    const int groups = FULL ? GQ : min(GQ, NU / 4 - GQ * pn);  // this warp's column groups
     for (int sl = 0; sl < nsl; ++sl, ++gs) {
       mbar_wait(full + (gs & 1), (gs >> 1) & 1);  // slice gs has landed
       PHASE(1)
       if (groups > 0) {
         const int kd = min(DS, DW - sl * DS);
-        const bf16* xa = xs + (gs & 1) * PAIRS * DS;
+        const bf16* xa = xs + (gs & 1) * P * DS;
         const bf16* wbx = wxs + (RES ? sl : gs & 1) * N * DS;
         auto kstep = [&](int k) {
           uint32_t a[2][4];
@@ -395,10 +441,10 @@ blstm_infer_cluster_kernel(const __grid_constant__ CUtensorMap x_fwd,  // (B, T,
           for (int m = 0; m < 2; ++m)
             ldsm_x4(a[m], xa + swz(pm * 32 + m * 16 + a_row, k + a_col));
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < GQ; ++j) {
             if (FULL || j < groups) {
               uint32_t bw[4];
-              ldsm_x4(bw, wbx + swz(pn * 64 + j * 16 + b_n, k + b_k));
+              ldsm_x4(bw, wbx + swz(pn * 16 * GQ + j * 16 + b_n, k + b_k));
 #pragma unroll
               for (int m = 0; m < 2; ++m) {
                 mma16816(acc[m][2 * j], a[m], bw[0], bw[1]);
@@ -422,9 +468,9 @@ blstm_infer_cluster_kernel(const __grid_constant__ CUtensorMap x_fwd,  // (B, T,
     {
       const float* bz = bias + wrow;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < GQ; ++j) {
         if (FULL || j < groups) {
-          const int gq = 4 * pn + j;
+          const int gq = GQ * pn + j;
           const float b0 = __ldg(bz + gq * 16 + 2 * t4), b1 = __ldg(bz + gq * 16 + 2 * t4 + 1);
           const float b2 = __ldg(bz + gq * 16 + 8 + 2 * t4);
           const float b3 = __ldg(bz + gq * 16 + 9 + 2 * t4);
@@ -461,8 +507,26 @@ blstm_infer_cluster_kernel(const __grid_constant__ CUtensorMap x_fwd,  // (B, T,
         bf16* hn = slice(nxt) + m * 16 * SR;
         if (active) {
           float pr[2][4] = {};  // n-tile
+          float ps[2][4] = {};  // WIDE: the same over W_h's rows in shared memory
           uint32_t a[2][4];     // A of k-steps kk and kk + 1
+          uint32_t as[2][4], bs[2][4];  // WIDE: A and B of k-steps KMAX + kk, + 1
+          // WIDE: k-step KMAX + kk, B from shared memory, the next one's
+          // fragments loaded first
+          auto smem_step = [&](int kk) {
+            if (kk + 1 < KMAX) {
+              ldsm_x4(as[(kk + 1) & 1], h_at(cur, m, KMAX + kk + 1));
+              ldsm_x4(bs[(kk + 1) & 1], wh_at(kk + 1));
+            }
+            mma16816(ps[0], as[kk & 1], bs[kk & 1][0], bs[kk & 1][1]);
+            mma16816(ps[1], as[kk & 1], bs[kk & 1][2], bs[kk & 1][3]);
+          };
           ldsm_x4(a[0], h_at(cur, m, 0));
+          if (WIDE) {
+            ldsm_x4(as[0], h_at(cur, m, KMAX));
+            ldsm_x4(bs[0], wh_at(0));
+          }
+          // the registers' chain, and where WIDE the shared memory's
+          // interleaved with it: two independent sums
 #pragma unroll
           for (int kk = 0; kk < KMAX; ++kk) {
             if (FULL || kk < ksteps) {
@@ -470,9 +534,26 @@ blstm_infer_cluster_kernel(const __grid_constant__ CUtensorMap x_fwd,  // (B, T,
                 ldsm_x4(a[(kk + 1) & 1], h_at(cur, m, kk + 1));
               mma16816(pr[0], a[kk & 1], wb[kk][0], wb[kk][1]);
               mma16816(pr[1], a[kk & 1], wb[kk][2], wb[kk][3]);
+              if (WIDE && !kSplit) smem_step(kk);
             }
           }
-          PHASE(4)
+          if (kSplit) {
+            PHASE(4)
+#pragma unroll
+            for (int kk = 0; kk < KMAX; ++kk) smem_step(kk);
+          }
+          if (WIDE) {
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) pr[j][e] += ps[j][e];
+            }
+          }
+          if (kSplit) {
+            PHASE(9)
+          } else {
+            PHASE(4)
+          }
           // the cell update of unit `ul`, rows g + 8 hf of the m-tile
           const float4* gp = reinterpret_cast<const float4*>(
               gxs + (((f * MT + m) * (NU / 4) + warp) * 32 + lane) * 8);
@@ -492,15 +573,19 @@ blstm_infer_cluster_kernel(const __grid_constant__ CUtensorMap x_fwd,  // (B, T,
           asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         } else {
           PHASE(4)
+          if (kSplit) {
+            PHASE(9)
+          }
         }
         __syncthreads();  // the block's rows of this m-tile of h_t are complete
         PHASE(5)
-        // send them to the peers (lane 0 of warp j to block j) and write
-        // them out
+        // send them to the peers (lane l of warp j to block j + 8 l) and
+        // write them out
         if (C > 1) {
           if (tid == 0) mbar_expect(bar + 2 * m + nxt, (C - 1) * tile_bytes);
-          if (lane == 0 && warp < C && warp != (int)rank)
-            dsmem_copy(hn, tile_bytes, warp, bar + 2 * m + nxt);
+          const int peer = warp + 8 * lane;
+          if (lane < 2 && peer < C && peer != (int)rank)
+            dsmem_copy(hn, tile_bytes, peer, bar + 2 * m + nxt);
         }
         if (tid < 16 * (NU / 8)) {
           const int r = tid / (NU / 8), l = len_s[m * 16 + r];
@@ -566,33 +651,50 @@ bool tensor_map(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[RAN
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int MT, bool RES, bool FULL>
-cudaError_t launch_kernel(const CUtensorMap& xf, const CUtensorMap& xb, const CUtensorMap& wm,
-                          const bf16* wh, const float* bias, const int* lengths, bf16* out,
-                          int B, int T, int DW, int H, int C, cudaStream_t stream) {
-  constexpr auto kernel = blstm_infer_cluster_kernel<MT, RES, FULL>;
-  const int R = 16 * MT, NU = H / C;
-  const size_t smem = smem_bytes(H, C, R, DW, RES);
-  cudaError_t err = rg::reserve_smem<kernel>(smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return err;
-  }
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
+// Lets Kernel take `smem` bytes of dynamic shared memory and clusters
+// past the portable 8 blocks (16 on an H100), before any occupancy query
+// or launch; the second attribute is set once per kernel and process.
+template <auto Kernel>
+cudaError_t prepare(size_t smem) {
+  static const cudaError_t wide =
+      cudaFuncSetAttribute(Kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaError_t err = wide != cudaSuccess ? wide : rg::reserve_smem<Kernel>(smem);
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
+// A launch of (C, rows, 2) blocks in clusters of C along x. `attr` must
+// outlive the configuration.
+cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int C, int rows, size_t smem,
+                                  cudaStream_t stream) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, (B + R - 1) / R, 2);
+  cfg.gridDim = dim3(C, rows, 2);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int MT, bool RES, bool FULL, bool WIDE>
+cudaError_t launch_kernel(const CUtensorMap& xf, const CUtensorMap& xb, const CUtensorMap& wm,
+                          const bf16* wh, const float* bias, const int* lengths, bf16* out,
+                          int B, int T, int DW, int H, int C, cudaStream_t stream) {
+  constexpr auto kernel = blstm_infer_cluster_kernel<MT, RES, FULL, WIDE>;
+  const int R = 16 * MT, NU = H / C;
+  const size_t smem = smem_bytes(H, C, R, DW, RES);
+  cudaError_t err = prepare<kernel>(smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(&attr, C, (B + R - 1) / R, smem, stream);
   // a cluster of C blocks with this much shared memory must fit the card
-  // at all; asked once per cluster size and shared-memory size
-  static size_t checked[9] = {};
+  // at all; asked once per cluster size (1 .. 16) and shared-memory size
+  static size_t checked[17] = {};
   if (smem > checked[C]) {
     int clusters = 0;
     err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
@@ -618,24 +720,27 @@ cudaError_t launch_kernel(const CUtensorMap& xf, const CUtensorMap& xb, const CU
 // order), wx (2, C, N, DW), wh (2, C, N, H) bf16 and bias (2, C, N) f32
 // packed by ops/blstm.py::_cluster_pack, lengths (B,) int32, out (B, T, 2H)
 // bf16. C blocks a cluster, R = 16 or 32 rows a group, W_x resident or
-// streamed: ops/blstm.py::cluster_plan. Every pointer 16-byte aligned.
+// streamed: ops/blstm.py::cluster_plan. H past 256 only as H = 512 over 16
+// blocks with W_x streamed. Every pointer 16-byte aligned.
 extern "C" int blstm_infer_cluster(const void* x, const void* x_rev, const void* wx,
                                    const void* wh, const void* bias, const void* lengths,
                                    void* out, int B, int T, int DW, int H, int C, int R,
                                    int resident, void* stream) {
   if (B < 1 || T < 1 || DW < 16 || DW % 16 != 0 || H < 16 || H % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  if (C != 1 && C != 2 && C != 4 && C != 8) return (int)cudaErrorInvalidValue;
+  if (C != 1 && C != 2 && C != 4 && C != 8 && C != 16) return (int)cudaErrorInvalidValue;
   if (R != 16 && R != 32) return (int)cudaErrorInvalidValue;
   const int NU = H / C;
   if (H % C != 0 || NU % 8 != 0 || NU > 32) return (int)cudaErrorInvalidValue;
-  const int N = 4 * NU;
+  const bool wide = H > 16 * KMAX;
+  if (wide && (H != 2 * KW || NU != 32 || resident)) return (int)cudaErrorInvalidValue;
+  const int N = 4 * NU, P = pairs_for(wide);
   CUtensorMap xf, xb, wm;
   // x as (columns, rows, frames): a box of R rows at F frames lands
   // frame-major, pair p = f R + r
   const cuuint64_t xdims[3] = {(cuuint64_t)DW, (cuuint64_t)B, (cuuint64_t)T};
   const cuuint64_t xstrides[2] = {(cuuint64_t)T * DW * 2, (cuuint64_t)DW * 2};
-  const cuuint32_t xbox[3] = {DS, (cuuint32_t)R, (cuuint32_t)(PAIRS / R)};
+  const cuuint32_t xbox[3] = {DS, (cuuint32_t)R, (cuuint32_t)(P / R)};
   const cuuint64_t wdims[2] = {(cuuint64_t)DW, (cuuint64_t)2 * C * N};
   const cuuint64_t wstrides[1] = {(cuuint64_t)DW * 2};
   const cuuint32_t wbox[2] = {DS, (cuuint32_t)N};
@@ -648,47 +753,42 @@ extern "C" int blstm_infer_cluster(const void* x, const void* x_rev, const void*
   const auto* lp = static_cast<const int*>(lengths);
   auto* op = static_cast<bf16*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
-  // the flagship's layers (H = 256 over 8 blocks) take an instantiation
-  // with the product's k-steps and the projection's column groups fixed
-  const bool full = H == 256 && NU == 32;
-#define RG_LAUNCH(MT, RES, FULL) \
-  launch_kernel<MT, RES, FULL>(xf, xb, wm, whp, bp, lp, op, B, T, DW, H, C, s)
+  // the flagship's layers (H = 256 over 8 blocks) and H = 512 over 16 take
+  // instantiations with the product's k-steps and the projection's column
+  // groups fixed
+  const bool full = (H == 256 || wide) && NU == 32;
+#define RG_LAUNCH(MT, RES, FULL, WIDE) \
+  launch_kernel<MT, RES, FULL, WIDE>(xf, xb, wm, whp, bp, lp, op, B, T, DW, H, C, s)
   cudaError_t err;
-  if (R == 16) {
-    err = resident ? (full ? RG_LAUNCH(1, true, true) : RG_LAUNCH(1, true, false))
-                   : (full ? RG_LAUNCH(1, false, true) : RG_LAUNCH(1, false, false));
+  if (wide) {
+    err = R == 16 ? RG_LAUNCH(1, false, true, true) : RG_LAUNCH(2, false, true, true);
+  } else if (R == 16) {
+    err = resident ? (full ? RG_LAUNCH(1, true, true, false) : RG_LAUNCH(1, true, false, false))
+                   : (full ? RG_LAUNCH(1, false, true, false) : RG_LAUNCH(1, false, false, false));
   } else {
-    err = resident ? (full ? RG_LAUNCH(2, true, true) : RG_LAUNCH(2, true, false))
-                   : (full ? RG_LAUNCH(2, false, true) : RG_LAUNCH(2, false, false));
+    err = resident ? (full ? RG_LAUNCH(2, true, true, false) : RG_LAUNCH(2, true, false, false))
+                   : (full ? RG_LAUNCH(2, false, true, false) : RG_LAUNCH(2, false, false, false));
   }
 #undef RG_LAUNCH
   return (int)err;
 }
 
-// How many clusters of C blocks, one block an SM, the card runs at once
-// (cudaOccupancyMaxActiveClusters): ops/blstm.py::cluster_plan takes 32-row
-// groups where the 16-row ones would not all fit.
-extern "C" int blstm_infer_cluster_fit(int C, void* clusters) {
-  if (C != 1 && C != 2 && C != 4 && C != 8) return (int)cudaErrorInvalidValue;
-  constexpr auto kernel = blstm_infer_cluster_kernel<1, false, true>;
-  const size_t smem = smem_bytes(256, 8, 16, 64, false);  // over half an SM's
-  cudaError_t err = rg::reserve_smem<kernel>(smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return err;
-  }
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, 1, 1);
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = smem;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaOccupancyMaxActiveClusters(static_cast<int*>(clusters), kernel, &cfg);
+// How many clusters of C blocks with `smem` bytes of shared memory each,
+// one block an SM, the card runs at once (cudaOccupancyMaxActiveClusters;
+// C = 16 asks the H = 512 instantiation, smaller C the flagship's):
+// ops/blstm.py::cluster_plan takes 32-row groups where the 16-row ones
+// would not all fit.
+extern "C" int blstm_infer_cluster_fit(int C, int smem, void* clusters) {
+  if (C != 1 && C != 2 && C != 4 && C != 8 && C != 16) return (int)cudaErrorInvalidValue;
+  if (smem < 1) return (int)cudaErrorInvalidValue;
+  constexpr auto flagship = blstm_infer_cluster_kernel<1, false, true, false>;
+  constexpr auto wide = blstm_infer_cluster_kernel<1, false, true, true>;
+  cudaError_t err = C == 16 ? prepare<wide>(smem) : prepare<flagship>(smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(&attr, C, 1, smem, nullptr);
+  err = C == 16 ? cudaOccupancyMaxActiveClusters(static_cast<int*>(clusters), wide, &cfg)
+                : cudaOccupancyMaxActiveClusters(static_cast<int*>(clusters), flagship, &cfg);
   if (err != cudaSuccess) cudaGetLastError();
   return (int)err;
 }

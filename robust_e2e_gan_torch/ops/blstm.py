@@ -180,54 +180,65 @@ blstm_infer_plain.calls = 0
 # csrc/blstm_infer.cu; a rule computed before the launch
 # --------------------------------------------------------------------------
 
-CLUSTER_SIZES = (1, 2, 4, 8)  # blocks a cluster (8 is the portable limit)
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # blocks a cluster (past 8 non-portable)
 CLUSTER_PAIRS = 128  # (row, frame) pairs of a chunk: R * F
+CLUSTER_PAIRS_WIDE = 64  # the same where part of W_h is in shared memory
 CLUSTER_SLICE = 64  # input columns per projection slice (DS)
 CLUSTER_UNITS = 32  # hidden units a block at most: 8 warps of 4
+CLUSTER_KREG = 256  # rows of W_h a warp holds in registers (16 KMAX)
+CLUSTER_WIDE_H = 512  # the one H past them: 16 blocks of 32 units
 _PAD = 8  # bf16 elements of padding of a row of an h slice
 
 
 def cluster_smem(h: int, c: int, r: int, dw: int, resident: bool) -> int:
-    """Bytes of dynamic shared memory of one cluster block, n_u = H / C:
-    two x stages (128 pairs of DS), W_x's columns resident (ceil(DW / DS)
-    slices of 4 n_u rows of DS) or two staged slices of them, two h
-    buffers (C slices of R rows of n_u + 8), all bfloat16; the chunk's gx
-    (128 pairs by 4 n_u columns, float32); R int32 lengths, seven 8-byte
-    mbarriers and 1 KB to align the base (its W_h columns live in
-    registers). ``smem_bytes`` of the kernel source computes the same."""
+    """Bytes of dynamic shared memory of one cluster block, n_u = H / C,
+    P = 128 (row, frame) pairs a chunk, 64 where H > 256: two x stages (P
+    pairs of DS), W_x's columns resident (ceil(DW / DS) slices of 4 n_u
+    rows of DS) or two staged slices of them, where H > 256 W_h's rows past
+    the 256 the registers hold (4 n_u columns of H - 256), two h buffers (C
+    slices of R rows of n_u + 8), all bfloat16; the chunk's gx (P pairs by
+    4 n_u columns, float32); R int32 lengths, seven 8-byte mbarriers and
+    1 KB to align the base. ``smem_bytes`` of the kernel source computes
+    the same."""
     n_u = h // c
     n = 4 * n_u
+    wide = h > CLUSTER_KREG
+    pairs = CLUSTER_PAIRS_WIDE if wide else CLUSTER_PAIRS
     slices = -(-dw // CLUSTER_SLICE) if resident else 2
-    elems = (2 * CLUSTER_PAIRS * CLUSTER_SLICE + slices * n * CLUSTER_SLICE
+    elems = (2 * pairs * CLUSTER_SLICE + slices * n * CLUSTER_SLICE
+             + (n * (h - CLUSTER_KREG) if wide else 0)
              + 2 * c * r * (n_u + _PAD))
-    return 1024 + 2 * elems + 4 * CLUSTER_PAIRS * n + 4 * r + 56
+    return 1024 + 2 * elems + 4 * pairs * n + 4 * r + 56
 
 
 def cluster_plan(b: int, d: int, h: int, itemsize: int, n_sm: int,
                  smem_optin: int, max_clusters: int | None = None):
     """(C, R, F, W_x resident, shared-memory bytes) of the cluster route,
     or None where it does not fit: bfloat16 only; C, the fewest blocks a
-    cluster (of 1, 2, 4, 8) that leaves each at most 32 hidden units, a
-    multiple of 8 (16-byte pieces of h); R = 16 rows a group, or 32 where
-    the 2 ceil(B / 16) clusters of 16-row groups would not all run at once
-    (``max_clusters`` of C blocks fit the card, n_sm // C where not
-    given: the card's cluster placement can fit fewer, 15 of 8 on an
-    H100); F = 128 / R frames a chunk; W_x's columns resident where they
-    fit beside the rest, else streamed; the block's bytes within
-    ``smem_optin``."""
+    cluster (of 1, 2, 4, 8, 16) that leaves each at most 32 hidden units, a
+    multiple of 8 (16-byte pieces of h); past the 256 rows of W_h the
+    registers hold, only H = 512 (16 blocks of 32 units, the kernel's one
+    instantiation there); R = 16 rows a group, or 32 where the 2 ceil(B /
+    16) clusters of 16-row groups would not all run at once
+    (``max_clusters`` of C blocks fit the card, n_sm // C where not given:
+    the card's cluster placement can fit fewer, 15 of 8 and 7 of 16 on an
+    H100); F = P / R frames a chunk (P = 128 pairs, 64 at H = 512); W_x's
+    columns resident where they fit beside the rest, else streamed; the
+    block's bytes within ``smem_optin``."""
     if itemsize != 2 or h % 16:
         return None
     c = next((c for c in CLUSTER_SIZES
               if h % (8 * c) == 0 and h // c <= CLUSTER_UNITS), None)
-    if c is None:
+    if c is None or (h > CLUSTER_KREG and h != CLUSTER_WIDE_H):
         return None
     fit = n_sm // c if max_clusters is None else max_clusters
     r = 16 if 2 * -(-b // 16) <= fit else 32
+    pairs = CLUSTER_PAIRS_WIDE if h > CLUSTER_KREG else CLUSTER_PAIRS
     dw = _round_up(d, 16)
     for resident in (True, False):
         smem = cluster_smem(h, c, r, dw, resident)
         if smem <= smem_optin:
-            return c, r, CLUSTER_PAIRS // r, resident, smem
+            return c, r, pairs // r, resident, smem
     return None
 
 
@@ -252,26 +263,28 @@ def _force_infer_route(route: str):
 
 
 @functools.lru_cache(maxsize=None)
-def _clusters_at_once(index: int, c: int) -> int:
-    """Clusters of c blocks (one block an SM) that card ``index`` runs at
-    once, as the CUDA runtime places them."""
+def _clusters_at_once(index: int, c: int, smem: int) -> int:
+    """Clusters of c blocks of ``smem`` bytes of shared memory (one block
+    an SM) that card ``index`` runs at once, as the CUDA runtime places
+    them."""
     n = ctypes.c_int(0)
     with torch.cuda.device(index):
-        launch("blstm_infer_cluster_fit", c, ctypes.addressof(n))
+        launch("blstm_infer_cluster_fit", c, smem, ctypes.addressof(n))
     return n.value
 
 
 def infer_route(b: int, d: int, h: int, itemsize: int, n_sm: int,
-                smem_optin: int, clusters_at_once: Callable[[int], int]):
+                smem_optin: int, clusters_at_once: Callable[[int, int], int]):
     """The cluster plan ``blstm_infer`` launches a layer with on a card of
     ``n_sm`` SMs and ``smem_optin`` bytes, or None for the row-tiled
-    kernel: ``cluster_plan``, asked again at the ``clusters_at_once(C)``
-    clusters of its C blocks that the card runs at once."""
+    kernel: ``cluster_plan``, asked again at the ``clusters_at_once(C,
+    smem)`` clusters of its C blocks with its shared memory that the card
+    runs at once."""
     plan = cluster_plan(b, d, h, itemsize, n_sm, smem_optin)
     if plan is None:
         return None
     return cluster_plan(b, d, h, itemsize, n_sm, smem_optin,
-                        max_clusters=clusters_at_once(plan[0]))
+                        max_clusters=clusters_at_once(plan[0], plan[4]))
 
 
 def card_infer_route(b: int, d: int, h: int, dtype: torch.dtype,

@@ -133,8 +133,9 @@ SIGNATURES = {
     # x, x reversed per row, wx, wh, bias (packed), lengths, out, B, T,
     # DW, H, C (cluster size), R (rows a group), W_x resident, stream
     "blstm_infer_cluster": [_P] * 7 + [_I] * 7 + [_P],
-    # C (cluster size), out: clusters of C blocks the card runs at once
-    "blstm_infer_cluster_fit": [_I, _P],
+    # C (cluster size), shared-memory bytes a block, out: clusters of C
+    # blocks the card runs at once
+    "blstm_infer_cluster_fit": [_I, _I, _P],
 }
 
 

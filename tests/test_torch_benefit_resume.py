@@ -248,21 +248,23 @@ def test_stream_skip_matches_the_jax_scripts_batches(restored):
 
 
 # an H100 SXM: 132 SMs, sm_90's opt-in shared memory, and the clusters
-# the runtime places at once (15 of 8 blocks; an SM count's worth below)
-H100 = (132, SMEM_LIMIT, lambda c: 15 if c == 8 else 132 // c)
+# the runtime places at once, one block an SM, whatever the block's shared
+# memory (15 of 8 blocks and 7 of 16, as the card answered; an SM count's
+# worth below)
+H100 = (132, SMEM_LIMIT,
+        lambda c, smem: {8: 15, 16: 7}.get(c, 132 // c))
 
 
 @pytest.mark.parametrize("scale,b,routes,misfit", [
     ("toy", 16, ["cluster"] * 3, None),
     ("drive", 16, ["cluster"] * 2, None),
-    ("reference", 32, ["row_tiled"] * 5,
-     "ops/blstm.py::cluster_plan does not fit H=512 at B=32"),
+    ("reference", 32, ["cluster"] * 5, None),
 ])
 def test_route_gates_ask_the_cluster_plan(scale, b, routes, misfit):
     """Which ``blstm_infer`` route each inference BLSTM layer takes on an
     H100 (``ops/blstm.py::infer_route``, the wrapper's rule) and whether
-    the forced cluster route is run: at H = 512 (the reference scale) no
-    cluster of at most 8 blocks holds 32 units a block."""
+    the forced cluster route is run: at H = 512 (the reference scale)
+    clusters of 16 blocks of 32 units take every layer."""
     jcfg = vd.JCFG if scale == "drive" else ab.jcfg_for(scale)
     model = build_model(vd.bf16_config(vd.kernel_config(jcfg)))
     layers = vd.infer_layers(model, b)

@@ -298,30 +298,47 @@ def test_gate_storage_reaches_the_configuration():
 
 
 # the flagship decode's four BLSTM layers (B=128: enhancer 0 and 1,
-# encoder 0 and 1) and the D-step's two enhancer layers (B=32, T=286):
-# (B, D, whether W_x's columns stay resident)
-CLUSTER_LAYERS = [(128, 257, True), (128, 512, False), (128, 2560, False),
-                  (128, 256, True), (32, 257, True), (32, 512, False)]
+# encoder 0 and 1) and the D-step's two enhancer layers (B=32, T=286), at
+# H=256; the reference model's (``tools/adversarial_benefit.py::
+# jcfg_for("reference")``) at H=512: the decode's five (B=64: enhancer 0
+# and 1, encoder 0, 1 and 2) and the D-step's two (B=32): (B, D, H,
+# whether W_x's columns stay resident)
+CLUSTER_LAYERS = [(128, 257, 256, True), (128, 512, 256, False),
+                  (128, 2560, 256, False), (128, 256, 256, True),
+                  (32, 257, 256, True), (32, 512, 256, False),
+                  (64, 257, 512, False), (64, 1024, 512, False),
+                  (64, 2560, 512, False), (64, 512, 512, False),
+                  (32, 257, 512, False), (32, 1024, 512, False)]
 H100 = dict(n_sm=132, smem_optin=232_448)
+# clusters an H100 runs at once, one block an SM: 15 of 8 blocks, 7 of 16
+H100_CLUSTERS = {8: 15, 16: 7}
 
 
 @pytest.mark.parametrize("case", CLUSTER_LAYERS,
-                         ids=[f"B{c[0]}-D{c[1]}" for c in CLUSTER_LAYERS])
+                         ids=[f"B{c[0]}-D{c[1]}-H{c[2]}"
+                              for c in CLUSTER_LAYERS])
 def test_cluster_plan_fits_the_flagship_layers(case):
-    """Every flagship layer takes the cluster route on an H100: clusters of
-    8 blocks of 32 units; 32-row groups at B=128, where 16 clusters of
-    16-row groups would exceed the 15 the card runs at once, 16-row ones
-    at B=32; W_x resident where it fits (D=256, 257)."""
-    b, d, resident = case
-    plan = ops.cluster_plan(b, d, 256, 2, **H100, max_clusters=15)
+    """Every flagship and reference layer takes the cluster route on an
+    H100: at H=256 clusters of 8 blocks of 32 units, 32-row groups at
+    B=128, where 16 clusters of 16-row groups would exceed the 15 the card
+    runs at once, 16-row ones at B=32, W_x resident where it fits (D=256,
+    257); at H=512 clusters of 16 blocks of 32 units, 32-row groups at
+    B=64 (8 clusters of 16 rows, the card runs 7), 16-row ones at B=32,
+    half the pairs a chunk, W_x streamed at every D."""
+    b, d, h, resident = case
+    c_want = h // ops.CLUSTER_UNITS
+    plan = ops.cluster_plan(b, d, h, 2, **H100,
+                            max_clusters=H100_CLUSTERS[c_want])
     assert plan is not None
     c, r, f, res, smem = plan
-    assert (c, r, f, res) == (8, 32 if b == 128 else 16,
-                              4 if b == 128 else 8, resident)
-    assert smem == ops.cluster_smem(256, c, r, ops._round_up(d, 16), res)
+    pairs = ops.CLUSTER_PAIRS if h == 256 else ops.CLUSTER_PAIRS_WIDE
+    r_want = 16 if b == 32 else 32
+    assert (c, r, f, res) == (c_want, r_want, pairs // r_want, resident)
+    assert smem == ops.cluster_smem(h, c, r, ops._round_up(d, 16), res)
     assert smem <= H100["smem_optin"]
-    # without the card's count, the plan takes n_sm // C = 16 clusters
-    assert ops.cluster_plan(b, d, 256, 2, **H100)[1] == 16
+    # without the card's count, the plan takes n_sm // C = 16 clusters of
+    # 8 blocks, 8 of 16
+    assert ops.cluster_plan(b, d, h, 2, **H100)[1] == 16
 
 
 # (itemsize, H, shared memory a block may take)
@@ -329,15 +346,19 @@ REFUSED = [
     (2, 200, 232_448),  # bf16 H not a multiple of 16
     (4, 256, 232_448),  # f32
     (4, 64, 232_448),  # f32, small H
-    (2, 512, 232_448),  # bf16 H=512: 64 units a block at C=8
+    (2, 1024, 232_448),  # bf16 H=1,024: 64 units a block even at C=16
     (2, 80, 232_448),  # no cluster size gives a multiple of 8 units <= 32
     (2, 256, 100_000),  # the W_h slice's block over the budget
+    (4, 512, 232_448),  # f32 at the reference width
+    (2, 384, 232_448),  # past 256 rows only H=512: 24 units at C=16
+    (2, 512, 180_000),  # H=512's block (W_h's shared part) over the budget
 ]
 
 
 @pytest.mark.parametrize("case", REFUSED,
-                         ids=["H200", "f32", "f32-H64", "H512", "H80",
-                              "small-smem"])
+                         ids=["H200", "f32", "f32-H64", "H1024", "H80",
+                              "small-smem", "f32-H512", "H384",
+                              "H512-small-smem"])
 def test_cluster_plan_refuses(case):
     itemsize, h, smem_optin = case
     assert ops.cluster_plan(128, 257, h, itemsize, 132, smem_optin) is None
@@ -357,6 +378,53 @@ def test_cluster_smem_is_the_hand_sum():
         x_stages + 2 * 128 * 64 * 2 + h_buffers + gx + rest)
 
 
+@pytest.mark.parametrize("r", [16, 32])
+def test_cluster_smem_is_the_hand_sum_at_h512(r):
+    """One block at the reference encoder's layer 0 (H=512, C=16, D=2,560,
+    W_x streamed), byte by byte: 64 pairs a chunk, W_h's rows 256-511 of
+    the block's 128 columns in shared memory; both row groups fit the
+    H100's 232,448 bytes."""
+    x_stages = 2 * 64 * 64 * 2  # two (64 pairs, 64 columns) bf16 boxes
+    wx_stages = 2 * 128 * 64 * 2  # two staged slices of 128 columns
+    wh_shared = 128 * (512 - 256) * 2  # (4 n_u, H - 256) bf16: 64 KB
+    h_buffers = 2 * 16 * r * (32 + 8) * 2  # (2, C, R, n_u + 8) bf16
+    gx = 64 * 128 * 4  # (pairs, 4 n_u) float32
+    rest = 1024 + r * 4 + 7 * 8  # alignment, lengths, mbarriers
+    smem = ops.cluster_smem(512, 16, r, 2560, False)
+    assert smem == (x_stages + wx_stages + wh_shared + h_buffers + gx
+                    + rest)
+    assert smem == {16: 189_560, 32: 230_584}[r] <= 232_448
+    # W_x resident at D=257 (5 slices) does not fit beside W_h's part
+    assert ops.cluster_smem(512, 16, 16, 272, True) > 232_448
+
+
+def test_cluster_constants_are_the_kernels():
+    """The plan's constants are those of ``csrc/blstm_infer_cluster.cu``:
+    the slice width, the h rows' padding, the units a block (4 a warp),
+    the rows of W_h a warp holds in registers and the one H past them, the
+    pairs a chunk with and without W_h's shared part, and the cluster
+    sizes its entry point takes."""
+    import re
+    from robust_e2e_gan_torch.utils.build import CSRC
+
+    with open(f"{CSRC}/blstm_infer_cluster.cu") as f:
+        src = f.read()
+    const = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int (\w+) = (\d+);", src)}
+    assert const["DS"] == ops.CLUSTER_SLICE
+    assert const["PAD"] == ops._PAD
+    assert const["NT"] // 32 * 4 == ops.CLUSTER_UNITS
+    assert 16 * const["KMAX"] == ops.CLUSTER_KREG
+    assert 16 * const["KMAX"] + const["KW"] == ops.CLUSTER_WIDE_H
+    pairs = re.search(r"return wide \? (\d+) : (\d+);", src)
+    assert (int(pairs[1]), int(pairs[2])) == (ops.CLUSTER_PAIRS_WIDE,
+                                              ops.CLUSTER_PAIRS)
+    entry = src[src.index('extern "C" int blstm_infer_cluster('):]
+    sizes = re.search(r"if \((C != \d+(?: && C != \d+)*)\)", entry)[1]
+    assert tuple(int(c) for c in re.findall(r"\d+", sizes)) == (
+        ops.CLUSTER_SIZES)
+
+
 @pytest.mark.parametrize("b, fit, rows, groups",
                          [(1, 15, 16, 1), (17, 15, 16, 2), (112, 15, 16, 7),
                           (113, 15, 32, 4), (150, 15, 32, 5),
@@ -370,7 +438,7 @@ def test_cluster_plan_row_groups(b, fit, rows, groups):
     assert plan[2] * plan[1] == ops.CLUSTER_PAIRS
 
 
-@pytest.mark.parametrize("h, c", [(256, 8), (64, 2), (48, 2)])
+@pytest.mark.parametrize("h, c", [(256, 8), (64, 2), (48, 2), (512, 16)])
 def test_cluster_pack_orders_each_warps_gates(h, c):
     """Block j's packed columns: 16 per group of 4 units, (i f) of each
     unit, then (g o) of each unit, so lane t of an m16n8 tile pair holds

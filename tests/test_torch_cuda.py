@@ -209,14 +209,21 @@ def _on_route(route, x, lengths, wx, wh, bias):
     return got
 
 
-@pytest.mark.parametrize("b", [1, 17, 128])
-@pytest.mark.parametrize("d", [10, 257, 2560])
-@pytest.mark.parametrize("h", [64, 256])
+# (H, D, B): H=64 and 256 at the flagship's D; H=512 at the reference
+# model's (enhancer D=257 and 1,024, encoder D=2,560), up to its decode's B
+CLUSTER_CASES = ([(h, d, b) for h in (64, 256) for d in (10, 257, 2560)
+                  for b in (1, 17, 128)]
+                 + [(512, d, b) for d in (257, 1024, 2560)
+                    for b in (1, 17, 64)])
+
+
+@pytest.mark.parametrize("h, d, b", CLUSTER_CASES)
 def test_blstm_infer_cluster_matches_plain(dev, h, d, b):
     """The cluster route (``csrc/blstm_infer_cluster.cu``; H=64 takes
-    clusters of 2 blocks, H=256 of 8; W_x resident at D=10 and 257,
-    streamed at 2,560) against the plain version in bf16: ragged lengths,
-    a zero-length row, pad frames exact zeros."""
+    clusters of 2 blocks, H=256 of 8, H=512 of 16 with half of W_h in
+    shared memory; W_x resident at D=10 and 257 up to H=256, streamed at
+    2,560 and at every D at H=512) against the plain version in bf16:
+    ragged lengths, a zero-length row, pad frames exact zeros."""
     gen = torch.Generator(device=dev).manual_seed(b + h + d)
     t = 23
     x, wx, wh, bias = _infer_inputs(gen, dev, b, t, d, h, torch.bfloat16)
@@ -250,11 +257,15 @@ def test_blstm_infer_cluster_shapes(dev, b, t, d, h):
     assert not got[pad].any()
 
 
-def test_blstm_infer_cluster_is_deterministic_and_agrees(dev):
+@pytest.mark.parametrize("b, t, d, h", [(128, 50, 257, 256),
+                                        (64, 70, 2560, 512)],
+                         ids=["H256", "H512"])
+def test_blstm_infer_cluster_is_deterministic_and_agrees(dev, b, t, d, h):
     """Two runs of the cluster route are bit-identical, and the cluster
-    and row-tiled routes agree within the bf16 tolerance."""
+    and row-tiled routes agree within the bf16 tolerance: at the
+    flagship's enhancer layer 0 and at the reference encoder's layer 0
+    (H=512, 32-row groups over clusters of 16)."""
     gen = torch.Generator(device=dev).manual_seed(11)
-    b, t, d, h = 128, 50, 257, 256
     x, wx, wh, bias = _infer_inputs(gen, dev, b, t, d, h, torch.bfloat16)
     lengths = _ragged(gen, dev, b, t)
     runs = [_on_route("cluster", x, lengths, wx, wh, bias) for _ in range(2)]
@@ -266,15 +277,16 @@ def test_blstm_infer_cluster_is_deterministic_and_agrees(dev):
 
 
 def test_blstm_infer_cluster_refusals(dev):
-    """The plan sends f32 and bf16 H = 512 to the row-tiled route, and
-    forcing the cluster route there raises before any launch; a launch the
-    card refuses (W_x resident in more shared memory than a block has)
-    raises, never runs, and leaves no error for the next launch."""
+    """The plan sends f32 and bf16 H = 1,024 (64 units a block even at 16
+    blocks) to the row-tiled route, and forcing the cluster route there
+    raises before any launch; a launch the card refuses (W_x resident in
+    more shared memory than a block has) raises, never runs, and leaves no
+    error for the next launch."""
     from robust_e2e_gan_torch.utils.build import launch
 
     gen = torch.Generator(device=dev).manual_seed(5)
     lengths = torch.tensor([7, 3], dtype=torch.int32, device=dev)
-    for dtype, h in ((torch.float32, 256), (torch.bfloat16, 512)):
+    for dtype, h in ((torch.float32, 256), (torch.bfloat16, 1024)):
         x, wx, wh, bias = _infer_inputs(gen, dev, 2, 7, 40, h, dtype)
         assert blstm._cluster(2, 40, h, wh) is None
         launches = dict(blstm.INFER_ROUTE_LAUNCHES)
