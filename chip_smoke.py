@@ -320,7 +320,32 @@ Phases, each of which exits non-zero on failure:
     layer 0 (B=32, T=279, D=257, H=512) and the encoder's (B=32, T=70,
     D=2,560, H=512), every product on ``gemm.cu``'s tensor-core kernel;
     the CTC loss and its gradient at V=32 (also float32); the attention
-    step's utt route at B=64, K=4, A=512.
+    step's utt route at B=64, K=4, A=512;
+24. tensor parallelism (``parallel/sharding.py``'s model axis,
+    ``tools/dp_phases.py``; the flagship's 14 ``partition_rule`` leaves at
+    the default ``min_shard_dim``, every BLSTM's wx, wh and bias and the
+    decoder LSTM's wx and wh, stored as column shards, gathered for the
+    kernels): (1) a (2, 2) mesh of four gloo ranks on card 0 takes phase
+    21's batches (8 rows a data index) through 3 float32 joint steps, then
+    phase 5's B=16 decode with early exit: first-step metrics within rtol
+    5e-4 / atol 5e-5 of one process's (``tests/test_parallel.py:170`` of
+    the JAX package), the gathered parameters within phase 21's limits
+    after 3 steps, the two model ranks of each data index bit-equal,
+    tokens identical and scores within 1e-3 relative, every rank launching
+    ``blstm_train`` on its resident route, ``gemm`` on its tensor-core
+    kernel, ``ctc_nll``, the row-tiled inference BLSTM, the attention
+    kernel, psi and state, and no plain version; each rank's bytes of
+    parameters and optimizer state printed beside one process's; (2) a
+    (1, 2) mesh of two gloo ranks with deterministic algorithms: one joint
+    step, losses bit-equal to one process's (or the largest difference
+    printed), gradient norms and parameters within 1e-6 relative; the
+    flagship's enhancer layer 0 in bfloat16 at B=128 with wx, wh and bias
+    sharded, bit-equal to the unsharded layer and to one process's on
+    every rank, on the cluster route; (3) ``train()`` on the (2, 2) mesh,
+    2 steps, an eval and a save, then resumed on it to step 4: its
+    checkpoint has the single-process keys and shapes and restores in one
+    process bit-equal; (4) the (1, 2) mesh over NCCL, one card a rank,
+    where two cards exist (else reported not run).
 
 Each phase after 15 prints its seconds. The line before the last is a JSON object of the 22 kernels (``gemm``
 the products of one row-6 call, with phase 6's launches; the
@@ -5328,6 +5353,280 @@ def reference_phase(dev, work) -> None:
         f"({i + 1}) {b - a:.1f} s" for i, (a, b) in enumerate(zip(t, t[1:]))))
 
 
+# ---------------------------------------------------------------------------
+# phase 24: tensor parallelism
+# ---------------------------------------------------------------------------
+
+# the first step's metrics, a (2, 2) mesh against one process
+# (tests/test_parallel.py:170 of the JAX package)
+TP_RTOL, TP_ATOL = 5e-4, 5e-5
+# a (1, 2) mesh against one process, deterministic algorithms in both:
+# the gradient norms and the parameters, relative (the full norm sums the
+# shards' squares in another order)
+TP_REL = 1e-6
+# the sharded leaves of the flagship at the default min_shard_dim: every
+# BLSTM's wx, wh and bias (4H = 1,024) and the decoder LSTM's wx and wh
+TP_SHARDED = 14
+TP_LIMIT_S = 300.0
+
+
+def tp_batches():
+    """``train()``'s traffic: 2 train batches and 1 dev batch of phase 8's
+    float32 B=16 (8 rows a data index), seeds 200 on."""
+    rng = np.random.default_rng(200)
+    return ([make_batch(16, TRAIN_SYNTH, rng) for _ in range(2)],
+            [make_batch(16, TRAIN_SYNTH, rng)])
+
+
+def tp_ranks_gates(ranks, where, train_kernels, decode_kernels):
+    """The launches of every rank's steps (and decode), by kernel and
+    route: each kernel on the path launched, on its route, no plain
+    version."""
+    for r, rank in enumerate(ranks):
+        train = rank[0]
+        ran = dp_gate_launches(
+            f"{where} rank {r} train", train["launches"], train_kernels,
+            ("blstm_train_plain", "gemm_plain", "ctc_nll_plain"))
+        require(train["launches"]["blstm_train_loop"] == 0
+                and train["launches"]["gemm_simt"] == 0,
+                f"{where} rank {r}: a frame loop or a product left its "
+                f"route: {train['launches']}")
+        if decode_kernels:
+            ran.update(dp_gate_launches(
+                f"{where} rank {r} decode", rank[1]["launches"],
+                decode_kernels, ("blstm_infer_plain", "att_plain",
+                                 "psi_plain", "state_plain")))
+        require(len(train["shards"]) == TP_SHARDED,
+                f"{where} rank {r}: {len(train['shards'])} sharded leaves, "
+                f"not {TP_SHARDED}")
+        print(f"  rank {r} launches {ran}")
+
+
+def tp_mesh_checks(ranks, one_train, one_dec) -> None:
+    """Phase 24 (1): the (2, 2) steps and decode against one process's."""
+    trains = [r[0] for r in ranks]
+    worst = {}
+    for r in trains:
+        for k, w in one_train["metrics"][0].items():
+            g = r["metrics"][0][k]
+            worst[k] = max(worst.get(k, 0.0),
+                           abs(g - w) / max(abs(w), 1e-12))
+            require(abs(g - w) <= TP_ATOL + TP_RTOL * abs(w),
+                    f"phase 24: step 1 {k} on the mesh {g!r}, one process "
+                    f"{w!r}")
+    print("  train step 1, rel diff by metric: " + " ".join(
+        f"{k}={v:.2e}" for k, v in worst.items()))
+    pairs = [(0, 1), (2, 3)]
+    same = all(torch.equal(trains[a]["params"][k], trains[b]["params"][k])
+               for a, b in pairs for k in one_train["params"])
+    same_metrics = all(trains[a]["metrics"] == trains[b]["metrics"]
+                       for a, b in pairs)
+    diffs = {k: (trains[0]["params"][k] - w).abs().max().item()
+             for k, w in one_train["params"].items()}
+    by_module = {}
+    for m in ("g", "d"):
+        keys = [k for k in diffs if k.startswith(m + ".")]
+        top = max(keys, key=diffs.get)
+        by_module[m] = (diffs[top], top)
+    print(f"  train: {DP_STEPS} steps; the model ranks of each data index: "
+          f"parameters bit-equal {same}, metrics bit-equal {same_metrics}; "
+          f"gathered parameters against one process max abs: generator "
+          f"{by_module['g'][0]:.3e} ({by_module['g'][1]}; limit "
+          f"{DP_PARAM_ATOL['g']:g}), discriminator {by_module['d'][0]:.3e} "
+          f"({by_module['d'][1]}; limit {DP_PARAM_ATOL['d']:g})")
+    require(same, "phase 24: the model ranks' parameters differ")
+    require(all(by_module[m][0] <= DP_PARAM_ATOL[m] for m in by_module),
+            f"phase 24: parameters {by_module} from one process's")
+    decs = [r[1] for r in ranks]
+    for m in range(2):
+        tokens = np.concatenate([decs[m]["tokens"], decs[2 + m]["tokens"]])
+        scores = np.concatenate([decs[m]["scores"], decs[2 + m]["scores"]])
+        same = int(sum(np.array_equal(a, b)
+                       for a, b in zip(tokens, one_dec["tokens"])))
+        rel = float(np.max(np.abs(scores - one_dec["scores"])
+                           / np.maximum(np.abs(one_dec["scores"]), 1e-6)))
+        print(f"  decode, model index {m}: tokens identical {same}/16, "
+              f"best-score max rel {rel:.3e} (limit 1e-3)")
+        require(same == 16, "phase 24: the mesh's tokens differ from one "
+                            "process's")
+        require(rel <= 1e-3, "phase 24: the mesh's scores differ")
+    def mb(key):
+        def one(n):
+            return "not measured" if n is None else f"{n / 1e6:.3f}"
+        return [one(r[key]) for r in trains], one(one_train[key])
+
+    print(f"  state a rank (parameters + Adadelta's two accumulators, both "
+          f"modules, counted): %s MB against one process's %s MB; "
+          f"torch.cuda.memory_allocated grown by the built and sharded "
+          f"state (no optimizer state yet): %s MB against %s MB ({card()})"
+          % (*mb("state_bytes"), *mb("allocated_after_shard")))
+
+
+def tp_train_checks(ranks, jcfg, tcfg, dev) -> None:
+    """Phase 24 (3): ``train()`` on the mesh, then resumed on it; its
+    checkpoint in the single-process layout, restored in one process."""
+    first, resumed = [r[2] for r in ranks], [r[3] for r in ranks]
+    steps_ = ([r["step"] for r in first], [r["step"] for r in resumed])
+    print(f"  train(): steps {steps_[0]}, resumed on the mesh to "
+          f"{steps_[1]}; checkpoint files {resumed[0]['files']}")
+    require(steps_ == ([2] * 4, [4] * 4), f"phase 24: train() steps "
+                                          f"{steps_}")
+    for r in first + resumed:
+        require(all(torch.equal(r["restored"][k], v)
+                    for k, v in r["params"].items()),
+                "phase 24: a rank's restore differs from its state")
+    fresh = train_loop.init_state(jcfg, tcfg, dev)
+    want = {part: {k: v.shape for k, v in sd.items()} for part, sd in (
+        ("model", fresh.model.state_dict()),
+        ("discriminator", fresh.discriminator.state_dict()))}
+    path = os.path.join(tcfg.checkpoint_dir, "ckpt_4.pt")
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    got = {part: {k: v.shape for k, v in saved[part].items()}
+           for part in want}
+    require(got == want and list(got["model"]) == list(want["model"]),
+            "phase 24: the mesh's checkpoint is not in the single-process "
+            "layout")
+    ckpt_lib.restore_checkpoint(tcfg.checkpoint_dir, fresh)
+    restored = dp_phases.params(fresh)
+    same = all(torch.equal(restored[k], v)
+               for k, v in resumed[0]["params"].items())
+    print(f"  the mesh's checkpoint ({len(got['model'])} + "
+          f"{len(got['discriminator'])} tensors, single-process keys and "
+          f"shapes) restored in this process at step {fresh.step}: "
+          f"parameters bit-equal to the mesh's {same}")
+    require(same and fresh.step == 4,
+            "phase 24: the mesh's checkpoint does not restore in one process")
+
+
+def tp_pair_checks(ranks, one, one_blstm) -> None:
+    """Phase 24 (2): one deterministic step of a (1, 2) mesh against one
+    process's, and the sharded cluster-route BLSTM."""
+    for r, (train, layer) in enumerate(ranks):
+        want = one["metrics"][0]
+        losses = {k: abs(train["metrics"][0][k] - w) for k, w in want.items()
+                  if not k.startswith("grad_norm")}
+        norms = {k: abs(train["metrics"][0][k] - w) / abs(w)
+                 for k, w in want.items() if k.startswith("grad_norm")}
+        rel = max((train["params"][k] - w).abs().max().item()
+                  / max(w.abs().max().item(), 1e-12)
+                  for k, w in one["params"].items())
+        worst = max(losses, key=losses.get)
+        print(f"  rank {r}: losses bit-equal {not any(losses.values())} "
+              f"(largest difference {losses[worst]:.3e}, {worst}); "
+              f"gradient norms rel {norms} (limit {TP_REL:g}); parameters "
+              f"max rel {rel:.3e} (limit {TP_REL:g})")
+        require(all(abs(train["metrics"][0][k] - w)
+                    <= TP_ATOL + TP_RTOL * abs(w) for k, w in want.items()),
+                "phase 24: the (1, 2) step's metrics differ")
+        require(all(v <= TP_REL for v in norms.values()) and rel <= TP_REL,
+                "phase 24: the (1, 2) step's norms or parameters differ")
+        print(f"  rank {r}: the sharded BLSTM ({layer['sharded']}) "
+              f"bit-equal to the whole layer {layer['equal']}, to one "
+              f"process's {layer['sha256'] == one_blstm['sha256']}; "
+              f"launches {({k: v for k, v in layer['launches'].items() if v})}")
+        require(layer["equal"] and layer["sha256"] == one_blstm["sha256"]
+                and len(layer["sharded"]) == 3,
+                "phase 24: the sharded BLSTM's output differs")
+        require(layer["launches"]["blstm_infer_cluster"] == 1
+                and not layer["launches"]["blstm_infer_plain"],
+                "phase 24: the sharded BLSTM left the cluster route")
+
+
+def tp_phase(state, state_d, dev, work) -> None:
+    """Phase 24: tensor parallelism on the card."""
+    jcfg = train_cfg("auto", "auto", "float32")
+    tcfg = TrainConfig()
+    batches = dp_batches()
+    dcfg = with_impls(flagship_config(VOCAB), "auto", "auto", "float32")
+    data = make_batch(16, SYNTH, np.random.default_rng(100))
+    bcfg = BeamSearchConfig(beam_size=BEAM, ctc_weight=0.3, max_steps=STEPS,
+                            early_exit=True)
+    train_b, dev_b = tp_batches()
+    t1 = TrainConfig(num_epochs=1, log_every=1,
+                     checkpoint_dir=os.path.join(work, "tp_train"))
+    t2 = dataclasses.replace(t1, num_epochs=2)
+    shared = "cuda:0" if dev.type == "cuda" else "cpu"
+
+    # (1) and (3): four gloo ranks on one card
+    calls = [(dp_phases.joint_steps, (jcfg, tcfg, state, state_d, batches),
+              {}),
+             (dp_phases.beam_decode, (dcfg, state, data["noisy_wav"],
+                                      data["wav_lengths"], bcfg), {}),
+             (dp_phases.train_and_restore, (jcfg, t1, train_b, dev_b), {}),
+             (dp_phases.train_and_restore, (jcfg, t2, train_b, dev_b),
+              {"resume": True})]
+    print(f"  (1) a (2, 2) mesh of four gloo ranks on {shared}: {DP_STEPS} "
+          f"float32 joint steps of phase 21's B=16 (8 rows a data index), "
+          f"then phase 5's B=16 decode with early exit, against one "
+          f"process; (3) train() on it, 2 steps, an eval and a save, then "
+          f"resumed for 2 more")
+    t0 = time.perf_counter()
+    ranks = launch(dp_phases.run_all, make_mesh(2, 2, shared), calls,
+                   limit_s=TP_LIMIT_S)
+    ranks_s = time.perf_counter() - t0
+    one_train = dp_phases.joint_steps(None, jcfg, tcfg, state, state_d,
+                                      batches, device=str(dev))
+    one_dec = dp_phases.beam_decode(None, dcfg, state, data["noisy_wav"],
+                                    data["wav_lengths"], bcfg,
+                                    device=str(dev))
+    tp_ranks_gates(ranks, "phase 24 (1)", ("blstm_train_resident", "gemm_tc",
+                                           "ctc_nll"),
+                   ("blstm_infer_row_tiled",
+                    ("att_loc_step_utt", "att_loc_step_hyp"), "psi", "state"))
+    tp_mesh_checks(ranks, one_train, one_dec)
+    tp_train_checks(ranks, jcfg, t1, dev)
+    print(f"  the launch took {ranks_s:.1f} s (spawn, import, four ranks' "
+          "work time-sliced on one card: no speed of tensor parallelism)")
+
+    # (2) two gloo ranks on one card, deterministic algorithms in both runs
+    weights = {k: state[f"enhancer.blstm0.{k}"] for k in ("wx", "wh", "bias")}
+    t_enh = num_frames(SYNTH.max_samples, jcfg.e2e.frontend)
+    layer = (weights, BATCH, t_enh, torch.bfloat16, 24)
+    calls = [(dp_phases.joint_steps, (jcfg, tcfg, state, state_d,
+                                      batches[:1]), {}),
+             (dp_phases.blstm_layer, layer, {})]
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        pair = launch(dp_phases.run_all, make_mesh(1, 2, shared), calls,
+                      limit_s=TP_LIMIT_S)
+        pair_s = time.perf_counter() - t0
+        one = dp_phases.joint_steps(None, jcfg, tcfg, state, state_d,
+                                    batches[:1], device=str(dev))
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic = saved[2]
+    one_blstm = dp_phases.blstm_layer(None, *layer, device=str(dev))
+    print(f"  (2) a (1, 2) mesh of two gloo ranks on {shared}, deterministic "
+          f"algorithms: one joint step against one process's; the flagship's "
+          f"enhancer layer 0 (bf16, B={BATCH}, T={t_enh}) with wx, wh and "
+          f"bias sharded ({pair_s:.1f} s)")
+    tp_ranks_gates([(t, None) for t, _ in pair], "phase 24 (2)",
+                   ("blstm_train_resident", "gemm_tc", "ctc_nll"), ())
+    tp_pair_checks(pair, one, one_blstm)
+
+    # (4) NCCL, one card a rank
+    if dev.type == "cuda" and torch.cuda.device_count() >= 2:
+        nccl = launch(dp_phases.joint_steps, make_mesh(1, 2, "cuda"), jcfg,
+                      tcfg, state, state_d, batches[:2],
+                      limit_s=TP_LIMIT_S)
+        want = one_train["metrics"][0]
+        for r, rank in enumerate(nccl):
+            got = rank["metrics"][0]
+            print(f"  (4) NCCL rank {r}, 2 steps: loss_g {got['loss_g']:.6g} "
+                  f"(one process {want['loss_g']:.6g})")
+            require(all(abs(got[k] - w) <= TP_ATOL + TP_RTOL * abs(w)
+                        for k, w in want.items()),
+                    "phase 24: the NCCL (1, 2) step differs")
+    else:
+        print("  (4) a (1, 2) mesh over NCCL: not run (one card; it needs "
+              "two)")
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -5386,7 +5685,7 @@ def main() -> int:
     launches["fbank_fused_bwd"] = bwd_launches
     launches["ctc_alpha"] = alpha_launches
 
-    # 7-23, in a scratch dir: phases 12 and 20 read phase 7's experiment
+    # 7-24, in a scratch dir: phases 12 and 20 read phase 7's experiment
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches.update(later_phases(state, state_d, dev, work, phase4_ms,
@@ -5405,7 +5704,7 @@ def main() -> int:
 
 
 def later_phases(state, state_d, dev, work, phase4_ms, host_build_s) -> dict:
-    """Phases 7-23; returns the launches of the kernels phases 7-15
+    """Phases 7-24; returns the launches of the kernels phases 7-15
     hold."""
     # 7. entry point
     print("train CLI (--mode joint --synthetic, default model, float32):")
@@ -5509,6 +5808,15 @@ def later_phases(state, state_d, dev, work, phase4_ms, host_build_s) -> dict:
     t0 = time.perf_counter()
     reference_phase(dev, work)
     print(f"  phase 23: {time.perf_counter() - t0:.1f} s")
+
+    # 24. tensor parallelism
+    print("tensor parallelism (the flagship's 14 partition_rule leaves "
+          "sharded on a model axis: four gloo ranks of a (2, 2) mesh and two "
+          "of a (1, 2) mesh on card 0 against one process; train() on the "
+          "mesh, its checkpoint restored in one process):")
+    t0 = time.perf_counter()
+    tp_phase(state, state_d, dev, work)
+    print(f"  phase 24: {time.perf_counter() - t0:.1f} s")
 
     return {"blstm_train_gx": cli_launches["blstm_train_gx"],
             "fbank_fused": clean_launches["fbank_fused"],

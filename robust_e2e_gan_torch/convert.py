@@ -38,6 +38,13 @@ def _flatten(tree, prefix=""):
             yield key, value
 
 
+def is_conv_kernel(key: str, ndim: int) -> bool:
+    """Whether state-dict leaf ``key`` of rank ``ndim`` is a convolution
+    kernel, stored transposed from its flax layout."""
+    return key.endswith("loc_conv.kernel") or (key.endswith(".kernel")
+                                               and ndim == 4)
+
+
 def from_flax(params) -> Dict[str, torch.Tensor]:
     """Nested numpy tree of ``model.init(...)["params"]`` -> state dict.
 

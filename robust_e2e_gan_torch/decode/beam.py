@@ -39,6 +39,7 @@ from robust_e2e_gan_torch.ops.ctc_prefix import (
     prefix_state_step,
     prefix_state_step_plain,
 )
+from robust_e2e_gan_torch.parallel import sharding
 from robust_e2e_gan_torch.utils.impl import kernel_enabled
 
 LOG_ZERO = -1e10
@@ -286,13 +287,16 @@ def make_beam_searcher(model, ecfg: E2EConfig, bcfg: BeamSearchConfig,
     ``bcfg.lm_weight``. ``search.encode(wav, wav_lengths, cmvn_batch)``
     is its encoder pass alone (the greedy decode and the attention maps
     read it). There is no batch padding: the TPU lane-packing rule of the
-    JAX package does not apply."""
+    JAX package does not apply. A model sharded on a mesh's model axis
+    (``parallel.shard_params``) is gathered once a search, and the search
+    runs on the full weights; every rank of its model group searches."""
     encode, decode = _search_parts(model, ecfg, bcfg, use_enhancer, lm,
                                    input_kind, log_domain)
 
     @torch.inference_mode()
     def search(wav, wav_lengths, cmvn_batch=None) -> BeamResult:
-        return decode(encode(wav, wav_lengths, cmvn_batch))
+        with sharding.gathered(model):
+            return decode(encode(wav, wav_lengths, cmvn_batch))
 
     search.encode = encode
     return search

@@ -1,10 +1,12 @@
-"""Start the ranks of a data mesh: one spawned process each.
+"""Start the ranks of a (data, model) mesh: one spawned process each.
 
 ``launch(fn, mesh, *args)`` runs ``fn(rank_mesh, *args)`` in
-``mesh.n_data`` processes started with ``torch.multiprocessing``'s
-"spawn", joined into one process group, and returns each rank's result in
-rank order. ``fn`` must be importable by name (a module-level function of
-the package), and ``args`` and results must pickle.
+``mesh.n_data * mesh.n_model`` processes started with
+``torch.multiprocessing``'s "spawn", joined into one process group (and
+its axis groups, made in every rank in one order by ``make_mesh``), and
+returns each rank's result in rank order. ``fn`` must be importable by
+name (a module-level function of the package), and ``args`` and results
+must pickle.
 
 * Rendezvous is a ``FileStore`` in a fresh temporary directory, so no
   port is taken and concurrent launches cannot meet; the group has a
@@ -78,6 +80,7 @@ def launch(fn: Callable, mesh: Mesh, *args: Any,
            limit_s: Optional[float] = None) -> List[Any]:
     """``[fn(mesh_r, *args) for each rank r]``, each in its own process
     (CPU ranks share out this process's intra-op threads)."""
+    world = mesh.size
     limit_s = DEFAULT_LIMIT_S if limit_s is None else limit_s
     num_threads = None
     if torch.device(mesh.placement).type == "cuda":
@@ -85,21 +88,22 @@ def launch(fn: Callable, mesh: Mesh, *args: Any,
 
         build()
     else:
-        num_threads = max(1, torch.get_num_threads() // mesh.n_data)
+        num_threads = max(1, torch.get_num_threads() // world)
     work = tempfile.mkdtemp(prefix="rg_launch_")
     procs = []
     try:
         with open(os.path.join(work, "payload.pt"), "wb") as f:
             torch.save((fn, args, _numerics()), f)
         ctx = mp.get_context("spawn")
-        for r in range(mesh.n_data):
+        for r in range(world):
             p = ctx.Process(target=_rank_main, daemon=True, args=(
-                r, mesh.n_data, mesh.placement, work, num_threads))
+                r, mesh.n_data, mesh.n_model, mesh.placement, work,
+                num_threads))
             p.start()
             procs.append(p)
         _wait(procs, work, limit_s)
         results = []
-        for r in range(mesh.n_data):
+        for r in range(world):
             with open(os.path.join(work, f"result_{r}.pt"), "rb") as f:
                 results.append(torch.load(f, weights_only=False))
         return results
@@ -152,8 +156,8 @@ def _kill(procs) -> None:
             p.join()
 
 
-def _rank_main(rank: int, world: int, placement: str, work: str,
-               num_threads: Optional[int]) -> None:
+def _rank_main(rank: int, n_data: int, n_model: int, placement: str,
+               work: str, num_threads: Optional[int]) -> None:
     """A rank: join the group, run the payload, write its result (or its
     error, then exit 1 without waiting for anything)."""
     try:
@@ -163,14 +167,16 @@ def _rank_main(rank: int, world: int, placement: str, work: str,
         with open(os.path.join(work, "payload.pt"), "rb") as f:
             fn, args, numerics = torch.load(f, weights_only=False)
         _set_numerics(numerics)
-        plan = Mesh(world, placement)
+        plan = Mesh(n_data, n_model, placement)
+        world = plan.size
         if plan.device.type == "cuda":
-            torch.cuda.set_device(Mesh(world, placement, rank).device)
+            torch.cuda.set_device(Mesh(n_data, n_model, placement,
+                                       rank).device)
         store = dist.FileStore(os.path.join(work, "store"), world)
         dist.init_process_group(
             plan.backend, store=store, rank=rank, world_size=world,
             timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
-        result = fn(make_mesh(world, 1, placement), *args)
+        result = fn(make_mesh(n_data, n_model, placement), *args)
         path = os.path.join(work, f"result_{rank}.pt")
         with open(path + ".tmp", "wb") as f:
             torch.save(result, f)

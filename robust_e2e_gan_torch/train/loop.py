@@ -14,14 +14,18 @@ last one durable before the loop returns. A ``data/dataset.py::Prefetcher``
 thread collates the next ``prefetch_depth`` host batches while a step
 runs; each batch is moved to the device on the training thread.
 
-Under a data mesh (``mesh``, one process a rank: ``parallel/``), every
-rank draws the same global batches from the same seed and keeps its rows
-(``shard_batch``), padded to the global batch's widths; the state is
-broadcast from rank 0 after any restore; the steps reduce gradients and
-metrics over the ranks, so dev metrics, and with them the best checkpoint
-and Adadelta's eps decay, are the same on every rank. Only rank 0 logs
-and writes checkpoints; every rank waits for the last save before it
-returns, and for any save in flight before it reads a resume.
+Under a mesh (``mesh``, one process a rank: ``parallel/``), every rank
+draws the same global batches from the same seed and keeps its data
+index's rows (``shard_batch``), padded to the global batch's widths; the
+state is broadcast from rank 0 after any restore, then, on a model axis,
+its parameters and optimizer state sharded by ``partition_rule`` (JAX
+order: restore the full state, then shard); the steps reduce gradients
+and metrics over the ranks, so dev metrics, and with them the best
+checkpoint and Adadelta's eps decay, are the same on every rank. Only
+rank 0 logs and writes checkpoints, in the single-process layout (the
+ranks of its model group join each save's gather); every rank waits for
+the last save before it returns, and for any save in flight before it
+reads a resume.
 """
 
 from __future__ import annotations
@@ -101,6 +105,7 @@ def train(
     device: Union[str, torch.device] = "cuda",
     mesh: Optional[sharding.Mesh] = None,
     prefetch_depth: int = 2,
+    min_shard_dim: int = 512,
 ) -> steps_lib.TrainState:
     """Run ``tcfg.num_epochs`` of the selected regime; returns the state.
 
@@ -113,9 +118,10 @@ def train(
     ``input_kind``: "wav", "feats" or "spec" (``log_domain``: log power
     spectra); None reads it off the first batch.
     ``device``: the GPU by default (raises without one); "cpu" only when
-    asked for. ``mesh``: a joined data mesh (``parallel.launch``), whose
+    asked for. ``mesh``: a joined mesh (``parallel.launch``), whose
     rank's device replaces ``device``. ``prefetch_depth``: host batches
-    collated ahead (0: no bound).
+    collated ahead (0: no bound). ``min_shard_dim``: ``partition_rule``'s,
+    on a model axis (the JAX default).
     """
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}")
@@ -141,7 +147,7 @@ def train(
         start_epoch = int(extra.get("epoch", -1)) + int(
             bool(extra.get("epoch_complete", True)))
         best_acc = float(extra.get("best_acc", best_acc))
-    sharding.shard_train_state(state, mesh)
+    sharding.shard_train_state(state, mesh, min_shard_dim)
 
     if mode == "asr":
         step_fn = steps_lib.make_asr_pretrain_step(
@@ -175,6 +181,8 @@ def train(
                 tcfg.checkpoint_dir, state, state.step, metric=metric,
                 keep=3, extra={"epoch": epoch, "epoch_complete": complete,
                                "best_acc": best_acc})
+        elif mesh.n_model > 1 and mesh.data_index == 0:
+            state.state_dict()  # rank 0's snapshot gathers the shards
 
     # leaving the saver's block waits for the last write, also where a
     # step raises

@@ -25,7 +25,13 @@ rank's rows of the global batch inside ``data_parallel(mesh)``: each
 optimizer averages its gradients over the ranks before the clip (the JAX
 step's ``psum``), the loss terms that divide by a count over the batch
 (valid tokens, valid frames) take that count over the global batch, and
-the metrics are the global batch's on every rank.
+the metrics are the global batch's on every rank. On a model axis the
+model-sharded parameters and their optimizer state are this rank's
+column slices: each step runs on the full weights, gathered once at its
+start (``sharding.gathered``); the optimizer averages a slice's gradient
+over the data axis, every other gradient over all ranks, and clips by the
+full gradient's norm; ``TrainState.state_dict`` gathers the
+single-process layout.
 """
 
 from __future__ import annotations
@@ -92,10 +98,12 @@ class Optimizer:
     def step(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """Clip ``grads`` (one per parameter; None for an unused one),
         apply them, and return the unclipped global norm. Under an active
-        data mesh the gradients are first averaged over the ranks."""
-        grads = sharding.all_mean([torch.zeros_like(p) if g is None else g
-                                   for p, g in zip(self.params, grads)])
-        norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+        mesh the gradients are first averaged over the ranks
+        (``sharding.mean_grads``), and the norm is the full gradient's."""
+        grads = sharding.mean_grads(
+            self.params, [torch.zeros_like(p) if g is None else g
+                          for p, g in zip(self.params, grads)])
+        norm = sharding.global_norm(self.params, grads)
         max_norm = self.tcfg.grad_clip
         for p, g in zip(self.params, grads):
             p.grad = torch.where(norm < max_norm, g, g / norm * max_norm)
@@ -109,7 +117,31 @@ class Optimizer:
         return norm
 
     def state_dict(self) -> dict:
-        return {"opt": self.opt.state_dict(), "count": self.count}
+        """The single-process layout: each model-sharded parameter's state
+        gathered to its full shape (collective over the model group)."""
+        opt = self.opt.state_dict()
+        opt["state"] = {i: {k: self._full(self.params[i], v)
+                            for k, v in slots.items()}
+                        for i, slots in opt["state"].items()}
+        return {"opt": opt, "count": self.count}
+
+    @staticmethod
+    def _full(p: torch.Tensor, t):
+        """``t`` (``p``'s or a slot of its state) at ``p``'s full shape."""
+        shard = sharding.column_shard(p)
+        if shard is None or not isinstance(t, torch.Tensor) or not t.dim():
+            return t
+        return shard.gather(t)
+
+    def slice_state(self) -> None:
+        """Slice the state of each model-sharded parameter to its columns
+        (after ``sharding.shard_train_state`` sharded the parameters)."""
+        for p in self.params:
+            shard = sharding.column_shard(p)
+            slots = self.opt.state.get(p, {}) if shard is not None else {}
+            for k, v in slots.items():
+                if v.dim():
+                    slots[k] = shard.right_inverse(v)
 
     def load_state_dict(self, state: dict) -> None:
         self.opt.load_state_dict(state["opt"])
@@ -124,8 +156,8 @@ class Optimizer:
         warmup schedule's count after them. A slot no update has made yet
         is zeros."""
         def slot(key):
-            return to_flax({n: self.opt.state.get(p, {}).get(
-                key, torch.zeros_like(p)) for n, p in zip(names, self.params)})
+            return to_flax({n: self._full(p, self.opt.state.get(p, {}).get(
+                key, torch.zeros_like(p))) for n, p in zip(names, self.params)})
 
         count = np.asarray(self.count, np.int32)
         if isinstance(self.opt, torch.optim.Adadelta):
@@ -170,11 +202,13 @@ class TrainState:
     step: int = 0
 
     def state_dict(self) -> dict:
-        """What a checkpoint holds (``utils/checkpoint.py``)."""
+        """What a checkpoint holds (``utils/checkpoint.py``), in the
+        single-process layout also on a model axis (collective there:
+        every rank of the model group calls)."""
         return {
             "step": self.step,
-            "model": self.model.state_dict(),
-            "discriminator": self.discriminator.state_dict(),
+            "model": sharding.full_state_dict(self.model),
+            "discriminator": sharding.full_state_dict(self.discriminator),
             "opt_g": self.opt_g.state_dict(),
             "opt_d": self.opt_d.state_dict(),
             "rngs": {k: g.get_state() for k, g in self.rngs.items()},
@@ -199,8 +233,8 @@ class TrainState:
         (``train/steps.py:81-91`` of the JAX package): the step, both
         parameter trees, both optax states and the PRNG key of the seed
         (the torch generators have no JAX key)."""
-        named = {"g": self.model.state_dict(),
-                 "d": self.discriminator.state_dict()}
+        named = {"g": sharding.full_state_dict(self.model),
+                 "d": sharding.full_state_dict(self.discriminator)}
         seed = self.opt_g.tcfg.seed
         return {"step": np.asarray(self.step, np.int32),
                 "params_g": to_flax(named["g"]),
@@ -273,10 +307,12 @@ def make_asr_pretrain_step(use_enhancer: bool = False,
 
     @sharding.data_parallel(mesh)
     def step_fn(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
-        out = _asr_out(state.model, batch, input_kind, use_enhancer,
-                       log_domain, "clean_wav", deterministic=False,
-                       rngs=state.rngs)
-        norm = state.opt_g.step(_grads(out["loss"], state.opt_g.params))
+        with sharding.gathered(state.model):
+            out = _asr_out(state.model, batch, input_kind, use_enhancer,
+                           log_domain, "clean_wav", deterministic=False,
+                           rngs=state.rngs)
+            grads = _grads(out["loss"], state.opt_g.params)
+        norm = state.opt_g.step(grads)
         state.step += 1
         return sharding.mean_metrics({
             "loss": out["loss"].detach(),
@@ -300,8 +336,9 @@ def make_eval_step(use_enhancer: bool = True, input_kind: str = "wav",
     @torch.no_grad()
     @sharding.data_parallel(mesh)
     def eval_fn(model: RobustE2E, batch: Batch) -> Dict[str, torch.Tensor]:
-        out = _asr_out(model, batch, input_kind, use_enhancer, log_domain,
-                       wav)
+        with sharding.gathered(model):
+            out = _asr_out(model, batch, input_kind, use_enhancer,
+                           log_domain, wav)
         return sharding.mean_metrics(
             {k: out[k] for k in ("loss", "loss_ctc", "loss_att", "acc")})
 
@@ -341,25 +378,34 @@ def make_joint_train_step(jcfg: JointConfig, with_asr: bool = True,
             kw = {}
         kw["cmvn_batch"] = _cmvn_batch(batch)
 
-        # ---- D-step: the generator runs without a graph
-        with torch.no_grad():
-            fixed = forward(*args, with_asr=False, **kw)
-        d_real = disc(fixed["clean_logmel"], fixed["frame_mask"])
-        d_fake = disc(fixed["enhanced_logmel"], fixed["frame_mask"])
-        loss_d, _ = adversarial_losses(d_real, d_fake, loss_type)
-        norm_d = state.opt_d.step(_grads(loss_d, state.opt_d.params))
+        # on a model axis the generator is gathered once (it changes only
+        # at the step's end), the discriminator before and after its update
+        with sharding.gathered(model):
+            # ---- D-step: the generator runs without a graph
+            with torch.no_grad():
+                fixed = forward(*args, with_asr=False, **kw)
+            with sharding.gathered(disc):
+                d_real = disc(fixed["clean_logmel"], fixed["frame_mask"])
+                d_fake = disc(fixed["enhanced_logmel"], fixed["frame_mask"])
+                loss_d, _ = adversarial_losses(d_real, d_fake, loss_type)
+                grads_d = _grads(loss_d, state.opt_d.params)
+            norm_d = state.opt_d.step(grads_d)
 
-        # ---- G-step against the updated discriminator
-        out = forward(*args, deterministic=False, rngs=state.rngs,
-                      with_asr=with_asr, **kw)
-        d_fake = disc(out["enhanced_logmel"], out["frame_mask"])
-        d_real = disc(out["clean_logmel"], out["frame_mask"])
-        _, loss_adv = adversarial_losses(d_real, d_fake, loss_type)
-        loss_enh = enhancement_loss(out["enhanced_power"], out["clean_power"],
-                                    out["frame_mask"], kind=jcfg.enh_loss)
-        loss_asr = out["loss"] if with_asr else 0.0
-        loss_g = loss_asr + jcfg.lambda_adv * loss_adv + jcfg.mu_enh * loss_enh
-        norm_g = state.opt_g.step(_grads(loss_g, state.opt_g.params))
+            # ---- G-step against the updated discriminator
+            with sharding.gathered(disc):
+                out = forward(*args, deterministic=False, rngs=state.rngs,
+                              with_asr=with_asr, **kw)
+                d_fake = disc(out["enhanced_logmel"], out["frame_mask"])
+                d_real = disc(out["clean_logmel"], out["frame_mask"])
+                _, loss_adv = adversarial_losses(d_real, d_fake, loss_type)
+                loss_enh = enhancement_loss(
+                    out["enhanced_power"], out["clean_power"],
+                    out["frame_mask"], kind=jcfg.enh_loss)
+                loss_asr = out["loss"] if with_asr else 0.0
+                loss_g = (loss_asr + jcfg.lambda_adv * loss_adv
+                          + jcfg.mu_enh * loss_enh)
+                grads_g = _grads(loss_g, state.opt_g.params)
+        norm_g = state.opt_g.step(grads_g)
         state.step += 1
         metrics = {"loss_g": loss_g, "loss_d": loss_d, "loss_adv": loss_adv,
                    "loss_enh": loss_enh, "grad_norm_g": norm_g,

@@ -2087,6 +2087,101 @@ def test_two_gloo_ranks_on_one_card_step_as_one_process(dev):
             "blstm_train_plain", "gemm_plain", "ctc_nll_plain")), launched
 
 
+def _flagship_f32_kernels():
+    import dataclasses
+
+    from robust_e2e_gan_torch.configs import flagship_config
+
+    jcfg = flagship_config(52)
+    return dataclasses.replace(
+        jcfg, e2e=dataclasses.replace(
+            jcfg.e2e, ctc_impl="auto", encoder=dataclasses.replace(
+                jcfg.e2e.encoder, lstm_impl="auto")),
+        enhancer=dataclasses.replace(jcfg.enhancer, lstm_impl="auto"))
+
+
+def test_tensor_parallel_gloo_ranks_on_one_card_step_as_one_process(dev):
+    """``chip_smoke.py`` phase 24 (2): a (1, 2) mesh of two gloo ranks on
+    cuda:0 takes one float32 joint step of the flagship with its 14
+    partition_rule leaves model-sharded, deterministic algorithms on: the
+    losses bit-equal to one process's, the gradient norms and the
+    parameters within 1e-6 relative (the full norm sums the shards in
+    another order), every rank launching ``blstm_train``, ``gemm`` and
+    ``ctc_nll`` and no plain version."""
+    import numpy as np
+
+    from robust_e2e_gan_torch.config import TrainConfig
+    from robust_e2e_gan_torch.convert import (
+        from_flax,
+        init_disc_params,
+        init_params,
+    )
+    from robust_e2e_gan_torch.data.synthetic import SyntheticConfig, make_batch
+    from robust_e2e_gan_torch.parallel import launch, make_mesh
+    from robust_e2e_gan_torch.tools import dp_phases
+
+    jcfg = _flagship_f32_kernels()
+    state_g = from_flax(init_params(jcfg, seed=0))
+    state_d = from_flax(init_disc_params(jcfg.discriminator, seed=1))
+    synth = SyntheticConfig(vocab_size=52, min_tokens=20, max_tokens=24)
+    batch = make_batch(16, synth, np.random.default_rng(100))
+    args = (jcfg, TrainConfig(), state_g, state_d, [batch])
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        ranks = launch(dp_phases.joint_steps, make_mesh(1, 2, "cuda:0"),
+                       *args, limit_s=600.0)
+        one = dp_phases.joint_steps(None, *args, device="cuda")
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic = saved[2]
+    for rank in ranks:
+        assert len(rank["shards"]) == 14
+        for k, want in one["metrics"][0].items():
+            got = rank["metrics"][0][k]
+            if k.startswith("grad_norm"):
+                assert abs(got - want) <= 1e-6 * abs(want), k
+            else:
+                assert got == want, k
+        for k, want in one["params"].items():
+            diff = (rank["params"][k] - want).abs().max().item()
+            assert diff <= 1e-6 * max(want.abs().max().item(), 1.0), k
+        launched = rank["launches"]
+        assert all(launched[k] > 0 for k in ("blstm_train", "gemm",
+                                             "ctc_nll")), launched
+        assert not any(launched[k] for k in (
+            "blstm_train_plain", "gemm_plain", "ctc_nll_plain")), launched
+
+
+def test_tensor_parallel_sharded_cluster_blstm_equals_whole(dev):
+    """``tests/test_parallel.py:339-365`` on the card: the flagship's
+    enhancer layer 0 in bfloat16 at B=128 (the cluster route) with wx, wh
+    and bias model-sharded over two gloo ranks on cuda:0 gives the
+    unsharded layer's output bit for bit on every rank, and one
+    process's."""
+    from robust_e2e_gan_torch.convert import from_flax, init_params
+    from robust_e2e_gan_torch.ops.fbank import num_frames
+    from robust_e2e_gan_torch.parallel import launch, make_mesh
+    from robust_e2e_gan_torch.tools import dp_phases
+
+    jcfg = _flagship_f32_kernels()
+    state_g = from_flax(init_params(jcfg, seed=0))
+    weights = {k: state_g[f"enhancer.blstm0.{k}"]
+               for k in ("wx", "wh", "bias")}
+    args = (weights, 128, num_frames(111_360, jcfg.e2e.frontend),
+            torch.bfloat16, 0)
+    ranks = launch(dp_phases.blstm_layer, make_mesh(1, 2, "cuda:0"), *args,
+                   limit_s=600.0)
+    one = dp_phases.blstm_layer(None, *args, device="cuda")
+    for rank in ranks:
+        assert rank["equal"] and rank["sha256"] == one["sha256"]
+        assert len(rank["sharded"]) == 3
+        assert rank["launches"]["blstm_infer_cluster"] == 1, rank["launches"]
+
+
 def test_host_library_builds_on_the_card_machine(dev):
     """``utils/native.py`` builds ``csrc/host`` with this machine's g++ and
     its readers and scorer run: a ``.npy`` batch equal to numpy's, an edit

@@ -130,8 +130,16 @@ def test_make_mesh_matches_jax(monkeypatch):
         assert str(got.value) == str(want.value)
     # ranks sharing a card, and CPU ranks, have no device limit
     assert make_mesh(16, 1, "cuda:0").n_data == make_mesh(16, 1, "cpu").n_data
-    with pytest.raises(NotImplementedError, match="tensor parallel"):
-        make_mesh(4, 2, "cpu")
+    # a model axis: the JAX shapes, and its errors past the cards
+    assert make_mesh(4, 2, "cpu").shape == jax_parallel.make_mesh(4, 2).shape
+    assert make_mesh(None, 2, "cuda").shape == jax_parallel.make_mesh(
+        None, 2).shape
+    for n_data, n_model in ((8, 2), (5, 2), (None, 3)):
+        with pytest.raises(ValueError) as want:
+            jax_parallel.make_mesh(n_data, n_model)
+        with pytest.raises(ValueError) as got:
+            make_mesh(n_data, n_model, "cuda")
+        assert str(got.value) == str(want.value)
 
 
 def test_batch_slices_match_jax():
