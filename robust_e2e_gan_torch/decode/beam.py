@@ -41,6 +41,7 @@ from robust_e2e_gan_torch.ops.ctc_prefix import (
 )
 from robust_e2e_gan_torch.parallel import sharding
 from robust_e2e_gan_torch.utils.impl import kernel_enabled
+from robust_e2e_gan_torch.utils.trace import span
 
 LOG_ZERO = -1e10
 
@@ -89,6 +90,15 @@ def beam_search_from_encoder(
       shallow fusion (score += lm_weight * log p_LM); the carry is permuted
       with the surviving parents like the decoder's.
     """
+    with span("rg.beam"):
+        return _beam_search(step_fn, init_carry_fn, enc, enc_mask, hlens,
+                            enc_proj, ctc_logits, ecfg, bcfg, lm_step_fn,
+                            lm_init_fn)
+
+
+def _beam_search(step_fn, init_carry_fn, enc, enc_mask, hlens, enc_proj,
+                 ctc_logits, ecfg, bcfg, lm_step_fn, lm_init_fn
+                 ) -> BeamResult:
     if bcfg.prefix_impl not in ("auto", "tiled", "pallas", "twopass"):
         raise NotImplementedError(
             f"prefix_impl={bcfg.prefix_impl!r} is not ported; use auto, "
@@ -152,81 +162,99 @@ def beam_search_from_encoder(
     neg = 2.0 * LOG_ZERO
 
     for i in range(l):
-        if bcfg.early_exit and bool(finished.all()):
-            break  # post-finish steps are no-ops: frozen eos self-loops
+        with span("rg.beam.step"):
+            if bcfg.early_exit and bool(finished.all()):
+                break  # post-finish steps are no-ops: frozen eos self-loops
 
-        new_dec_carry, (logits, _) = step_fn(
-            dec_carry, last_tok.reshape(b * k), enc, enc_proj, enc_mask)
-        att_lp = torch.log_softmax(logits.float(), dim=-1).reshape(b, k, v)
-        if use_lm:  # RNNLM shallow fusion on the same B*K lanes
-            new_lm_carry, lm_logits = lm_step_fn(lm_carry,
-                                                 last_tok.reshape(b * k))
-            lm_lp = torch.log_softmax(lm_logits.float(), dim=-1).reshape(
-                b, k, v)
-        psi = psi_fn(lpz, last_tok, lengths, r_n, r_b, blank, eos)
+            with span("rg.beam.step.decoder"):
+                new_dec_carry, (logits, _) = step_fn(
+                    dec_carry, last_tok.reshape(b * k), enc, enc_proj,
+                    enc_mask)
+                att_lp = torch.log_softmax(logits.float(), dim=-1).reshape(
+                    b, k, v)
+                if use_lm:  # RNNLM shallow fusion on the same B*K lanes
+                    new_lm_carry, lm_logits = lm_step_fn(
+                        lm_carry, last_tok.reshape(b * k))
+                    lm_lp = torch.log_softmax(lm_logits.float(),
+                                              dim=-1).reshape(b, k, v)
+            with span("rg.beam.step.psi"):
+                psi = psi_fn(lpz, last_tok, lengths, r_n, r_b, blank, eos)
 
-        # joint candidate scores
-        cand = (scores[..., None] + (1.0 - cw) * att_lp
-                + cw * (psi - psi_g[..., None]) + bcfg.penalty)
-        if use_lm:
-            cand = cand + bcfg.lm_weight * lm_lp
-        cand[..., blank] = neg
-        cand[..., eos] = torch.where(lengths < min_len_b, neg, cand[..., eos])
-        # finished hypotheses: frozen, eos-only continuation
-        cand_fin = torch.full((b, k, v), neg, device=dev)
-        cand_fin[..., eos] = scores
-        cand = torch.where(finished[..., None], cand_fin, cand)
-        # force eos at each utterance's length limit and at the last step
-        at_limit = lengths >= max_len_b
-        if i == l - 1:
-            at_limit = torch.ones_like(at_limit)
-        if bcfg.end_detect:
-            at_limit = at_limit | (stall >= bcfg.end_detect_window)[:, None]
-        force_eos = at_limit[..., None] & (vocab_ids != eos)
-        cand = torch.where(force_eos & ~finished[..., None], neg, cand)
+            with span("rg.beam.step.prune"):
+                # joint candidate scores
+                cand = (scores[..., None] + (1.0 - cw) * att_lp
+                        + cw * (psi - psi_g[..., None]) + bcfg.penalty)
+                if use_lm:
+                    cand = cand + bcfg.lm_weight * lm_lp
+                cand[..., blank] = neg
+                cand[..., eos] = torch.where(lengths < min_len_b, neg,
+                                             cand[..., eos])
+                # finished hypotheses: frozen, eos-only continuation
+                cand_fin = torch.full((b, k, v), neg, device=dev)
+                cand_fin[..., eos] = scores
+                cand = torch.where(finished[..., None], cand_fin, cand)
+                # force eos at each utterance's length limit and at the
+                # last step
+                at_limit = lengths >= max_len_b
+                if i == l - 1:
+                    at_limit = torch.ones_like(at_limit)
+                if bcfg.end_detect:
+                    at_limit = at_limit | (
+                        stall >= bcfg.end_detect_window)[:, None]
+                force_eos = at_limit[..., None] & (vocab_ids != eos)
+                cand = torch.where(force_eos & ~finished[..., None], neg,
+                                   cand)
 
-        # prune to K over all K*V candidates (stable: lowest index first)
-        top_scores, top_idx = torch.sort(cand.reshape(b, k * v), dim=1,
-                                         descending=True, stable=True)
-        top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
-        k_idx = torch.div(top_idx, v, rounding_mode="floor")
-        tok = (top_idx % v).to(torch.int32)
+                # prune to K over all K*V candidates (stable: lowest index
+                # first)
+                top_scores, top_idx = torch.sort(
+                    cand.reshape(b, k * v), dim=1, descending=True,
+                    stable=True)
+                top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
+                k_idx = torch.div(top_idx, v, rounding_mode="floor")
+                tok = (top_idx % v).to(torch.int32)
 
-        tokens = gather_beam(tokens, k_idx)
-        prev_lengths = lengths
-        lengths = gather_beam(lengths, k_idx)
-        fin_old = gather_beam(finished, k_idx)
-        psi_old = gather_beam(psi_g, k_idx)
-        psi_sel = torch.gather(gather_beam(psi, k_idx), 2,
-                               tok.long()[..., None])[..., 0]
+                tokens = gather_beam(tokens, k_idx)
+                prev_lengths = lengths
+                lengths = gather_beam(lengths, k_idx)
+                fin_old = gather_beam(finished, k_idx)
+                psi_old = gather_beam(psi_g, k_idx)
+                psi_sel = torch.gather(gather_beam(psi, k_idx), 2,
+                                       tok.long()[..., None])[..., 0]
 
-        append = ~fin_old & (tok != eos)
-        tokens[:, :, i] = torch.where(append, tok, -1)
-        lengths = lengths + append.to(torch.int32)
-        finished = fin_old | (tok == eos)
-        psi_g = torch.where(append, psi_sel, psi_old)
+                append = ~fin_old & (tok != eos)
+                tokens[:, :, i] = torch.where(append, tok, -1)
+                lengths = lengths + append.to(torch.int32)
+                finished = fin_old | (tok == eos)
+                psi_g = torch.where(append, psi_sel, psi_old)
 
-        if bcfg.end_detect:
-            # streaming ESPnet end detection: end_detect_window consecutive
-            # steps whose newly ended hypotheses all score more than the
-            # margin below the best ended score end the utterance
-            just_ended = finished & ~fin_old
-            ended_now = torch.where(just_ended, top_scores, neg).amax(dim=1)
-            any_ended = just_ended.any(dim=1)
-            below = ended_now < ended_best - bcfg.end_detect_margin
-            stall = torch.where(any_ended & below, stall + 1, 0)
-            ended_best = torch.maximum(ended_best, ended_now)
+                if bcfg.end_detect:
+                    # streaming ESPnet end detection: end_detect_window
+                    # consecutive steps whose newly ended hypotheses all
+                    # score more than the margin below the best ended score
+                    # end the utterance
+                    just_ended = finished & ~fin_old
+                    ended_now = torch.where(just_ended, top_scores,
+                                            neg).amax(dim=1)
+                    any_ended = just_ended.any(dim=1)
+                    below = ended_now < ended_best - bcfg.end_detect_margin
+                    stall = torch.where(any_ended & below, stall + 1, 0)
+                    ended_best = torch.maximum(ended_best, ended_now)
 
-        # CTC forward state of the survivors: the selected extensions, and
-        # the parents' rows where nothing was appended
-        r_n, r_b = state_fn(lpz, k_idx, tok, append, last_tok, prev_lengths,
-                            r_n, r_b, blank)
+            with span("rg.beam.step.state"):
+                # CTC forward state of the survivors: the selected
+                # extensions, and the parents' rows where nothing was
+                # appended
+                r_n, r_b = state_fn(lpz, k_idx, tok, append, last_tok,
+                                    prev_lengths, r_n, r_b, blank)
 
-        dec_carry = tuple(_permute_carry(x, k_idx) for x in new_dec_carry)
-        if use_lm:
-            lm_carry = tuple(_permute_carry(x, k_idx) for x in new_lm_carry)
-        last_tok = tok
-        scores = top_scores
+                dec_carry = tuple(_permute_carry(x, k_idx)
+                                  for x in new_dec_carry)
+                if use_lm:
+                    lm_carry = tuple(_permute_carry(x, k_idx)
+                                     for x in new_lm_carry)
+            last_tok = tok
+            scores = top_scores
 
     rank = scores
     if bcfg.length_normalize:
@@ -295,7 +323,7 @@ def make_beam_searcher(model, ecfg: E2EConfig, bcfg: BeamSearchConfig,
 
     @torch.inference_mode()
     def search(wav, wav_lengths, cmvn_batch=None) -> BeamResult:
-        with sharding.gathered(model):
+        with span("rg.search", wav.shape[0]), sharding.gathered(model):
             return decode(encode(wav, wav_lengths, cmvn_batch))
 
     search.encode = encode

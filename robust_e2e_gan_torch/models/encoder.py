@@ -18,6 +18,7 @@ from torch import nn
 from robust_e2e_gan_torch.config import EncoderConfig
 from robust_e2e_gan_torch.models.layers import Conv2d
 from robust_e2e_gan_torch.models.rnn import BLSTMP
+from robust_e2e_gan_torch.utils.trace import span
 
 
 def subsampled_lengths(lengths: torch.Tensor) -> torch.Tensor:
@@ -71,13 +72,16 @@ class Encoder(nn.Module):
                 deterministic: bool = True,
                 gen: Optional[torch.Generator] = None):
         b = feats.shape[0]
-        h = self.vgg(feats)
-        tt = h.shape[1]
-        if feat_lengths is None:
-            hlens = torch.full((b,), tt, dtype=torch.int32, device=h.device)
-        else:
-            hlens = subsampled_lengths(feat_lengths.to(torch.int32))
-        hmask = (torch.arange(tt, device=h.device)[None, :]
-                 < hlens[:, None]).to(h.dtype)
-        h = h * hmask[..., None]
-        return self.blstmp(h, hmask, deterministic, gen), hmask, hlens
+        with span("rg.encode.vgg"):
+            h = self.vgg(feats)
+            tt = h.shape[1]
+            if feat_lengths is None:
+                hlens = torch.full((b,), tt, dtype=torch.int32,
+                                   device=h.device)
+            else:
+                hlens = subsampled_lengths(feat_lengths.to(torch.int32))
+            hmask = (torch.arange(tt, device=h.device)[None, :]
+                     < hlens[:, None]).to(h.dtype)
+            h = h * hmask[..., None]
+        with span("rg.encode.blstmp"):
+            return self.blstmp(h, hmask, deterministic, gen), hmask, hlens

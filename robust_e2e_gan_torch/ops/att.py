@@ -24,6 +24,7 @@ from robust_e2e_gan_torch.utils.impl import (
     device_limits,
     on_cuda,
 )
+from robust_e2e_gan_torch.utils.trace import traced
 
 MASK_MIN = -1e9
 MAX_CHANNELS = 32  # location-conv channels a warp keeps in shared memory
@@ -195,6 +196,7 @@ def _utt(b, k, t, c, a, e, x: torch.Tensor) -> Optional[tuple]:
     return plan if preferred or _forced_att_route == "utt" else None
 
 
+@traced("rg.op.att_loc_step")
 def att_loc_step(feat, enc_proj, enc, dec, wloc, g, mask,
                  sharpening: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel wrapper, same contract as ``att_loc_step_plain``.

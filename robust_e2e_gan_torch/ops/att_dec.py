@@ -44,6 +44,7 @@ from robust_e2e_gan_torch.utils.impl import (
     grid_barrier,
     on_cuda,
 )
+from robust_e2e_gan_torch.utils.trace import traced
 
 MAX_HIDDEN = 1024  # one thread per hidden unit in a block
 ROWS = 8  # lanes per pass of the cell (csrc/att_dec.cu)
@@ -240,6 +241,7 @@ def _utt(b, k, t, c, a, e, embd, h, v, x: torch.Tensor) -> Optional[tuple]:
     return plan
 
 
+@traced("rg.op.att_dec_step")
 def att_dec_step(feat, enc_proj, enc, dec, wloc, g, mask, sharpening: float,
                  tok, emb_table, cell_wx, cell_wh, cell_bias, out_w, out_b,
                  z_prev, c_prev) -> Step:

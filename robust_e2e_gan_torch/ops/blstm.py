@@ -49,6 +49,7 @@ from robust_e2e_gan_torch.utils.impl import (
     grid_barrier,
     on_cuda,
 )
+from robust_e2e_gan_torch.utils.trace import traced
 
 MAX_HIDDEN = 1024  # one thread per hidden unit in a block
 
@@ -514,6 +515,7 @@ def _rows_per_block(b: int, device: torch.device) -> int:
     return 2 if 2 * -(-b // 2) <= n_sm else 4
 
 
+@traced("rg.op.blstm_recurrence")
 def blstm_recurrence(gx: torch.Tensor, wh: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
     """Kernel wrapper, the contract of ``blstm_recurrence_plain`` with
@@ -568,6 +570,7 @@ def blstm_recurrence(gx: torch.Tensor, wh: torch.Tensor,
 blstm_recurrence.launches = 0
 
 
+@traced("rg.op.blstm_infer")
 def blstm_infer(x: torch.Tensor, lengths: torch.Tensor, wx: torch.Tensor,
                 wh: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """Kernel wrapper, same contract as ``blstm_infer_plain``.

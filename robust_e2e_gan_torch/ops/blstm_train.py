@@ -42,6 +42,7 @@ import torch
 
 from robust_e2e_gan_torch.utils.build import launch
 from robust_e2e_gan_torch.utils.impl import check, device_limits, on_cuda
+from robust_e2e_gan_torch.utils.trace import traced
 
 MAX_HIDDEN = 1024  # one thread per hidden unit in a block
 
@@ -460,6 +461,7 @@ def _tickets(dev: torch.device, stream: int, n: int) -> torch.Tensor:
     return t
 
 
+@traced("rg.op.gemm")
 def gemm(a, b, c, bias=None, *, batch, m, n, k, a_strides, b_strides,
          c_strides, ki=None, bias_stride=0, round_bf16=False,
          accumulate=False) -> None:
@@ -754,6 +756,7 @@ def blstm_train_plain(x, lengths, wx, wh, bias) -> torch.Tensor:
 blstm_train_plain.calls = 0
 
 
+@traced("rg.op.blstm_train")
 def blstm_train(x: torch.Tensor, lengths: torch.Tensor, wx: torch.Tensor,
                 wh: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """Differentiable BLSTM layer, the contract of
@@ -793,6 +796,7 @@ def blstm_train_gx_plain(gx, wh, lengths) -> torch.Tensor:
 blstm_train_gx_plain.calls = 0
 
 
+@traced("rg.op.blstm_train_gx")
 def blstm_train_gx(gx: torch.Tensor, wh: torch.Tensor,
                    lengths: torch.Tensor) -> torch.Tensor:
     """Differentiable frame loops of the gate-stream variant

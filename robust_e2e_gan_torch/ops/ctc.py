@@ -27,6 +27,7 @@ import torch
 
 from robust_e2e_gan_torch.utils.build import launch
 from robust_e2e_gan_torch.utils.impl import check, kernel_enabled, on_cuda
+from robust_e2e_gan_torch.utils.trace import traced
 
 NEG_INF = -1e30
 NEG_THRESH = -5e29
@@ -153,6 +154,7 @@ def ctc_alpha_plain(emit, alpha0, skip_add, pos_add, lengths) -> torch.Tensor:
                                with_hist=False)[0]
 
 
+@traced("rg.op.ctc_alpha")
 def ctc_alpha(emit: torch.Tensor, alpha0: torch.Tensor,
               skip_add: torch.Tensor, pos_add: torch.Tensor,
               lengths: torch.Tensor) -> torch.Tensor:
@@ -330,6 +332,7 @@ class _CTCNLL(torch.autograd.Function):
         return dlogits, None, None, None, None, None, None
 
 
+@traced("rg.op.ctc_nll")
 def ctc_nll(logits: torch.Tensor, logit_lengths: torch.Tensor,
             labels: torch.Tensor, label_lengths: torch.Tensor,
             blank_id: int = 0, log_input: bool = False) -> torch.Tensor:

@@ -30,6 +30,7 @@ from robust_e2e_gan_torch.utils.impl import (
     device_limits,
     on_cuda,
 )
+from robust_e2e_gan_torch.utils.trace import traced
 
 LOG_ZERO = -1e10
 
@@ -333,6 +334,7 @@ def _check_common(lpz, r_n, r_b, ints):
     return b, k, t, v
 
 
+@traced("rg.op.prefix_psi")
 def prefix_psi(lpz, last_tok, lengths, r_n, r_b, blank: int,
                eos: int) -> torch.Tensor:
     """Kernel wrapper, same contract as ``prefix_psi_plain``.
@@ -373,6 +375,7 @@ def prefix_psi(lpz, last_tok, lengths, r_n, r_b, blank: int,
 prefix_psi.launches = 0
 
 
+@traced("rg.op.prefix_psi_utt")
 def prefix_psi_utt(lpz, last_tok, lengths, r_n, r_b, blank: int,
                    eos: int) -> torch.Tensor:
     """The per-utterance kernel's wrapper: the contract of
@@ -483,6 +486,7 @@ def prefix_state(lpz, tok, last_tok, lengths, r_n, r_b,
 prefix_state.launches = 0
 
 
+@traced("rg.op.prefix_state_step")
 def prefix_state_step(lpz, k_idx, tok, append, last_tok, lengths, r_n, r_b,
                       blank: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel wrapper, same contract as ``prefix_state_step_plain``

@@ -54,6 +54,7 @@ from robust_e2e_gan_torch.utils.impl import (
     device_limits,
     on_cuda,
 )
+from robust_e2e_gan_torch.utils.trace import traced
 
 # route "simt": DFT bins (and, in the backward, frame samples) one block
 # covers, a thread each (csrc/fbank.cu)
@@ -676,6 +677,7 @@ def _forward(wav, n_valid, cfg, norm_var, eps):
     return _forward_plain(wav, n_valid, cfg, norm_var, eps)
 
 
+@traced("rg.op.fbank_fused")
 def fbank_fused(wav: torch.Tensor, cfg: FrontendConfig,
                 wav_lengths: Optional[torch.Tensor] = None,
                 norm_var: bool = True, eps: float = 1e-8
@@ -698,6 +700,7 @@ def fbank_fused(wav: torch.Tensor, cfg: FrontendConfig,
 fbank_fused.launches = 0
 
 
+@traced("rg.op.fbank_fused_bwd")
 def fbank_fused_bwd(wav: torch.Tensor, n_valid: torch.Tensor,
                     g: torch.Tensor, cfg: FrontendConfig,
                     norm_var: bool = True, eps: float = 1e-8) -> torch.Tensor:

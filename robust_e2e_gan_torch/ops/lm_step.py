@@ -34,6 +34,7 @@ from robust_e2e_gan_torch.utils.impl import (
     grid_barrier,
     on_cuda,
 )
+from robust_e2e_gan_torch.utils.trace import traced
 
 MAX_HIDDEN = 1024  # one thread per hidden unit in a block (route "lane")
 ROWS = 8  # lanes per block (csrc/lm_step.cu)
@@ -182,6 +183,7 @@ def _tile(n, v, e, h, layers, itemsize, x: torch.Tensor) -> Optional[tuple]:
     return plan
 
 
+@traced("rg.op.lm_step")
 def lm_step(tok: torch.Tensor, emb: torch.Tensor,
             wxs: Sequence[torch.Tensor], whs: Sequence[torch.Tensor],
             biases: Sequence[torch.Tensor], out_w: torch.Tensor,

@@ -35,6 +35,7 @@ from robust_e2e_gan_torch.ops.fbank_fused import (
     fbank_fused,
     fbank_fused_trainable,
 )
+from robust_e2e_gan_torch.utils.trace import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -211,9 +212,11 @@ class RobustE2E(nn.Module):
 
     def encode_for_decode_feats(self, feats, feat_lengths, cmvn_batch=None):
         """The decode-time encoder pass on precomputed features."""
-        fmask = length_mask(feats.shape[1], feat_lengths)
-        x = self.normalize_feats(feats, fmask, cmvn_batch)
-        return self._encode(x, feat_lengths)
+        with span("rg.encode"):
+            with span("rg.encode.frontend"):
+                fmask = length_mask(feats.shape[1], feat_lengths)
+                x = self.normalize_feats(feats, fmask, cmvn_batch)
+            return self._encode(x, feat_lengths)
 
     # ---------- precomputed-spectrogram path (Kaldi spectrogram feats) ----
 
@@ -265,11 +268,16 @@ class RobustE2E(nn.Module):
                                log_domain: bool = False):
         """The decode-time encoder pass on precomputed spectra, with the
         contract of ``encode_for_decode``."""
-        power, fmask = self._spec_mask(spec, feat_lengths, log_domain)
-        if use_enhancer:
-            power, _ = self.enhancer(power, fmask)
-        feats = self.features_from_power(power, fmask, cmvn_batch)
-        return self._encode(feats, feat_lengths)
+        with span("rg.encode"):
+            with span("rg.encode.frontend"):
+                power, fmask = self._spec_mask(spec, feat_lengths,
+                                               log_domain)
+            if use_enhancer:
+                with span("rg.encode.enhancer"):
+                    power, _ = self.enhancer(power, fmask)
+            with span("rg.encode.frontend"):
+                feats = self.features_from_power(power, fmask, cmvn_batch)
+            return self._encode(feats, feat_lengths)
 
     # ---------- decode-time entry points ----------
 
@@ -277,21 +285,29 @@ class RobustE2E(nn.Module):
                           cmvn_batch=None):
         """wav -> (hs, hmask, hlens, ctc_logits, enc_proj): everything the
         batched beam search needs."""
-        if self._use_fused_frontend(use_enhancer):
-            feats, fmask = fbank_fused(wav, self.cfg.e2e.frontend,
-                                       wav_lengths=wav_lengths)
-        else:
-            power, fmask = self.noisy_power(wav, wav_lengths)
-            if use_enhancer:
-                power, _ = self.enhancer(power, fmask)
-            feats = self.features_from_power(power, fmask, cmvn_batch)
-        flens = None if fmask is None else fmask.sum(dim=-1).to(torch.int32)
-        return self._encode(feats, flens)
+        with span("rg.encode"):
+            if self._use_fused_frontend(use_enhancer):
+                with span("rg.encode.frontend"):
+                    feats, fmask = fbank_fused(wav, self.cfg.e2e.frontend,
+                                               wav_lengths=wav_lengths)
+            else:
+                with span("rg.encode.frontend"):
+                    power, fmask = self.noisy_power(wav, wav_lengths)
+                if use_enhancer:
+                    with span("rg.encode.enhancer"):
+                        power, _ = self.enhancer(power, fmask)
+                with span("rg.encode.frontend"):
+                    feats = self.features_from_power(power, fmask,
+                                                     cmvn_batch)
+            flens = (None if fmask is None
+                     else fmask.sum(dim=-1).to(torch.int32))
+            return self._encode(feats, flens)
 
     def _encode(self, feats, flens):
         hs, hmask, hlens = self.asr.encode(feats, flens)
-        ctc_logits = self.asr.ctc_logits(hs)
-        enc_proj = self.asr.decoder_project_encoder(hs)
+        with span("rg.encode.heads"):
+            ctc_logits = self.asr.ctc_logits(hs)
+            enc_proj = self.asr.decoder_project_encoder(hs)
         return hs, hmask, hlens, ctc_logits, enc_proj
 
     def decoder_step(self, carry, tokens, enc, enc_proj, enc_mask):

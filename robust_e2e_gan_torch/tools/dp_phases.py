@@ -24,41 +24,35 @@ import torch
 from robust_e2e_gan_torch.decode.beam import make_beam_searcher
 from robust_e2e_gan_torch.models.enhancement import Discriminator
 from robust_e2e_gan_torch.models.rnn import BLSTM
-from robust_e2e_gan_torch.ops import att, blstm, blstm_train, ctc, ctc_prefix
 from robust_e2e_gan_torch.parallel import sharding
 from robust_e2e_gan_torch.pipeline import build_model
 from robust_e2e_gan_torch.train import loop, steps
 from robust_e2e_gan_torch.utils import checkpoint as ckpt_lib
+from robust_e2e_gan_torch.utils import trace
+
+
+# chip_smoke.py's names of counters that the renaming below names otherwise
+_ALIASES = {"psi_plain": "plain.prefix_psi",
+            "state_plain": "plain.prefix_state",
+            "att_plain": "plain.att_loc_step"}
 
 
 def counters() -> Dict[str, int]:
-    """Kernel launches (by route where a wrapper has two) and plain-version
-    calls of the train step's and the serving decode's kernels so far."""
-    out = {
-        "blstm_train": blstm_train.blstm_train.launches,
-        "blstm_train_gx": blstm_train.blstm_train_gx.launches,
-        "gemm": blstm_train.gemm.launches,
-        "ctc_nll": ctc.ctc_nll.launches,
-        "blstm_train_resident": blstm_train.ROUTE_LAUNCHES["resident"],
-        "blstm_train_loop": blstm_train.ROUTE_LAUNCHES["loop"],
-        "gemm_tc": blstm_train.GEMM_ROUTE_LAUNCHES["tc"],
-        "gemm_simt": blstm_train.GEMM_ROUTE_LAUNCHES["simt"],
-        "psi": sum(ctc_prefix.PREFIX_ROUTE_LAUNCHES["psi"].values()),
-        "state": sum(ctc_prefix.PREFIX_ROUTE_LAUNCHES["state"].values()),
-        "blstm_train_plain": blstm_train.blstm_train_plain.calls,
-        "gemm_plain": blstm_train.gemm_plain.calls,
-        "ctc_nll_plain": ctc.ctc_nll_plain.calls,
-        "psi_plain": ctc_prefix.prefix_psi_recursion_plain.calls,
-        "state_plain": ctc_prefix.prefix_state_plain.calls,
-        "blstm_infer_plain": blstm.blstm_infer_plain.calls,
-        "att_plain": att.att_loc_step_plain.calls,
-    }
-    for route, n in blstm.INFER_ROUTE_LAUNCHES.items():
-        out[f"blstm_infer_{route}"] = n
-    for route, n in blstm.GX_ROUTE_LAUNCHES.items():
-        out[f"blstm_recurrence_{route}"] = n
-    for route, n in att.ATT_ROUTE_LAUNCHES.items():
-        out[f"att_loc_step_{route}"] = n
+    """Kernel launches and plain-version calls so far, from
+    ``utils/trace.py::counters``: ``launch.<w>`` as ``<w>``,
+    ``route.<k>.<r>`` as ``<k>_<r>``, ``plain.<w>`` as ``<w>_plain``;
+    ``psi`` and ``state`` the CTC prefix kernels' launches over both
+    routes."""
+    counts = trace.counters()
+    out = {}
+    for key, n in counts.items():
+        kind, name = key.split(".", 1)
+        out[{"launch": name, "route": name.replace(".", "_"),
+             "plain": f"{name}_plain"}[kind]] = n
+    out.update({k: counts[v] for k, v in _ALIASES.items()})
+    for kind in ("psi", "state"):
+        out[kind] = sum(n for k, n in counts.items()
+                        if k.startswith(f"route.ctc_prefix_{kind}."))
     return out
 
 

@@ -74,7 +74,7 @@ from robust_e2e_gan_torch.data.synthetic import (
 from robust_e2e_gan_torch.decode.beam import make_beam_searcher
 from robust_e2e_gan_torch.models.enhancement import Discriminator
 from robust_e2e_gan_torch.models.rnn import BLSTM
-from robust_e2e_gan_torch.ops import att, att_dec, blstm, ctc_prefix
+from robust_e2e_gan_torch.ops import blstm
 from robust_e2e_gan_torch.ops.ctc import ctc_greedy_decode
 from robust_e2e_gan_torch.ops.editdistance import wer_details
 from robust_e2e_gan_torch.pipeline import build_model
@@ -84,6 +84,7 @@ from robust_e2e_gan_torch.train.steps import (
     make_joint_train_step,
 )
 from robust_e2e_gan_torch.utils import checkpoint as ckpt
+from robust_e2e_gan_torch.utils import trace
 from robust_e2e_gan_torch.utils.build import build
 
 VOCAB = 12
@@ -187,16 +188,13 @@ def route_misfit(name: str, layers, fits: Optional[List[bool]], b: int
 
 
 def route_launches() -> Dict[str, int]:
-    """Launches so far of the serving kernels, by kernel and route."""
-    out = {f"blstm_infer/{r}": n
-           for r, n in blstm.INFER_ROUTE_LAUNCHES.items()}
-    out.update({f"att_loc_step/{r}": n
-                for r, n in att.ATT_ROUTE_LAUNCHES.items()})
-    out.update({f"att_dec_step/{r}": n
-                for r, n in att_dec.DEC_ROUTE_LAUNCHES.items()})
-    for kind, routes in ctc_prefix.PREFIX_ROUTE_LAUNCHES.items():
-        out.update({f"ctc_prefix_{kind}/{r}": n for r, n in routes.items()})
-    out["ctc_prefix_utt"] = ctc_prefix.prefix_psi_utt.launches
+    """Launches so far by kernel and route, ``utils/trace.py::counters``'
+    ``route.<kernel>.<route>`` as ``<kernel>/<route>``, and of the
+    per-utterance psi kernel (``ctc_prefix_utt``)."""
+    counts = trace.counters()
+    out = {k[len("route."):].replace(".", "/"): n
+           for k, n in counts.items() if k.startswith("route.")}
+    out["ctc_prefix_utt"] = counts["launch.prefix_psi_utt"]
     return out
 
 

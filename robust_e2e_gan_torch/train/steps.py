@@ -51,6 +51,7 @@ from robust_e2e_gan_torch.models.enhancement import (
 )
 from robust_e2e_gan_torch.parallel import sharding
 from robust_e2e_gan_torch.pipeline import RobustE2E
+from robust_e2e_gan_torch.utils.trace import span
 
 Batch = Dict[str, torch.Tensor]
 
@@ -365,6 +366,11 @@ def make_joint_train_step(jcfg: JointConfig, with_asr: bool = True,
 
     @sharding.data_parallel(mesh)
     def step_fn(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
+        with span("rg.train.step", state.step):
+            return joint_step(state, batch)
+
+    def joint_step(state: TrainState, batch: Batch
+                   ) -> Dict[str, torch.Tensor]:
         model, disc = state.model, state.discriminator
         if input_kind == "spec":
             forward = model.joint_forward_spec
@@ -382,30 +388,35 @@ def make_joint_train_step(jcfg: JointConfig, with_asr: bool = True,
         # at the step's end), the discriminator before and after its update
         with sharding.gathered(model):
             # ---- D-step: the generator runs without a graph
-            with torch.no_grad():
+            with span("rg.train.d.forward"), torch.no_grad():
                 fixed = forward(*args, with_asr=False, **kw)
-            with sharding.gathered(disc):
+            with span("rg.train.d.disc"), sharding.gathered(disc):
                 d_real = disc(fixed["clean_logmel"], fixed["frame_mask"])
                 d_fake = disc(fixed["enhanced_logmel"], fixed["frame_mask"])
                 loss_d, _ = adversarial_losses(d_real, d_fake, loss_type)
                 grads_d = _grads(loss_d, state.opt_d.params)
-            norm_d = state.opt_d.step(grads_d)
+            with span("rg.train.d.optimizer"):
+                norm_d = state.opt_d.step(grads_d)
 
             # ---- G-step against the updated discriminator
             with sharding.gathered(disc):
-                out = forward(*args, deterministic=False, rngs=state.rngs,
-                              with_asr=with_asr, **kw)
-                d_fake = disc(out["enhanced_logmel"], out["frame_mask"])
-                d_real = disc(out["clean_logmel"], out["frame_mask"])
-                _, loss_adv = adversarial_losses(d_real, d_fake, loss_type)
-                loss_enh = enhancement_loss(
-                    out["enhanced_power"], out["clean_power"],
-                    out["frame_mask"], kind=jcfg.enh_loss)
-                loss_asr = out["loss"] if with_asr else 0.0
-                loss_g = (loss_asr + jcfg.lambda_adv * loss_adv
-                          + jcfg.mu_enh * loss_enh)
-                grads_g = _grads(loss_g, state.opt_g.params)
-        norm_g = state.opt_g.step(grads_g)
+                with span("rg.train.g.forward"):
+                    out = forward(*args, deterministic=False,
+                                  rngs=state.rngs, with_asr=with_asr, **kw)
+                    d_fake = disc(out["enhanced_logmel"], out["frame_mask"])
+                    d_real = disc(out["clean_logmel"], out["frame_mask"])
+                    _, loss_adv = adversarial_losses(d_real, d_fake,
+                                                     loss_type)
+                    loss_enh = enhancement_loss(
+                        out["enhanced_power"], out["clean_power"],
+                        out["frame_mask"], kind=jcfg.enh_loss)
+                    loss_asr = out["loss"] if with_asr else 0.0
+                    loss_g = (loss_asr + jcfg.lambda_adv * loss_adv
+                              + jcfg.mu_enh * loss_enh)
+                with span("rg.train.g.backward"):
+                    grads_g = _grads(loss_g, state.opt_g.params)
+        with span("rg.train.g.optimizer"):
+            norm_g = state.opt_g.step(grads_g)
         state.step += 1
         metrics = {"loss_g": loss_g, "loss_d": loss_d, "loss_adv": loss_adv,
                    "loss_enh": loss_enh, "grad_norm_g": norm_g,

@@ -23,6 +23,8 @@ import subprocess
 import tempfile
 import time
 
+from robust_e2e_gan_torch.utils.trace import span
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -230,8 +232,10 @@ def kernels() -> ctypes.CDLL:
 
 
 def launch(name: str, *args) -> None:
-    """Call C entry point ``name`` and raise if it reports a CUDA error."""
+    """Call C entry point ``name`` (span ``rg.launch``) and raise if it
+    reports a CUDA error."""
     lib = kernels()
-    rc = getattr(lib, name)(*args)
+    with span("rg.launch", name):
+        rc = getattr(lib, name)(*args)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError {rc}")
